@@ -1,0 +1,497 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``torchmetrics_tpu_torch``) on one GPU.
+
+Run from the repository root, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the exit code is non-zero:
+
+1. device: require CUDA, print ``nvidia-smi`` name and power limit;
+2. build: compile the kernels in ``torchmetrics_tpu_torch/csrc`` (nvcc, sm_90a);
+3. kernels: hold each kernel against its plain PyTorch version on the card, on the
+   main path's shapes and on edge shapes, with exact (integer) equality;
+4. main path: ``MulticlassAccuracy(num_classes=1000)`` over 16 batches of 8192x1000
+   logits and ``MulticlassAUROC(num_classes=10, thresholds=200)`` over 16 batches of
+   8192x10 logits, ``forward`` on every batch then ``compute``, each held against the
+   same port run on the CPU; each kernel's launch count over its path must equal the
+   number of updates;
+5. times (CUDA events, medians): each kernel and its plain version at the path's
+   shape beside the least time the card could take, and each metric's ``update``.
+
+The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
+with code 2 and prints no result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ACC_BATCH, ACC_CLASSES = 8192, 1000
+CIFAR_BATCH, CIFAR_CLASSES, N_THRESH = 8192, 10, 200
+N_BATCHES = 16
+ACC_ATOL = 1e-6  # both sides divide identical int32 counts in float32
+AUROC_ATOL = 1e-5  # trapezoid sums taken in another order
+IGNORE = -100
+
+# HBM rate by card (bytes/s), from NVIDIA's data sheets
+_HBM_RATE = (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12), ("H100", 3.35e12))
+_F32_RATE = 67e12  # H100 SXM float32 outside the tensor cores, op/s
+_NOTE = (
+    "ms: CUDA-event time per wrapper call at the path's shape (output allocation included);"
+    " kernel_device_ms: the kernel's own device time (torch.profiler); library_ms is null:"
+    " no single PyTorch call computes this function"
+)
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _hbm_rate(name: str) -> float:
+    for key, rate in _HBM_RATE:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no HBM rate known for {name!r}")
+
+
+def _equal(name: str, got, want) -> float:
+    """Require exact equality of tensors (or tuples of them), dtypes included; return
+    the largest absolute difference found (0.0 once it passes)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: output {i} is {g.dtype}{tuple(g.shape)}, plain {w.dtype}{tuple(w.shape)}")
+        diff = (g.cpu().double() - w.cpu().double()).abs().max().item() if g.numel() else 0.0
+        if diff != 0.0:
+            raise AssertionError(f"{name}: output {i} differs from the plain version (max abs diff {diff})")
+        worst = max(worst, diff)
+    return worst
+
+
+def _median_ms(fn, iters: int, repeats: int = 5, warmup: int = 3) -> float:
+    """Median over ``repeats`` of the mean time per call of ``fn(i)`` (CUDA events)."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def _host_us_per_call(fn, iters: int, repeats: int = 5) -> float:
+    """Median host time per call of work that ends in a device synchronize."""
+    fn(0)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e6 / iters)
+    return statistics.median(times)
+
+
+def _device_profile(fn, iters: int) -> dict:
+    """Device time per call of ``fn(i)`` by kernel name (torch.profiler, CUPTI).
+
+    Returns ``{"device_busy_us": ..., "kernels_us": {name: us}}``, or ``None`` values
+    when the profiler records no device activity.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    per_kernel: dict = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            name = event.name[:80]
+            per_kernel[name] = per_kernel.get(name, 0.0) + event.time_range.elapsed_us() / iters
+    if not per_kernel:
+        return {"device_busy_us": None, "kernels_us": None}
+    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
+    return {"device_busy_us": sum(per_kernel.values()), "kernels_us": top}
+
+
+# ---------------------------------------------------------------- inputs
+
+
+def _logits_with_edge_rows(n: int, c: int, gen: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+    x = torch.randn(n, c, generator=gen)
+    if n >= 8 and c >= 10:
+        x[0] = 0.0  # all tied: index 0
+        x[1, 3] = x[1, c - 2] = 50.0  # two maxima: the first wins
+        x[2, 5] = x[2, 9] = float("nan")  # NaN is maximal, the first NaN wins
+        x[3, c - 1] = float("nan")
+        x[4] = float("-inf")  # all -inf: index 0
+        x[5] = -1.0
+        x[5, 7], x[5, 3] = -0.0, 0.0  # -0.0 == 0.0: index 3 wins
+        x[6, 2], x[6, 4] = float("inf"), float("inf")
+    return x.to(dtype)
+
+
+def _targets_with_edge_rows(n: int, c: int, gen: torch.Generator) -> torch.Tensor:
+    t = torch.randint(0, c, (n,), generator=gen)
+    if n >= 16:
+        t[8:10] = IGNORE
+        t[10] = c  # out of range: the row counts nowhere
+        t[11] = -3
+        t[12:16] = torch.tensor([0, 3, 3, 2])[: min(4, c)].clamp(max=c - 1)
+    return t
+
+
+def check_stat_counts(gen: torch.Generator) -> float:
+    """Every case must match exactly; returns the max abs error at the path's shape."""
+    from torchmetrics_tpu_torch.ops import stat_counts as sc
+
+    cases = [
+        ("path 8192x1000 f32", ACC_BATCH, ACC_CLASSES, torch.float32),
+        ("ragged 8229x1000", ACC_BATCH + 37, ACC_CLASSES, torch.float32),
+        ("unaligned width 2048x1001", 2048, 1001, torch.float32),
+        ("C=1", 777, 1, torch.float32),
+        ("C=20000 global histogram", 4096, 20000, torch.float32),
+        ("f16 2048x1000", 2048, ACC_CLASSES, torch.float16),
+        ("bf16 2048x1000", 2048, ACC_CLASSES, torch.bfloat16),
+        ("f64 2048x1000", 2048, ACC_CLASSES, torch.float64),
+    ]
+    path_err = 0.0
+    for name, n, c, dtype in cases:
+        preds = _logits_with_edge_rows(n, c, gen, dtype).cuda()
+        target = _targets_with_edge_rows(n, c, gen).cuda()
+        for ignore in (None, IGNORE):
+            for tgt in (target, target.to(torch.int32)):
+                got = sc.stat_counts(preds, tgt, c, ignore)
+                want = sc._stat_counts_plain(preds, tgt, c, ignore)
+                torch.cuda.synchronize()
+                err = _equal(f"stat_counts {name} ignore={ignore} target={tgt.dtype}", got, want)
+                if name.startswith("path"):
+                    path_err = max(path_err, err)
+        _log(f"  stat_counts {name}: equal")
+    # a row-aligned view that is not 16-byte aligned takes the scalar loads
+    flat = torch.randn(512 * 1000 + 1, generator=gen).cuda()
+    preds = flat[1:].view(512, 1000)
+    target = torch.randint(0, 1000, (512,), generator=gen).cuda()
+    _equal("stat_counts unaligned base", sc.stat_counts(preds, target, 1000), sc._stat_counts_plain(preds, target, 1000))
+    before = sc.LAUNCHES
+    empty = sc.stat_counts(torch.zeros(0, 7, device="cuda"), torch.zeros(0, dtype=torch.long, device="cuda"), 7)
+    if sc.LAUNCHES != before or any(int(x.abs().sum()) for x in empty):
+        raise AssertionError("stat_counts N=0 must return zeros without a launch")
+    _log("  stat_counts unaligned base, N=0: equal")
+    return path_err
+
+
+def _curve_inputs(n: int, c: int, t: int, gen: torch.Generator):
+    from torchmetrics_tpu_torch.ops.multi_threshold import sort_thresholds
+
+    preds = torch.randn(n, c, generator=gen).softmax(dim=1)
+    preds[torch.rand(n, c, generator=gen) < 0.01] = float("nan")
+    target = torch.randint(0, c, (n,), generator=gen)
+    target[torch.rand(n, generator=gen) < 0.05] = -1
+    thr = torch.linspace(0, 1, t)[torch.randperm(t, generator=gen)]
+    thr[1] = thr[0]  # a duplicated threshold
+    if n:
+        preds[0, 0] = thr[3]  # a score exactly on a threshold
+    preds, target, thr = preds.cuda(), target.cuda(), thr.cuda()
+    valid = target >= 0
+    positive = target[:, None] == torch.arange(c, device="cuda")
+    return preds, positive, valid[:, None].expand(-1, c), sort_thresholds(thr), target
+
+
+def check_multi_threshold(gen: torch.Generator) -> float:
+    """Every case must match exactly; returns the max abs error at the path's shape."""
+    from torchmetrics_tpu_torch.ops import multi_threshold as mt
+
+    cases = [
+        ("path 8192x10 T=200", CIFAR_BATCH, CIFAR_CLASSES, N_THRESH),
+        ("class tiles 8192x1000 T=200", CIFAR_BATCH, 1000, N_THRESH),
+        ("ragged 1000x3 T=17", 1000, 3, 17),
+        ("global histogram 512x3 T=40000", 512, 3, 40000),
+    ]
+    path_err = 0.0
+    for name, n, c, t in cases:
+        preds, positive, valid, (thr_sorted, order), target = _curve_inputs(n, c, t, gen)
+        got = mt.multi_threshold_counts(preds, positive, valid, thr_sorted, order)
+        want = mt._multi_threshold_plain(preds, positive, valid, thr_sorted, order)
+        torch.cuda.synchronize()
+        err = _equal(f"multi_threshold {name}", got, want)
+        if name.startswith("path"):
+            path_err = max(path_err, err)
+        # int64 one-hot and a contiguous int32 mask: other element sizes and strides
+        pos64 = torch.nn.functional.one_hot(target.clamp(min=0), c)
+        val32 = valid.to(torch.int32).contiguous()
+        got = mt.multi_threshold_counts(preds, pos64, val32, thr_sorted, order)
+        torch.cuda.synchronize()
+        _equal(f"multi_threshold {name} int64/int32 flags", got, want)
+        _log(f"  multi_threshold {name}: equal")
+    before = mt.LAUNCHES
+    preds, positive, valid, sorted_thr, _ = _curve_inputs(0, 4, 9, gen)
+    empty = mt.multi_threshold_counts(preds, positive, valid, *sorted_thr)
+    if mt.LAUNCHES != before or any(int(x.abs().sum()) for x in empty):
+        raise AssertionError("multi_threshold N=0 must return zeros without a launch")
+    _log("  multi_threshold N=0: equal")
+    return path_err
+
+
+# ---------------------------------------------------------------- main path
+
+
+def _assert_close(name: str, got, want, atol: float) -> None:
+    g, w = got.detach().cpu().double(), want.detach().cpu().double()
+    if g.shape != w.shape or not torch.isfinite(g).all() or not torch.allclose(g, w, atol=atol, rtol=0):
+        raise AssertionError(f"{name}: cuda {g.tolist()} vs cpu {w.tolist()} (atol {atol})")
+
+
+def _assert_states_equal(name: str, gpu_metric, cpu_metric) -> None:
+    for attr in gpu_metric._defaults:
+        g, c = getattr(gpu_metric, attr), getattr(cpu_metric, attr)
+        if g.dtype != c.dtype or not torch.equal(g.cpu(), c):
+            raise AssertionError(f"{name}: state {attr} differs between cuda and cpu")
+
+
+def run_accuracy_path(gen: torch.Generator):
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
+
+    batches = [
+        (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen))
+        for _ in range(N_BATCHES)
+    ]
+    gpu_batches = [(p.cuda(), t.cuda()) for p, t in batches]
+    torch.cuda.synchronize()
+
+    stat_counts.LAUNCHES = multi_threshold.LAUNCHES = 0
+    metric = MulticlassAccuracy(num_classes=ACC_CLASSES)
+    gpu_vals = [metric(p, t) for p, t in gpu_batches]
+    gpu_final = metric.compute()
+    torch.cuda.synchronize()
+    launches = {"stat_counts": stat_counts.LAUNCHES, "multi_threshold": multi_threshold.LAUNCHES}
+
+    ref = MulticlassAccuracy(num_classes=ACC_CLASSES, device="cpu")
+    for i, (p, t) in enumerate(batches):
+        _assert_close(f"accuracy forward {i}", gpu_vals[i], ref(p, t), ACC_ATOL)
+    _assert_close("accuracy compute", gpu_final, ref.compute(), ACC_ATOL)
+    _assert_states_equal("accuracy", metric, ref)
+    if not 0.0 <= float(gpu_final) < 0.01:
+        raise AssertionError(f"accuracy of random logits over 1000 classes should be near 0.001, got {float(gpu_final)}")
+    if launches != {"stat_counts": N_BATCHES, "multi_threshold": 0}:
+        raise AssertionError(f"accuracy path launches {launches}, expected {N_BATCHES} of stat_counts")
+    _log(f"  MulticlassAccuracy: {N_BATCHES} forwards, compute {float(gpu_final):.6f}, launches {launches}")
+    return launches["stat_counts"], gpu_batches
+
+
+def run_auroc_path(gen: torch.Generator):
+    from torchmetrics_tpu_torch import MulticlassAUROC
+    from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
+
+    gpu_batches = [
+        (
+            torch.randn(CIFAR_BATCH, CIFAR_CLASSES, generator=gen).cuda(),
+            torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda(),
+        )
+        for _ in range(N_BATCHES)
+    ]
+    torch.cuda.synchronize()
+
+    stat_counts.LAUNCHES = multi_threshold.LAUNCHES = 0
+    metric = MulticlassAUROC(num_classes=CIFAR_CLASSES, thresholds=N_THRESH)
+    gpu_vals = [metric(p, t) for p, t in gpu_batches]
+    gpu_final = metric.compute()
+    torch.cuda.synchronize()
+    launches = {"stat_counts": stat_counts.LAUNCHES, "multi_threshold": multi_threshold.LAUNCHES}
+
+    # The metric softmaxes the logits on the card; the CPU run takes those very
+    # probabilities (all in [0, 1], so it does not softmax again), which makes the
+    # binning, and so the states, comparable bit for bit.
+    ref = MulticlassAUROC(num_classes=CIFAR_CLASSES, thresholds=N_THRESH, device="cpu")
+    for i, (p, t) in enumerate(gpu_batches):
+        _assert_close(f"auroc forward {i}", gpu_vals[i], ref(p.softmax(dim=1).cpu(), t.cpu()), AUROC_ATOL)
+    _assert_close("auroc compute", gpu_final, ref.compute(), AUROC_ATOL)
+    _assert_states_equal("auroc", metric, ref)
+    if not 0.45 < float(gpu_final) < 0.55:
+        raise AssertionError(f"AUROC of random scores should be near 0.5, got {float(gpu_final)}")
+    if launches != {"stat_counts": 0, "multi_threshold": N_BATCHES}:
+        raise AssertionError(f"auroc path launches {launches}, expected {N_BATCHES} of multi_threshold")
+    _log(f"  MulticlassAUROC: {N_BATCHES} forwards, compute {float(gpu_final):.6f}, launches {launches}")
+    return launches["multi_threshold"], gpu_batches
+
+
+# ---------------------------------------------------------------- times
+
+
+def time_kernels(gen: torch.Generator, hbm_rate: float, launches: dict, errors: dict) -> list:
+    from torchmetrics_tpu_torch.ops import multi_threshold as mt
+    from torchmetrics_tpu_torch.ops import stat_counts as sc
+
+    out = []
+    # K1: four distinct 32.8 MB inputs in turn, so each launch reads past the 50 MB L2
+    inputs = [
+        (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
+        for _ in range(4)
+    ]
+    k_ms = _median_ms(lambda i: sc.stat_counts(*inputs[i % 4], ACC_CLASSES), iters=50)
+    k_prof = _device_profile(lambda i: sc.stat_counts(*inputs[i % 4], ACC_CLASSES), iters=20)
+    p_ms = _median_ms(lambda i: sc._stat_counts_plain(*inputs[i % 4], ACC_CLASSES), iters=20)
+    preds, target = inputs[0]
+    # every logit and target read once, three int32 (C,) counts written
+    k1_bytes = preds.nbytes + target.nbytes + 3 * ACC_CLASSES * 4
+    k1_ops = preds.numel()  # one comparison per logit
+    bytes_ms, ops_ms = k1_bytes / hbm_rate * 1e3, k1_ops / _F32_RATE * 1e3
+    out.append(
+        {
+            "name": "stat_counts",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/stat_counts.cu",
+            "replaces": "torchmetrics_tpu/ops/stat_counts.py:130",
+            "shape": f"{ACC_BATCH}x{ACC_CLASSES} float32",
+            "launches": launches["stat_counts"],
+            "max_abs_err": errors["stat_counts"],
+            "ms": k_ms,
+            "kernel_device_ms": _kernel_ms(k_prof, "stat_counts_kernel"),
+            "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "note": _NOTE,
+        }
+    )
+    # K2: the path's inputs (bool one-hot, broadcast row mask)
+    inputs = [_curve_inputs(CIFAR_BATCH, CIFAR_CLASSES, N_THRESH, gen) for _ in range(4)]
+    k_ms = _median_ms(lambda i: mt.multi_threshold_counts(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=100)
+    k_prof = _device_profile(lambda i: mt.multi_threshold_counts(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=20)
+    p_ms = _median_ms(lambda i: mt._multi_threshold_plain(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=20)
+    preds, positive, valid, (thr_sorted, order), _ = inputs[0]
+    # the kernel reads the row mask (N bytes: broadcast, stride 0) and, for valid
+    # elements only, the score and the one-hot flag; thresholds and order once; it
+    # writes tp / predpos (T, C) and the two (C,) totals as int32
+    n_valid = int(valid.sum())
+    k2_bytes = (
+        valid.shape[0]
+        + n_valid * (preds.element_size() + positive.element_size())
+        + thr_sorted.nbytes
+        + order.nbytes
+        + (2 * N_THRESH * CIFAR_CLASSES + 2 * CIFAR_CLASSES) * 4
+    )
+    k2_ops = n_valid * math.ceil(math.log2(N_THRESH + 1))  # binary-search comparisons
+    bytes_ms, ops_ms = k2_bytes / hbm_rate * 1e3, k2_ops / _F32_RATE * 1e3
+    out.append(
+        {
+            "name": "multi_threshold",
+            "route": "cuda",
+            "source": "torchmetrics_tpu_torch/csrc/multi_threshold.cu",
+            "replaces": "torchmetrics_tpu/ops/multi_threshold.py:147",
+            "shape": f"{CIFAR_BATCH}x{CIFAR_CLASSES} float32, T={N_THRESH}",
+            "launches": launches["multi_threshold"],
+            "max_abs_err": errors["multi_threshold"],
+            "ms": k_ms,
+            "kernel_device_ms": _kernel_ms(k_prof, "multi_threshold_"),
+            "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "note": _NOTE,
+        }
+    )
+    return out
+
+
+def _kernel_ms(prof: dict, fragment: str):
+    """Device ms per call of the kernels whose name holds ``fragment`` (None: not measured)."""
+    if prof["kernels_us"] is None:
+        return None
+    return sum(us for name, us in prof["kernels_us"].items() if fragment in name) / 1e3
+
+
+def time_updates(acc_batches: list, auroc_batches: list) -> dict:
+    """Per ``update``: host time to completion, and the device's busy time and kernels."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy, MulticlassAUROC
+
+    res = {}
+    for validate in (True, False):
+        acc = MulticlassAccuracy(num_classes=ACC_CLASSES, validate_args=validate)
+        auroc = MulticlassAUROC(num_classes=CIFAR_CLASSES, thresholds=N_THRESH, validate_args=validate)
+        for name, metric, batches in (("accuracy", acc, acc_batches), ("auroc", auroc, auroc_batches)):
+            step = lambda i, m=metric, b=batches: m.update(*b[i % len(b)])  # noqa: E731
+            wall = _host_us_per_call(step, iters=16)
+            prof = _device_profile(step, iters=8)
+            busy = prof["device_busy_us"]
+            res[f"{name}_validate_{validate}"] = {
+                "update_us": wall,
+                "device_busy_us": busy,
+                "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+                "kernels_us": prof["kernels_us"],
+            }
+    # the two device -> host syncs on the path, each alone at the path's shape: the
+    # unique-count of `validate_args` and the [0, 1] range check before the softmax
+    acc_target = acc_batches[0][1]
+    auroc_preds = auroc_batches[0][0]
+    res["sync_us"] = {
+        "validate_unique_8192": _host_us_per_call(lambda i: torch.unique(acc_target).numel(), iters=50),
+        "softmax_range_check_8192x10": _host_us_per_call(
+            lambda i: bool(((auroc_preds >= 0) & (auroc_preds <= 1)).all()), iters=50
+        ),
+    }
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
+        return 2
+    from torchmetrics_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    name = torch.cuda.get_device_name(0)
+    hbm_rate = _hbm_rate(name)
+    _log(f"[1/5] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+
+    t0 = time.perf_counter()
+    _build.library()
+    _log(f"[2/5] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+
+    gen = torch.Generator().manual_seed(0)
+    _log("[3/5] kernels against their plain versions")
+    errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
+
+    _log("[4/5] main path")
+    acc_launches, acc_batches = run_accuracy_path(gen)
+    auroc_launches, auroc_batches = run_auroc_path(gen)
+
+    _log("[5/5] times")
+    launches = {"stat_counts": acc_launches, "multi_threshold": auroc_launches}
+    kernels = time_kernels(gen, hbm_rate, launches, errors)
+    updates = time_updates(acc_batches, auroc_batches)
+
+    print(json.dumps({"updates": updates, "card": smi}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,224 @@
+"""MulticlassAccuracy and MulticlassAUROC: the port (on the CPU) against the JAX package.
+
+The same seeded numpy batches go through both packages at the three protocol levels
+of ``tests/differential/harness.py``: the per-batch ``forward`` value, the fold of two
+replicas via ``merge_state``, and the epoch ``compute``. Integer states agree exactly.
+Accuracy values agree to 1e-6 (both divide identical int32 counts in float32); AUROC
+values to 1e-5 (the trapezoid sums are taken in another order, and JAX's 64-bit mode
+computes the exact curve in float64).
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchmetrics_tpu.classification as jc
+import torchmetrics_tpu_torch.classification as tc
+
+N_BATCHES, BATCH, C, T = 4, 64, 5, 11
+ACC_ATOL, AUROC_ATOL = 1e-6, 1e-5
+
+
+def _batches(seed: int, ignore_index=None, probs: bool = False):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(N_BATCHES):
+        logits = rng.standard_normal((BATCH, C)).astype(np.float32)
+        if probs:
+            e = np.exp(logits - logits.max(1, keepdims=True))
+            logits = (e / e.sum(1, keepdims=True)).astype(np.float32)
+        target = rng.integers(0, C, BATCH)
+        if ignore_index is not None:
+            target[rng.random(BATCH) < 0.15] = ignore_index
+        out.append((logits, target))
+    return out
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _states_equal(port, ref):
+    for attr in ref._defaults:
+        p, r = getattr(port, attr), getattr(ref, attr)
+        if isinstance(r, list):
+            np.testing.assert_array_equal(_np(torch.cat(p)), np.concatenate([np.asarray(x) for x in r]), err_msg=attr)
+        else:
+            assert p.dtype in (torch.int32, torch.float32), attr
+            np.testing.assert_array_equal(_np(p), np.asarray(r), err_msg=attr)
+
+
+def _three_levels(make_port, make_ref, batches, atol, rtol=0.0):
+    # (a) per-batch forward values, (c) epoch compute
+    port, ref = make_port(), make_ref()
+    for preds, target in batches:
+        np.testing.assert_allclose(
+            _np(port(torch.from_numpy(preds), torch.from_numpy(target))),
+            np.asarray(ref(jnp.asarray(preds), jnp.asarray(target))),
+            atol=atol, rtol=rtol,
+        )
+    _states_equal(port, ref)
+    epoch = np.asarray(ref.compute())
+    np.testing.assert_allclose(_np(port.compute()), epoch, atol=atol, rtol=rtol)
+
+    # (b) two replicas, each with half of the batches, folded with merge_state (in
+    # batch order, so cat-list states line up with the single instance's)
+    pa, pb, ra, rb = make_port(), make_port(), make_ref(), make_ref()
+    for i, (preds, target) in enumerate(batches):
+        first = i < len(batches) // 2
+        (pa if first else pb).update(torch.from_numpy(preds), torch.from_numpy(target))
+        (ra if first else rb).update(jnp.asarray(preds), jnp.asarray(target))
+    pa.merge_state(pb)
+    ra.merge_state(rb)
+    _states_equal(pa, ra)
+    assert pa.update_count == ra.update_count == N_BATCHES
+    np.testing.assert_allclose(_np(pa.compute()), np.asarray(ra.compute()), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(_np(pa.compute()), epoch, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("average", ["macro", "micro", "weighted", "none"])
+@pytest.mark.parametrize("ignore_index", [None, -1])
+def test_multiclass_accuracy(average, ignore_index):
+    kwargs = dict(num_classes=C, average=average, ignore_index=ignore_index)
+    _three_levels(
+        lambda: tc.MulticlassAccuracy(**kwargs, device="cpu"),
+        lambda: jc.MulticlassAccuracy(**kwargs),
+        _batches(seed=11, ignore_index=ignore_index),
+        ACC_ATOL,
+    )
+
+
+@pytest.mark.parametrize("average", ["macro", "weighted", "none"])
+@pytest.mark.parametrize(
+    ("thresholds", "probs", "ignore_index"), [(T, True, -1), (T, False, -1), (None, True, None)]
+)
+def test_multiclass_auroc(average, thresholds, probs, ignore_index):
+    kwargs = dict(num_classes=C, average=average, thresholds=thresholds, ignore_index=ignore_index)
+    _three_levels(
+        lambda: tc.MulticlassAUROC(**kwargs, device="cpu"),
+        lambda: jc.MulticlassAUROC(**kwargs),
+        _batches(seed=23, ignore_index=ignore_index, probs=probs),
+        AUROC_ATOL,
+    )
+
+
+@pytest.mark.parametrize(
+    ("kwargs", "shape"),
+    [
+        (dict(top_k=2), (BATCH, C)),  # top-k one-hot path
+        (dict(multidim_average="samplewise"), (BATCH, C, 3)),  # samplewise cat-list states
+        (dict(average="micro"), None),  # integer label inputs, micro counters
+        (dict(average="none"), None),  # integer label inputs, confusion matrix
+    ],
+)
+def test_multiclass_stat_scores_staged_paths(kwargs, shape):
+    """The configurations K1's gate sends to the staged format/update stages."""
+    rng = np.random.default_rng(31)
+    batches = []
+    for _ in range(N_BATCHES):
+        if shape is None:
+            preds = rng.integers(0, C, BATCH)
+            target = rng.integers(0, C, BATCH)
+        else:
+            preds = rng.standard_normal(shape).astype(np.float32)
+            target = rng.integers(0, C, (shape[0], *shape[2:]))
+        target[:3] = -1
+        batches.append((preds, target))
+    args = dict(num_classes=C, ignore_index=-1, **kwargs)
+    # macro stat scores are float32 means of counts in the tens: a few ulp relative
+    _three_levels(
+        lambda: tc.MulticlassStatScores(**args, device="cpu"),
+        lambda: jc.MulticlassStatScores(**args),
+        batches,
+        ACC_ATOL,
+        rtol=1e-6,
+    )
+
+
+@pytest.mark.parametrize(
+    ("port_cls", "ref_cls", "kwargs", "atol"),
+    [
+        (tc.MulticlassAccuracy, jc.MulticlassAccuracy, dict(num_classes=C), ACC_ATOL),
+        (tc.MulticlassAUROC, jc.MulticlassAUROC, dict(num_classes=C, thresholds=T), AUROC_ATOL),
+        (tc.MulticlassAUROC, jc.MulticlassAUROC, dict(num_classes=C), AUROC_ATOL),
+    ],
+)
+def test_sync_through_injected_gather(port_cls, ref_cls, kwargs, atol):
+    """A two-rank world emulated by a gather that returns the local state twice."""
+    sync = dict(dist_sync_fn=lambda x, group=None: [x, x], distributed_available_fn=lambda: True)
+    port, ref = port_cls(**kwargs, **sync, device="cpu"), ref_cls(**kwargs, **sync)
+    for preds, target in _batches(seed=5, probs=True):
+        port.update(torch.from_numpy(preds), torch.from_numpy(target))
+        ref.update(jnp.asarray(preds), jnp.asarray(target))
+    np.testing.assert_allclose(_np(port.compute()), np.asarray(ref.compute()), atol=atol, rtol=0)
+    _states_equal(port, ref)  # unsynced again after compute
+    with port.sync_context(dist_sync_fn=port.dist_sync_fn):
+        for attr in port._defaults:
+            synced, local = getattr(port, attr), port._cache[attr]
+            if isinstance(local, list):
+                assert torch.equal(synced, torch.cat(local + local))
+            else:
+                assert torch.equal(synced, 2 * local)
+    _states_equal(port, ref)
+
+
+def test_engine_kwargs_are_rejected():
+    for kw in ("compiled_update", "scan_steps", "async_dispatch"):
+        with pytest.raises(ValueError, match="Unexpected keyword"):
+            tc.MulticlassAccuracy(num_classes=C, device="cpu", **{kw: True})
+
+
+def test_states_live_on_the_requested_device_and_inputs_are_placed():
+    metric = tc.MulticlassAccuracy(num_classes=C, device="cpu")
+    assert metric.device == torch.device("cpu") and metric.tp.dtype == torch.int32
+    preds, target = _batches(seed=3)[0]
+    metric.update(preds, target)  # numpy inputs are placed with torch.as_tensor
+    assert metric.tp.device == torch.device("cpu")
+    clone = metric.clone()
+    assert torch.equal(clone.tp, metric.tp) and clone.update_count == 1
+
+
+_GLOO = textwrap.dedent(
+    """
+    import os, sys, torch, torch.distributed as dist, torch.multiprocessing as mp
+    sys.path.insert(0, {root!r})
+
+    def run(rank, port):
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{{port}}", world_size=2, rank=rank)
+        from torchmetrics_tpu_torch import MulticlassAccuracy
+        from torchmetrics_tpu_torch.parallel import gather_all_tensors
+        out = gather_all_tensors(torch.arange(3 + rank, dtype=torch.float32))
+        assert [o.tolist() for o in out] == [[0.0, 1.0, 2.0], [0.0, 1.0, 2.0, 3.0]], out
+        m = MulticlassAccuracy(num_classes=3, average="micro", device="cpu")
+        preds = torch.eye(3)[torch.tensor([0, 1, 2, rank])]
+        m.update(preds, torch.tensor([0, 1, 2, 0]))
+        value = float(m.compute())
+        assert abs(value - 7 / 8) < 1e-6, value  # rank 1 misses one row of 4
+        assert int(m.tp.sum()) == 4 - rank  # the local state is restored after the sync
+        dist.destroy_process_group()
+
+    if __name__ == "__main__":
+        import socket
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        mp.spawn(run, args=(port,), nprocs=2, join=True)
+    """
+)
+
+
+def test_gather_all_tensors_over_gloo(tmp_path):
+    """Two CPU processes on ``torch.distributed`` (gloo): ragged gather and synced compute."""
+    script = tmp_path / "gloo_sync.py"
+    script.write_text(_GLOO.format(root=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    res = subprocess.run([sys.executable, str(script)], capture_output=True, text=True, timeout=120, env=env)
+    assert res.returncode == 0, res.stdout + res.stderr

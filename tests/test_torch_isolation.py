@@ -1,0 +1,68 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no silent CPU runs.
+
+Each check runs in a fresh interpreter, since the test process itself imports both
+packages.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import torchmetrics_tpu_torch
+for info in pkgutil.walk_packages(torchmetrics_tpu_torch.__path__, prefix="torchmetrics_tpu_torch."):
+    importlib.import_module(info.name)
+leaked = sorted(k for k in sys.modules
+                if k in ("jax", "jaxlib", "torchmetrics_tpu") or k.startswith(("jax.", "jaxlib.", "torchmetrics_tpu.")))
+assert not leaked, leaked
+assert "torchmetrics_tpu_torch.ops.multi_threshold" in sys.modules
+print("isolated")
+"""
+
+_NO_CUDA_DEFAULT = """
+import torch
+from torchmetrics_tpu_torch import MulticlassAccuracy, MulticlassAUROC
+assert not torch.cuda.is_available()
+for make in (lambda: MulticlassAccuracy(num_classes=5), lambda: MulticlassAUROC(num_classes=5, thresholds=10)):
+    try:
+        make()
+    except RuntimeError as err:
+        assert "device='cpu'" in str(err), err
+    else:
+        raise AssertionError("a metric without `device` must not fall back to the CPU")
+assert MulticlassAccuracy(num_classes=5, device="cpu").device.type == "cpu"
+print("refused")
+"""
+
+
+def _run(code_or_args, cwd=ROOT, **env):
+    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
+    full_env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", **env}
+    full_env["PYTHONPATH"] = os.pathsep.join(p for p in (cwd, full_env.get("PYTHONPATH", "")) if p)
+    return subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True, text=True, timeout=120, env=full_env)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    res = _run(_IMPORT_ALL)
+    assert res.returncode == 0 and "isolated" in res.stdout, res.stderr
+
+
+def test_metrics_refuse_to_run_on_the_cpu_unless_asked():
+    res = _run(_NO_CUDA_DEFAULT)
+    assert res.returncode == 0 and "refused" in res.stdout, res.stderr
+
+
+def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
+    res = _run([os.path.join(ROOT, "chip_smoke.py")])
+    assert res.returncode != 0 and '"ok"' not in res.stdout, res.stdout
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    res = _run(["chip_smoke.py"], cwd=str(alone), CUDA_VISIBLE_DEVICES="0")
+    assert res.returncode != 0 and '"ok"' not in res.stdout, res.stdout

@@ -1,0 +1,45 @@
+"""Carry metric state from the JAX package into the port.
+
+``state_from_jax`` converts what ``torchmetrics_tpu``'s ``Metric.state_dict()`` returns
+(numpy arrays, lists of them, and the ``_update_count`` int) into what the port's
+``Metric.load_state_dict`` takes, so an evaluation started on the TPU can finish on the
+GPU. Dtypes are pinned to the JAX package's defaults: integer states to int32 (the
+counters' dtype; JAX's 64-bit mode widens them to int64 when they fold) and float
+states to float32. A value that does not fit int32 raises instead of wrapping.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+_INT32 = np.iinfo(np.int32)
+
+
+def _tensor(value: Any, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(value)
+    if arr.dtype.kind in "iu":
+        if arr.size and (arr.min() < _INT32.min or arr.max() > _INT32.max):
+            raise ValueError(f"integer state with values in [{arr.min()}, {arr.max()}] does not fit int32")
+        arr = arr.astype(np.int32)
+    elif arr.dtype.kind == "f":
+        arr = arr.astype(np.float32)
+    return torch.as_tensor(arr, device=device)
+
+
+def state_from_jax(
+    state_dict: Dict[str, Any], device: Union[str, torch.device]
+) -> Dict[str, Union[torch.Tensor, list, int]]:
+    """The port's state dict for a JAX ``Metric.state_dict()`` (keys kept as they are)."""
+    device = torch.device(device)
+    out: Dict[str, Union[torch.Tensor, list, int]] = {}
+    for key, value in state_dict.items():
+        if isinstance(value, (int, np.integer)) and not isinstance(value, bool):
+            out[key] = int(value)
+        elif isinstance(value, (list, tuple)):
+            out[key] = [_tensor(v, device) for v in value]
+        else:
+            out[key] = _tensor(value, device)
+    return out

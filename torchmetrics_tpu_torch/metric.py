@@ -1,0 +1,613 @@
+"""The ``Metric`` base class on PyTorch (counterpart of ``torchmetrics_tpu/metric.py``).
+
+Follows the upstream torchmetrics design: a ``torch.nn.Module`` whose states are
+tensors (or lists of tensors for unbounded "cat" states) registered with
+``add_state`` and tracked in ``_defaults`` / ``_reductions``. States live on the
+metric's ``device``; ``update`` places its tensor inputs there with
+``torch.as_tensor``.
+
+``device=None`` means ``torch.device("cuda")``: a metric is built for the card and
+refuses to run elsewhere unless the caller asks for ``device="cpu"``.
+
+The JAX package's engine tiers (compiled, scan and async dispatch) and its
+``CompositionalMetric`` have no counterpart yet, so their keyword arguments are
+rejected like any other unknown one.
+"""
+
+from __future__ import annotations
+
+import functools
+from contextlib import contextmanager
+from copy import deepcopy
+from typing import Any, Callable, Dict, Generator, List, Optional, Union
+
+import numpy as np
+import torch
+
+from torchmetrics_tpu_torch.parallel.sync import distributed_available, gather_all_tensors
+from torchmetrics_tpu_torch.utilities.data import (
+    _flatten,
+    _squeeze_if_scalar,
+    apply_to_collection,
+    dim_zero_cat,
+    dim_zero_max,
+    dim_zero_mean,
+    dim_zero_min,
+    dim_zero_sum,
+)
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
+from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
+
+_REDUCTIONS = {
+    "sum": dim_zero_sum,
+    "mean": dim_zero_mean,
+    "max": dim_zero_max,
+    "min": dim_zero_min,
+    "cat": dim_zero_cat,
+}
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """The device a metric's states live on; ``None`` means the card.
+
+    Raises when the resolved device is a CUDA device and CUDA is absent, so a
+    metric never runs on the CPU unless the caller asked for it.
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: this metric runs on the GPU by default. Pass `device='cpu'`"
+            " to run it on the CPU."
+        )
+    return device
+
+
+class Metric(torch.nn.Module):
+    """Base class for all metrics.
+
+    Standard flow::
+
+        acc = MulticlassAccuracy(num_classes=5)
+        for preds, target in loader:
+            batch_acc = acc(preds, target)   # forward: batch value + accumulation
+        total = acc.compute()                # epoch value, synced across processes
+
+    Args:
+        device: where states live and inputs are placed; ``None`` means ``"cuda"``.
+        compute_on_cpu: move list states to the CPU after each update.
+        dist_sync_on_step: sync state on every ``forward``.
+        process_group: ``torch.distributed`` group to sync over.
+        dist_sync_fn: custom ``(tensor, group) -> list[tensor]`` gather.
+        distributed_available_fn: predicate for "is distributed".
+        sync_on_compute: sync automatically inside ``compute``.
+        compute_with_cache: cache the computed value until the next update or reset.
+    """
+
+    is_differentiable: Optional[bool] = None
+    higher_is_better: Optional[bool] = None
+    full_state_update: Optional[bool] = None
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
+
+    def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
+        super().__init__()
+        self._device = resolve_device(device)
+
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
+        if not isinstance(self.compute_on_cpu, bool):
+            raise ValueError(f"Expected keyword argument `compute_on_cpu` to be a `bool` but got {self.compute_on_cpu}")
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        if not isinstance(self.dist_sync_on_step, bool):
+            raise ValueError(
+                f"Expected keyword argument `dist_sync_on_step` to be a `bool` but got {self.dist_sync_on_step}"
+            )
+        self.process_group = kwargs.pop("process_group", None)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError(
+                f"Expected keyword argument `dist_sync_fn` to be an callable function but got {self.dist_sync_fn}"
+            )
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or distributed_available
+        self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        if not isinstance(self.sync_on_compute, bool):
+            raise ValueError(
+                f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}"
+            )
+        self.compute_with_cache = kwargs.pop("compute_with_cache", True)
+        if not isinstance(self.compute_with_cache, bool):
+            raise ValueError(
+                f"Expected keyword argument `compute_with_cache` to be a `bool` but got {self.compute_with_cache}"
+            )
+        if kwargs:
+            kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
+            raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
+
+        self._defaults: Dict[str, Union[List, torch.Tensor]] = {}
+        self._persistent: Dict[str, bool] = {}
+        self._reductions: Dict[str, Optional[Callable]] = {}
+
+        self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
+        self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+        self._computed = None
+        self._forward_cache = None
+        self._update_count = 0
+        self._to_sync = self.sync_on_compute
+        self._should_unsync = True
+        self._cache: Optional[Dict[str, Any]] = None
+        self._is_synced = False
+        # dist_reduce_fx=None tensor states that hold a stacked (shards, *default.shape)
+        # layout, tracked so folding never has to guess from ndim
+        self._none_folded: set = set()
+
+    @property
+    def update_called(self) -> bool:
+        """Whether ``update`` / ``forward`` has been called since init or reset."""
+        return self._update_count > 0
+
+    @property
+    def update_count(self) -> int:
+        """Number of ``update`` / ``forward`` calls since init or reset."""
+        return self._update_count
+
+    @property
+    def device(self) -> torch.device:
+        """Device of the metric states."""
+        return self._device
+
+    def add_state(
+        self,
+        name: str,
+        default: Union[list, torch.Tensor, float, int],
+        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        persistent: bool = False,
+    ) -> None:
+        """Register a state: a tensor (any shape) or an empty list for "cat" states.
+
+        ``dist_reduce_fx`` in {"sum", "mean", "cat", "max", "min", None, callable}
+        selects how the state folds across processes and across ``forward`` steps.
+        """
+        if isinstance(default, (int, float)):
+            default = torch.tensor(default, dtype=torch.float32 if isinstance(default, float) else torch.int32)
+        if not (isinstance(default, torch.Tensor) or (isinstance(default, list) and not default)):
+            raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
+        if isinstance(dist_reduce_fx, str):
+            if dist_reduce_fx not in _REDUCTIONS:
+                raise ValueError(
+                    "`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]"
+                )
+            dist_reduce_fx = _REDUCTIONS[dist_reduce_fx]
+        elif dist_reduce_fx is not None and not callable(dist_reduce_fx):
+            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+
+        if isinstance(default, torch.Tensor):
+            default = default.to(self._device)
+            setattr(self, name, default.clone())
+        else:
+            setattr(self, name, [])
+        self._defaults[name] = default
+        self._persistent[name] = persistent
+        self._reductions[name] = dist_reduce_fx
+
+    # ------------------------------------------------------------------ forward
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Accumulate the batch into the global state AND return the batch value."""
+        if self._is_synced:
+            raise TorchMetricsUserError(
+                "The Metric shouldn't be synced when performing ``forward``. HINT: Did you forget to call ``unsync``?"
+            )
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
+            self._forward_cache = self._forward_full_state_update(*args, **kwargs)
+        else:
+            self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
+        return self._forward_cache
+
+    @contextmanager
+    def _batch_value_context(self) -> Generator:
+        """Sync only on ``dist_sync_on_step``, never unsync mid-forward, keep list states
+        of the throwaway batch state on the device; restore every flag after."""
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
+        _temp_compute_on_cpu = self.compute_on_cpu
+        self.compute_on_cpu = False
+        try:
+            yield
+        finally:
+            self._is_synced = False
+            self._should_unsync = True
+            self._to_sync = self.sync_on_compute
+            self._computed = None
+            self.compute_on_cpu = _temp_compute_on_cpu
+
+    def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """Two-``update`` forward: global update, then a batch-only update and compute."""
+        self.update(*args, **kwargs)
+        _update_count = self._update_count
+        with self._batch_value_context():
+            cache = self._copy_state_refs()
+            self.reset()
+            self.update(*args, **kwargs)
+            batch_val = self.compute()
+            self._restore_state_refs(cache)
+            self._update_count = _update_count
+        return batch_val
+
+    def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """One-``update`` forward: batch update and compute on reset state, then fold."""
+        global_state = self._copy_state_refs()
+        _update_count = self._update_count
+        self.reset()
+        with self._batch_value_context():
+            self.update(*args, **kwargs)
+            batch_val = self.compute()
+            self._update_count = _update_count + 1
+            self._reduce_states(global_state)
+        return batch_val
+
+    def _copy_state_refs(self) -> Dict[str, Any]:
+        # states are replaced, never written in place, so references are a snapshot
+        refs: Dict[str, Any] = {
+            attr: (list(v) if isinstance(v := getattr(self, attr), list) else v) for attr in self._defaults
+        }
+        refs["__none_folded__"] = frozenset(self._none_folded)
+        return refs
+
+    def _restore_state_refs(self, cache: Dict[str, Any]) -> None:
+        for attr, val in cache.items():
+            if attr == "__none_folded__":
+                self._none_folded = set(val)
+            else:
+                setattr(self, attr, val)
+
+    def _fold(
+        self,
+        attr: str,
+        first: Any,
+        second: Any,
+        first_count: int,
+        second_count: int,
+        first_folded: Optional[bool],
+        second_folded: Optional[bool],
+    ) -> Any:
+        """Fold two values of one state by its reduction (``first`` is the older side)."""
+        reduce_fn = self._reductions[attr]
+        if reduce_fn is dim_zero_sum:
+            return first + second
+        if reduce_fn is dim_zero_mean:
+            total = max(first_count + second_count, 1)
+            return (first_count * first + second_count * second) / total
+        if reduce_fn is dim_zero_max:
+            return torch.maximum(first, second)
+        if reduce_fn is dim_zero_min:
+            return torch.minimum(first, second)
+        if reduce_fn is dim_zero_cat:
+            return (list(first) if isinstance(first, list) else [first]) + (
+                list(second) if isinstance(second, list) else [second]
+            )
+        if reduce_fn is None and isinstance(first, torch.Tensor):
+            return self._fold_none_tensors(attr, first, second, first_folded, second_folded)
+        if reduce_fn is None and isinstance(first, list):
+            return _flatten([first, second])
+        if callable(reduce_fn):
+            return reduce_fn(torch.stack([first, second]))
+        raise TypeError(f"Unsupported reduce_fn: {reduce_fn}")
+
+    def merge_state(self, incoming_state: Union["Metric", Dict[str, Any]], incoming_count: int = 1) -> None:
+        """Fold another metric's state (or a raw state dict) into this one.
+
+        Mean states are weighted by update counts (taken from the incoming metric, or
+        ``incoming_count`` for raw dicts).
+        """
+        incoming_folded: Optional[frozenset] = None  # raw dicts: unknown -> ndim fallback
+        if isinstance(incoming_state, Metric):
+            incoming_count = int(incoming_state._update_count)
+            incoming_folded = frozenset(incoming_state._none_folded)
+            incoming_state = {attr: getattr(incoming_state, attr) for attr in incoming_state._defaults}
+        self_count = int(self._update_count)
+        incoming_count = int(incoming_count)
+        for attr in self._defaults:
+            setattr(
+                self,
+                attr,
+                self._fold(
+                    attr,
+                    getattr(self, attr),
+                    incoming_state[attr],
+                    self_count,
+                    incoming_count,
+                    attr in self._none_folded,
+                    None if incoming_folded is None else attr in incoming_folded,
+                ),
+            )
+        self._update_count = self_count + incoming_count
+        self._computed = None
+
+    def _fold_none_tensors(
+        self, attr: str, first: Any, second: Any, first_folded: Optional[bool], second_folded: Optional[bool]
+    ) -> torch.Tensor:
+        """N-way fold of a ``dist_reduce_fx=None`` tensor state: append shard rows."""
+        base_ndim = self._defaults[attr].ndim
+
+        def _rows(x: Any, folded: Optional[bool]) -> torch.Tensor:
+            x = torch.as_tensor(x, device=self._device)
+            if folded is None:  # unknown provenance: infer from rank
+                folded = x.ndim == base_ndim + 1
+            return x if folded else x[None]
+
+        out = torch.cat([_rows(first, first_folded), _rows(second, second_folded)], dim=0)
+        self._none_folded.add(attr)
+        return out
+
+    def _reduce_states(self, incoming_state: Dict[str, Any]) -> None:
+        """Fold the snapshotted global state (``incoming_state``) with the batch state."""
+        global_folded = incoming_state.get("__none_folded__")
+        for attr in self._defaults:
+            setattr(
+                self,
+                attr,
+                self._fold(
+                    attr,
+                    incoming_state[attr],
+                    getattr(self, attr),
+                    self._update_count - 1,
+                    1,
+                    None if global_folded is None else attr in global_folded,
+                    attr in self._none_folded,
+                ),
+            )
+
+    # ------------------------------------------------------------------ sync
+
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
+        """Gather every state from all processes and apply its reduction."""
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions}
+        for attr, reduction_fn in self._reductions.items():
+            # pre-concatenate list states to one collective each
+            if reduction_fn is dim_zero_cat and isinstance(input_dict[attr], list) and len(input_dict[attr]) > 1:
+                input_dict[attr] = [dim_zero_cat(input_dict[attr])]
+
+        output_dict = apply_to_collection(
+            input_dict, torch.Tensor, dist_sync_fn, group=process_group or self.process_group
+        )
+
+        for attr, reduction_fn in self._reductions.items():
+            if isinstance(output_dict[attr], list) and len(output_dict[attr]) == 0:
+                setattr(self, attr, [])
+                continue
+            if isinstance(output_dict[attr][0], torch.Tensor):
+                output_dict[attr] = torch.stack(output_dict[attr])
+                if reduction_fn is None:
+                    # gathered None-reduced tensors now carry a leading shard axis
+                    self._none_folded.add(attr)
+            elif isinstance(output_dict[attr][0], list):
+                output_dict[attr] = _flatten(output_dict[attr])
+            reduced = reduction_fn(output_dict[attr]) if reduction_fn is not None else output_dict[attr]
+            setattr(self, attr, reduced)
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Sync the states across processes; ``unsync`` restores the local ones."""
+        if self._is_synced and should_sync:
+            raise TorchMetricsUserError("The Metric has already been synced.")
+        if distributed_available is None:
+            distributed_available = self.distributed_available_fn
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if not should_sync or not is_distributed:
+            return
+        if dist_sync_fn is None:
+            dist_sync_fn = gather_all_tensors
+        self._cache = self._copy_state_refs()
+        self._sync_dist(dist_sync_fn, process_group=process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the pre-sync local state."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise TorchMetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise TorchMetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._restore_state_refs(self._cache)
+        self._is_synced = False
+        self._cache = None
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> Generator:
+        """``sync`` on entry, ``unsync`` on exit (also when the body raises)."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        try:
+            yield
+        finally:
+            self.unsync(should_unsync=self._is_synced and should_unsync)
+
+    # ------------------------------------------------------------------ wrapping
+
+    def _place(self, x: Any) -> Any:
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            return torch.as_tensor(x, device=self._device)
+        return x
+
+    def _wrap_update(self, update: Callable) -> Callable:
+        @functools.wraps(update)
+        def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            self._computed = None
+            self._update_count += 1
+            update(*(self._place(a) for a in args), **{k: self._place(v) for k, v in kwargs.items()})
+            if self.compute_on_cpu:
+                self._move_list_states_to_cpu()
+
+        return wrapped_func
+
+    def _move_list_states_to_cpu(self) -> None:
+        for key in self._defaults:
+            current_val = getattr(self, key)
+            if isinstance(current_val, list):
+                setattr(self, key, [v.to("cpu") for v in current_val])
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        @functools.wraps(compute)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if self._update_count == 0:
+                rank_zero_warn(
+                    f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update``"
+                    " method which may lead to errors, as metric states have not yet been updated.",
+                    UserWarning,
+                )
+            if self._computed is not None:
+                return self._computed
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn,
+                should_sync=self._to_sync,
+                should_unsync=self._should_unsync,
+            ):
+                value = _squeeze_if_scalar(compute(*args, **kwargs))
+            if self.compute_with_cache:
+                self._computed = value
+            return value
+
+        return wrapped_func
+
+    def update(self, *_: Any, **__: Any) -> None:
+        """Override to update state from a batch."""
+        raise NotImplementedError
+
+    def compute(self) -> Any:
+        """Override to compute the final value from state."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------ lifecycle
+
+    def reset(self) -> None:
+        """Reset all states to their defaults."""
+        self._update_count = 0
+        self._forward_cache = None
+        self._computed = None
+        for attr, default in self._defaults.items():
+            setattr(self, attr, default.clone() if isinstance(default, torch.Tensor) else [])
+        self._cache = None
+        self._is_synced = False
+        self._none_folded = set()
+
+    def clone(self) -> "Metric":
+        """Deep copy of the metric."""
+        return deepcopy(self)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """Drop the wrapped bound methods for pickling; ``__setstate__`` re-wraps."""
+        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        super().__setstate__(state)
+        self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
+        self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        """Write-protect class-constant metadata."""
+        if name in (
+            "higher_is_better",
+            "is_differentiable",
+            "full_state_update",
+            "plot_lower_bound",
+            "plot_upper_bound",
+            "plot_legend_name",
+        ):
+            raise RuntimeError(f"Can't change const `{name}`.")
+        super().__setattr__(name, value)
+
+    def to(self, device: Union[str, torch.device]) -> "Metric":  # type: ignore[override]
+        """Move every state (and its default) to ``device``."""
+        self._device = resolve_device(device)
+
+        def _move(x: Any) -> Any:
+            return x.to(self._device) if isinstance(x, torch.Tensor) else x
+
+        for attr in self._defaults:
+            val = getattr(self, attr)
+            setattr(self, attr, [_move(v) for v in val] if isinstance(val, list) else _move(val))
+            self._defaults[attr] = _move(self._defaults[attr])
+        if self._computed is not None:
+            self._computed = apply_to_collection(self._computed, torch.Tensor, _move)
+        return self
+
+    def cpu(self) -> "Metric":  # type: ignore[override]
+        return self.to("cpu")
+
+    # ------------------------------------------------------------------ persistence
+
+    def persistent(self, mode: bool = False) -> None:
+        """Toggle persistence of all states."""
+        for key in self._persistent:
+            self._persistent[key] = mode
+
+    _UPDATE_COUNT_KEY = "_update_count"
+
+    def state_dict(  # type: ignore[override]
+        self, destination: Optional[Dict] = None, prefix: str = "", keep_vars: bool = False
+    ) -> Dict[str, Any]:
+        """Persistent states (detached tensors) plus ``_update_count``, which keeps the
+        weighting that ``merge_state`` and running means depend on."""
+        destination = {} if destination is None else destination
+        wrote_any = False
+        for key in self._defaults:
+            if not self._persistent[key]:
+                continue
+            current_val = getattr(self, key)
+            if isinstance(current_val, torch.Tensor):
+                destination[prefix + key] = current_val.detach().clone()
+            else:
+                destination[prefix + key] = [v.detach().clone() for v in current_val]
+            wrote_any = True
+        if wrote_any:
+            destination[prefix + self._UPDATE_COUNT_KEY] = self._update_count
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "") -> None:  # type: ignore[override]
+        """Restore states saved by ``state_dict`` (or converted by ``interop.state_from_jax``)."""
+        restored_any = False
+        for key in self._defaults:
+            name = prefix + key
+            if name not in state_dict:
+                continue
+            val = state_dict[name]
+            if isinstance(val, list):
+                setattr(self, key, [torch.as_tensor(v, device=self._device) for v in val])
+            else:
+                arr = torch.as_tensor(val, device=self._device)
+                setattr(self, key, arr)
+                # checkpoints carry no fold flags: recover a None-reduced state's
+                # stacked-shard marker from its rank
+                if self._reductions.get(key) is None and isinstance(self._defaults[key], torch.Tensor):
+                    if arr.ndim == self._defaults[key].ndim + 1:
+                        self._none_folded.add(key)
+                    else:
+                        self._none_folded.discard(key)
+            restored_any = True
+        count_key = prefix + self._UPDATE_COUNT_KEY
+        if count_key in state_dict:
+            self._update_count = int(state_dict[count_key])
+        elif restored_any:
+            self._update_count = max(self._update_count, 1)
+        if restored_any:
+            self._computed = None
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}()"

@@ -1,0 +1,94 @@
+"""Core data and reduction primitives (counterpart of ``torchmetrics_tpu/utilities/data.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence, Union
+
+import torch
+
+
+def dim_zero_cat(x: Union[torch.Tensor, Sequence[torch.Tensor]]) -> torch.Tensor:
+    """Concatenate a (list of) tensor(s) along dim 0."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = [y if y.ndim else y.reshape(1) for y in x]
+    if not x:
+        raise ValueError("No samples to concatenate")
+    return torch.cat(x, dim=0)
+
+
+def dim_zero_sum(x: torch.Tensor) -> torch.Tensor:
+    """Summation along dim 0, keeping the dtype of the states."""
+    return x.sum(dim=0, dtype=x.dtype)
+
+
+def dim_zero_mean(x: torch.Tensor) -> torch.Tensor:
+    """Average along dim 0."""
+    return x.mean(dim=0)
+
+
+def dim_zero_max(x: torch.Tensor) -> torch.Tensor:
+    """Max along dim 0."""
+    return x.max(dim=0).values
+
+
+def dim_zero_min(x: torch.Tensor) -> torch.Tensor:
+    """Min along dim 0."""
+    return x.min(dim=0).values
+
+
+def _flatten(x: Sequence) -> list:
+    """Flatten a list of lists into one list."""
+    return [item for sublist in x for item in sublist]
+
+
+def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> torch.Tensor:
+    """Integer labels ``(N, ...)`` to one-hot ``(N, C, ...)``."""
+    if num_classes is None:
+        num_classes = int(label_tensor.max()) + 1
+    oh = torch.nn.functional.one_hot(label_tensor.long(), num_classes)
+    oh = oh.to(torch.int64 if label_tensor.dtype == torch.int64 else torch.int32)
+    return torch.movedim(oh, -1, 1)
+
+
+def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
+    """Int32 mask of the top-k entries along ``dim``."""
+    idx = prob_tensor.argmax(dim=dim, keepdim=True) if topk == 1 else prob_tensor.topk(topk, dim=dim).indices
+    mask = torch.zeros_like(prob_tensor, dtype=torch.int32)
+    return mask.scatter_(dim, idx, 1)
+
+
+def apply_to_collection(data: Any, dtype: Union[type, tuple], function: Callable, *args: Any, **kwargs: Any) -> Any:
+    """Recursively apply ``function`` to every element of type ``dtype``."""
+    if isinstance(data, dtype):
+        return function(data, *args, **kwargs)
+    if isinstance(data, dict):
+        return type(data)({k: apply_to_collection(v, dtype, function, *args, **kwargs) for k, v in data.items()})
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # namedtuple
+        return type(data)(*(apply_to_collection(d, dtype, function, *args, **kwargs) for d in data))
+    if isinstance(data, (list, tuple)):
+        return type(data)(apply_to_collection(d, dtype, function, *args, **kwargs) for d in data)
+    return data
+
+
+def _squeeze_if_scalar(data: Any) -> Any:
+    """Squeeze size-1 tensors in a collection to 0-d tensors."""
+    return apply_to_collection(data, torch.Tensor, lambda x: x.reshape(()) if x.numel() == 1 else x)
+
+
+def _bincount(x: torch.Tensor, minlength: Optional[int] = None, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Int32 bincount that drops negative and out-of-range indices.
+
+    ``minlength`` also fixes the number of bins: indices at or past it are dropped,
+    as the JAX package's ``mode="drop"`` scatter drops them.
+    """
+    if minlength is None:
+        minlength = int(x.max()) + 1 if x.numel() else 1
+    keep = (x >= 0) & (x < minlength)
+    w = None if weights is None else weights[keep]
+    return torch.bincount(x[keep].long(), weights=w, minlength=minlength).to(torch.int32)
+
+
+def _cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Cumulative sum; deterministic on CUDA for integer inputs."""
+    return torch.cumsum(x, dim=dim)
