@@ -10,23 +10,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device: require CUDA, print ``nvidia-smi`` name and power limit;
 2. build: compile the kernels in ``torchmetrics_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernels: hold each kernel against its plain PyTorch version on the card, on the
-   main path's shapes and on edge shapes, with exact (integer) equality;
+   main path's shapes and on edge shapes (K2 also on peaked, all-equal and
+   on-threshold scores and on NaN thresholds), with exact (integer) equality;
 4. main path: ``MulticlassAccuracy(num_classes=1000)`` over 16 batches of 8192x1000
    logits and ``MulticlassAUROC(num_classes=10, thresholds=200)`` over 16 batches of
    8192x10 logits, ``forward`` on every batch then ``compute``, each held against the
    same port run on the CPU; each kernel's launch count over its path must equal the
    number of updates;
-5. times (CUDA events, medians): each kernel and its plain version at the path's
-   shape beside the least time the card could take, and each metric's ``update``.
+5. times (CUDA events, medians; device time and operations per call from
+   torch.profiler): each kernel and its plain version at the path's shape beside the
+   least time the card could take (K2 also on peaked scores and at 8192x1000), and
+   each metric's ``update``.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
 with code 2 and prints no result. It imports nothing of JAX.
+
+``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
+``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
+first on ``sys.path``, so two checkouts can be compared in turns in one call.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -46,7 +52,8 @@ _HBM_RATE = (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12), ("H100", 3.35e
 _F32_RATE = 67e12  # H100 SXM float32 outside the tensor cores, op/s
 _NOTE = (
     "ms: CUDA-event time per wrapper call at the path's shape (output allocation included);"
-    " kernel_device_ms: the kernel's own device time (torch.profiler); library_ms is null:"
+    " kernel_device_ms: the kernel's own device time (torch.profiler); device_ms and"
+    " device_ops_per_call: every device operation of one call (kernel and memset); library_ms is null:"
     " no single PyTorch call computes this function"
 )
 
@@ -112,8 +119,9 @@ def _host_us_per_call(fn, iters: int, repeats: int = 5) -> float:
 def _device_profile(fn, iters: int) -> dict:
     """Device time per call of ``fn(i)`` by kernel name (torch.profiler, CUPTI).
 
-    Returns ``{"device_busy_us": ..., "kernels_us": {name: us}}``, or ``None`` values
-    when the profiler records no device activity.
+    Returns ``{"device_busy_us": ..., "device_ops": ..., "kernels_us": {name: us}}``
+    (``device_ops``: kernels, memsets and copies on the device per call), or ``None``
+    values when the profiler records no device activity.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -125,14 +133,16 @@ def _device_profile(fn, iters: int) -> dict:
             fn(i)
         torch.cuda.synchronize()
     per_kernel: dict = {}
+    n_events = 0
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
             name = event.name[:80]
             per_kernel[name] = per_kernel.get(name, 0.0) + event.time_range.elapsed_us() / iters
+            n_events += 1
     if not per_kernel:
-        return {"device_busy_us": None, "kernels_us": None}
+        return {"device_busy_us": None, "device_ops": None, "kernels_us": None}
     top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
-    return {"device_busy_us": sum(per_kernel.values()), "kernels_us": top}
+    return {"device_busy_us": sum(per_kernel.values()), "device_ops": n_events / iters, "kernels_us": top}
 
 
 # ---------------------------------------------------------------- inputs
@@ -202,16 +212,32 @@ def check_stat_counts(gen: torch.Generator) -> float:
     return path_err
 
 
-def _curve_inputs(n: int, c: int, t: int, gen: torch.Generator):
+def _curve_inputs(n: int, c: int, t: int, gen: torch.Generator, kind: str = "random"):
+    """K2's inputs as the curve update builds them (bool one-hot, broadcast row mask).
+
+    ``kind``: "random" (softmax of unit-normal logits, 1 % NaN scores, a duplicated
+    threshold, one score on a threshold), "peaked" (softmax of logits x 8, as a trained
+    classifier gives: most scores in the lowest and highest bins), "all_equal" (every
+    element in one bin), "on_threshold" (every score exactly on a threshold) or
+    "nan_thresholds" (two NaN thresholds beside the random case).
+    """
     from torchmetrics_tpu_torch.ops.multi_threshold import sort_thresholds
 
-    preds = torch.randn(n, c, generator=gen).softmax(dim=1)
-    preds[torch.rand(n, c, generator=gen) < 0.01] = float("nan")
+    logits = torch.randn(n, c, generator=gen)
+    preds = (logits * 8 if kind == "peaked" else logits).softmax(dim=1)
     target = torch.randint(0, c, (n,), generator=gen)
     target[torch.rand(n, generator=gen) < 0.05] = -1
     thr = torch.linspace(0, 1, t)[torch.randperm(t, generator=gen)]
     thr[1] = thr[0]  # a duplicated threshold
-    if n:
+    if kind in ("random", "nan_thresholds"):
+        preds[torch.rand(n, c, generator=gen) < 0.01] = float("nan")
+    if kind == "all_equal":
+        preds.fill_(0.5)
+    elif kind == "on_threshold":
+        preds = thr[torch.randint(0, t, (n, c), generator=gen)]
+    elif kind == "nan_thresholds" and t > 4:
+        thr[2] = thr[4] = float("nan")
+    if n and kind != "all_equal":
         preds[0, 0] = thr[3]  # a score exactly on a threshold
     preds, target, thr = preds.cuda(), target.cuda(), thr.cuda()
     valid = target >= 0
@@ -224,31 +250,40 @@ def check_multi_threshold(gen: torch.Generator) -> float:
     from torchmetrics_tpu_torch.ops import multi_threshold as mt
 
     cases = [
-        ("path 8192x10 T=200", CIFAR_BATCH, CIFAR_CLASSES, N_THRESH),
-        ("class tiles 8192x1000 T=200", CIFAR_BATCH, 1000, N_THRESH),
-        ("ragged 1000x3 T=17", 1000, 3, 17),
-        ("global histogram 512x3 T=40000", 512, 3, 40000),
+        ("path 8192x10 T=200", CIFAR_BATCH, CIFAR_CLASSES, N_THRESH, "random"),
+        ("class tiles 8192x1000 T=200", CIFAR_BATCH, 1000, N_THRESH, "random"),
+        ("ragged 1000x3 T=17", 1000, 3, 17, "random"),
+        ("global histogram 512x3 T=40000", 512, 3, 40000, "random"),
+        ("peaked 8192x10 T=200", CIFAR_BATCH, CIFAR_CLASSES, N_THRESH, "peaked"),
+        ("peaked 8192x1000 T=200", CIFAR_BATCH, 1000, N_THRESH, "peaked"),
+        ("all-equal 8192x10 T=200", CIFAR_BATCH, CIFAR_CLASSES, N_THRESH, "all_equal"),
+        ("on-threshold 8192x10 T=200", CIFAR_BATCH, CIFAR_CLASSES, N_THRESH, "on_threshold"),
+        ("NaN thresholds 4096x10 T=200", 4096, CIFAR_CLASSES, N_THRESH, "nan_thresholds"),
     ]
     path_err = 0.0
-    for name, n, c, t in cases:
-        preds, positive, valid, (thr_sorted, order), target = _curve_inputs(n, c, t, gen)
-        got = mt.multi_threshold_counts(preds, positive, valid, thr_sorted, order)
-        want = mt._multi_threshold_plain(preds, positive, valid, thr_sorted, order)
+    for name, n, c, t, kind in cases:
+        preds, positive, valid, (thr_sorted, order), target = _curve_inputs(n, c, t, gen, kind)
+        want = mt._multi_threshold_confmat_plain(preds, positive, valid, thr_sorted, order)
+        want_counts = mt._multi_threshold_plain(preds, positive, valid, thr_sorted, order)
+        got = mt.multi_threshold_confmat(preds, positive, valid, thr_sorted, order)
         torch.cuda.synchronize()
         err = _equal(f"multi_threshold {name}", got, want)
         if name.startswith("path"):
             path_err = max(path_err, err)
+        counts = mt.multi_threshold_counts(preds, positive, valid, thr_sorted, order)
+        torch.cuda.synchronize()
+        _equal(f"multi_threshold {name} counts", tuple(x.contiguous() for x in counts), want_counts)
         # int64 one-hot and a contiguous int32 mask: other element sizes and strides
         pos64 = torch.nn.functional.one_hot(target.clamp(min=0), c)
         val32 = valid.to(torch.int32).contiguous()
-        got = mt.multi_threshold_counts(preds, pos64, val32, thr_sorted, order)
+        got = mt.multi_threshold_confmat(preds, pos64, val32, thr_sorted, order)
         torch.cuda.synchronize()
         _equal(f"multi_threshold {name} int64/int32 flags", got, want)
         _log(f"  multi_threshold {name}: equal")
     before = mt.LAUNCHES
     preds, positive, valid, sorted_thr, _ = _curve_inputs(0, 4, 9, gen)
-    empty = mt.multi_threshold_counts(preds, positive, valid, *sorted_thr)
-    if mt.LAUNCHES != before or any(int(x.abs().sum()) for x in empty):
+    empty = mt.multi_threshold_confmat(preds, positive, valid, *sorted_thr)
+    if mt.LAUNCHES != before or empty.shape != (9, 4, 2, 2) or int(empty.abs().sum()):
         raise AssertionError("multi_threshold N=0 must return zeros without a launch")
     _log("  multi_threshold N=0: equal")
     return path_err
@@ -341,7 +376,6 @@ def run_auroc_path(gen: torch.Generator):
 
 
 def time_kernels(gen: torch.Generator, hbm_rate: float, launches: dict, errors: dict) -> list:
-    from torchmetrics_tpu_torch.ops import multi_threshold as mt
     from torchmetrics_tpu_torch.ops import stat_counts as sc
 
     out = []
@@ -376,44 +410,80 @@ def time_kernels(gen: torch.Generator, hbm_rate: float, launches: dict, errors: 
             "note": _NOTE,
         }
     )
-    # K2: the path's inputs (bool one-hot, broadcast row mask)
-    inputs = [_curve_inputs(CIFAR_BATCH, CIFAR_CLASSES, N_THRESH, gen) for _ in range(4)]
-    k_ms = _median_ms(lambda i: mt.multi_threshold_counts(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=100)
-    k_prof = _device_profile(lambda i: mt.multi_threshold_counts(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=20)
-    p_ms = _median_ms(lambda i: mt._multi_threshold_plain(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=20)
+    # K2 at the path's shape on the path's kind of scores and on peaked ones, and at
+    # 1000 classes (inputs as the curve update builds them)
+    for c, kind in ((CIFAR_CLASSES, "random"), (CIFAR_CLASSES, "peaked"), (1000, "random")):
+        out.append(_time_multi_threshold(gen, hbm_rate, CIFAR_BATCH, c, kind, launches, errors))
+    return out
+
+
+def _time_multi_threshold(gen, hbm_rate: float, n: int, c: int, kind: str, launches: dict, errors: dict) -> dict:
+    from torchmetrics_tpu_torch.ops import multi_threshold as mt
+
+    inputs = [_curve_inputs(n, c, N_THRESH, gen, kind) for _ in range(4)]
+    call = lambda i: mt.multi_threshold_confmat(*inputs[i % 4][:3], *inputs[i % 4][3])  # noqa: E731
+    k_ms = _median_ms(call, iters=100)
+    k_prof = _device_profile(call, iters=20)
+    p_ms = _median_ms(lambda i: mt._multi_threshold_confmat_plain(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=20)
     preds, positive, valid, (thr_sorted, order), _ = inputs[0]
     # the kernel reads the row mask (N bytes: broadcast, stride 0) and, for valid
     # elements only, the score and the one-hot flag; thresholds and order once; it
-    # writes tp / predpos (T, C) and the two (C,) totals as int32
+    # writes the (T, C, 2, 2) int32 tensor
     n_valid = int(valid.sum())
     k2_bytes = (
         valid.shape[0]
         + n_valid * (preds.element_size() + positive.element_size())
         + thr_sorted.nbytes
         + order.nbytes
-        + (2 * N_THRESH * CIFAR_CLASSES + 2 * CIFAR_CLASSES) * 4
+        + N_THRESH * c * 4 * 4
     )
-    k2_ops = n_valid * math.ceil(math.log2(N_THRESH + 1))  # binary-search comparisons
+    k2_ops = 2 * n_valid  # the two comparisons that pin each valid score's bin
     bytes_ms, ops_ms = k2_bytes / hbm_rate * 1e3, k2_ops / _F32_RATE * 1e3
-    out.append(
-        {
-            "name": "multi_threshold",
-            "route": "cuda",
-            "source": "torchmetrics_tpu_torch/csrc/multi_threshold.cu",
-            "replaces": "torchmetrics_tpu/ops/multi_threshold.py:147",
-            "shape": f"{CIFAR_BATCH}x{CIFAR_CLASSES} float32, T={N_THRESH}",
-            "launches": launches["multi_threshold"],
-            "max_abs_err": errors["multi_threshold"],
-            "ms": k_ms,
-            "kernel_device_ms": _kernel_ms(k_prof, "multi_threshold_"),
-            "plain_ms": p_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-            "note": _NOTE,
-        }
+    return {
+        "name": "multi_threshold",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/multi_threshold.cu",
+        "replaces": "torchmetrics_tpu/ops/multi_threshold.py:147",
+        "shape": f"{n}x{c} float32, T={N_THRESH}, {kind} scores",
+        "launches": launches["multi_threshold"],
+        "max_abs_err": errors["multi_threshold"],
+        "ms": k_ms,
+        "kernel_device_ms": _kernel_ms(k_prof, "multi_threshold_"),
+        "device_ms": None if k_prof["device_busy_us"] is None else k_prof["device_busy_us"] / 1e3,
+        "device_ops_per_call": k_prof["device_ops"],
+        "plain_ms": p_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "note": _NOTE,
+    }
+
+
+def time_binned_update(gen: torch.Generator) -> list:
+    """``_binned_multi_threshold_confmat``, K2's whole step in the curve update (kernel
+    and whatever arithmetic follows it), for whichever ``torchmetrics_tpu_torch`` is
+    first on ``sys.path``: two checkouts run in turns in one call compare like with like."""
+    import torchmetrics_tpu_torch
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+        _binned_multi_threshold_confmat,
     )
-    return out
+
+    rows = []
+    for c, kind in ((CIFAR_CLASSES, "random"), (CIFAR_CLASSES, "peaked"), (1000, "random")):
+        inputs = [_curve_inputs(CIFAR_BATCH, c, N_THRESH, gen, kind) for _ in range(4)]
+        call = lambda i: _binned_multi_threshold_confmat(*inputs[i % 4][:4])  # noqa: E731
+        prof = _device_profile(call, iters=20)
+        rows.append(
+            {
+                "package": torchmetrics_tpu_torch.__file__,
+                "shape": f"{CIFAR_BATCH}x{c} float32, T={N_THRESH}, {kind} scores",
+                "ms": _median_ms(call, iters=100),
+                "device_us": prof["device_busy_us"],
+                "device_ops": prof["device_ops"],
+                "kernel_device_us": None if prof["kernels_us"] is None else _kernel_ms(prof, "multi_threshold_") * 1e3,
+            }
+        )
+    return rows
 
 
 def _kernel_ms(prof: dict, fragment: str):
@@ -440,6 +510,7 @@ def time_updates(acc_batches: list, auroc_batches: list) -> dict:
                 "update_us": wall,
                 "device_busy_us": busy,
                 "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+                "device_ops": prof["device_ops"],
                 "kernels_us": prof["kernels_us"],
             }
     # the two device -> host syncs on the path, each alone at the path's shape: the
@@ -474,6 +545,10 @@ def main() -> int:
     _log(f"[2/5] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
+    if sys.argv[1:] == ["--binned-update-only"]:
+        print(smi, flush=True)
+        print(json.dumps({"binned_update": time_binned_update(gen)}), flush=True)
+        return 0
     _log("[3/5] kernels against their plain versions")
     errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
 

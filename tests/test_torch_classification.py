@@ -15,6 +15,7 @@ import subprocess
 import sys
 import textwrap
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ import torch
 
 import torchmetrics_tpu.classification as jc
 import torchmetrics_tpu_torch.classification as tc
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
 
 N_BATCHES, BATCH, C, T = 4, 64, 5, 11
 ACC_ATOL, AUROC_ATOL = 1e-6, 1e-5
@@ -108,6 +110,40 @@ def test_multiclass_auroc(average, thresholds, probs, ignore_index):
         _batches(seed=23, ignore_index=ignore_index, probs=probs),
         AUROC_ATOL,
     )
+
+
+@pytest.mark.parametrize("t", [2, 5, 100, 200, 1000])
+def test_int_thresholds_equal_jax_float32_linspace_bit_for_bit(t):
+    """``thresholds=T`` is ``jnp.linspace(0, 1, T)`` as the JAX package builds it in
+    float32 (its default mode and the TPU's); ``torch.linspace`` is one ulp off at some
+    points (18 of 200), which is the fault this holds repaired."""
+    with jax.enable_x64(False):
+        want = np.asarray(jnp.linspace(0, 1, t))
+    got = _adjust_threshold_arg(t, torch.device("cpu")).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("name", ["MulticlassPrecisionRecallCurve", "MulticlassAUROC"])
+def test_scores_on_int_thresholds_bin_as_in_the_jax_package(name):
+    """600 scores placed exactly on the 200 thresholds, JAX in 32-bit mode: the binned
+    states are equal and the values agree to 1e-5."""
+    n_thr, n_cls = 200, 3
+    with jax.enable_x64(False):
+        thr = np.asarray(jnp.linspace(0, 1, n_thr))
+        off_by_one_ulp = thr[torch.linspace(0, 1, n_thr).numpy() != thr]
+        rng = np.random.default_rng(41)
+        batches = [(thr[rng.integers(0, n_thr, (50, n_cls))], rng.integers(0, n_cls, 50)) for _ in range(4)]
+        assert np.isin(np.concatenate([p for p, _ in batches]), off_by_one_ulp).any()
+        port = getattr(tc, name)(num_classes=n_cls, thresholds=n_thr, device="cpu")
+        ref = getattr(jc, name)(num_classes=n_cls, thresholds=n_thr)
+        for preds, target in batches:
+            port.update(torch.from_numpy(preds), torch.from_numpy(target))
+            ref.update(jnp.asarray(preds), jnp.asarray(target))
+        _states_equal(port, ref)
+        got, want = port.compute(), ref.compute()
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_allclose(_np(g), np.asarray(w), atol=AUROC_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize(

@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
-from torchmetrics_tpu_torch.ops.multi_threshold import multi_threshold_counts, sort_thresholds
+from torchmetrics_tpu_torch.ops.multi_threshold import multi_threshold_confmat, sort_thresholds
 from torchmetrics_tpu_torch.utilities.checks import _is_floating
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide
 from torchmetrics_tpu_torch.utilities.data import _cumsum
@@ -50,10 +50,7 @@ def _binned_multi_threshold_confmat(
     valid: torch.Tensor,
     thresholds: SortedThresholds,
 ) -> torch.Tensor:
-    """``(T, C, 2, 2)`` int32 confusion tensor for every threshold.
-
-    ``tp`` and predicted-positive counts (and the per-class totals) come from kernel
-    K2; the other cells follow arithmetically.
+    """``(T, C, 2, 2)`` int32 confusion tensor for every threshold, from kernel K2 alone.
 
     Args:
         preds: ``(N, C)`` scores.
@@ -61,21 +58,24 @@ def _binned_multi_threshold_confmat(
         valid: ``(N, C)`` mask of samples to count.
         thresholds: sorted thresholds and the order that sorted them (``sort_thresholds``).
     """
-    tp, pred_pos, pos_total, tot_total = multi_threshold_counts(preds, positive, valid, *thresholds)
-    fp = pred_pos - tp
-    fn = pos_total[None, :] - tp
-    tn = (tot_total - pos_total)[None, :] - fp
-    return torch.stack([torch.stack([tn, fp], dim=-1), torch.stack([fn, tp], dim=-1)], dim=-2)
+    return multi_threshold_confmat(preds, positive, valid, *thresholds)
 
 
 def _adjust_threshold_arg(thresholds: Thresholds = None, device: Optional[torch.device] = None) -> Optional[torch.Tensor]:
     """int -> linspace, list -> tensor, both float32 on ``device``.
 
-    The linspace is taken on the CPU and moved, so every device bins against the
-    same threshold values.
+    The linspace is the one ``jnp.linspace(0, 1, T)`` gives in float32, bit for bit:
+    ``float32(i) * float32(1 / (T - 1))`` with the last value set to 1.0 (PyTorch's own
+    ``linspace`` differs by one ulp at some points, and a score on a threshold would bin
+    apart). It is taken on the CPU and moved, so every device bins against the same
+    values.
     """
     if isinstance(thresholds, int):
-        return torch.linspace(0, 1, thresholds).to(device)
+        step = torch.tensor(1 / max(thresholds - 1, 1), dtype=torch.float32)
+        grid = torch.arange(thresholds, dtype=torch.float32) * step
+        if thresholds > 1:
+            grid[-1] = 1.0
+        return grid.to(device)
     if isinstance(thresholds, list):
         return torch.tensor(thresholds, dtype=torch.float32, device=device)
     if isinstance(thresholds, torch.Tensor):

@@ -33,13 +33,13 @@ _LL = ctypes.c_longlong
 # argtypes of every C entry point in csrc/; each returns a cudaError_t
 _SIGNATURES = {
     "tm_stat_counts": [_P, _I, _P, _I, _LL, _LL, _I, _LL, _I, _I, _I, _P, _P],
-    "tm_multi_threshold_counts": [
-        _P, _LL, _I,
-        _P, _LL, _LL, _I,
-        _P, _LL, _LL, _I,
+    "tm_multi_threshold_confmat": [
+        _P, _I, _I,
+        _P, _I, _I, _I,
+        _P, _I, _I, _I,
         _P, _P, _I,
-        _I, _I, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I,
+        _P, _P, _P,
     ],
     "tm_max_shared_optin": [_I, ctypes.POINTER(_I)],
 }
