@@ -17,10 +17,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    8192x10 logits, ``forward`` on every batch then ``compute``, each held against the
    same port run on the CPU; each kernel's launch count over its path must equal the
    number of updates;
-5. times (CUDA events, medians; device time and operations per call from
+5. collection path (``BASELINE.json`` config #2 at CIFAR-10 width): a
+   ``MetricCollection`` of stat scores, macro and weighted accuracy, binned AUROC and
+   two confusion matrices over 16 updates of 8192x10 scores, then ``compute``. Its
+   compute groups, one launch each of K1 and K2 per update, every state against the
+   same collection on the CPU and every value against the member run alone on the
+   card; the confusion matrix on edge rows against the CPU and its update under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+6. sync, two ranks on the one card (gloo, CUDA tensors, spawned processes, a join
+   timeout): ragged batches and an exact-mode AUROC; ``compute`` must take the packed
+   route with one collective per buffer plus the metadata gather and equal the
+   ``merge_state`` fold of the two ranks' states; an empty-versus-nonempty ``cat``
+   state must raise on both ranks on the eager route. Also times the 2-rank
+   ``compute``, packed against eager;
+7. times (CUDA events, medians; device time and operations per call from
    torch.profiler): each kernel and its plain version at the path's shape beside the
-   least time the card could take (K2 also on peaked scores and at 8192x1000), and
-   each metric's ``update``.
+   least time the card could take (K2 also on peaked scores and at 8192x1000), each
+   metric's ``update``, and the collection's ``update`` against its six members
+   updated one by one.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
 with code 2 and prints no result. It imports nothing of JAX.
@@ -32,10 +46,15 @@ first on ``sys.path``, so two checkouts can be compared in turns in one call.
 
 from __future__ import annotations
 
+import datetime
 import json
+import multiprocessing
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -43,6 +62,8 @@ import torch
 ACC_BATCH, ACC_CLASSES = 8192, 1000
 CIFAR_BATCH, CIFAR_CLASSES, N_THRESH = 8192, 10, 200
 N_BATCHES = 16
+SYNC_BATCHES = (3, 5)  # per rank: ragged cat lists across the two ranks
+SYNC_JOIN_TIMEOUT_S = 300
 ACC_ATOL = 1e-6  # both sides divide identical int32 counts in float32
 AUROC_ATOL = 1e-5  # trapezoid sums taken in another order
 IGNORE = -100
@@ -372,6 +393,317 @@ def run_auroc_path(gen: torch.Generator):
     return launches["multi_threshold"], gpu_batches
 
 
+# ---------------------------------------------------------------- collection path
+
+# compute groups the collection must settle on (as sets: the owner is the first name)
+_EXPECTED_GROUPS = {frozenset({"stats", "acc", "acc_w"}), frozenset({"auroc"}), frozenset({"confmat", "confmat_t"})}
+
+
+def _collection_members(device=None, validate_args: bool = True, **kwargs) -> dict:
+    """``BASELINE.json`` config #2 at CIFAR-10 width, as one collection's members."""
+    from torchmetrics_tpu_torch import (
+        MulticlassAccuracy,
+        MulticlassAUROC,
+        MulticlassConfusionMatrix,
+        MulticlassStatScores,
+    )
+
+    common = dict(device=device, validate_args=validate_args, **kwargs)
+    c = CIFAR_CLASSES
+    return {
+        "stats": MulticlassStatScores(c, **common),
+        "acc": MulticlassAccuracy(c, average="macro", **common),
+        "acc_w": MulticlassAccuracy(c, average="weighted", **common),
+        "auroc": MulticlassAUROC(c, thresholds=N_THRESH, **common),
+        "confmat": MulticlassConfusionMatrix(c, **common),
+        "confmat_t": MulticlassConfusionMatrix(c, normalize="true", **common),
+    }
+
+
+def _scores_with_edge_rows(n: int, c: int, gen: torch.Generator) -> torch.Tensor:
+    """Softmax scores computed on the card, with argmax edge rows that stay in [0, 1].
+
+    Every member takes the same scores, and the CPU run takes these very values, so
+    AUROC does not softmax on either side (its range check passes) and the binned
+    states compare bit for bit. NaN and infinite logits would fail that check and
+    softmax again on each device; they are held on the confusion matrix alone
+    (``check_confmat_edges``).
+    """
+    x = torch.randn(n, c, generator=gen).cuda().softmax(dim=1)
+    x[0] = 0.1  # all tied: index 0
+    x[1, 3] = x[1, c - 2] = 0.45  # two maxima: the first wins
+    x[2] = 0.0
+    x[2, 0] = -0.0  # -0.0 == 0.0: index 0
+    x[3, 2] = x[3, 4] = 1.0  # two exact ones
+    x[4] = 0.0
+    return x
+
+
+def run_collection_path(gen: torch.Generator):
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
+
+    batches = [
+        (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+        for _ in range(N_BATCHES)
+    ]
+    torch.cuda.synchronize()
+
+    mc = MetricCollection(_collection_members())
+    stat_counts.LAUNCHES = multi_threshold.LAUNCHES = 0
+    for p, t in batches:
+        mc.update(p, t)
+    torch.cuda.synchronize()
+    launches = {"stat_counts": stat_counts.LAUNCHES, "multi_threshold": multi_threshold.LAUNCHES}
+    values = mc.compute()
+    torch.cuda.synchronize()
+
+    groups = {frozenset(g) for g in mc.compute_groups.values()}
+    if groups != _EXPECTED_GROUPS:
+        raise AssertionError(f"collection compute groups {mc.compute_groups}, expected {_EXPECTED_GROUPS}")
+    if launches != {"stat_counts": N_BATCHES, "multi_threshold": N_BATCHES}:
+        raise AssertionError(f"collection path launches {launches}, expected {N_BATCHES} of each kernel")
+
+    # every state against the same collection on the CPU, exactly; values within the tolerances
+    ref = MetricCollection(_collection_members(device="cpu"))
+    for p, t in batches:
+        ref.update(p.cpu(), t.cpu())
+    ref_values = ref.compute()
+    for name, metric in mc.items(keep_base=True):
+        _assert_states_equal(f"collection {name}", metric, ref[name])
+        got, want = values[name], ref_values[name]
+        if got.dtype == torch.int32:
+            _equal(f"collection {name}", got.cpu(), want)
+        else:
+            _assert_close(f"collection {name}", got, want, AUROC_ATOL if name == "auroc" else ACC_ATOL)
+
+    # every value against the member run alone on the card
+    for name, alone in _collection_members().items():
+        for p, t in batches:
+            alone.update(p, t)
+        want = alone.compute()
+        if values[name].dtype != want.dtype or not torch.equal(values[name], want):
+            raise AssertionError(f"collection {name}: {values[name].tolist()} vs alone {want.tolist()}")
+    _log(f"  MetricCollection: groups {sorted(sorted(g) for g in groups)}, {N_BATCHES} updates, launches {launches};"
+         f" acc {float(values['acc']):.6f}, auroc {float(values['auroc']):.6f}")
+    check_confmat_edges(gen)
+    return launches, batches
+
+
+def check_confmat_edges(gen: torch.Generator) -> None:
+    """The confusion matrix on ``_logits_with_edge_rows`` (ties, NaN, infinities) and
+    out-of-range targets against the CPU, and its update with no host sync."""
+    from torchmetrics_tpu_torch import MulticlassConfusionMatrix
+
+    preds = _logits_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen).cuda()
+    target = _targets_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen).cuda()
+    for ignore in (None, IGNORE):
+        card = MulticlassConfusionMatrix(CIFAR_CLASSES, ignore_index=ignore, validate_args=False)
+        host = MulticlassConfusionMatrix(CIFAR_CLASSES, ignore_index=ignore, validate_args=False, device="cpu")
+        card.update(preds, target)
+        host.update(preds.cpu(), target.cpu())
+        _equal(f"confusion matrix edge rows ignore={ignore}", card.confmat.cpu(), host.confmat)
+    metric = MulticlassConfusionMatrix(CIFAR_CLASSES, validate_args=False)
+    metric.update(preds, target)  # warm: first-use allocations are not the point
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metric.update(preds, target)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _log("  MulticlassConfusionMatrix: edge rows equal to the CPU; update ran under set_sync_debug_mode('error')")
+
+
+# ---------------------------------------------------------------- sync, two ranks
+
+
+def _sync_members(**kwargs) -> dict:
+    """The collection members plus an exact-mode AUROC, whose cat lists are ragged."""
+    from torchmetrics_tpu_torch import MulticlassAUROC
+
+    members = _collection_members(**kwargs)
+    members["auroc_exact"] = MulticlassAUROC(CIFAR_CLASSES, **{k: v for k, v in kwargs.items() if k != "validate_args"})
+    return members
+
+
+def _sync_batches(rank: int) -> list:
+    gen = torch.Generator().manual_seed(1000 + rank)
+    return [
+        (torch.randn(CIFAR_BATCH, CIFAR_CLASSES, generator=gen).cuda(), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+        for _ in range(SYNC_BATCHES[rank])
+    ]
+
+
+def _timed_computes(mc, repeats: int) -> float:
+    """Median ms of a 2-rank ``compute`` (barrier first; cached values dropped)."""
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(repeats):
+        for m in mc.values(copy_state=False):
+            m._computed = None
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mc.compute()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _same_state_dict(a: dict, b: dict) -> bool:
+    def flat(v):
+        return torch.cat(v) if isinstance(v, list) else torch.as_tensor(v)
+
+    return a.keys() == b.keys() and all(torch.equal(flat(a[k]), flat(b[k])) for k in a)
+
+
+def _sync_rank_body(rank: int, out_dir: str) -> dict:
+    import numpy as np
+
+    from torchmetrics_tpu_torch import MetricCollection, MulticlassAUROC
+    from torchmetrics_tpu_torch.parallel import gather_all_tensors
+    from torchmetrics_tpu_torch.parallel.packing import PackedSyncPlan
+    from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
+
+    batches = _sync_batches(rank)
+    mc = MetricCollection(_sync_members())
+    for p, t in batches:
+        mc.update(p, t)
+    mc.persistent(True)
+    local = mc.state_dict()
+    # the layout the packed exchange must use: its buffers, and whether it needs the metadata gather
+    plan = PackedSyncPlan([(g.owner, mc._modules[g.owner]) for g in mc._groups.values()], 2)
+    meta = plan.metadata_local()
+    plan.finalize(None if meta is None else np.stack([meta, meta]))
+    values = mc.compute()
+    torch.cuda.synchronize()
+    stats = mc._epoch_sync.stats
+    member_fallbacks = sum(m._epoch.stats.eager_fallbacks for m in mc.values(copy_state=False) if m._epoch is not None)
+    result = {
+        "packed_syncs": stats.packed_syncs,
+        "sync_collectives": stats.sync_collectives,
+        "eager_fallbacks": stats.eager_fallbacks + member_fallbacks,
+        "members_synced_alone": sum(1 for m in mc.values(copy_state=False) if m._epoch is not None),
+        "buffer_keys": plan.buffer_keys(),
+        "rank_invariant": plan.rank_invariant,
+        "after_unsync_equal": _same_state_dict(local, mc.state_dict()),
+    }
+    torch.save({"local": local, "values": values}, os.path.join(out_dir, f"rank{rank}.pt"))
+
+    result["packed_compute_ms"] = _timed_computes(mc, repeats=5)
+    eager = MetricCollection(_sync_members(dist_sync_fn=gather_all_tensors))
+    for p, t in batches:
+        eager.update(p, t)
+    eager_values = eager.compute()
+    for name, value in eager_values.items():
+        if not torch.allclose(value.double(), values[name].double(), atol=AUROC_ATOL, rtol=0):
+            raise AssertionError(f"rank {rank}: eager {name} {value.tolist()} vs packed {values[name].tolist()}")
+    result["eager_compute_ms"] = _timed_computes(eager, repeats=5)
+
+    # empty-versus-nonempty cat state on the eager route: both ranks must raise
+    exact = MulticlassAUROC(CIFAR_CLASSES)
+    if rank == 0:
+        exact.update(*batches[0])
+    try:
+        exact.sync(dist_sync_fn=gather_all_tensors)
+    except TorchMetricsUserError as err:
+        result["ragged_error"] = str(err)[:120]
+    else:
+        raise AssertionError(f"rank {rank}: syncing an empty-versus-nonempty cat state did not raise")
+    return result
+
+
+def _sync_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of the two ranks: reports to ``out_dir/rank<r>.json``, then waits for the other."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank,
+        timeout=datetime.timedelta(seconds=SYNC_JOIN_TIMEOUT_S),
+    )
+    try:
+        result = {"ok": True, **_sync_rank_body(rank, out_dir)}
+    except Exception as err:  # reported to the parent, which fails the phase
+        result = {"ok": False, "error": f"{type(err).__name__}: {err}"}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    deadline = time.monotonic() + SYNC_JOIN_TIMEOUT_S
+    while time.monotonic() < deadline and not all(os.path.exists(os.path.join(out_dir, f"rank{r}.json")) for r in range(2)):
+        time.sleep(0.05)
+    dist.destroy_process_group()
+
+
+def run_sync_phase() -> dict:
+    """Two spawned ranks on the one card; fails on a hang (join timeout), an error on
+    either rank, a route other than the packed one, or a value off the merge_state fold."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_sync_rank, args=(r, port, out_dir)) for r in range(2)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + SYNC_JOIN_TIMEOUT_S
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        if hung:
+            raise AssertionError(f"sync phase: ranks {hung} still running after {SYNC_JOIN_TIMEOUT_S} s")
+        results = []
+        for rank, proc in enumerate(procs):
+            path = os.path.join(out_dir, f"rank{rank}.json")
+            if proc.exitcode != 0 or not os.path.exists(path):
+                raise AssertionError(f"sync phase: rank {rank} exited with {proc.exitcode} and no result")
+            with open(path) as f:
+                results.append(json.load(f))
+        for rank, res in enumerate(results):
+            if not res["ok"]:
+                raise AssertionError(f"sync phase: rank {rank}: {res['error']}")
+            want_collectives = len(res["buffer_keys"]) + (0 if res["rank_invariant"] else 1)
+            if (res["packed_syncs"], res["eager_fallbacks"], res["members_synced_alone"]) != (1, 0, 0):
+                raise AssertionError(f"sync phase: rank {rank} did not take the packed route alone: {res}")
+            if res["sync_collectives"] != want_collectives:
+                raise AssertionError(f"sync phase: rank {rank} issued {res['sync_collectives']} collectives, expected {want_collectives}")
+            if not res["after_unsync_equal"]:
+                raise AssertionError(f"sync phase: rank {rank} did not get its local state back after compute")
+        saved = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+
+    # the reference: the two ranks' local states folded with merge_state, on the card
+    others = _sync_members()
+    for name, folded in _sync_members().items():
+        other = others[name]
+        folded.load_state_dict(saved[0]["local"], prefix=f"{name}.")
+        other.load_state_dict(saved[1]["local"], prefix=f"{name}.")
+        folded.merge_state(other)
+        want = folded.compute()
+        for rank in range(2):
+            got = saved[rank]["values"][name]
+            if want.dtype == torch.int32:
+                _equal(f"sync {name} rank {rank}", got, want)
+            else:
+                _assert_close(f"sync {name} rank {rank}", got, want, AUROC_ATOL if "auroc" in name else ACC_ATOL)
+    summary = {
+        "ranks": 2,
+        "backend": "gloo (CUDA tensors, one card)",
+        "batches_per_rank": list(SYNC_BATCHES),
+        "buffer_keys": results[0]["buffer_keys"],
+        "sync_collectives": [r["sync_collectives"] for r in results],
+        "packed_compute_ms": [r["packed_compute_ms"] for r in results],
+        "eager_compute_ms": [r["eager_compute_ms"] for r in results],
+    }
+    _log(f"  2 ranks: packed route, {summary['sync_collectives']} collectives ({summary['buffer_keys']} + metadata),"
+         " values equal to the merge_state fold; ragged cat state raised on both ranks")
+    return summary
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -526,6 +858,33 @@ def time_updates(acc_batches: list, auroc_batches: list) -> dict:
     return res
 
 
+def time_collection(batches: list) -> dict:
+    """The collection's ``update`` against its six members updated one by one."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    res = {}
+    for validate in (True, False):
+        mc = MetricCollection(_collection_members(validate_args=validate))
+        mc.update(*batches[0])  # settles the compute groups
+        alone = list(_collection_members(validate_args=validate).values())
+        runs = (
+            ("collection", lambda i: mc.update(*batches[i % len(batches)])),
+            ("members_one_by_one", lambda i: [m.update(*batches[i % len(batches)]) for m in alone]),
+        )
+        for name, step in runs:
+            wall = _host_us_per_call(step, iters=16)
+            prof = _device_profile(step, iters=8)
+            busy = prof["device_busy_us"]
+            res[f"{name}_validate_{validate}"] = {
+                "update_us": wall,
+                "device_busy_us": busy,
+                "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+                "device_ops": prof["device_ops"],
+                "kernels_us": prof["kernels_us"],
+            }
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -538,30 +897,42 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/5] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/7] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/5] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/7] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
         print(smi, flush=True)
         print(json.dumps({"binned_update": time_binned_update(gen)}), flush=True)
         return 0
-    _log("[3/5] kernels against their plain versions")
+    _log("[3/7] kernels against their plain versions")
     errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
 
-    _log("[4/5] main path")
+    _log("[4/7] main path")
     acc_launches, acc_batches = run_accuracy_path(gen)
     auroc_launches, auroc_batches = run_auroc_path(gen)
 
-    _log("[5/5] times")
+    _log("[5/7] collection path")
+    collection_launches, collection_batches = run_collection_path(gen)
+
+    _log("[6/7] sync, two ranks on one card")
+    sync = run_sync_phase()
+
+    _log("[7/7] times")
     launches = {"stat_counts": acc_launches, "multi_threshold": auroc_launches}
     kernels = time_kernels(gen, hbm_rate, launches, errors)
+    for entry in kernels:
+        entry["launches_by_path"] = {
+            "accuracy" if entry["name"] == "stat_counts" else "auroc": launches[entry["name"]],
+            "collection": collection_launches[entry["name"]],
+        }
     updates = time_updates(acc_batches, auroc_batches)
+    updates["collection"] = time_collection(collection_batches)
 
-    print(json.dumps({"updates": updates, "card": smi}), flush=True)
+    print(json.dumps({"updates": updates, "sync_2rank": sync, "card": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -27,9 +27,14 @@ print("isolated")
 
 _NO_CUDA_DEFAULT = """
 import torch
-from torchmetrics_tpu_torch import MulticlassAccuracy, MulticlassAUROC
+from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
-for make in (lambda: MulticlassAccuracy(num_classes=5), lambda: MulticlassAUROC(num_classes=5, thresholds=10)):
+for make in (
+    lambda: MulticlassAccuracy(num_classes=5),
+    lambda: MulticlassAUROC(num_classes=5, thresholds=10),
+    lambda: MulticlassConfusionMatrix(num_classes=5),
+    lambda: MetricCollection({"cm": MulticlassConfusionMatrix(num_classes=5)}),
+):
     try:
         make()
     except RuntimeError as err:

@@ -10,15 +10,19 @@ Metrics run on the GPU unless built with ``device="cpu"``.
 from torchmetrics_tpu_torch.classification import (
     MulticlassAccuracy,
     MulticlassAUROC,
+    MulticlassConfusionMatrix,
     MulticlassPrecisionRecallCurve,
     MulticlassStatScores,
 )
+from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.metric import Metric
 
 __all__ = [
     "Metric",
+    "MetricCollection",
     "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassConfusionMatrix",
     "MulticlassPrecisionRecallCurve",
     "MulticlassStatScores",
 ]

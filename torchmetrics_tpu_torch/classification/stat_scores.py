@@ -10,6 +10,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from torchmetrics_tpu_torch.engine.statespec import update_family
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multiclass_stat_scores_arg_validation,
     _multiclass_stat_scores_compute,
@@ -53,6 +54,11 @@ class _AbstractStatScores(Metric):
         """Concatenate list states."""
         return dim_zero_cat(self.tp), dim_zero_cat(self.fp), dim_zero_cat(self.tn), dim_zero_cat(self.fn)
 
+    def _update_family(self) -> tuple:
+        """Identity of the state-producing update body for the CSE signature (the one
+        shared keying rule, ``engine/statespec.update_family``)."""
+        return update_family(self)
+
 
 class MulticlassStatScores(_AbstractStatScores):
     """tp/fp/tn/fn for multiclass tasks."""
@@ -94,6 +100,27 @@ class MulticlassStatScores(_AbstractStatScores):
             preds, target, self.num_classes, self.top_k, self.average, self.multidim_average, self.ignore_index
         )
         self._update_state(tp, fp, tn, fn)
+
+    def _cse_signature(self) -> Optional[tuple]:
+        """Reduction signature (``engine/statespec.py``).
+
+        ``average`` reaches the update only as the micro-with-top-1 collapse (scalar
+        counters instead of per-class ones): macro, weighted and none accumulate the
+        same per-class counts and differ only in ``compute``, so they share one
+        ``"per-class"`` token and fuse. ``num_classes``, ``top_k`` and
+        ``ignore_index`` shape the reduction and split the signature. Samplewise
+        cat-list states do not fuse.
+        """
+        if self.multidim_average != "global":
+            return None
+        micro = self.average == "micro" and self.top_k == 1
+        return (
+            *self._update_family(),
+            int(self.num_classes),
+            int(self.top_k),
+            "micro" if micro else "per-class",
+            self.ignore_index,
+        )
 
     def compute(self) -> torch.Tensor:
         """Final stat scores with averaging applied."""

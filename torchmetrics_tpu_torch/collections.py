@@ -1,0 +1,584 @@
+"""MetricCollection with compute groups (counterpart of ``torchmetrics_tpu/collections.py``).
+
+A dict of metrics with one call pattern. Metrics whose states are provably identical
+form a compute group:
+
+- **Canonical state + views.** Each ``_ComputeGroup`` names one member, the first, as
+  the owner of the group's state; only the owner runs ``update``. The other members
+  are views that receive the owner's state when someone looks at them (``items`` /
+  ``values`` / ``[]`` / ``compute``). The port's states are re-bound on every update
+  and never written in place, so a view may share the owner's tensors; with
+  ``copy_state=True`` it gets clones, lists and tensors alike.
+- **Signature fusion (CSE) when the collection is built.** Members that declare an
+  equal ``reduction_signature`` (``engine/statespec.py``) merge at once: macro,
+  weighted and none accuracy over the same stat scores run one update, so kernel K1
+  launches once per collection ``update``, not once per member.
+- **Value discovery at the first step** for members without a signature: after the
+  first ``update``, groups whose owners hold equal states merge, unless their
+  declared signatures differ (the veto).
+- **Packed compute sync.** ``compute`` syncs every group owner in one
+  ``PackedSyncPlan`` exchange (``engine/epoch.py``) before the members compute.
+
+``forward`` runs every member's own ``forward``, owners and views alike. The JAX
+package's fused dispatch, scan queue and async dispatch have no counterpart:
+``fused_dispatch``, ``scan_steps`` and ``async_dispatch`` take only ``None`` /
+``False`` / ``0``, and ``fused_dispatch=False`` turns the packed compute sync off, as
+the engine being off does in the JAX package.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from copy import deepcopy
+from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from torchmetrics_tpu_torch.engine.statespec import cse_enabled, reduction_signature
+from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.utilities.data import allclose
+from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
+
+
+def _copied(value: Any) -> Any:
+    if isinstance(value, list):
+        return [v.clone() for v in value]
+    return value.clone()
+
+
+class _ComputeGroup:
+    """A set of metric names whose states are provably identical.
+
+    The first name is the owner: the only member whose ``update`` runs, and whose
+    states are the group's single source of truth.
+    """
+
+    __slots__ = ("names",)
+
+    def __init__(self, names: Sequence[str]) -> None:
+        self.names: List[str] = list(names)
+
+    @property
+    def owner(self) -> str:
+        return self.names[0]
+
+    def absorb(self, other: "_ComputeGroup") -> None:
+        self.names.extend(other.names)
+
+    def materialize_views(self, modules: Dict[str, Metric], copy: bool = False) -> None:
+        """Push the owner's states into every view member (clones when ``copy``)."""
+        owner = modules[self.owner]
+        for name in self.names[1:]:
+            view = modules[name]
+            for state in owner._defaults:
+                value = getattr(owner, state)
+                setattr(view, state, _copied(value) if copy else value)
+            view._update_count = owner._update_count
+            view._computed = None
+            # fold markers travel with the states they describe
+            view._none_folded = set(owner._none_folded)
+
+
+def _state_fingerprint(metric: Metric) -> Optional[tuple]:
+    """Structural digest of a metric's registered states (names, kinds, shapes, dtypes);
+    ``None`` if stateless. Only metrics with equal fingerprints are compared by value."""
+    if not metric._defaults:
+        return None
+    sig = []
+    for key in sorted(metric._defaults):
+        val = getattr(metric, key)
+        if isinstance(val, list):
+            sig.append((key, "list", tuple((tuple(v.shape), str(v.dtype)) for v in val)))
+        else:
+            sig.append((key, "tensor", tuple(val.shape), str(val.dtype)))
+    return tuple(sig)
+
+
+def _states_equal(metric1: Metric, metric2: Metric) -> bool:
+    """Value equality of two structurally identical metrics' states (reads them on the
+    host: it runs once, at the first step's discovery)."""
+    for key in metric1._defaults:
+        state1 = getattr(metric1, key)
+        state2 = getattr(metric2, key)
+        if isinstance(state1, list):
+            if not all(allclose(s1, s2) for s1, s2 in zip(state1, state2)):
+                return False
+        elif not allclose(state1, state2):
+            return False
+    return True
+
+
+def _no_engine_knob(name: str, value: Any) -> Any:
+    """The JAX package's engine knobs: only their "off" values are accepted."""
+    if value is None or value is False or (value == 0 and not isinstance(value, bool)):
+        return value
+    raise ValueError(f"`{name}={value!r}` is not supported: the port has no engine tier for it (use None or False)")
+
+
+class MetricCollection:
+    """Dict of metrics sharing one call pattern, with automatic compute groups.
+
+    Args:
+        metrics: a Metric or MetricCollection, a sequence of them, or a name -> metric dict.
+        prefix: string prepended to every result key.
+        postfix: string appended to every result key.
+        compute_groups: True (discover automatically), False (off), or an explicit
+            list of name groups.
+        fused_dispatch: ``None`` (packed compute sync on) or ``False`` (off).
+        scan_steps: ``None`` or ``0`` only.
+        async_dispatch: ``None``, ``False`` or ``0`` only.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch import MetricCollection
+        >>> from torchmetrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix
+        >>> metrics = MetricCollection(
+        ...     {"acc": MulticlassAccuracy(num_classes=3, device="cpu"),
+        ...      "cm": MulticlassConfusionMatrix(num_classes=3, device="cpu")})
+        >>> out = metrics(torch.tensor([2, 1, 0, 1]), torch.tensor([2, 1, 0, 0]))
+        >>> round(float(out["acc"]), 4), out["cm"].tolist()
+        (0.8333, [[1, 1, 0], [0, 1, 0], [0, 0, 1]])
+    """
+
+    _groups: Dict[int, _ComputeGroup]
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+        fused_dispatch: Optional[bool] = None,
+        scan_steps: Optional[int] = None,
+        async_dispatch: Optional[Any] = None,
+    ) -> None:
+        self._modules: "OrderedDict[str, Metric]" = OrderedDict()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self.fused_dispatch = _no_engine_knob("fused_dispatch", fused_dispatch)
+        self.scan_steps = _no_engine_knob("scan_steps", scan_steps)
+        self.async_dispatch = _no_engine_knob("async_dispatch", async_dispatch)
+        self._groups_checked: bool = False
+        self._state_is_copy: bool = False
+        self._epoch_sync = None  # engine/epoch.py CollectionEpoch, made at the first packed compute
+        self._cse_signatures: Dict[str, Optional[tuple]] = {}
+
+        self.add_metrics(metrics, *additional_metrics)
+
+    # ------------------------------------------------------------------ update paths
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        return self.forward(*args, **kwargs)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Every member's own ``forward`` (batch values); kwargs filtered per signature."""
+        return self._compute_and_reduce("forward", *args, **kwargs)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """One collection step: each group owner accumulates the batch once.
+
+        Before the groups are settled, the first step runs every group's owner (every
+        member, with ``compute_groups=False``) and then discovers groups by value.
+        Members already merged by signature do not run: the owner's state replaces
+        theirs once discovery ends.
+        """
+        if self._groups_checked:
+            for group in self._groups.values():
+                owner = self._modules[group.owner]
+                owner.update(*args, **owner._filter_kwargs(**kwargs))
+            if self._state_is_copy:
+                # the views hold copies of the old state; the next accessor re-anchors
+                self._materialize_group_views()
+            return
+        if self._enable_compute_groups:
+            members = [self._modules[group.owner] for group in self._groups.values()]
+        else:
+            members = list(self._modules.values())
+        for metric in members:
+            metric.update(*args, **metric._filter_kwargs(**kwargs))
+        if self._enable_compute_groups:
+            self._discover_groups()
+            self._materialize_group_views()
+            self._groups_checked = True
+
+    # ------------------------------------------------------------------ group discovery
+
+    def _discover_groups(self) -> None:
+        """Merge groups whose owners' states are equal, in one pass.
+
+        Candidates bucket by structural fingerprint; within a bucket each group folds
+        into the first representative whose state values match, else becomes one.
+        Groups that declared a reduction signature merged when the collection was
+        built; here a signature is a veto: two groups whose declared reductions differ
+        never merge by a first-batch coincidence of values.
+        """
+        sigs = self._cse_signatures
+        merged: List[_ComputeGroup] = []
+        buckets: Dict[tuple, List[_ComputeGroup]] = {}
+        for group in self._groups.values():
+            owner = self._modules[group.owner]
+            fingerprint = _state_fingerprint(owner)
+            if fingerprint is None:  # stateless metrics never share a group
+                merged.append(group)
+                continue
+            sig = sigs.get(group.owner)
+            for representative in buckets.setdefault(fingerprint, []):
+                rep_sig = sigs.get(representative.owner)
+                if sig is not None and rep_sig is not None and sig != rep_sig:
+                    continue  # declared reductions differ: a value match is a coincidence
+                if _states_equal(self._modules[representative.owner], owner):
+                    representative.absorb(group)
+                    break
+            else:
+                buckets[fingerprint].append(group)
+                merged.append(group)
+        self._groups = dict(enumerate(merged))
+
+    def _materialize_group_views(self, copy: bool = False) -> None:
+        """Push the owners' states into every group's view members."""
+        if not self._state_is_copy:
+            for group in self._groups.values():
+                group.materialize_views(self._modules, copy=copy)
+        self._state_is_copy = copy
+
+    # ------------------------------------------------------------------ compute
+
+    def compute(self) -> Dict[str, Any]:
+        """Every member's ``compute`` into one flat (renamed) dict.
+
+        Across processes, every eligible group owner syncs first in one packed
+        exchange (one metadata gather when needed plus one collective per buffer, for
+        the whole collection); then each member computes on the synced states and the
+        owners unsync.
+        """
+        restore = self._packed_epoch_sync()
+        try:
+            return self._compute_and_reduce("compute")
+        finally:
+            restore()
+
+    def _packed_epoch_sync(self) -> Callable[[], None]:
+        """Pack-sync the group owners ahead of the member compute pass.
+
+        Returns a restore callable (always safe to call) that re-enables each
+        member's own sync and unsyncs any owner the member pass left synced.
+        """
+
+        def noop() -> None:
+            return None
+
+        if self.fused_dispatch is False:
+            return noop
+        if self._groups_checked and self._groups:
+            owners = [(group.owner, self._modules[group.owner]) for group in self._groups.values()]
+        else:
+            owners = list(self._modules.items())
+        eligible = []
+        for name, m in owners:
+            # per-metric opt-outs and what needs its own sync semantics (a custom
+            # gather, host list states, a sub-world group) sync themselves
+            if not m._to_sync or m._is_synced or m.dist_sync_fn is not None:
+                continue
+            if m.compute_on_cpu or m.process_group is not None:
+                continue
+            available = m.distributed_available_fn
+            if callable(available) and available():
+                eligible.append((name, m))
+        if len(eligible) < 2:
+            return noop
+        from torchmetrics_tpu_torch.engine.epoch import CollectionEpoch
+
+        names = [n for n, _ in eligible]
+        if self._epoch_sync is None or self._epoch_sync.names != names:
+            self._epoch_sync = CollectionEpoch(names)
+        snapshots = {name: m._copy_state_refs() for name, m in eligible}
+        if not self._epoch_sync.packed_sync(eligible):
+            return noop
+        for name, m in eligible:
+            m._cache = snapshots[name]
+            m._is_synced = True
+        # turn each member's own sync off only where the packed exchange covered it:
+        # the synced owners and their views (which receive the owners' world state)
+        packed_owners = set(names)
+        if self._groups_checked and self._groups:
+            covered = {n for group in self._groups.values() if group.owner in packed_owners for n in group.names}
+        else:
+            covered = packed_owners
+        disabled = []
+        for name, m in self._modules.items():
+            if name in covered and m._to_sync:
+                m._to_sync = False
+                disabled.append(m)
+        self._state_is_copy = False  # re-anchor the views onto the synced owners
+
+        def restore() -> None:
+            for m in disabled:
+                m._to_sync = True
+            for _, m in eligible:
+                if m._is_synced:  # the member pass normally unsyncs owners itself
+                    m.unsync()
+            self._state_is_copy = False  # the next accessor re-anchors local state
+
+        return restore
+
+    def _compute_and_reduce(self, method_name: str, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        if method_name not in ("compute", "forward"):
+            raise ValueError(f"method_name should be either 'compute' or 'forward', but got {method_name}")
+        result = {}
+        for name, metric in self.items(keep_base=True, copy_state=False):
+            if method_name == "compute":
+                res = metric.compute()
+            else:
+                res = metric(*args, **metric._filter_kwargs(**kwargs))
+            if isinstance(res, dict):
+                for key, value in res.items():
+                    if getattr(metric, "prefix", None) is not None:
+                        key = f"{metric.prefix}{key}"
+                    if getattr(metric, "postfix", None) is not None:
+                        key = f"{key}{metric.postfix}"
+                    result[key] = value
+            else:
+                result[name] = res
+        return {self._set_name(k): v for k, v in result.items()}
+
+    # ------------------------------------------------------------------ lifecycle
+
+    def reset(self) -> None:
+        """Reset every metric; group views re-anchor to the (reset) owners."""
+        for metric in self.values(copy_state=False):
+            metric.reset()
+        if self._enable_compute_groups and self._groups_checked:
+            self._materialize_group_views()
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        """Deep copy, optionally re-prefixed."""
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """The sync engine is per process: never pickled or copied."""
+        state = self.__dict__.copy()
+        state["_epoch_sync"] = None
+        return state
+
+    def persistent(self, mode: bool = True) -> None:
+        """Toggle state persistence for all metrics."""
+        for metric in self.values(copy_state=False):
+            metric.persistent(mode)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Flat state dict keyed ``"<member>.<state>"``."""
+        destination: Dict[str, Any] = {}
+        for name, metric in self.items(keep_base=True, copy_state=False):
+            metric.state_dict(destination, prefix=f"{name}.")
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        """Restore from ``state_dict`` (or from ``interop.collection_state_from_jax``)."""
+        for name, metric in self.items(keep_base=True, copy_state=False):
+            metric.load_state_dict(state_dict, prefix=f"{name}.")
+
+    # ------------------------------------------------------------------ membership
+
+    def add_metrics(
+        self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
+    ) -> None:
+        """Register metrics from a dict, a sequence or one instance."""
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                rank_zero_warn(
+                    f"You have passes extra arguments {remain} which are not `Metric` so they will be ignored."
+                )
+        elif additional_metrics:
+            raise ValueError(
+                f"You have passes extra arguments {additional_metrics} which are not compatible"
+                f" with first passed dictionary {metrics} so they will be ignored."
+            )
+
+        if isinstance(metrics, dict):
+            for name in sorted(metrics.keys()):
+                metric = metrics[name]
+                if not isinstance(metric, (Metric, MetricCollection)):
+                    raise ValueError(
+                        f"Value {metric} belonging to key {name} is not an instance of"
+                        " `torchmetrics_tpu_torch.Metric` or `torchmetrics_tpu_torch.MetricCollection`"
+                    )
+                if isinstance(metric, Metric):
+                    self._modules[name] = metric
+                else:
+                    for k, v in metric.items(keep_base=False):
+                        v.postfix = metric.postfix
+                        v.prefix = metric.prefix
+                        self._modules[f"{name}_{k}"] = v
+        elif isinstance(metrics, Sequence):
+            for metric in metrics:
+                if not isinstance(metric, (Metric, MetricCollection)):
+                    raise ValueError(
+                        f"Input {metric} to `MetricCollection` is not a instance of"
+                        " `torchmetrics_tpu_torch.Metric` or `torchmetrics_tpu_torch.MetricCollection`"
+                    )
+                if isinstance(metric, Metric):
+                    name = metric.__class__.__name__
+                    if name in self._modules:
+                        raise ValueError(f"Encountered two metrics both named {name}")
+                    self._modules[name] = metric
+                else:
+                    for k, v in metric.items(keep_base=False):
+                        v.postfix = metric.postfix
+                        v.prefix = metric.prefix
+                        self._modules[k] = v
+        else:
+            raise ValueError(
+                "Unknown input to MetricCollection. Expected, `Metric`, `MetricCollection` or `dict`/`sequence` of the"
+                f" previous, but got {metrics}"
+            )
+
+        self._groups_checked = False
+        if self._enable_compute_groups:
+            self._init_compute_groups()
+        else:
+            self._groups = {}
+
+    def _init_compute_groups(self) -> None:
+        """Seed groups: the user's lists, or one singleton per metric, then merged by
+        declared reduction signature."""
+        if isinstance(self._enable_compute_groups, list):
+            for names in self._enable_compute_groups:
+                for metric in names:
+                    if metric not in self._modules:
+                        raise ValueError(
+                            f"Input {metric} in `compute_groups` argument does not match a metric in the"
+                            f" collection. Please make sure that {self._enable_compute_groups} matches"
+                            f" {list(self._modules.keys())}"
+                        )
+            self._groups = {i: _ComputeGroup(names) for i, names in enumerate(self._enable_compute_groups)}
+            self._groups_checked = True
+        else:
+            self._groups = {i: _ComputeGroup([str(k)]) for i, k in enumerate(self._modules.keys())}
+            self._merge_cse_groups()
+
+    def _merge_cse_groups(self) -> None:
+        """Merge members with an equal reduction signature, when the collection is built.
+
+        Equal signatures prove identical update bodies, not identical accumulated
+        state: only members still at their defaults merge this way (a pre-updated
+        metric keeps the value discovery, which refuses the merge). When every member
+        has a signature and is fresh, discovery is done here and the first step
+        already runs one update per group.
+        """
+        if not cse_enabled():
+            self._cse_signatures = {}
+            return
+        sigs = {name: reduction_signature(m) for name, m in self._modules.items()}
+        self._cse_signatures = sigs
+        fresh = {name: self._metric_state_is_default(m) for name, m in self._modules.items()}
+        merged: List[_ComputeGroup] = []
+        by_sig: Dict[tuple, _ComputeGroup] = {}
+        for group in self._groups.values():
+            sig = sigs.get(group.owner)
+            if sig is None or not fresh.get(group.owner, False):
+                merged.append(group)
+                continue
+            representative = by_sig.get(sig)
+            if representative is None:
+                by_sig[sig] = group
+                merged.append(group)
+            else:
+                representative.absorb(group)
+        self._groups = dict(enumerate(merged))
+        if self._groups and all(sigs[name] is not None and fresh[name] for name in self._modules):
+            self._groups_checked = True
+            self._materialize_group_views()
+
+    @staticmethod
+    def _metric_state_is_default(metric: Metric) -> bool:
+        """Never updated, never synced, every state still the one ``add_state`` or
+        ``reset`` put there (the freshness marker) and every list empty. Host-side only."""
+        if metric._update_count != 0 or metric._is_synced or not metric._state_fresh:
+            return False
+        return not any(isinstance(v, list) and v for v in (getattr(metric, a) for a in metric._defaults))
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        """Current compute groups as ``{index: [member names]}``."""
+        return {i: list(group.names) for i, group in self._groups.items()}
+
+    # ------------------------------------------------------------------ dict protocol
+
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def _to_renamed_ordered_dict(self) -> OrderedDict:
+        od = OrderedDict()
+        for k, v in self._modules.items():
+            od[self._set_name(k)] = v
+        return od
+
+    def __iter__(self) -> Iterator[Hashable]:
+        return iter(self.keys())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._modules
+
+    def keys(self, keep_base: bool = False) -> Iterable[Hashable]:
+        """Metric names (renamed unless ``keep_base``)."""
+        if keep_base:
+            return self._modules.keys()
+        return self._to_renamed_ordered_dict().keys()
+
+    def items(self, keep_base: bool = False, copy_state: bool = True) -> Iterable[Tuple[str, Metric]]:
+        """(name, metric) pairs; materializes the group views first."""
+        self._materialize_group_views(copy_state)
+        if keep_base:
+            return self._modules.items()
+        return self._to_renamed_ordered_dict().items()
+
+    def values(self, copy_state: bool = True) -> Iterable[Metric]:
+        """Metrics; materializes the group views first."""
+        self._materialize_group_views(copy_state)
+        return self._modules.values()
+
+    def __getitem__(self, key: str, copy_state: bool = True) -> Metric:
+        """Metric by (renamed) key."""
+        self._materialize_group_views(copy_state)
+        if self.prefix or self.postfix:
+            key = key.removeprefix(self.prefix or "").removesuffix(self.postfix or "")
+        return self._modules[key]
+
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    def __repr__(self) -> str:
+        repr_str = self.__class__.__name__ + "("
+        for k, v in self._modules.items():
+            repr_str += f"\n  {k}: {v!r}"
+        if self.prefix:
+            repr_str += f",\n  prefix={self.prefix}"
+        if self.postfix:
+            repr_str += f",\n  postfix={self.postfix}"
+        return repr_str + "\n)"
+
+    def to(self, device: Union[str, torch.device]) -> "MetricCollection":
+        """Move all metric states to ``device``."""
+        for metric in self.values(copy_state=False):
+            metric.to(device)
+        return self

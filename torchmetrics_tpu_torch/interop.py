@@ -3,7 +3,8 @@
 ``state_from_jax`` converts what ``torchmetrics_tpu``'s ``Metric.state_dict()`` returns
 (numpy arrays, lists of them, and the ``_update_count`` int) into what the port's
 ``Metric.load_state_dict`` takes, so an evaluation started on the TPU can finish on the
-GPU. Dtypes are pinned to the JAX package's defaults: integer states to int32 (the
+GPU; ``collection_state_from_jax`` does the same for a ``MetricCollection.state_dict()``
+(flat ``"<member>.<state>"`` keys), member by member. Dtypes are pinned to the JAX package's defaults: integer states to int32 (the
 counters' dtype; JAX's 64-bit mode widens them to int64 when they fold) and float
 states to float32. A value that does not fit int32 raises instead of wrapping.
 """
@@ -42,4 +43,24 @@ def state_from_jax(
             out[key] = [_tensor(v, device) for v in value]
         else:
             out[key] = _tensor(value, device)
+    return out
+
+
+def collection_state_from_jax(
+    state_dict: Dict[str, Any], device: Union[str, torch.device]
+) -> Dict[str, Union[torch.Tensor, list, int]]:
+    """The port's ``MetricCollection`` state dict for a JAX ``MetricCollection.state_dict()``.
+
+    Keys are ``"<member>.<state>"`` (``"<member>._update_count"`` included); each
+    member's entries convert with ``state_from_jax`` and keep their keys.
+    """
+    members: Dict[str, Dict[str, Any]] = {}
+    for key, value in state_dict.items():
+        member, sep, _ = key.partition(".")
+        if not sep:
+            raise ValueError(f"collection state key {key!r} is not of the form '<member>.<state>'")
+        members.setdefault(member, {})[key] = value
+    out: Dict[str, Union[torch.Tensor, list, int]] = {}
+    for entries in members.values():
+        out.update(state_from_jax(entries, device))
     return out

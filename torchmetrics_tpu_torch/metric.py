@@ -9,6 +9,12 @@ metric's ``device``; ``update`` places its tensor inputs there with
 ``device=None`` means ``torch.device("cuda")``: a metric is built for the card and
 refuses to run elsewhere unless the caller asks for ``device="cpu"``.
 
+``sync`` (and so ``compute`` across processes) takes the packed route of
+``engine/epoch.py`` unless a ``dist_sync_fn`` is given, ``compute_on_cpu`` is on or a
+sub-world ``process_group`` is named: those take the eager per-tensor path, counted as
+a fallback. The JAX package gates the packed route on its engine policy, which is on
+for accelerator backends; the port has no engine tier, so it always takes it.
+
 The JAX package's engine tiers (compiled, scan and async dispatch) and its
 ``CompositionalMetric`` have no counterpart yet, so their keyword arguments are
 rejected like any other unknown one.
@@ -17,13 +23,16 @@ rejected like any other unknown one.
 from __future__ import annotations
 
 import functools
+import inspect
 from contextlib import contextmanager
 from copy import deepcopy
 from typing import Any, Callable, Dict, Generator, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from torchmetrics_tpu_torch.parallel.packing import shape_fingerprint
 from torchmetrics_tpu_torch.parallel.sync import distributed_available, gather_all_tensors
 from torchmetrics_tpu_torch.utilities.data import (
     _flatten,
@@ -129,6 +138,12 @@ class Metric(torch.nn.Module):
 
         self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+        self._update_signature = inspect.signature(self.update)
+        self._epoch = None  # engine/epoch.py EpochEngine, made at the first packed sync
+        # True while every state is the one add_state or reset put there: set by
+        # reset, cleared by any write to a registered state (__setattr__). States are
+        # clones of their defaults, so an identity test cannot tell.
+        self._state_fresh = True
         self._computed = None
         self._forward_cache = None
         self._update_count = 0
@@ -367,9 +382,11 @@ class Metric(torch.nn.Module):
             if reduction_fn is dim_zero_cat and isinstance(input_dict[attr], list) and len(input_dict[attr]) > 1:
                 input_dict[attr] = [dim_zero_cat(input_dict[attr])]
 
-        output_dict = apply_to_collection(
-            input_dict, torch.Tensor, dist_sync_fn, group=process_group or self.process_group
-        )
+        group = process_group or self.process_group
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size(group) > 1:
+            self._check_list_states(input_dict, group)
+
+        output_dict = apply_to_collection(input_dict, torch.Tensor, dist_sync_fn, group=group)
 
         for attr, reduction_fn in self._reductions.items():
             if isinstance(output_dict[attr], list) and len(output_dict[attr]) == 0:
@@ -384,6 +401,69 @@ class Metric(torch.nn.Module):
                 output_dict[attr] = _flatten(output_dict[attr])
             reduced = reduction_fn(output_dict[attr]) if reduction_fn is not None else output_dict[attr]
             setattr(self, attr, reduced)
+
+    def _check_list_states(self, input_dict: Dict[str, Any], group: Optional[Any]) -> None:
+        """Raise on every rank before a list state's collectives could deadlock.
+
+        A list state syncs one collective per element, so ranks holding different
+        list lengths would enter different numbers of collectives. ``cat`` lists are
+        pre-concatenated (0 or 1 element), so only mixed emptiness can diverge;
+        ``None``-reduced lists keep their elements positional, so any count mismatch,
+        or equal counts with other per-element shapes, is fatal. One fixed-shape int32
+        ``all_gather`` of ``[count, shape fingerprint]`` per list state covers them
+        all. The list states are chosen by their defaults' type, identical on every
+        rank, so the probe itself is never ragged.
+        """
+        list_attrs = [
+            attr
+            for attr, fn in self._reductions.items()
+            if (fn is dim_zero_cat or fn is None) and isinstance(self._defaults[attr], list)
+        ]
+        if not list_attrs:
+            return
+
+        def _fingerprint(x: Any) -> int:
+            dims: List[int] = []
+            for el in x if isinstance(x, list) else [x]:
+                dims.append(el.ndim)
+                dims.extend(int(d) for d in el.shape)
+            return shape_fingerprint(dims)
+
+        values = [input_dict[a] for a in list_attrs]
+        local = torch.tensor(
+            [[len(x) if isinstance(x, list) else 1, _fingerprint(x)] for x in values],
+            dtype=torch.int32,
+            device=self._device,
+        )
+        gathered = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(gathered, local, group=group)
+        probe = torch.stack(gathered).cpu().numpy()
+        for idx, attr in enumerate(list_attrs):
+            counts, prints = probe[:, idx, 0], probe[:, idx, 1]
+            is_cat = self._reductions[attr] is dim_zero_cat
+            if (counts.max() > 0 and counts.min() == 0) if is_cat else (counts.max() != counts.min()):
+                raise TorchMetricsUserError(
+                    f"Cannot sync list state `{attr}`: processes hold differing element counts"
+                    f" {counts.tolist()} — ranks with fewer elements would skip collectives the rest"
+                    " enter and deadlock the world. Ensure every process sees the same number of"
+                    " updates before compute(), or skip syncing (sync_on_compute=False) for ragged epochs."
+                )
+            if not is_cat and prints.max() != prints.min():
+                raise TorchMetricsUserError(
+                    f"Cannot sync list state `{attr}`: processes hold equal element counts but mismatched"
+                    f" per-element shapes (shape fingerprints {prints.tolist()}). Positional collectives"
+                    " over a None-reduced list state require identical per-position shapes on every rank"
+                    " — e.g. differing final packed-batch sizes must be padded to a common shape before"
+                    " update, or skip syncing (sync_on_compute=False)."
+                )
+
+    def _epoch_engine(self) -> Any:
+        """The metric's packed-sync engine (``engine/epoch.py``), made at first use."""
+        if self._epoch is None:
+            from torchmetrics_tpu_torch.engine.epoch import EpochEngine
+
+            self._epoch = EpochEngine(self)
+        return self._epoch
 
     def sync(
         self,
@@ -401,7 +481,21 @@ class Metric(torch.nn.Module):
         if not should_sync or not is_distributed:
             return
         if dist_sync_fn is None:
+            # packed route: one metadata gather (when needed) plus one collective per
+            # (role, dtype) buffer for all states; what it cannot take syncs eagerly
+            if self.compute_on_cpu:
+                self._epoch_engine().stats.fallback("sync:compute-on-cpu")
+            elif (process_group or self.process_group) is not None:
+                self._epoch_engine().stats.fallback("sync:sub-world-process-group")
+            else:
+                snapshot = self._copy_state_refs()
+                if self._epoch_engine().packed_sync():
+                    self._cache = snapshot
+                    self._is_synced = True
+                    return
             dist_sync_fn = gather_all_tensors
+        else:
+            self._epoch_engine().stats.fallback("sync:custom-dist-sync-fn")
         self._cache = self._copy_state_refs()
         self._sync_dist(dist_sync_fn, process_group=process_group)
         self._is_synced = True
@@ -486,6 +580,14 @@ class Metric(torch.nn.Module):
 
         return wrapped_func
 
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """Keep only the kwargs that ``update`` accepts (all of them if it takes ``**kwargs``)."""
+        params = self._update_signature.parameters
+        if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            return kwargs
+        positional = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        return {k: v for k, v in kwargs.items() if k in params and params[k].kind not in positional}
+
     def update(self, *_: Any, **__: Any) -> None:
         """Override to update state from a batch."""
         raise NotImplementedError
@@ -506,14 +608,18 @@ class Metric(torch.nn.Module):
         self._cache = None
         self._is_synced = False
         self._none_folded = set()
+        self._state_fresh = True
 
     def clone(self) -> "Metric":
         """Deep copy of the metric."""
         return deepcopy(self)
 
     def __getstate__(self) -> Dict[str, Any]:
-        """Drop the wrapped bound methods for pickling; ``__setstate__`` re-wraps."""
-        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
+        """Drop the wrapped bound methods and the sync engine for pickling;
+        ``__setstate__`` re-wraps."""
+        state = {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
+        state["_epoch"] = None
+        return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         super().__setstate__(state)
@@ -521,7 +627,8 @@ class Metric(torch.nn.Module):
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
 
     def __setattr__(self, name: str, value: Any) -> None:
-        """Write-protect class-constant metadata."""
+        """Write-protect class-constant metadata; a write to a registered state clears
+        the freshness marker."""
         if name in (
             "higher_is_better",
             "is_differentiable",
@@ -531,6 +638,8 @@ class Metric(torch.nn.Module):
             "plot_legend_name",
         ):
             raise RuntimeError(f"Can't change const `{name}`.")
+        if name in self.__dict__.get("_defaults", ()):
+            self.__dict__["_state_fresh"] = False
         super().__setattr__(name, value)
 
     def to(self, device: Union[str, torch.device]) -> "Metric":  # type: ignore[override]
@@ -540,10 +649,12 @@ class Metric(torch.nn.Module):
         def _move(x: Any) -> Any:
             return x.to(self._device) if isinstance(x, torch.Tensor) else x
 
+        fresh = self._state_fresh  # a move keeps the values
         for attr in self._defaults:
             val = getattr(self, attr)
             setattr(self, attr, [_move(v) for v in val] if isinstance(val, list) else _move(val))
             self._defaults[attr] = _move(self._defaults[attr])
+        self._state_fresh = fresh
         if self._computed is not None:
             self._computed = apply_to_collection(self._computed, torch.Tensor, _move)
         return self

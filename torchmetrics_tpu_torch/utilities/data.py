@@ -77,16 +77,36 @@ def _squeeze_if_scalar(data: Any) -> Any:
 
 
 def _bincount(x: torch.Tensor, minlength: Optional[int] = None, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Int32 bincount that drops negative and out-of-range indices.
+    """Int32 bincount that drops negative and out-of-range indices, with no host sync.
 
     ``minlength`` also fixes the number of bins: indices at or past it are dropped,
-    as the JAX package's ``mode="drop"`` scatter drops them.
+    as the JAX package's ``mode="drop"`` scatter drops them. Every dropped index goes
+    to one extra bin, which is sliced off, so the output shape never depends on the
+    data. The counts are a scatter-add into ``minlength + 1`` int32 zeros:
+    ``torch.bincount`` on CUDA reads the input's min and max back to the host to size
+    its output, which is a device -> host sync on every call. Weights are cast to
+    int32, as the JAX package casts them, and masked, not indexed.
+
+    A caller that passes no ``minlength`` pays one ``max()`` sync to size the output,
+    as the JAX package's eager use does.
     """
     if minlength is None:
         minlength = int(x.max()) + 1 if x.numel() else 1
-    keep = (x >= 0) & (x < minlength)
-    w = None if weights is None else weights[keep]
-    return torch.bincount(x[keep].long(), weights=w, minlength=minlength).to(torch.int32)
+    drop = (x < 0) | (x >= minlength)
+    index = torch.where(drop, minlength, x).long().flatten()
+    if weights is None:
+        updates = torch.ones_like(index, dtype=torch.int32)
+    else:
+        updates = torch.where(drop, 0, weights.to(torch.int32)).flatten()
+    counts = torch.zeros(minlength + 1, dtype=torch.int32, device=x.device)
+    return counts.index_add_(0, index, updates)[:minlength]
+
+
+def allclose(tensor1: torch.Tensor, tensor2: torch.Tensor, atol: float = 1e-8, rtol: float = 1e-5) -> bool:
+    """Shape-aware ``torch.allclose`` (tensors of different shapes are not close)."""
+    if tensor1.shape != tensor2.shape:
+        return False
+    return bool(torch.allclose(tensor1, tensor2, atol=atol, rtol=rtol))
 
 
 def _cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
