@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. device: require CUDA, print ``nvidia-smi`` name and power limit;
 2. build: compile the kernels in ``torchmetrics_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernels: hold each kernel against its plain PyTorch version on the card, on the
-   main path's shapes and on edge shapes (K2 also on peaked, all-equal and
-   on-threshold scores and on NaN thresholds), with exact (integer) equality;
+   main paths' shapes and on edge shapes (K2 also on peaked, all-equal and
+   on-threshold scores and on NaN thresholds; at the binary path's ``(2^20, 1, 200)``
+   on random and peaked scores, and at the multilabel path's ``(8192, 80, 200)`` with a
+   per-element mask), with exact (integer) equality;
 4. main path: ``MulticlassAccuracy(num_classes=1000)`` over 16 batches of 8192x1000
    logits and ``MulticlassAUROC(num_classes=10, thresholds=200)`` over 16 batches of
    8192x10 logits, ``forward`` on every batch then ``compute``, each held against the
@@ -24,17 +26,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    same collection on the CPU and every value against the member run alone on the
    card; the confusion matrix on edge rows against the CPU and its update under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
-6. sync, two ranks on the one card (gloo, CUDA tensors, spawned processes, a join
+6. binary path (a click-through-rate eval step): a collection of binned AUROC and AP
+   (T=200), accuracy, F1, precision, recall, a confusion matrix and an exact AUROC over
+   16 updates of 2^20 float32 logits and int64 clicks, beside a confusion matrix's
+   ``forward`` per batch, then ``compute``. Its groups, K2 once per update and K1
+   never, every state and value against the same run on the CPU; the stat-scores and
+   confusion-matrix updates under ``set_sync_debug_mode("error")``;
+7. multilabel path (MS-COCO's 80 categories): a collection of binned macro mAP and
+   AUROC (T=200), F1 macro and micro, accuracy and a multilabel confusion matrix, with
+   ``ignore_index=-1`` on ~5 % of the target elements, over 16 updates of 8192x80
+   logits beside an F1's ``forward`` per batch; checked as the binary path;
+8. task routers: each of the eleven routers once per task on the card, against the CPU;
+   and a multiclass F1 update on integer labels (the staged per-class count) under
+   ``set_sync_debug_mode("error")``;
+9. sync, two ranks on the one card (gloo, CUDA tensors, spawned processes, a join
    timeout): ragged batches and an exact-mode AUROC; ``compute`` must take the packed
    route with one collective per buffer plus the metadata gather and equal the
    ``merge_state`` fold of the two ranks' states; an empty-versus-nonempty ``cat``
    state must raise on both ranks on the eager route. Also times the 2-rank
    ``compute``, packed against eager;
-7. times (CUDA events, medians; device time and operations per call from
-   torch.profiler): each kernel and its plain version at the path's shape beside the
-   least time the card could take (K2 also on peaked scores and at 8192x1000), each
-   metric's ``update``, and the collection's ``update`` against its six members
-   updated one by one.
+10. times (CUDA events, medians; device time and operations per call from
+   torch.profiler): each kernel and its plain version at the paths' shapes beside the
+   least time the card could take (K2 also on peaked scores, at 8192x1000, at the
+   binary and at the multilabel shape), each metric's ``update``, the collection's
+   ``update`` against its six members updated one by one, and the binary and
+   multilabel collections' ``update`` with and without ``validate_args`` (with the host
+   syncs per update that ``set_sync_debug_mode("warn")`` reports).
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
 with code 2 and prints no result. It imports nothing of JAX.
@@ -67,6 +84,8 @@ SYNC_JOIN_TIMEOUT_S = 300
 ACC_ATOL = 1e-6  # both sides divide identical int32 counts in float32
 AUROC_ATOL = 1e-5  # trapezoid sums taken in another order
 IGNORE = -100
+BIN_BATCH = 1 << 20  # a click-through-rate eval step
+ML_BATCH, ML_LABELS, ML_IGNORE = 8192, 80, -1  # MS-COCO's 80 categories, multilabel
 
 # HBM rate by card (bytes/s), from NVIDIA's data sheets
 _HBM_RATE = (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12), ("H100", 3.35e12))
@@ -310,6 +329,76 @@ def check_multi_threshold(gen: torch.Generator) -> float:
     return path_err
 
 
+def _binary_curve_inputs(n: int, t: int, gen: torch.Generator, kind: str = "random"):
+    """K2's inputs as the binned binary update builds them: ``(N, 1)`` scores, positives
+    and row mask. ``kind``: "random" (sigmoid of unit-normal logits, 1 % NaN, one score
+    on a threshold) or "peaked" (sigmoid of logits x 8: most scores crowd the lowest and
+    highest bins, as a trained classifier's do, and all N rows share one class)."""
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
+    from torchmetrics_tpu_torch.ops.multi_threshold import sort_thresholds
+
+    logits = torch.randn(n, generator=gen)
+    preds = torch.sigmoid(logits * 8 if kind == "peaked" else logits)
+    target = (torch.rand(n, generator=gen) < 0.3).long()
+    target[torch.rand(n, generator=gen) < 0.05] = -1
+    thr = _adjust_threshold_arg(t, torch.device("cpu"))
+    if kind == "random":
+        preds[torch.rand(n, generator=gen) < 0.01] = float("nan")
+        preds[0] = thr[3]
+    preds, target, thr = preds.cuda(), target.cuda(), thr.cuda()
+    return preds[:, None], (target > 0)[:, None], (target >= 0)[:, None], sort_thresholds(thr), target
+
+
+def _multilabel_curve_inputs(n: int, labels: int, t: int, gen: torch.Generator, kind: str = "random"):
+    """K2's inputs as the binned multilabel update builds them: ``(N, L)`` scores with the
+    sentinel ``-4 * L * T`` on ignored elements, positives and a per-element ``(N, L)``
+    bool mask. ``kind``: "random" or "peaked", as for the binary inputs."""
+    from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
+    from torchmetrics_tpu_torch.ops.multi_threshold import sort_thresholds
+
+    logits = torch.randn(n, labels, generator=gen)
+    preds = torch.sigmoid(logits * 8 if kind == "peaked" else logits)
+    target = (torch.rand(n, labels, generator=gen) < 0.1).long()
+    ignored = torch.rand(n, labels, generator=gen) < 0.05
+    target[ignored] = -4 * labels * t
+    thr = _adjust_threshold_arg(t, torch.device("cpu"))
+    if kind == "random":
+        preds[torch.rand(n, labels, generator=gen) < 0.01] = float("nan")
+        preds[0, 0] = thr[3]
+    preds[ignored] = -4 * labels * t
+    preds, target, thr = preds.cuda(), target.cuda(), thr.cuda()
+    return preds, target > 0, target >= 0, sort_thresholds(thr), target
+
+
+def check_multi_threshold_new_shapes(gen: torch.Generator) -> dict:
+    """K2 at the binary path's ``(2^20, 1, 200)`` (random and peaked scores) and the
+    multilabel path's ``(8192, 80, 200)`` with a per-element mask, against its plain
+    version, integer-exact; returns the max abs error per path."""
+    from torchmetrics_tpu_torch.ops import multi_threshold as mt
+
+    cases = [
+        ("binary", "binary 1048576x1 T=200 random", _binary_curve_inputs(BIN_BATCH, N_THRESH, gen, "random")),
+        ("binary", "binary 1048576x1 T=200 peaked", _binary_curve_inputs(BIN_BATCH, N_THRESH, gen, "peaked")),
+        ("multilabel", "multilabel 8192x80 T=200 per-element mask random",
+         _multilabel_curve_inputs(ML_BATCH, ML_LABELS, N_THRESH, gen, "random")),
+        ("multilabel", "multilabel 8192x80 T=200 per-element mask peaked",
+         _multilabel_curve_inputs(ML_BATCH, ML_LABELS, N_THRESH, gen, "peaked")),
+        ("edge", "binary ragged 1000x1 T=17", _binary_curve_inputs(1000, 17, gen, "random")),
+    ]
+    errors = {"binary": 0.0, "multilabel": 0.0}
+    for path, name, (preds, positive, valid, (thr_sorted, order), _) in cases:
+        got = mt.multi_threshold_confmat(preds, positive, valid, thr_sorted, order)
+        want = mt._multi_threshold_confmat_plain(preds, positive, valid, thr_sorted, order)
+        torch.cuda.synchronize()
+        err = _equal(f"multi_threshold {name}", got, want)
+        if path in errors:
+            errors[path] = max(errors[path], err)
+        if int(got[0].sum()) != int(valid.sum()):
+            raise AssertionError(f"multi_threshold {name}: counts {int(got[0].sum())} elements, {int(valid.sum())} are valid")
+        _log(f"  multi_threshold {name}: equal")
+    return errors
+
+
 # ---------------------------------------------------------------- main path
 
 
@@ -322,6 +411,10 @@ def _assert_close(name: str, got, want, atol: float) -> None:
 def _assert_states_equal(name: str, gpu_metric, cpu_metric) -> None:
     for attr in gpu_metric._defaults:
         g, c = getattr(gpu_metric, attr), getattr(cpu_metric, attr)
+        if isinstance(g, list):  # cat-list states: the same number of pieces, equal once joined
+            if len(g) != len(c):
+                raise AssertionError(f"{name}: state {attr} holds {len(g)} pieces on cuda, {len(c)} on cpu")
+            g, c = (torch.cat(g), torch.cat(c)) if g else (torch.zeros(0), torch.zeros(0))
         if g.dtype != c.dtype or not torch.equal(g.cpu(), c):
             raise AssertionError(f"{name}: state {attr} differs between cuda and cpu")
 
@@ -513,6 +606,215 @@ def check_confmat_edges(gen: torch.Generator) -> None:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     _log("  MulticlassConfusionMatrix: edge rows equal to the CPU; update ran under set_sync_debug_mode('error')")
+
+
+# ---------------------------------------------------------------- binary and multilabel paths
+
+_BINARY_GROUPS = {
+    frozenset({"auroc", "ap"}), frozenset({"acc", "f1", "precision", "recall"}), frozenset({"cm"}),
+    frozenset({"auroc_exact"}),
+}
+_MULTILABEL_GROUPS = {frozenset({"map", "auroc"}), frozenset({"f1_macro", "f1_micro", "acc"}), frozenset({"cm"})}
+
+
+def _binary_members(device=None, validate_args: bool = True) -> dict:
+    """The binary path's collection: a click-through-rate eval, binned and exact AUROC
+    (the exact one is what MLPerf's DLRM reports) beside the threshold metrics."""
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(device=device, validate_args=validate_args)
+    return {
+        "auroc": tm.BinaryAUROC(thresholds=N_THRESH, **common),
+        "ap": tm.BinaryAveragePrecision(thresholds=N_THRESH, **common),
+        "acc": tm.BinaryAccuracy(**common),
+        "f1": tm.BinaryF1Score(**common),
+        "precision": tm.BinaryPrecision(**common),
+        "recall": tm.BinaryRecall(**common),
+        "cm": tm.BinaryConfusionMatrix(**common),
+        "auroc_exact": tm.BinaryAUROC(**common),
+    }
+
+
+def _multilabel_members(device=None, validate_args: bool = True) -> dict:
+    """The multilabel path's collection: MS-COCO's 80 categories, macro mAP and AUROC
+    binned over 200 thresholds, F1 macro and micro, accuracy, per-label matrices."""
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(num_labels=ML_LABELS, ignore_index=ML_IGNORE, device=device, validate_args=validate_args)
+    return {
+        "map": tm.MultilabelAveragePrecision(thresholds=N_THRESH, **common),
+        "auroc": tm.MultilabelAUROC(thresholds=N_THRESH, **common),
+        "f1_macro": tm.MultilabelF1Score(average="macro", **common),
+        "f1_micro": tm.MultilabelF1Score(average="micro", **common),
+        "acc": tm.MultilabelAccuracy(**common),
+        "cm": tm.MultilabelConfusionMatrix(**common),
+    }
+
+
+def _binary_batches(gen: torch.Generator, n_batches: int = N_BATCHES, n: int = BIN_BATCH) -> list:
+    """float32 logits (so the auto-sigmoid fires) and int64 {0, 1} clicks drawn from the
+    logits' own sigmoid: a calibrated model, AUROC near 0.8."""
+    out = []
+    for _ in range(n_batches):
+        logits = torch.randn(n, generator=gen) * 2
+        target = (torch.rand(n, generator=gen) < torch.sigmoid(logits)).long()
+        out.append((logits.cuda(), target.cuda()))
+    return out
+
+
+def _multilabel_batches(gen: torch.Generator, n_batches: int = N_BATCHES, n: int = ML_BATCH) -> list:
+    """float32 logits and int64 {0, 1} labels drawn from them (about one in eight
+    positive), ``ML_IGNORE`` on about 5 % of the target elements."""
+    out = []
+    for _ in range(n_batches):
+        logits = torch.randn(n, ML_LABELS, generator=gen) * 2 - 2.5
+        target = (torch.rand(n, ML_LABELS, generator=gen) < torch.sigmoid(logits)).long()
+        target[torch.rand(n, ML_LABELS, generator=gen) < 0.05] = ML_IGNORE
+        out.append((logits.cuda(), target.cuda()))
+    return out
+
+
+def _run_task_path(name: str, members_fn, groups: set, batches: list, forward_member) -> tuple:
+    """One collection over ``batches`` (``update``, then ``compute``) beside one member's
+    ``forward`` per batch, launches counted over exactly that; then every state against
+    the same run on the CPU, which takes the card's own sigmoid of the logits."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
+
+    mc = MetricCollection(members_fn())
+    forward_gpu = forward_member()
+    stat_counts.LAUNCHES = multi_threshold.LAUNCHES = 0
+    batch_values = []
+    for p, t in batches:
+        mc.update(p, t)
+        batch_values.append(forward_gpu(p, t))
+    values = mc.compute()
+    forward_final = forward_gpu.compute()
+    torch.cuda.synchronize()
+    launches = {"stat_counts": stat_counts.LAUNCHES, "multi_threshold": multi_threshold.LAUNCHES}
+
+    got_groups = {frozenset(g) for g in mc.compute_groups.values()}
+    if got_groups != groups:
+        raise AssertionError(f"{name} compute groups {mc.compute_groups}, expected {groups}")
+    if launches != {"stat_counts": 0, "multi_threshold": len(batches)}:
+        raise AssertionError(f"{name} path launches {launches}, expected {len(batches)} of multi_threshold and none of stat_counts")
+
+    ref = MetricCollection(members_fn(device="cpu"))
+    forward_cpu = forward_member(device="cpu")
+    for i, (p, t) in enumerate(batches):
+        probs, target = torch.sigmoid(p).cpu(), t.cpu()
+        ref.update(probs, target)
+        _assert_close_any(f"{name} forward {i}", batch_values[i], forward_cpu(probs, target), ACC_ATOL)
+    _assert_close_any(f"{name} forward compute", forward_final, forward_cpu.compute(), ACC_ATOL)
+    ref_values = ref.compute()
+    for member, metric in mc.items(keep_base=True):
+        _assert_states_equal(f"{name} {member}", metric, ref[member])
+        atol = AUROC_ATOL if member in ("auroc", "ap", "map", "auroc_exact") else ACC_ATOL
+        _assert_close_any(f"{name} {member}", values[member], ref_values[member], atol)
+    sigmoid = batches[0][0]
+    mismatched = int((torch.sigmoid(sigmoid).cpu() != torch.sigmoid(sigmoid.cpu())).sum())
+    summary = {
+        "groups": sorted(sorted(g) for g in got_groups),
+        "launches": launches,
+        "values": {k: v.tolist() if v.numel() < 8 else f"{tuple(v.shape)} tensor" for k, v in values.items()},
+        "sigmoid_cuda_vs_cpu_mismatches": [mismatched, sigmoid.numel()],
+    }
+    _log(f"  {name}: groups {summary['groups']}, {len(batches)} updates + forwards, launches {launches};"
+         f" sigmoid cuda vs cpu differs on {mismatched} of {sigmoid.numel()} logits")
+    return launches, values, summary
+
+
+def _assert_close_any(name: str, got, want, atol: float) -> None:
+    """Integer tensors exactly, float ones within ``atol``."""
+    if got.dtype in (torch.int32, torch.int64):
+        _equal(name, got.cpu(), want)
+    else:
+        _assert_close(name, got, want, atol)
+
+
+def _updates_without_sync(name: str, metrics: list, batch: tuple) -> None:
+    """Each metric's ``validate_args=False`` update under ``set_sync_debug_mode("error")``."""
+    for metric in metrics:
+        metric.update(*batch)  # warm: first-use allocations are not the point
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for metric in metrics:
+            metric.update(*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    _log(f"  {name}: {', '.join(type(m).__name__ for m in metrics)} updates ran under set_sync_debug_mode('error')")
+
+
+def run_binary_path(gen: torch.Generator):
+    import torchmetrics_tpu_torch as tm
+
+    batches = _binary_batches(gen)
+    torch.cuda.synchronize()
+    launches, values, summary = _run_task_path(
+        "binary", _binary_members, _BINARY_GROUPS, batches, lambda device=None: tm.BinaryConfusionMatrix(device=device)
+    )
+    auroc, exact = float(values["auroc"]), float(values["auroc_exact"])
+    if not (0.7 < exact < 0.95 and abs(auroc - exact) < 2e-3):
+        raise AssertionError(f"binary AUROC of calibrated scores: binned {auroc}, exact {exact}")
+    _updates_without_sync(
+        "binary", [tm.BinaryF1Score(validate_args=False), tm.BinaryConfusionMatrix(validate_args=False)], batches[0]
+    )
+    return launches, batches, summary
+
+
+def run_multilabel_path(gen: torch.Generator):
+    import torchmetrics_tpu_torch as tm
+
+    batches = _multilabel_batches(gen)
+    torch.cuda.synchronize()
+    launches, values, summary = _run_task_path(
+        "multilabel", _multilabel_members, _MULTILABEL_GROUPS, batches,
+        lambda device=None: tm.MultilabelF1Score(ML_LABELS, ignore_index=ML_IGNORE, device=device),
+    )
+    if not (0.7 < float(values["auroc"]) < 0.95 and 0.2 < float(values["map"]) < 0.8):
+        raise AssertionError(f"multilabel AUROC {float(values['auroc'])}, mAP {float(values['map'])}")
+    common = dict(num_labels=ML_LABELS, ignore_index=ML_IGNORE, validate_args=False)
+    _updates_without_sync(
+        "multilabel", [tm.MultilabelF1Score(**common), tm.MultilabelConfusionMatrix(**common)], batches[0]
+    )
+    return launches, batches, summary
+
+
+_ROUTERS = (
+    "StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
+    "PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision",
+)
+
+
+def run_routers(gen: torch.Generator) -> None:
+    """Every task router once per task on the card, against the same router on the CPU
+    (probability inputs, so neither side runs a sigmoid or softmax of its own)."""
+    import torchmetrics_tpu_torch as tm
+
+    n, c = 4096, 10
+    inputs = {
+        "binary": (torch.rand(n, generator=gen), torch.randint(0, 2, (n,), generator=gen)),
+        "multiclass": (torch.randn(n, c, generator=gen).softmax(dim=1), torch.randint(0, c, (n,), generator=gen)),
+        "multilabel": (torch.rand(n, c, generator=gen), torch.randint(0, 2, (n, c), generator=gen)),
+    }
+    for router in _ROUTERS:
+        extra = {"thresholds": N_THRESH} if router in ("PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision") else {}
+        for task, (preds, target) in inputs.items():
+            kwargs = dict(task=task, num_classes=c if task == "multiclass" else None,
+                          num_labels=c if task == "multilabel" else None, **extra)
+            card, host = getattr(tm, router)(**kwargs), getattr(tm, router)(**kwargs, device="cpu")
+            got, want = card(preds.cuda(), target.cuda()), host(preds, target)
+            for i, (g, w) in enumerate(zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,))):
+                _assert_close_any(f"router {router} {task} {type(card).__name__} output {i}", g, w, AUROC_ATOL)
+    _log(f"  {len(_ROUTERS)} routers x 3 tasks: equal to the CPU")
+    # integer label inputs take the staged per-class count, not K1
+    preds, target = inputs["multiclass"]
+    _updates_without_sync(
+        "multiclass labels", [tm.MulticlassF1Score(c, ignore_index=-1, validate_args=False)],
+        (preds.argmax(dim=1).cuda(), target.cuda()),
+    )
 
 
 # ---------------------------------------------------------------- sync, two ranks
@@ -708,6 +1010,8 @@ def run_sync_phase() -> dict:
 
 
 def time_kernels(gen: torch.Generator, hbm_rate: float, launches: dict, errors: dict) -> list:
+    """The kernels line. ``launches`` / ``errors``: K1's and K2's on their main paths
+    (``stat_counts``, ``multi_threshold``), and K2's on the ``binary`` and ``multilabel`` paths."""
     from torchmetrics_tpu_torch.ops import stat_counts as sc
 
     out = []
@@ -742,32 +1046,48 @@ def time_kernels(gen: torch.Generator, hbm_rate: float, launches: dict, errors: 
             "note": _NOTE,
         }
     )
-    # K2 at the path's shape on the path's kind of scores and on peaked ones, and at
-    # 1000 classes (inputs as the curve update builds them)
+    # K2 at the auroc path's shape on the path's kind of scores and on peaked ones, at
+    # 1000 classes, and at the binary and multilabel paths' shapes (inputs as each
+    # curve update builds them)
     for c, kind in ((CIFAR_CLASSES, "random"), (CIFAR_CLASSES, "peaked"), (1000, "random")):
-        out.append(_time_multi_threshold(gen, hbm_rate, CIFAR_BATCH, c, kind, launches, errors))
+        out.append(_time_multi_threshold(
+            hbm_rate, lambda c=c, kind=kind: _curve_inputs(CIFAR_BATCH, c, N_THRESH, gen, kind),
+            f"{CIFAR_BATCH}x{c} float32, T={N_THRESH}, {kind} scores", launches["multi_threshold"], errors["multi_threshold"],
+        ))
+    for kind in ("random", "peaked"):
+        out.append(_time_multi_threshold(
+            hbm_rate, lambda kind=kind: _binary_curve_inputs(BIN_BATCH, N_THRESH, gen, kind),
+            f"{BIN_BATCH}x1 float32, T={N_THRESH}, {kind} scores (binary)", launches["binary"], errors["binary"],
+        ))
+    out.append(_time_multi_threshold(
+        hbm_rate, lambda: _multilabel_curve_inputs(ML_BATCH, ML_LABELS, N_THRESH, gen, "random"),
+        f"{ML_BATCH}x{ML_LABELS} float32, T={N_THRESH}, random scores, per-element mask (multilabel)",
+        launches["multilabel"], errors["multilabel"],
+    ))
     return out
 
 
-def _time_multi_threshold(gen, hbm_rate: float, n: int, c: int, kind: str, launches: dict, errors: dict) -> dict:
+def _time_multi_threshold(hbm_rate: float, make_inputs, shape: str, launches: int, err: float) -> dict:
+    """K2's row of the kernels line: four distinct inputs from ``make_inputs()`` in turn."""
     from torchmetrics_tpu_torch.ops import multi_threshold as mt
 
-    inputs = [_curve_inputs(n, c, N_THRESH, gen, kind) for _ in range(4)]
+    inputs = [make_inputs() for _ in range(4)]
     call = lambda i: mt.multi_threshold_confmat(*inputs[i % 4][:3], *inputs[i % 4][3])  # noqa: E731
     k_ms = _median_ms(call, iters=100)
     k_prof = _device_profile(call, iters=20)
     p_ms = _median_ms(lambda i: mt._multi_threshold_confmat_plain(*inputs[i % 4][:3], *inputs[i % 4][3]), iters=20)
     preds, positive, valid, (thr_sorted, order), _ = inputs[0]
-    # the kernel reads the row mask (N bytes: broadcast, stride 0) and, for valid
-    # elements only, the score and the one-hot flag; thresholds and order once; it
-    # writes the (T, C, 2, 2) int32 tensor
+    # the kernel reads the mask (one byte per row when it is a broadcast row mask of
+    # stride 0, per element otherwise) and, for valid elements only, the score and the
+    # positive flag; thresholds and order once; it writes the (T, C, 2, 2) int32 tensor
     n_valid = int(valid.sum())
+    mask_bytes = valid.shape[0] if valid.stride(1) == 0 else valid.numel()
     k2_bytes = (
-        valid.shape[0]
+        mask_bytes * valid.element_size()
         + n_valid * (preds.element_size() + positive.element_size())
         + thr_sorted.nbytes
         + order.nbytes
-        + N_THRESH * c * 4 * 4
+        + thr_sorted.numel() * preds.shape[1] * 4 * 4
     )
     k2_ops = 2 * n_valid  # the two comparisons that pin each valid score's bin
     bytes_ms, ops_ms = k2_bytes / hbm_rate * 1e3, k2_ops / _F32_RATE * 1e3
@@ -776,9 +1096,9 @@ def _time_multi_threshold(gen, hbm_rate: float, n: int, c: int, kind: str, launc
         "route": "cuda",
         "source": "torchmetrics_tpu_torch/csrc/multi_threshold.cu",
         "replaces": "torchmetrics_tpu/ops/multi_threshold.py:147",
-        "shape": f"{n}x{c} float32, T={N_THRESH}, {kind} scores",
-        "launches": launches["multi_threshold"],
-        "max_abs_err": errors["multi_threshold"],
+        "shape": shape,
+        "launches": launches,
+        "max_abs_err": err,
         "ms": k_ms,
         "kernel_device_ms": _kernel_ms(k_prof, "multi_threshold_"),
         "device_ms": None if k_prof["device_busy_us"] is None else k_prof["device_busy_us"] / 1e3,
@@ -885,6 +1205,46 @@ def time_collection(batches: list) -> dict:
     return res
 
 
+def _syncs_per_call(fn) -> int:
+    """Device -> host syncs in one ``fn()``, as ``set_sync_debug_mode("warn")`` reports
+    them (a prototype: it may miss some, so this is a floor)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def time_task_path(members_fn, batches: list) -> dict:
+    """The path's collection ``update`` with and without ``validate_args``: host time,
+    device busy time, operations, idle share, the largest device items and host syncs."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    res = {}
+    for validate in (True, False):
+        mc = MetricCollection(members_fn(validate_args=validate))
+        mc.update(*batches[0])
+        step = lambda i, mc=mc: mc.update(*batches[i % len(batches)])  # noqa: E731
+        wall = _host_us_per_call(step, iters=16)
+        prof = _device_profile(step, iters=8)
+        busy = prof["device_busy_us"]
+        res[f"collection_validate_{validate}"] = {
+            "update_us": wall,
+            "device_busy_us": busy,
+            "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+            "device_ops": prof["device_ops"],
+            "kernels_us": prof["kernels_us"],
+            "host_syncs_per_update": _syncs_per_call(lambda mc=mc: mc.update(*batches[1])),
+        }
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -897,40 +1257,59 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/7] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/10] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/7] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/10] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
         print(smi, flush=True)
         print(json.dumps({"binned_update": time_binned_update(gen)}), flush=True)
         return 0
-    _log("[3/7] kernels against their plain versions")
+    _log("[3/10] kernels against their plain versions")
     errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
+    errors.update(check_multi_threshold_new_shapes(gen))
 
-    _log("[4/7] main path")
+    _log("[4/10] main path")
     acc_launches, acc_batches = run_accuracy_path(gen)
     auroc_launches, auroc_batches = run_auroc_path(gen)
 
-    _log("[5/7] collection path")
+    _log("[5/10] collection path")
     collection_launches, collection_batches = run_collection_path(gen)
 
-    _log("[6/7] sync, two ranks on one card")
+    _log("[6/10] binary path")
+    binary_launches, binary_batches, binary_summary = run_binary_path(gen)
+
+    _log("[7/10] multilabel path")
+    multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
+
+    _log("[8/10] task routers")
+    run_routers(gen)
+
+    _log("[9/10] sync, two ranks on one card")
     sync = run_sync_phase()
 
-    _log("[7/7] times")
-    launches = {"stat_counts": acc_launches, "multi_threshold": auroc_launches}
+    _log("[10/10] times")
+    launches = {
+        "stat_counts": acc_launches,
+        "multi_threshold": auroc_launches,
+        "binary": binary_launches["multi_threshold"],
+        "multilabel": multilabel_launches["multi_threshold"],
+    }
     kernels = time_kernels(gen, hbm_rate, launches, errors)
     for entry in kernels:
         entry["launches_by_path"] = {
             "accuracy" if entry["name"] == "stat_counts" else "auroc": launches[entry["name"]],
             "collection": collection_launches[entry["name"]],
+            "binary": binary_launches[entry["name"]],
+            "multilabel": multilabel_launches[entry["name"]],
         }
     updates = time_updates(acc_batches, auroc_batches)
     updates["collection"] = time_collection(collection_batches)
+    updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
+    updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
     print(json.dumps({"updates": updates, "sync_2rank": sync, "card": smi}), flush=True)
     print(smi, flush=True)

@@ -112,6 +112,58 @@ def test_multiclass_auroc(average, thresholds, probs, ignore_index):
     )
 
 
+@pytest.mark.parametrize("name", ["MulticlassPrecision", "MulticlassRecall", "MulticlassF1Score", "MulticlassFBetaScore"])
+@pytest.mark.parametrize("average", ["macro", "micro", "weighted", "none"])
+@pytest.mark.parametrize("ignore_index", [None, -1])
+def test_multiclass_precision_recall_fbeta(name, average, ignore_index):
+    """Multiclass precision, recall and F-beta at the three levels; logits take K1's gate."""
+    kwargs = dict(num_classes=C, average=average, ignore_index=ignore_index)
+    if name == "MulticlassFBetaScore":
+        kwargs["beta"] = 2.0
+    _three_levels(
+        lambda: getattr(tc, name)(**kwargs, device="cpu"),
+        lambda: getattr(jc, name)(**kwargs),
+        _batches(seed=13, ignore_index=ignore_index),
+        ACC_ATOL,
+        rtol=1e-6,
+    )
+
+
+@pytest.mark.parametrize(
+    ("name", "kwargs"),
+    [
+        ("MulticlassROC", dict(thresholds=T)),
+        ("MulticlassROC", dict(thresholds=None)),
+        ("MulticlassAveragePrecision", dict(thresholds=T, average="macro")),
+        ("MulticlassAveragePrecision", dict(thresholds=T, average="weighted")),
+        ("MulticlassAveragePrecision", dict(thresholds=None, average="none")),
+        ("MulticlassAveragePrecision", dict(thresholds=None, average="weighted")),
+    ],
+)
+def test_multiclass_roc_and_average_precision(name, kwargs):
+    """Multiclass ROC and average precision at the three levels."""
+    from tests.torch_parity import three_levels
+
+    args = dict(num_classes=C, ignore_index=-1, **kwargs)
+    three_levels(
+        lambda: getattr(tc, name)(**args, device="cpu"),
+        lambda: getattr(jc, name)(**args),
+        [(p, t, p) for p, t in _batches(seed=17, ignore_index=-1, probs=True)],
+        AUROC_ATOL,
+    )
+
+
+def test_staged_per_class_counts_need_no_boolean_index():
+    """Integer label inputs take the staged per-class count: invalid rows go to
+    ``_bincount``'s dropped bin, so the update runs on shapes alone (the meta device
+    cannot run the ``nonzero`` a boolean index needs, nor ``torch.bincount``'s sizing)."""
+    from torchmetrics_tpu_torch.functional.classification.stat_scores import _multiclass_stat_scores_update
+
+    preds = torch.empty(300, 1, dtype=torch.int64, device="meta")
+    counts = _multiclass_stat_scores_update(preds, preds, C, average="macro", ignore_index=-1)
+    assert [tuple(x.shape) for x in counts] == [(C,)] * 4 and counts[0].dtype == torch.int32
+
+
 @pytest.mark.parametrize("t", [2, 5, 100, 200, 1000])
 def test_int_thresholds_equal_jax_float32_linspace_bit_for_bit(t):
     """``thresholds=T`` is ``jnp.linspace(0, 1, T)`` as the JAX package builds it in

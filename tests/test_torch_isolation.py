@@ -27,13 +27,25 @@ print("isolated")
 
 _NO_CUDA_DEFAULT = """
 import torch
+import torchmetrics_tpu_torch as tm
 from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
+routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
+           "PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision")
+every_class = [n for n in tm.__all__ if n.startswith(("Binary", "Multiclass", "Multilabel"))]
+assert len(every_class) == 33, every_class
+
+def args(name):
+    width = {"num_classes": 5} if name.startswith("Multiclass") else {"num_labels": 5} if name.startswith("Multilabel") else {}
+    return {**width, **({"beta": 1.0} if "FBeta" in name else {})}
+
 for make in (
     lambda: MulticlassAccuracy(num_classes=5),
     lambda: MulticlassAUROC(num_classes=5, thresholds=10),
     lambda: MulticlassConfusionMatrix(num_classes=5),
     lambda: MetricCollection({"cm": MulticlassConfusionMatrix(num_classes=5)}),
+    *(lambda n=n: getattr(tm, n)(**args(n)) for n in every_class),
+    *(lambda r=r: getattr(tm, r)(task="multilabel", num_labels=3) for r in routers),
 ):
     try:
         make()

@@ -70,3 +70,50 @@ def test_carry_jax_state_into_the_port(port_cls, ref_cls, kwargs, atol, k):
 def test_state_from_jax_refuses_counts_past_int32():
     with pytest.raises(ValueError, match="int32"):
         state_from_jax({"tp": np.array([2**31], dtype=np.int64)}, "cpu")
+
+
+def _binary_multilabel_batches(seed: int, labels: int, n_batches: int = 5, batch: int = 48):
+    """Probabilities (no sigmoid separates the packages) and 0/1 targets with 10 % at -1."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, labels) if labels else (batch,)
+    out = []
+    for _ in range(n_batches):
+        target = rng.integers(0, 2, shape)
+        target[rng.random(shape) < 0.1] = -1
+        out.append((rng.uniform(0, 1, shape).astype(np.float32), target))
+    return out
+
+
+@pytest.mark.parametrize(
+    ("name", "kwargs", "atol"),
+    [
+        ("BinaryF1Score", dict(ignore_index=-1), 1e-6),
+        ("BinaryConfusionMatrix", dict(ignore_index=-1), 0),
+        ("BinaryAUROC", dict(ignore_index=-1), 1e-5),
+        ("BinaryAveragePrecision", dict(thresholds=T, ignore_index=-1), 1e-5),
+        ("MultilabelF1Score", dict(num_labels=4, ignore_index=-1, average="macro"), 1e-6),
+        ("MultilabelConfusionMatrix", dict(num_labels=4, ignore_index=-1), 0),
+        ("MultilabelAUROC", dict(num_labels=4, ignore_index=-1), 1e-5),
+        ("MultilabelAveragePrecision", dict(num_labels=4, thresholds=T, ignore_index=-1), 1e-5),
+    ],
+)
+def test_carry_binary_and_multilabel_state_into_the_port(name, kwargs, atol):
+    """As above for the binary and multilabel classes, ``ignore_index`` on: the exact
+    multilabel AUROC carries the ``-4 * L`` sentinel in its target list."""
+    batches = _binary_multilabel_batches(seed=len(name), labels=kwargs.get("num_labels", 0))
+    k = 2
+    ref = getattr(jc, name)(**kwargs)
+    ref.persistent(True)
+    for preds, target in batches[:k]:
+        ref.update(jnp.asarray(preds), jnp.asarray(target))
+    port = getattr(tc, name)(**kwargs, device="cpu")
+    port.load_state_dict(state_from_jax(ref.state_dict(), "cpu"))
+    for preds, target in batches[k:]:
+        ref.update(jnp.asarray(preds), jnp.asarray(target))
+        port.update(torch.from_numpy(preds), torch.from_numpy(target))
+    np.testing.assert_allclose(port.compute().numpy(), np.asarray(ref.compute()), atol=atol, rtol=0)
+    port.persistent(True)
+    for key, value in port.state_dict().items():
+        want = ref.state_dict()[key]
+        got = torch.cat(value).numpy() if isinstance(value, list) else np.asarray(value)
+        np.testing.assert_array_equal(got, np.concatenate(want) if isinstance(want, list) else np.asarray(want), err_msg=key)

@@ -1,0 +1,124 @@
+"""Helpers shared by the parity tests of the port's binary, multilabel and router slices.
+
+The same seeded numpy batches go through the port (on the CPU) and through the JAX
+package at the three protocol levels of ``tests/differential/harness.py``: the
+per-batch ``forward`` value, the fold of two replicas via ``merge_state``, and the epoch
+``compute``.
+
+Sigmoid: ``jax.nn.sigmoid`` (XLA on the CPU) and ``torch.sigmoid`` differ by up to two
+ulp on some 0.4 % of float32 logits (``test_torch_binary.py::test_sigmoid_difference_is_bounded``).
+Where logits go in, ``jax_scores`` hands the JAX side the same logits when the two
+sigmoids put every score on the same side of every threshold, and the port's own
+probabilities otherwise, so integer counts can be held exactly. Exact-mode score lists
+hold sigmoid outputs themselves; they are held to ``SIGMOID_ATOL``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+# two ulp of a float32 in [0.5, 1): the largest sigmoid difference seen, and allowed
+SIGMOID_ATOL = 2.0**-23
+
+
+def np_(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_close(got, want, atol: float, rtol: float = 0.0, msg: str = "") -> None:
+    """Recursive over tuples and lists; integer arrays must be equal."""
+    if isinstance(got, (tuple, list)):
+        assert isinstance(want, (tuple, list)) and len(got) == len(want), msg
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_close(g, w, atol, rtol, f"{msg}[{i}]")
+        return
+    g, w = np_(got), np.asarray(want)
+    assert g.shape == w.shape, f"{msg}: {g.shape} vs {w.shape}"
+    if g.dtype.kind in "iub" and w.dtype.kind in "iub":
+        np.testing.assert_array_equal(g, w, err_msg=msg)
+    else:
+        np.testing.assert_allclose(g, w, atol=atol, rtol=rtol, err_msg=msg)
+
+
+def assert_states(port, ref, float_atol: float = 0.0) -> None:
+    """Integer states equal; float states (exact-mode score lists) within ``float_atol``."""
+    for attr in ref._defaults:
+        p, r = getattr(port, attr), getattr(ref, attr)
+        if isinstance(r, list):
+            assert len(p) == len(r), attr
+            if not r:
+                continue
+            p, r = torch.cat(p), np.concatenate([np.asarray(x) for x in r])
+        else:
+            assert p.dtype in (torch.int32, torch.float32), attr
+        p, r = np_(p), np.asarray(r)
+        if p.dtype.kind == "f" and float_atol:
+            np.testing.assert_allclose(p, r, atol=float_atol, rtol=0, err_msg=attr)
+        else:
+            np.testing.assert_array_equal(p, r, err_msg=attr)
+
+
+def thresholds_array(thresholds) -> Optional[np.ndarray]:
+    """The float32 thresholds a ``thresholds=`` argument gives (``None``: exact mode)."""
+    if thresholds is None:
+        return None
+    if isinstance(thresholds, int):
+        with jax.enable_x64(False):
+            return np.asarray(jnp.linspace(0, 1, thresholds))
+    return np.asarray(thresholds, dtype=np.float32).reshape(-1)
+
+
+def jax_scores(preds: np.ndarray, thresholds=None, threshold: float = 0.5) -> np.ndarray:
+    """What the JAX side takes for the port's ``preds``: the same array, unless they are
+    logits whose two sigmoids fall on different sides of ``threshold`` or of one of
+    ``thresholds``; then the port's probabilities (all in [0, 1], so no sigmoid runs)."""
+    if preds.dtype.kind != "f" or np.all((preds >= 0) & (preds <= 1)):
+        return preds
+    j = np.asarray(jax.nn.sigmoid(jnp.asarray(preds)))
+    t = torch.sigmoid(torch.from_numpy(preds)).numpy()
+    edges = [np.float32(threshold)]
+    thr = thresholds_array(thresholds)
+    if thr is not None:
+        edges.extend(thr)
+    # counts and bins compare with > (stat scores) and >= (curves): hold both sides
+    same = all(np.array_equal(j > e, t > e) and np.array_equal(j >= e, t >= e) for e in edges)
+    return preds if same else t
+
+
+def three_levels(
+    make_port: Callable,
+    make_ref: Callable,
+    batches: Sequence[tuple],
+    atol: float,
+    rtol: float = 0.0,
+    float_state_atol: float = 0.0,
+) -> None:
+    """``batches``: ``(port preds, target, JAX preds)``; each level's values within the
+    tolerance, states as ``assert_states`` holds them."""
+    port, ref = make_port(), make_ref()
+    for i, (preds, target, jpreds) in enumerate(batches):
+        assert_close(
+            port(torch.from_numpy(preds), torch.from_numpy(target)),
+            ref(jnp.asarray(jpreds), jnp.asarray(target)),
+            atol, rtol, f"forward {i}",
+        )
+    assert_states(port, ref, float_state_atol)
+    epoch = ref.compute()
+    assert_close(port.compute(), epoch, atol, rtol, "compute")
+
+    pa, pb, ra, rb = make_port(), make_port(), make_ref(), make_ref()
+    for i, (preds, target, jpreds) in enumerate(batches):
+        first = i < len(batches) // 2
+        (pa if first else pb).update(torch.from_numpy(preds), torch.from_numpy(target))
+        (ra if first else rb).update(jnp.asarray(jpreds), jnp.asarray(target))
+    pa.merge_state(pb)
+    ra.merge_state(rb)
+    assert_states(pa, ra, float_state_atol)
+    assert pa.update_count == ra.update_count == len(batches)
+    assert_close(pa.compute(), ra.compute(), atol, rtol, "merged compute")
+    assert_close(pa.compute(), epoch, atol, rtol, "merged against one instance")

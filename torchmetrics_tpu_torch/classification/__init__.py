@@ -1,15 +1,111 @@
-"""Modular classification metrics of the port."""
+"""Modular classification metrics of the port: binary, multiclass and multilabel variants and the task routers."""
 
-from torchmetrics_tpu_torch.classification.accuracy import MulticlassAccuracy
-from torchmetrics_tpu_torch.classification.auroc import MulticlassAUROC
-from torchmetrics_tpu_torch.classification.confusion_matrix import MulticlassConfusionMatrix
-from torchmetrics_tpu_torch.classification.precision_recall_curve import MulticlassPrecisionRecallCurve
-from torchmetrics_tpu_torch.classification.stat_scores import MulticlassStatScores
+from torchmetrics_tpu_torch.classification.accuracy import (
+    Accuracy,
+    BinaryAccuracy,
+    MulticlassAccuracy,
+    MultilabelAccuracy,
+)
+from torchmetrics_tpu_torch.classification.auroc import (
+    AUROC,
+    BinaryAUROC,
+    MulticlassAUROC,
+    MultilabelAUROC,
+)
+from torchmetrics_tpu_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
+)
+from torchmetrics_tpu_torch.classification.confusion_matrix import (
+    BinaryConfusionMatrix,
+    ConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
+from torchmetrics_tpu_torch.classification.f_beta import (
+    BinaryF1Score,
+    BinaryFBetaScore,
+    F1Score,
+    FBetaScore,
+    MulticlassF1Score,
+    MulticlassFBetaScore,
+    MultilabelF1Score,
+    MultilabelFBetaScore,
+)
+from torchmetrics_tpu_torch.classification.precision_recall import (
+    BinaryPrecision,
+    BinaryRecall,
+    MulticlassPrecision,
+    MulticlassRecall,
+    MultilabelPrecision,
+    MultilabelRecall,
+    Precision,
+    Recall,
+)
+from torchmetrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+    PrecisionRecallCurve,
+)
+from torchmetrics_tpu_torch.classification.roc import (
+    BinaryROC,
+    MulticlassROC,
+    MultilabelROC,
+    ROC,
+)
+from torchmetrics_tpu_torch.classification.stat_scores import (
+    BinaryStatScores,
+    MulticlassStatScores,
+    MultilabelStatScores,
+    StatScores,
+)
 
 __all__ = [
+    "AUROC",
+    "Accuracy",
+    "AveragePrecision",
+    "BinaryAUROC",
+    "BinaryAccuracy",
+    "BinaryAveragePrecision",
+    "BinaryConfusionMatrix",
+    "BinaryF1Score",
+    "BinaryFBetaScore",
+    "BinaryPrecision",
+    "BinaryPrecisionRecallCurve",
+    "BinaryROC",
+    "BinaryRecall",
+    "BinaryStatScores",
+    "ConfusionMatrix",
+    "F1Score",
+    "FBetaScore",
     "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
     "MulticlassConfusionMatrix",
+    "MulticlassF1Score",
+    "MulticlassFBetaScore",
+    "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
+    "MulticlassROC",
+    "MulticlassRecall",
     "MulticlassStatScores",
+    "MultilabelAUROC",
+    "MultilabelAccuracy",
+    "MultilabelAveragePrecision",
+    "MultilabelConfusionMatrix",
+    "MultilabelF1Score",
+    "MultilabelFBetaScore",
+    "MultilabelPrecision",
+    "MultilabelPrecisionRecallCurve",
+    "MultilabelROC",
+    "MultilabelRecall",
+    "MultilabelStatScores",
+    "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
+    "Recall",
+    "StatScores",
 ]

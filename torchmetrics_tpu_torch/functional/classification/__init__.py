@@ -1,17 +1,111 @@
-"""Functional classification metrics of the port."""
+"""Functional classification metrics of the port: binary, multiclass and multilabel variants and the task routers."""
 
-from torchmetrics_tpu_torch.functional.classification.accuracy import multiclass_accuracy
-from torchmetrics_tpu_torch.functional.classification.auroc import multiclass_auroc
-from torchmetrics_tpu_torch.functional.classification.confusion_matrix import multiclass_confusion_matrix
-from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
-    multiclass_precision_recall_curve,
+from torchmetrics_tpu_torch.functional.classification.accuracy import (
+    accuracy,
+    binary_accuracy,
+    multiclass_accuracy,
+    multilabel_accuracy,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import multiclass_stat_scores
+from torchmetrics_tpu_torch.functional.classification.auroc import (
+    auroc,
+    binary_auroc,
+    multiclass_auroc,
+    multilabel_auroc,
+)
+from torchmetrics_tpu_torch.functional.classification.average_precision import (
+    average_precision,
+    binary_average_precision,
+    multiclass_average_precision,
+    multilabel_average_precision,
+)
+from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
+    binary_confusion_matrix,
+    confusion_matrix,
+    multiclass_confusion_matrix,
+    multilabel_confusion_matrix,
+)
+from torchmetrics_tpu_torch.functional.classification.f_beta import (
+    binary_f1_score,
+    binary_fbeta_score,
+    f1_score,
+    fbeta_score,
+    multiclass_f1_score,
+    multiclass_fbeta_score,
+    multilabel_f1_score,
+    multilabel_fbeta_score,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall import (
+    binary_precision,
+    binary_recall,
+    multiclass_precision,
+    multiclass_recall,
+    multilabel_precision,
+    multilabel_recall,
+    precision,
+    recall,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
+    binary_precision_recall_curve,
+    multiclass_precision_recall_curve,
+    multilabel_precision_recall_curve,
+    precision_recall_curve,
+)
+from torchmetrics_tpu_torch.functional.classification.roc import (
+    binary_roc,
+    multiclass_roc,
+    multilabel_roc,
+    roc,
+)
+from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    binary_stat_scores,
+    multiclass_stat_scores,
+    multilabel_stat_scores,
+    stat_scores,
+)
 
 __all__ = [
+    "accuracy",
+    "auroc",
+    "average_precision",
+    "binary_accuracy",
+    "binary_auroc",
+    "binary_average_precision",
+    "binary_confusion_matrix",
+    "binary_f1_score",
+    "binary_fbeta_score",
+    "binary_precision",
+    "binary_precision_recall_curve",
+    "binary_recall",
+    "binary_roc",
+    "binary_stat_scores",
+    "confusion_matrix",
+    "f1_score",
+    "fbeta_score",
     "multiclass_accuracy",
     "multiclass_auroc",
+    "multiclass_average_precision",
     "multiclass_confusion_matrix",
+    "multiclass_f1_score",
+    "multiclass_fbeta_score",
+    "multiclass_precision",
     "multiclass_precision_recall_curve",
+    "multiclass_recall",
+    "multiclass_roc",
     "multiclass_stat_scores",
+    "multilabel_accuracy",
+    "multilabel_auroc",
+    "multilabel_average_precision",
+    "multilabel_confusion_matrix",
+    "multilabel_f1_score",
+    "multilabel_fbeta_score",
+    "multilabel_precision",
+    "multilabel_precision_recall_curve",
+    "multilabel_recall",
+    "multilabel_roc",
+    "multilabel_stat_scores",
+    "precision",
+    "precision_recall_curve",
+    "recall",
+    "roc",
+    "stat_scores",
 ]

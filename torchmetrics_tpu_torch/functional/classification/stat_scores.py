@@ -1,13 +1,17 @@
-"""Multiclass stat scores (tp/fp/tn/fn), the base of the accuracy family.
+"""Stat scores (tp/fp/tn/fn) for binary, multiclass and multilabel tasks, the base of
+the accuracy, precision, recall and F-beta families.
 
-Counterpart of the multiclass part of
-``torchmetrics_tpu/functional/classification/stat_scores.py``: the same staged
-decomposition (arg validation -> tensor validation -> format -> update -> compute).
-``ignore_index`` is handled by masking, so shapes stay static.
+Counterpart of ``torchmetrics_tpu/functional/classification/stat_scores.py``: the same
+staged decomposition (arg validation -> tensor validation -> format -> update ->
+compute). ``ignore_index`` is handled by masking (ignored targets become ``-1``, which
+counts in none of the four counters), so shapes stay static.
 
-2-D float logits with top-1 and global accumulation take kernel K1
+Multiclass 2-D float logits with top-1 and global accumulation take kernel K1
 (``ops/stat_counts.py``), one pass over the logits straight to per-class counts;
-every other configuration runs the staged format and update in plain PyTorch.
+every other configuration runs the staged format and update in plain PyTorch. Binary
+and multilabel float inputs that are not all in [0, 1] go through a sigmoid, chosen
+on the device (``torch.where``), so with ``validate_args=False`` their updates make no
+device -> host sync.
 """
 
 from __future__ import annotations
@@ -17,11 +21,136 @@ from typing import Optional, Tuple
 import torch
 
 from torchmetrics_tpu_torch.ops.stat_counts import _argmax_nan_first, stat_counts
-from torchmetrics_tpu_torch.utilities.checks import _is_floating
+from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _is_floating
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide
-from torchmetrics_tpu_torch.utilities.data import select_topk
+from torchmetrics_tpu_torch.utilities.data import _bincount, select_topk
+from torchmetrics_tpu_torch.utilities.enums import _route_task
 
 Counts4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _sigmoid_if_logits(preds: torch.Tensor) -> torch.Tensor:
+    """Sigmoid iff any value lies outside [0, 1]: chosen on the device, never read back."""
+    is_probs = ((preds >= 0) & (preds <= 1)).all()
+    return torch.where(is_probs, preds, torch.sigmoid(preds))
+
+
+def _count_stats(preds: torch.Tensor, target: torch.Tensor, sum_dims) -> Counts4:
+    """tp/fp/tn/fn int32 counters; targets masked to -1 count in none of them."""
+    tp = ((target == preds) & (target == 1)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
+    fn = ((target != preds) & (target == 1)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
+    fp = ((target != preds) & (target == 0)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
+    tn = ((target == preds) & (target == 0)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
+    return tp, fp, tn, fn
+
+
+def _label_values_check(values: torch.Tensor, allowed: set, what: str, hint: str) -> None:
+    """Raise unless every value of ``values`` is in ``allowed`` (``torch.unique``: a host sync)."""
+    unique_values = torch.unique(values).tolist()
+    if not set(unique_values).issubset(allowed):
+        raise RuntimeError(
+            f"Detected the following values in `{what}`: {unique_values} but expected only the following values {hint}."
+        )
+
+
+# ------------------------------------------------------------------------------ binary
+
+
+def _binary_stat_scores_arg_validation(
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    if not (isinstance(threshold, float) and (0 <= threshold <= 1)):
+        raise ValueError(f"Expected argument `threshold` to be a float in the [0,1] range, but got {threshold}.")
+    if multidim_average not in ("global", "samplewise"):
+        raise ValueError(
+            f"Expected argument `multidim_average` to be one of ('global', 'samplewise'), but got {multidim_average}"
+        )
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an integer, but got {ignore_index}")
+
+
+def _binary_stat_scores_tensor_validation(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    """Shape and value checks; the unique-value checks are device -> host syncs."""
+    _check_same_shape(preds, target)
+    allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
+    _label_values_check(target, allowed, "target", str(sorted(allowed)))
+    if not _is_floating(preds):
+        _label_values_check(preds, {0, 1}, "preds", "[0,1] since `preds` is a label tensor")
+    if multidim_average != "global" and preds.ndim < 2:
+        raise ValueError("Expected input to be atleast 2D when multidim_average is set to `samplewise`")
+
+
+def _binary_stat_scores_format(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """To ``(N, -1)`` labels: auto-sigmoid, threshold, flatten, ignored targets -> -1."""
+    if _is_floating(preds):
+        preds = (_sigmoid_if_logits(preds) > threshold).to(torch.int32)
+    preds = preds.reshape(preds.shape[0], -1)
+    target = target.reshape(target.shape[0], -1)
+    if ignore_index is not None:
+        target = torch.where(target == ignore_index, -1, target)
+    return preds, target
+
+
+def _binary_stat_scores_update(preds: torch.Tensor, target: torch.Tensor, multidim_average: str = "global") -> Counts4:
+    return _count_stats(preds, target, (0, 1) if multidim_average == "global" else 1)
+
+
+def _binary_stat_scores_compute(
+    tp: torch.Tensor, fp: torch.Tensor, tn: torch.Tensor, fn: torch.Tensor, multidim_average: str = "global"
+) -> torch.Tensor:
+    """Stack [tp, fp, tn, fn, support]."""
+    return torch.stack([tp, fp, tn, fn, tp + fn], dim=0 if multidim_average == "global" else 1).squeeze()
+
+
+def _binary_stat_scores_pipeline(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    threshold: float,
+    multidim_average: str,
+    ignore_index: Optional[int],
+    validate_args: bool,
+) -> Counts4:
+    if validate_args:
+        _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
+        _binary_stat_scores_tensor_validation(preds, target, multidim_average, ignore_index)
+    preds, target = _binary_stat_scores_format(preds, target, threshold, ignore_index)
+    return _binary_stat_scores_update(preds, target, multidim_average)
+
+
+def binary_stat_scores(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> torch.Tensor:
+    """tp/fp/tn/fn/support for binary tasks.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.functional.classification import binary_stat_scores
+        >>> preds = torch.tensor([0.75, 0.05, 0.35, 0.75, 0.05, 0.65])
+        >>> binary_stat_scores(preds, torch.tensor([1, 0, 1, 1, 0, 0])).tolist()
+        [2, 1, 2, 1, 3]
+    """
+    tp, fp, tn, fn = _binary_stat_scores_pipeline(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    return _binary_stat_scores_compute(tp, fp, tn, fn, multidim_average)
+
+
+# --------------------------------------------------------------------------- multiclass
 
 
 def _multiclass_stat_scores_arg_validation(
@@ -165,11 +294,11 @@ def _multiclass_stat_scores_update(
         tn = num_classes * n_valid - (fp + fn + tp)
         return tp, fp, tn, fn
 
-    # per class from the confusion matrix; rows with an invalid target or prediction drop
+    # per class from the confusion matrix; rows with an invalid target or prediction go
+    # to _bincount's dropped bin (a boolean index would be a nonzero: a host sync)
     keep = valid & (target >= 0) & (target < num_classes) & (preds >= 0) & (preds < num_classes)
-    mapping = (target.long() * num_classes + preds.long())[keep]
-    confmat = torch.bincount(mapping, minlength=num_classes * num_classes).reshape(num_classes, num_classes)
-    confmat = confmat.to(torch.int32)
+    mapping = torch.where(keep, target.long() * num_classes + preds.long(), -1)
+    confmat = _bincount(mapping, minlength=num_classes * num_classes).reshape(num_classes, num_classes)
     tp = confmat.diagonal()
     fp = confmat.sum(dim=0, dtype=torch.int32) - tp
     fn = confmat.sum(dim=1, dtype=torch.int32) - tp
@@ -284,3 +413,158 @@ def multiclass_stat_scores(
         preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
     )
     return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+# --------------------------------------------------------------------------- multilabel
+
+
+def _multilabel_stat_scores_arg_validation(
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    if not isinstance(num_labels, int) or num_labels < 2:
+        raise ValueError(f"Expected argument `num_labels` to be an integer larger than 1, but got {num_labels}")
+    if not (isinstance(threshold, float) and (0 <= threshold <= 1)):
+        raise ValueError(f"Expected argument `threshold` to be a float, but got {threshold}.")
+    if average not in ("micro", "macro", "weighted", "none", None):
+        raise ValueError(
+            f"Expected argument `average` to be one of ('micro', 'macro', 'weighted', 'none', None), but got {average}"
+        )
+    if multidim_average not in ("global", "samplewise"):
+        raise ValueError(
+            f"Expected argument `multidim_average` to be one of ('global', 'samplewise'), but got {multidim_average}"
+        )
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an integer, but got {ignore_index}")
+
+
+def _multilabel_stat_scores_tensor_validation(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_labels: int,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    """Shape and value checks; the unique-value checks are device -> host syncs."""
+    _check_same_shape(preds, target)
+    if preds.shape[1] != num_labels:
+        raise ValueError(
+            "Expected both `target.shape[1]` and `preds.shape[1]` to be equal to the number of labels"
+            f" but got {preds.shape[1]} and expected {num_labels}"
+        )
+    allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
+    _label_values_check(target, allowed, "target", str(sorted(allowed)))
+    if not _is_floating(preds):
+        _label_values_check(preds, {0, 1}, "preds", "[0,1] since preds is a label tensor")
+    if multidim_average != "global" and preds.ndim < 3:
+        raise ValueError("Expected input to be atleast 3D when multidim_average is set to `samplewise`")
+
+
+def _multilabel_stat_scores_format(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """To ``(N, L, -1)`` labels: auto-sigmoid, threshold, ignored targets -> -1."""
+    if _is_floating(preds):
+        preds = (_sigmoid_if_logits(preds) > threshold).to(torch.int32)
+    preds = preds.reshape(*preds.shape[:2], -1)
+    target = target.reshape(*target.shape[:2], -1)
+    if ignore_index is not None:
+        target = torch.where(target == ignore_index, -1, target)
+    return preds, target
+
+
+def _multilabel_stat_scores_update(
+    preds: torch.Tensor, target: torch.Tensor, multidim_average: str = "global"
+) -> Counts4:
+    return _count_stats(preds, target, (0, -1) if multidim_average == "global" else (-1,))
+
+
+def _multilabel_stat_scores_compute(
+    tp: torch.Tensor,
+    fp: torch.Tensor,
+    tn: torch.Tensor,
+    fn: torch.Tensor,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+) -> Optional[torch.Tensor]:
+    """Stack [tp, fp, tn, fn, support] per label and apply the average (weighted
+    divides by the total support as it is, as the JAX package does)."""
+    res = torch.stack([tp, fp, tn, fn, tp + fn], dim=-1)
+    sum_dim = 0 if multidim_average == "global" else 1
+    if average == "micro":
+        return res.sum(dim=sum_dim)
+    if average == "macro":
+        return res.to(torch.float32).mean(dim=sum_dim)
+    if average == "weighted":
+        w = (tp + fn).to(torch.float32)
+        return (res * (w / w.sum()).reshape(*w.shape, 1)).sum(dim=sum_dim)
+    if average is None or average == "none":
+        return res
+    return None
+
+
+def _multilabel_stat_scores_pipeline(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_labels: int,
+    threshold: float,
+    average: Optional[str],
+    multidim_average: str,
+    ignore_index: Optional[int],
+    validate_args: bool,
+) -> Counts4:
+    if validate_args:
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    return _multilabel_stat_scores_update(preds, target, multidim_average)
+
+
+def multilabel_stat_scores(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> torch.Tensor:
+    """tp/fp/tn/fn/support for multilabel tasks."""
+    tp, fp, tn, fn = _multilabel_stat_scores_pipeline(
+        preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+    )
+    return _multilabel_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
+def stat_scores(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    task: str,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> torch.Tensor:
+    """Task router: ``binary_stat_scores``, ``multiclass_stat_scores`` or ``multilabel_stat_scores``."""
+    return _route_task(
+        task, num_classes, num_labels,
+        lambda: binary_stat_scores(preds, target, threshold, multidim_average, ignore_index, validate_args),
+        lambda c: multiclass_stat_scores(
+            preds, target, c, average, top_k, multidim_average, ignore_index, validate_args
+        ),
+        lambda n: multilabel_stat_scores(
+            preds, target, n, threshold, average, multidim_average, ignore_index, validate_args
+        ),
+    )

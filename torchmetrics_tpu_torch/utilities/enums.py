@@ -1,11 +1,14 @@
 """String enums (counterpart of ``torchmetrics_tpu/utilities/enums.py``).
 
 Values compare case-insensitively against strings and ``from_str`` resolves user input.
+``_route_task`` is the body of every task router (``Accuracy(task=...)``, ``auroc(...,
+task=...)``).
 """
 
 from __future__ import annotations
 
 from enum import Enum
+from typing import Any, Callable, Optional
 
 
 class EnumStr(str, Enum):
@@ -57,3 +60,30 @@ class ClassificationTask(EnumStr):
     BINARY = "binary"
     MULTICLASS = "multiclass"
     MULTILABEL = "multilabel"
+
+
+def _check_task_size(name: str, value: Any) -> int:
+    """The task routers' check that ``num_classes`` / ``num_labels`` / ``top_k`` is an int."""
+    if not isinstance(value, int):
+        raise ValueError(f"`{name}` is expected to be `int` but `{type(value)} was passed.`")
+    return value
+
+
+def _route_task(
+    task: str,
+    num_classes: Optional[int],
+    num_labels: Optional[int],
+    binary: Callable[[], Any],
+    multiclass: Callable[[int], Any],
+    multilabel: Callable[[int], Any],
+) -> Any:
+    """The body of every task router: ``binary()``, ``multiclass(num_classes)`` or
+    ``multilabel(num_labels)``, the width checked to be an int."""
+    task = ClassificationTask.from_str(task)
+    if task == ClassificationTask.BINARY:
+        return binary()
+    if task == ClassificationTask.MULTICLASS:
+        return multiclass(_check_task_size("num_classes", num_classes))
+    if task == ClassificationTask.MULTILABEL:
+        return multilabel(_check_task_size("num_labels", num_labels))
+    raise ValueError(f"Not handled value: {task}")
