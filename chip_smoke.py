@@ -51,10 +51,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    binary and at the multilabel shape), each metric's ``update``, the collection's
    ``update`` against its six members updated one by one, and the binary and
    multilabel collections' ``update`` with and without ``validate_args`` (with the host
-   syncs per update that ``set_sync_debug_mode("warn")`` reports).
+   syncs per update that ``set_sync_debug_mode("warn")`` reports);
+11. engine: the compiled update engine (``engine/compiled.py``, ``engine/fusion.py``),
+   on by default for a CUDA metric, over the same batches with ``validate_args=False``:
+   accuracy's 16 ``forward``s and one ragged update of 5000 rows (bucket 8192), the
+   config #2, binary and multilabel collections' 16 updates. Every state exactly equal
+   to the eager run on the card and to the run on the CPU; replays equal to engine
+   steps minus captures; the fused owners with 0 fallbacks and the binned curves
+   falling back on every update, as in the JAX package; K1's launches (one per replay,
+   plus the warm-up's and the pad-row unit's once per signature) against the
+   profiler's kernel events (which must be more than none); reset, clone, a
+   ``compute`` value that is a state, a retained member handle, ragged batches of
+   logits through a binary pair at threshold 0.3 (exact-shape graphs) and 0.5
+   (bucketed) against eager, and an accuracy replay and a fused binary replay under
+   ``set_sync_debug_mode("error")``. Then engine on against eager per update (and per
+   accuracy ``forward``, three rounds), in turns in this call: host µs, device busy and
+   operations, idle share, and the batch copy into the static inputs.
+
+Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
+measured, so their numbers stay comparable.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
 with code 2 and prints no result. It imports nothing of JAX.
+
+``python3 chip_smoke.py --out PATH`` also writes every result line, in full, to PATH as
+one JSON object (the updates line runs to tens of kilobytes).
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -159,9 +180,10 @@ def _host_us_per_call(fn, iters: int, repeats: int = 5) -> float:
 def _device_profile(fn, iters: int) -> dict:
     """Device time per call of ``fn(i)`` by kernel name (torch.profiler, CUPTI).
 
-    Returns ``{"device_busy_us": ..., "device_ops": ..., "kernels_us": {name: us}}``
-    (``device_ops``: kernels, memsets and copies on the device per call), or ``None``
-    values when the profiler records no device activity.
+    Returns ``{"device_busy_us": ..., "device_ops": ..., "kernels_us": {name: us},
+    "memcpy_us": ...}`` (``device_ops``: kernels, memsets and copies on the device per
+    call; ``memcpy_us``: the copies alone), or ``None`` values when the profiler records
+    no device activity.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -180,9 +202,10 @@ def _device_profile(fn, iters: int) -> dict:
             per_kernel[name] = per_kernel.get(name, 0.0) + event.time_range.elapsed_us() / iters
             n_events += 1
     if not per_kernel:
-        return {"device_busy_us": None, "device_ops": None, "kernels_us": None}
+        return {"device_busy_us": None, "device_ops": None, "kernels_us": None, "memcpy_us": None}
     top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
-    return {"device_busy_us": sum(per_kernel.values()), "device_ops": n_events / iters, "kernels_us": top}
+    memcpy = sum(us for name, us in per_kernel.items() if "Memcpy" in name)
+    return {"device_busy_us": sum(per_kernel.values()), "device_ops": n_events / iters, "kernels_us": top, "memcpy_us": memcpy}
 
 
 # ---------------------------------------------------------------- inputs
@@ -926,8 +949,11 @@ def _sync_rank(rank: int, port: int, out_dir: str) -> None:
         "gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank,
         timeout=datetime.timedelta(seconds=SYNC_JOIN_TIMEOUT_S),
     )
+    from torchmetrics_tpu_torch.engine import engine_context
+
     try:
-        result = {"ok": True, **_sync_rank_body(rank, out_dir)}
+        with engine_context(False):  # the eager path, as in the earlier slices
+            result = {"ok": True, **_sync_rank_body(rank, out_dir)}
     except Exception as err:  # reported to the parent, which fails the phase
         result = {"ok": False, "error": f"{type(err).__name__}: {err}"}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -1004,6 +1030,287 @@ def run_sync_phase() -> dict:
     _log(f"  2 ranks: packed route, {summary['sync_collectives']} collectives ({summary['buffer_keys']} + metadata),"
          " values equal to the merge_state fold; ragged cat state raised on both ranks")
     return summary
+
+
+# ---------------------------------------------------------------- engine paths
+
+# (size, forwards-or-updates) of each engine path; the accuracy path ends on a ragged batch
+ACC_RAGGED = 5000  # bucket 8192: 3192 pad rows
+
+
+def _engines_of(mc) -> list:
+    """The update engines a collection ran: its fused engine and each owner's own."""
+    out = [] if mc._fused_engine is None else [("fused", mc._fused_engine)]
+    return out + [(name, m._engine) for name, m in mc.items(keep_base=True, copy_state=False) if m._engine is not None]
+
+
+def _check_replays(name: str, engine) -> None:
+    st = engine.stats
+    if st.replays != st.dispatches - st.captures:
+        raise AssertionError(f"{name}: {st.replays} replays, {st.dispatches} engine steps, {st.captures} captures")
+
+
+def _assert_same_states(name: str, a, b) -> None:
+    """Every state of ``a`` exactly equal to ``b``'s (``b`` on the card or the CPU)."""
+    for attr in a._defaults:
+        x, y = getattr(a, attr), getattr(b, attr)
+        if isinstance(x, list):
+            x, y = (torch.cat(x), torch.cat(y)) if x else (torch.zeros(0), torch.zeros(0))
+        if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{name}: state {attr} differs")
+
+
+def run_engine_accuracy(acc_batches: list) -> dict:
+    """``MulticlassAccuracy(1000)`` with the engine on (the default for a CUDA metric):
+    16 ``forward``s of 8192x1000, then one ragged update of 5000 rows (bucket 8192,
+    3192 pad rows). Values and states against the eager run on the card and the run on
+    the CPU; launches counted over exactly that."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy, ops
+    from torchmetrics_tpu_torch.engine import engine_context, engine_enabled
+    from torchmetrics_tpu_torch.engine.bucketing import next_bucket
+
+    if not engine_enabled(torch.device("cuda")):
+        raise AssertionError("the engine is not on by default for a CUDA metric")
+    ragged = tuple(x[:ACC_RAGGED] for x in acc_batches[0])
+    ops.set_launch_counts({"stat_counts": 0, "multi_threshold": 0})
+    metric = MulticlassAccuracy(num_classes=ACC_CLASSES, validate_args=False)
+    vals = [metric(p, t) for p, t in acc_batches]
+    metric.update(*ragged)
+    final = metric.compute()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    st = metric._engine.stats
+    with engine_context(False):
+        eager = MulticlassAccuracy(num_classes=ACC_CLASSES, validate_args=False)
+        eager_vals = [eager(p, t) for p, t in acc_batches]
+        eager.update(*ragged)
+        eager_final = eager.compute()
+    host = MulticlassAccuracy(num_classes=ACC_CLASSES, validate_args=False, device="cpu")
+    for p, t in acc_batches:
+        host(p.cpu(), t.cpu())
+    host.update(*(x.cpu() for x in ragged))
+    for i, (g, w) in enumerate(zip(vals, eager_vals)):
+        _equal(f"engine accuracy forward {i}", g, w)
+    _equal("engine accuracy compute", final, eager_final)
+    _assert_same_states("engine accuracy vs eager", metric, eager)
+    _assert_same_states("engine accuracy vs cpu", metric, host)
+    n = len(acc_batches) + 1
+    pad = next_bucket(ACC_RAGGED) - ACC_RAGGED
+    want = {"traces": 1, "captures": 1, "dispatches": n, "replays": n - 1, "eager_fallbacks": 0, "bucket_pad_rows": pad}
+    got = {k: getattr(st, k) for k in want}
+    if got != want:
+        raise AssertionError(f"engine accuracy counters {got}, expected {want}")
+    # the warm-up step's launch, the pad-row unit's launch once per signature, one per replay
+    if launches != {"stat_counts": 2 + (n - 1), "multi_threshold": 0}:
+        raise AssertionError(f"engine accuracy launches {launches}, expected {n + 1} of stat_counts")
+    _log(f"  MulticlassAccuracy, engine on: {len(acc_batches)} forwards + a {ACC_RAGGED}-row update, {got},"
+         f" launches {launches}; states equal to eager and to the CPU")
+    return {"launches": launches, "engine": st.as_dict()}
+
+
+def run_engine_task(name: str, members_fn, batches: list, cpu_inputs, fused_owners: set, falling_back: set) -> dict:
+    """One path's collection with the engine on, against the eager run on the card and
+    the run on the CPU: every state exact; the fused owners in one graph with 0
+    fallbacks; the curves' owners falling back every update, as in the JAX package."""
+    from torchmetrics_tpu_torch import MetricCollection, ops
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    ops.set_launch_counts({"stat_counts": 0, "multi_threshold": 0})
+    mc = MetricCollection(members_fn())
+    for p, t in batches:
+        mc.update(p, t)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    values = mc.compute()
+    with engine_context(False):
+        eager = MetricCollection(members_fn())
+        for p, t in batches:
+            eager.update(p, t)
+        eager_values = eager.compute()
+    host = MetricCollection(members_fn(device="cpu"))
+    for p, t in batches:
+        host.update(*cpu_inputs(p, t))
+    for member in mc.keys(keep_base=True):
+        _assert_same_states(f"engine {name} {member} vs eager", mc[member], eager[member])
+        _assert_same_states(f"engine {name} {member} vs cpu", mc[member], host[member])
+        if values[member].dtype != eager_values[member].dtype or not torch.equal(values[member], eager_values[member]):
+            raise AssertionError(f"engine {name} {member}: {values[member]} vs eager {eager_values[member]}")
+    fused = mc._fused_engine
+    owners = {n for n, _ in fused.metrics} if fused else set()
+    fused_names = {n for entry in fused._cache.values() for n, _ in getattr(entry, "members", ())}
+    if fused_names != fused_owners:
+        raise AssertionError(f"engine {name}: fused owners {fused_names}, expected {fused_owners} (of {owners})")
+    st = fused.stats
+    discovery = len(batches) - st.dispatches  # a first step without every signature declared discovers eagerly
+    if st.eager_fallbacks or st.captures != 1 or discovery not in (0, 1):
+        raise AssertionError(f"engine {name}: fused engine {st}")
+    for engine_name, engine in _engines_of(mc):
+        _check_replays(f"engine {name} {engine_name}", engine)
+    for member in falling_back:
+        own = mc._modules[member]._engine.stats
+        if own.dispatches or own.eager_fallbacks != len(batches) - discovery:
+            raise AssertionError(f"engine {name}: {member} should fall back every update: {own}")
+    summary = {
+        "launches": launches,
+        "fused": st.as_dict(),
+        "falling_back": {m: mc._modules[m]._engine.stats.as_dict() for m in sorted(falling_back)},
+        "discovery_steps": discovery,
+    }
+    _log(f"  {name}, engine on: fused {sorted(fused_names)} in one graph ({st.dispatches} steps, {st.replays} replays),"
+         f" {sorted(falling_back)} eager; launches {launches}; states equal to eager and to the CPU")
+    return summary
+
+
+def run_engine_scenarios(acc_batches: list, cifar_batches: list, binary_batches: list) -> None:
+    """Reset, clone, a ``compute`` value that is a state, a retained member handle, and
+    updates without a host sync, all with the engine on."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    def eager_over(make, batches):
+        with engine_context(False):
+            m = make()
+            for p, t in batches:
+                m.update(p, t)
+        return m
+
+    acc = lambda: tm.MulticlassAccuracy(num_classes=ACC_CLASSES, validate_args=False)  # noqa: E731
+    m = acc()
+    for p, t in acc_batches[:2]:
+        m.update(p, t)
+    twin = m.clone()
+    m.reset()
+    for p, t in acc_batches[2:4]:
+        m.update(p, t)
+    _assert_same_states("engine reset", m, eager_over(acc, acc_batches[2:4]))
+    if twin._engine is not None:
+        raise AssertionError("a clone kept its engine")
+    _assert_same_states("engine clone", twin, eager_over(acc, acc_batches[:2]))
+
+    cm = tm.MulticlassConfusionMatrix(CIFAR_CLASSES, validate_args=False)
+    cm.update(*cifar_batches[0])
+    held = cm.compute()
+    kept = held.clone()
+    cm.update(*cifar_batches[1])
+    torch.cuda.synchronize()
+    _equal("engine compute value after the next update", held, kept)
+
+    members = lambda: {  # noqa: E731
+        "acc": tm.MulticlassAccuracy(CIFAR_CLASSES, validate_args=False),
+        "prec": tm.MulticlassPrecision(CIFAR_CLASSES, validate_args=False),
+        "cm": tm.MulticlassConfusionMatrix(CIFAR_CLASSES, validate_args=False),
+    }
+    mc, handle = MetricCollection(members()), None
+    for p, t in cifar_batches[:4]:
+        mc.update(p, t)
+        if handle is None:
+            handle = mc["prec"]
+    if mc._fused_engine is None or mc._fused_engine.stats.dispatches != 4:
+        raise AssertionError("the retained-handle collection did not fuse every step")
+    _equal("engine retained member handle", handle.compute(), eager_over(lambda: members()["prec"], cifar_batches[:4]).compute())
+
+    # ragged batches of logits: under threshold 0.3 a zero pad row is a positive inside a
+    # sigmoided batch, so these take exact-shape graphs; at 0.5 they ride their bucket
+    ragged = [tuple(x[:n] for x in binary_batches[i % 2]) for i, n in enumerate((5000, 13, 5000, 13))]
+    for threshold, bucketed in ((0.3, 0), (0.5, 4)):
+        make_pair = lambda: MetricCollection({  # noqa: E731
+            "acc": tm.BinaryAccuracy(threshold=threshold, validate_args=False),
+            "cm": tm.BinaryConfusionMatrix(threshold=threshold, validate_args=False),
+        })
+        pair = make_pair()
+        for p, t in ragged:
+            pair.update(p, t)
+        want = eager_over(make_pair, ragged)
+        for member in ("acc", "cm"):
+            _assert_same_states(f"engine ragged logits, threshold {threshold}, {member}", pair[member], want[member])
+        st = pair._fused_engine.stats
+        if st.bucketed_steps != bucketed or st.eager_fallbacks or st.dispatches != len(ragged):
+            raise AssertionError(f"engine ragged logits, threshold {threshold}: {st}")
+
+    # no host sync in an engine update: a replay (accuracy) and a fused replay (binary)
+    pair = MetricCollection({"f1": tm.BinaryF1Score(validate_args=False), "cm": tm.BinaryConfusionMatrix(validate_args=False)})
+    for _ in range(2):  # the first step builds and captures
+        m.update(*acc_batches[0])
+        pair.update(*binary_batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m.update(*acc_batches[1])
+        pair.update(*binary_batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if pair._fused_engine.stats.replays != 2:
+        raise AssertionError(f"the binary pair did not replay its fused graph: {pair._fused_engine.stats}")
+    _log("  engine scenarios: reset, clone, compute value, retained handle, ragged logits at thresholds 0.3 and 0.5"
+         " hold; an accuracy replay and a fused binary replay ran under set_sync_debug_mode('error')")
+
+
+def _timed(step, iters: int = 16) -> dict:
+    wall = _host_us_per_call(step, iters=iters)
+    prof = _device_profile(step, iters=8)
+    busy = prof["device_busy_us"]
+    return {
+        "update_us": wall,
+        "device_busy_us": busy,
+        "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+        "device_ops": prof["device_ops"],
+        "input_copy_us": prof["memcpy_us"],
+        "kernels_us": prof["kernels_us"],
+    }
+
+
+def time_engine(acc_batches: list, cifar_batches: list, binary_batches: list, multilabel_batches: list) -> dict:
+    """Engine on against eager per ``update`` (and per accuracy ``forward``), in turns
+    (eager, engine, engine, eager) in this one call: host µs to a device sync, device
+    busy time and operations, idle share, and the batch copy into the static inputs."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch import MetricCollection, ops
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    paths = {
+        "accuracy_update": (lambda: tm.MulticlassAccuracy(ACC_CLASSES, validate_args=False), acc_batches, "update"),
+        "accuracy_forward": (lambda: tm.MulticlassAccuracy(ACC_CLASSES, validate_args=False), acc_batches, "forward"),
+        "collection_update": (lambda: MetricCollection(_collection_members(validate_args=False)), cifar_batches, "update"),
+        "binary_update": (lambda: MetricCollection(_binary_members(validate_args=False)), binary_batches, "update"),
+        "multilabel_update": (lambda: MetricCollection(_multilabel_members(validate_args=False)), multilabel_batches, "update"),
+    }
+    out = {}
+    for name, (make, batches, kind) in paths.items():
+        runs = {"eager": [], "engine": []}
+        # accuracy forward: its difference between the modes lies within the spread
+        # between runs, so it takes three interleaved rounds
+        for mode in ("eager", "engine", "engine", "eager") * (3 if name == "accuracy_forward" else 1):
+            with engine_context(mode == "engine"):
+                m = make()
+                call = m.update if kind == "update" else m
+                call(*batches[0])  # settles groups, builds and captures
+                runs[mode].append(_timed(lambda i, call=call: call(*batches[i % len(batches)])))
+        out[name] = {mode: {k: (statistics.mean(r[k] for r in rs) if isinstance(rs[0][k], float) else rs[0][k])
+                            for k in rs[0]} for mode, rs in runs.items()}
+        out[name]["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs.items()}
+    # the launch counters against the profiler's kernel events over the same engine updates
+    m = tm.MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+    m.update(*acc_batches[0])
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["stat_counts"]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(8):
+            m.update(*acc_batches[i % len(acc_batches)])
+        torch.cuda.synchronize()
+    counted = ops.launch_counts()["stat_counts"] - before
+    events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "stat_counts_kernel" in e.name)
+    if events == 0 or counted != events:
+        raise AssertionError(f"stat_counts: {counted} launches counted over 8 engine updates, {events} kernel events")
+    out["launch_count_check"] = {"updates": 8, "counted": counted, "profiler_kernel_events": events}
+    _log(f"  engine times: " + ", ".join(
+        f"{k} {v['eager']['update_us']:.1f} -> {v['engine']['update_us']:.1f} us" for k, v in out.items() if "eager" in v
+    ) + f"; K1 launches counted {counted}, profiler events {events}")
+    return out
 
 
 # ---------------------------------------------------------------- times
@@ -1249,6 +1556,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
         return 2
+    from torchmetrics_tpu_torch.engine import engine_context
     from torchmetrics_tpu_torch.ops import _build
 
     smi = subprocess.run(
@@ -1257,61 +1565,100 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/10] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/11] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/10] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/11] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
         print(smi, flush=True)
         print(json.dumps({"binned_update": time_binned_update(gen)}), flush=True)
         return 0
-    _log("[3/10] kernels against their plain versions")
-    errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
-    errors.update(check_multi_threshold_new_shapes(gen))
+    # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
+    # comparable; phase 11 drives the same paths with the engine on (the default)
+    with engine_context(False):
+        _log("[3/11] kernels against their plain versions")
+        errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
+        errors.update(check_multi_threshold_new_shapes(gen))
 
-    _log("[4/10] main path")
-    acc_launches, acc_batches = run_accuracy_path(gen)
-    auroc_launches, auroc_batches = run_auroc_path(gen)
+        _log("[4/11] main path")
+        acc_launches, acc_batches = run_accuracy_path(gen)
+        auroc_launches, auroc_batches = run_auroc_path(gen)
 
-    _log("[5/10] collection path")
-    collection_launches, collection_batches = run_collection_path(gen)
+        _log("[5/11] collection path")
+        collection_launches, collection_batches = run_collection_path(gen)
 
-    _log("[6/10] binary path")
-    binary_launches, binary_batches, binary_summary = run_binary_path(gen)
+        _log("[6/11] binary path")
+        binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-    _log("[7/10] multilabel path")
-    multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
+        _log("[7/11] multilabel path")
+        multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-    _log("[8/10] task routers")
-    run_routers(gen)
+        _log("[8/11] task routers")
+        run_routers(gen)
 
-    _log("[9/10] sync, two ranks on one card")
-    sync = run_sync_phase()
+        _log("[9/11] sync, two ranks on one card")
+        sync = run_sync_phase()
 
-    _log("[10/10] times")
-    launches = {
-        "stat_counts": acc_launches,
-        "multi_threshold": auroc_launches,
-        "binary": binary_launches["multi_threshold"],
-        "multilabel": multilabel_launches["multi_threshold"],
-    }
-    kernels = time_kernels(gen, hbm_rate, launches, errors)
-    for entry in kernels:
-        entry["launches_by_path"] = {
-            "accuracy" if entry["name"] == "stat_counts" else "auroc": launches[entry["name"]],
-            "collection": collection_launches[entry["name"]],
-            "binary": binary_launches[entry["name"]],
-            "multilabel": multilabel_launches[entry["name"]],
+        _log("[10/11] times")
+        launches = {
+            "stat_counts": acc_launches,
+            "multi_threshold": auroc_launches,
+            "binary": binary_launches["multi_threshold"],
+            "multilabel": multilabel_launches["multi_threshold"],
         }
-    updates = time_updates(acc_batches, auroc_batches)
-    updates["collection"] = time_collection(collection_batches)
-    updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
-    updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
+        kernels = time_kernels(gen, hbm_rate, launches, errors)
+        updates = time_updates(acc_batches, auroc_batches)
+        updates["collection"] = time_collection(collection_batches)
+        updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
+        updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    print(json.dumps({"updates": updates, "sync_2rank": sync, "card": smi}), flush=True)
+    _log("[11/11] engine paths: the compiled update engine on CUDA graphs")
+    to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
+    sigmoid_to_cpu = lambda p, t: (torch.sigmoid(p).cpu(), t.cpu())  # noqa: E731
+    # validate_args=False: a validating update reads the host (torch.unique) and falls back
+    engine = {
+        "accuracy": run_engine_accuracy(acc_batches),
+        "collection": run_engine_task(
+            "collection", lambda device=None: _collection_members(device=device, validate_args=False),
+            collection_batches, to_cpu, {"acc", "confmat"}, {"auroc"},
+        ),
+        "binary": run_engine_task(
+            "binary", lambda device=None: _binary_members(device=device, validate_args=False),
+            binary_batches, sigmoid_to_cpu, {"acc", "cm"}, {"ap"},
+        ),
+        "multilabel": run_engine_task(
+            "multilabel", lambda device=None: _multilabel_members(device=device, validate_args=False),
+            multilabel_batches, sigmoid_to_cpu, {"acc", "cm"}, {"auroc"},
+        ),
+    }
+    run_engine_scenarios(acc_batches, collection_batches, binary_batches)
+    engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
+
+    for entry in kernels:
+        k = entry["name"]
+        entry["launches_by_path"] = {
+            "accuracy" if k == "stat_counts" else "auroc": launches[k],
+            "collection": collection_launches[k],
+            "binary": binary_launches[k],
+            "multilabel": multilabel_launches[k],
+            **{f"{path}_engine": engine[path]["launches"][k] for path in ("accuracy", "collection", "binary", "multilabel")},
+        }
+        entry["engine"] = (
+            "K1 runs inside the captured graphs; the pad-row unit is computed once per signature, outside the graph"
+            if k == "stat_counts"
+            else "K2 runs eagerly: the binned curves fall back (their [0, 1] range check reads the host)"
+        )
+
+    results = {"updates": updates, "engine": engine, "sync_2rank": sync, "card": smi}
+    print(json.dumps(results), flush=True)
+    if "--out" in sys.argv:
+        path = sys.argv[sys.argv.index("--out") + 1]
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({**results, "kernels": kernels}, f)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

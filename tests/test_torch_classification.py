@@ -259,7 +259,13 @@ def test_sync_through_injected_gather(port_cls, ref_cls, kwargs, atol):
 
 
 def test_engine_kwargs_are_rejected():
-    for kw in ("compiled_update", "scan_steps", "async_dispatch"):
+    """``compiled_update`` takes a bool or None (the JAX package's message otherwise);
+    the scan and async tiers have no counterpart, so their keywords stay unknown."""
+    for value in (True, False, None):
+        assert tc.MulticlassAccuracy(num_classes=C, device="cpu", compiled_update=value).compiled_update is value
+    with pytest.raises(ValueError, match="`compiled_update` to be a `bool` or `None`"):
+        tc.MulticlassAccuracy(num_classes=C, device="cpu", compiled_update=1)
+    for kw in ("scan_steps", "async_dispatch"):
         with pytest.raises(ValueError, match="Unexpected keyword"):
             tc.MulticlassAccuracy(num_classes=C, device="cpu", **{kw: True})
 

@@ -309,9 +309,15 @@ def test_freshness_marker():
 
 
 def test_engine_knobs_take_only_their_off_values():
+    """``fused_dispatch`` takes None, True or False (a bool or None, as in the JAX
+    package); the scan and async knobs, which have no counterpart, only their off values."""
     members = _members({"acc": ALL_SIGNATURE["acc"]}, True)
-    for knob in ("fused_dispatch", "scan_steps", "async_dispatch"):
-        for off in (None, False) + ((0,) if knob != "fused_dispatch" else ()):
+    for value in (None, True, False):
+        assert MetricCollection(dict(members), fused_dispatch=value).fused_dispatch is value
+    with pytest.raises(ValueError, match="fused_dispatch"):
+        MetricCollection(dict(members), fused_dispatch=4)
+    for knob in ("scan_steps", "async_dispatch"):
+        for off in (None, False, 0):
             MetricCollection(dict(members), **{knob: off})
         with pytest.raises(ValueError, match=knob):
-            MetricCollection(dict(members), **{knob: 4 if knob != "fused_dispatch" else True})
+            MetricCollection(dict(members), **{knob: 4})

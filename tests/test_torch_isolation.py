@@ -21,7 +21,8 @@ for info in pkgutil.walk_packages(torchmetrics_tpu_torch.__path__, prefix="torch
 leaked = sorted(k for k in sys.modules
                 if k in ("jax", "jaxlib", "torchmetrics_tpu") or k.startswith(("jax.", "jaxlib.", "torchmetrics_tpu.")))
 assert not leaked, leaked
-assert "torchmetrics_tpu_torch.ops.multi_threshold" in sys.modules
+for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.bucketing", "engine.config"):
+    assert "torchmetrics_tpu_torch." + name in sys.modules, name
 print("isolated")
 """
 

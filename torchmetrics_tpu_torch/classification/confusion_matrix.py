@@ -27,6 +27,7 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     _multilabel_confusion_matrix_tensor_validation,
     _multilabel_confusion_matrix_update,
 )
+from torchmetrics_tpu_torch.functional.classification.stat_scores import _zero_rows_neutral
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.enums import _route_task
 
@@ -50,6 +51,10 @@ class _ConfusionMatrix(Metric):
         """Final (normalized) matrix."""
         return _confusion_matrix_reduce(self.confmat, self.normalize)
 
+    def _engine_pad_rows_neutral(self, inputs) -> bool:
+        """Whether bucketing's zero pad rows count as they would alone (``engine/bucketing.py``)."""
+        return _zero_rows_neutral(getattr(self, "threshold", None), inputs)
+
 
 class BinaryConfusionMatrix(_ConfusionMatrix):
     """``(2, 2)`` confusion matrix for binary tasks: rows are targets, columns predictions.
@@ -61,6 +66,9 @@ class BinaryConfusionMatrix(_ConfusionMatrix):
         >>> metric(torch.tensor([0, 1, 0, 0]), torch.tensor([1, 1, 0, 0])).tolist()
         [[2, 0], [1, 1]]
     """
+
+    # engine shape-bucketing opt-in (engine/bucketing.py): a sum of per-row counts
+    _engine_row_additive = True
 
     def __init__(
         self,
@@ -102,6 +110,9 @@ class MulticlassConfusionMatrix(_ConfusionMatrix):
                 [0, 0, 1]], dtype=torch.int32)
     """
 
+    # engine shape-bucketing opt-in (engine/bucketing.py): a sum of per-row counts
+    _engine_row_additive = True
+
     def __init__(
         self,
         num_classes: int,
@@ -131,6 +142,9 @@ class MulticlassConfusionMatrix(_ConfusionMatrix):
 
 class MultilabelConfusionMatrix(_ConfusionMatrix):
     """``(L, 2, 2)`` confusion matrices for multilabel tasks, one per label."""
+
+    # engine shape-bucketing opt-in (engine/bucketing.py): a sum of per-row counts
+    _engine_row_additive = True
 
     def __init__(
         self,

@@ -27,6 +27,7 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multilabel_stat_scores_format,
     _multilabel_stat_scores_tensor_validation,
     _multilabel_stat_scores_update,
+    _zero_rows_neutral,
 )
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
@@ -40,6 +41,15 @@ class _AbstractStatScores(Metric):
     fp: Any
     tn: Any
     fn: Any
+
+    # engine shape-bucketing opt-in (engine/bucketing.py): the "global" update is
+    # additive over batch rows onto sum-reduced states, so pad rows subtract cleanly;
+    # the samplewise cat lists are not sum-reduced, which the engine checks per state
+    _engine_row_additive = True
+
+    def _engine_pad_rows_neutral(self, inputs) -> bool:
+        """Whether bucketing's zero pad rows count as they would alone (``engine/bucketing.py``)."""
+        return _zero_rows_neutral(getattr(self, "threshold", None), inputs)
 
     def _create_state(self, size: int, multidim_average: str = "global") -> None:
         """Register the four counter states: tensors + sum for global, lists + cat for samplewise."""

@@ -19,11 +19,17 @@ form a compute group:
 - **Packed compute sync.** ``compute`` syncs every group owner in one
   ``PackedSyncPlan`` exchange (``engine/epoch.py``) before the members compute.
 
-``forward`` runs every member's own ``forward``, owners and views alike. The JAX
-package's fused dispatch, scan queue and async dispatch have no counterpart:
-``fused_dispatch``, ``scan_steps`` and ``async_dispatch`` take only ``None`` /
-``False`` / ``0``, and ``fused_dispatch=False`` turns the packed compute sync off, as
-the engine being off does in the JAX package.
+- **Fused dispatch.** With the engine on (``fused_dispatch=None`` follows the engine
+  policy, ``True`` forces it), every fusable group owner's update runs in ONE captured
+  CUDA graph per step (``engine/fusion.py``); owners it excludes update on their own.
+  After a fused step the views re-anchor on the owners' static buffers, which later
+  replays update in place, so a retained member handle keeps reading live state.
+
+``forward`` runs every member's own ``forward``, owners and views alike.
+``fused_dispatch=False`` turns the fused step and the packed compute sync off, as the
+engine being off does in the JAX package. The JAX package's scan queue and async
+dispatch have no counterpart: ``scan_steps`` and ``async_dispatch`` take only ``None``
+/ ``False`` / ``0``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Opti
 
 import torch
 
+from torchmetrics_tpu_torch.engine.config import engine_enabled
+from torchmetrics_tpu_torch.engine.fusion import FusedUpdate
 from torchmetrics_tpu_torch.engine.statespec import cse_enabled, reduction_signature
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.data import allclose
@@ -109,7 +117,7 @@ def _states_equal(metric1: Metric, metric2: Metric) -> bool:
 
 
 def _no_engine_knob(name: str, value: Any) -> Any:
-    """The JAX package's engine knobs: only their "off" values are accepted."""
+    """The JAX package's scan and async knobs: only their "off" values are accepted."""
     if value is None or value is False or (value == 0 and not isinstance(value, bool)):
         return value
     raise ValueError(f"`{name}={value!r}` is not supported: the port has no engine tier for it (use None or False)")
@@ -124,7 +132,9 @@ class MetricCollection:
         postfix: string appended to every result key.
         compute_groups: True (discover automatically), False (off), or an explicit
             list of name groups.
-        fused_dispatch: ``None`` (packed compute sync on) or ``False`` (off).
+        fused_dispatch: ``None`` (follow the engine policy, on for CUDA metrics), ``True``
+            (force the one-graph fused step on) or ``False`` (fused step and packed
+            compute sync off).
         scan_steps: ``None`` or ``0`` only.
         async_dispatch: ``None``, ``False`` or ``0`` only.
 
@@ -157,12 +167,15 @@ class MetricCollection:
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
         self._enable_compute_groups = compute_groups
-        self.fused_dispatch = _no_engine_knob("fused_dispatch", fused_dispatch)
+        if fused_dispatch is not None and not isinstance(fused_dispatch, bool):
+            raise ValueError(f"Expected `fused_dispatch` to be a bool or None but got {fused_dispatch}")
+        self.fused_dispatch = fused_dispatch
         self.scan_steps = _no_engine_knob("scan_steps", scan_steps)
         self.async_dispatch = _no_engine_knob("async_dispatch", async_dispatch)
         self._groups_checked: bool = False
         self._state_is_copy: bool = False
         self._epoch_sync = None  # engine/epoch.py CollectionEpoch, made at the first packed compute
+        self._fused_engine = None  # engine/fusion.py FusedUpdate, made at the first fused step
         self._cse_signatures: Dict[str, Optional[tuple]] = {}
 
         self.add_metrics(metrics, *additional_metrics)
@@ -185,10 +198,17 @@ class MetricCollection:
         theirs once discovery ends.
         """
         if self._groups_checked:
-            for group in self._groups.values():
-                owner = self._modules[group.owner]
-                owner.update(*args, **owner._filter_kwargs(**kwargs))
-            if self._state_is_copy:
+            owners = [(group.owner, self._modules[group.owner]) for group in self._groups.values()]
+            handled = self._fused_step(owners, args, kwargs)
+            for name, owner in owners:
+                if name not in handled:
+                    owner.update(*args, **owner._filter_kwargs(**kwargs))
+            if handled or any(owner._engine is not None for _, owner in owners):
+                # re-anchor the views NOW on the owners' static buffers: a member
+                # handle retained from an earlier accessor keeps reading live state
+                self._state_is_copy = False
+                self._materialize_group_views()
+            elif self._state_is_copy:
                 # the views hold copies of the old state; the next accessor re-anchors
                 self._materialize_group_views()
             return
@@ -196,12 +216,35 @@ class MetricCollection:
             members = [self._modules[group.owner] for group in self._groups.values()]
         else:
             members = list(self._modules.values())
+        # the discovery step runs eagerly: a graph for members that become views (or
+        # fused owners) one step later is pure waste
+        discovering = bool(self._enable_compute_groups)
         for metric in members:
-            metric.update(*args, **metric._filter_kwargs(**kwargs))
+            prior = metric.compiled_update
+            if discovering:
+                metric.compiled_update = False
+            try:
+                metric.update(*args, **metric._filter_kwargs(**kwargs))
+            finally:
+                metric.compiled_update = prior
         if self._enable_compute_groups:
             self._discover_groups()
             self._materialize_group_views()
             self._groups_checked = True
+
+    def _fused_step(self, owners: List[Tuple[str, Metric]], args: tuple, kwargs: dict) -> set:
+        """Try the one-graph fused step over the group owners; the names it handled."""
+        enabled = self.fused_dispatch
+        if enabled is None:
+            enabled = bool(owners) and engine_enabled(owners[0][1].device)
+        if not enabled or len(owners) < 2:
+            return set()
+        fe = self._fused_engine
+        if fe is None or [n for n, _ in fe.metrics] != [n for n, _ in owners]:
+            fe = self._fused_engine = FusedUpdate(owners)
+        # the inputs onto the owners' device, as each owner's own update places them
+        place = owners[0][1]._place
+        return fe.step(tuple(place(a) for a in args), kwargs)
 
     # ------------------------------------------------------------------ group discovery
 
@@ -362,9 +405,10 @@ class MetricCollection:
         return mc
 
     def __getstate__(self) -> Dict[str, Any]:
-        """The sync engine is per process: never pickled or copied."""
+        """The sync and fused engines belong to the instance: never pickled or copied."""
         state = self.__dict__.copy()
         state["_epoch_sync"] = None
+        state["_fused_engine"] = None
         return state
 
     def persistent(self, mode: bool = True) -> None:

@@ -1,0 +1,700 @@
+"""Compiled-step cache on CUDA graphs (counterpart of ``torchmetrics_tpu/engine/compiled.py``).
+
+A metric's ``update`` rebinds ``self.<state>`` attributes. The engine re-expresses one
+update as a function ``state -> state`` (``traced_update``: swap the state in, run the
+original update body, collect the state attributes, restore the metric's
+``__dict__``) and builds it once per signature: (bucket, argument layout, state
+shapes and dtypes, input shapes and dtypes). Where the JAX package jits that function
+with the state donated, the port captures it into a ``torch.cuda.CUDAGraph``.
+``GraphEngine`` does this over one or more metrics fed by one batch: ``CompiledUpdate``
+is the one-metric case, ``engine/fusion.py``'s ``FusedUpdate`` a collection's owners.
+
+- **Fixed addresses.** Each signature owns static input buffers (and, when bucketed,
+  a static int32 ``n_pad`` scalar); the engine owns one set of static state buffers
+  per member and state signature, shared by all its graphs. A step copies the batch
+  into the input buffers (zero tail for the bucket's pad rows) and replays the graph,
+  which writes the new state into the state buffers in place. The metric's state
+  attributes ARE those buffers afterwards (the counterpart of donation), so the next
+  step copies nothing; a state that is not its buffer (after ``reset``, ``forward``'s
+  swap to defaults, ``load_state_dict``, ``merge_state``, ``unsync``) is copied in
+  first and counted as ``donation_copies``.
+- **Holders of state references.** A buffer written in place must not be held
+  elsewhere: ``Metric._copy_state_refs`` (the ``sync`` snapshot, ``forward``'s global
+  state) clones static buffers, ``compute`` never returns a tensor that shares a
+  buffer's storage, and ``shield_state`` gives any other holder it finds
+  (``protected_ids``: the registered defaults, ``_cache``, ``_computed``,
+  ``_forward_cache``) a copy before a replay.
+- **Eligibility without a tracer.** The first step of a signature runs each member's
+  update under ``_Guard``, a ``TorchDispatchMode`` that raises ``_Ineligible`` on every
+  operation that reads a value on the host or sizes an output from data
+  (``.item()`` / ``bool()`` / ``.tolist()``, ``nonzero``, ``unique``, ``bincount``,
+  boolean indexing, a copy between the host and the card, host data entering the
+  update). The guard sees the same operations on the CPU and on the card, so both
+  agree on what is eligible. A refused member is left out of the signature; a
+  signature left with too few members is cached as ``_FALLBACK`` and every later
+  step with it is a counted eager fallback. That guarded step is also the warm-up a
+  capture needs (the kernel build, plan caches, device queries) and its result is
+  the step's result.
+- **Capture.** On a CUDA device an eligible signature is then captured
+  (``capture_error_mode="thread_local"``, one memory pool per engine); a capture
+  error is a fault and raises. A CUDA metric with the engine on never runs the step
+  outside its graph after the warm-up. On the CPU there is nothing to capture: each
+  later step runs the same step body eagerly and writes into the same static
+  buffers, so the CPU tests see the aliasing the card has.
+- **Launch accounting.** A replay launches the kernels recorded in its graph without
+  calling their wrappers, so the capture records how many launches of each kernel a
+  graph holds (``ops.launch_counts``) and each replay adds them.
+
+Anything that cannot run as a fixed graph (list states, non-tensor inputs, a wrapper
+holding inner metrics, a side effect on a non-state attribute, a host read) falls back
+to the eager path and is counted in ``EngineStats``.
+
+Left out against the JAX engine: the donation switch (a graph always writes its
+buffers in place), the sentinel, transaction and numerics riders, ``persist``, the
+``diag`` / ``profile`` instrumentation, the fallback ladder (``_ladder_step``) and the
+scan queue (``scan_step``). ``state_invalidated`` has no counterpart: no step consumes
+a buffer here, and a first step writes no state until the guard has passed.
+"""
+
+from __future__ import annotations
+
+from contextlib import nullcontext
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from torchmetrics_tpu_torch import ops
+from torchmetrics_tpu_torch.engine import bucketing, config
+from torchmetrics_tpu_torch.engine.stats import EngineStats
+from torchmetrics_tpu_torch.utilities.data import apply_to_collection
+
+_FALLBACK = object()  # cache sentinel: this signature is known to be ineligible
+
+#: the tensor attribute that marks an engine's static state buffer
+STATIC_MARK = "_engine_static"
+
+# metric attributes the update wrapper or ``__setattr__`` keep, not the update body
+_BOOKKEEPING = frozenset({"_state_fresh"})
+
+# operations that read a device value on the host, size their output from data, or
+# bring host data into the update: none of them can live in a fixed graph
+_REFUSED = {
+    "aten::_local_scalar_dense": "host-read",  # .item(), bool(), int(), float(), .tolist()
+    "aten::is_nonzero": "host-read",
+    "aten::equal": "host-read",
+    "aten::nonzero": "data-sized-output",
+    "aten::argwhere": "data-sized-output",
+    "aten::_unique": "data-sized-output",
+    "aten::_unique2": "data-sized-output",
+    "aten::unique_dim": "data-sized-output",
+    "aten::unique_consecutive": "data-sized-output",
+    "aten::unique_dim_consecutive": "data-sized-output",
+    "aten::masked_select": "data-sized-output",
+    "aten::bincount": "data-sized-output",
+    "aten::lift_fresh": "host-data",  # torch.tensor(...) / as_tensor(...) inside the update
+    "aten::lift_fresh_copy": "host-data",
+}
+_BOOL_INDEXED = frozenset({"aten::index", "aten::index_put", "aten::index_put_", "aten::_index_put_impl_"})
+_COPIES = frozenset({"aten::_to_copy", "aten::copy_"})
+
+
+class _Ineligible(Exception):
+    """Raised while building a signature to demote it to eager, with a recorded reason."""
+
+
+def _refusal(func: Any, args: tuple, kwargs: dict) -> Optional[str]:
+    """Why ``func(*args, **kwargs)`` cannot run inside a captured graph, or None."""
+    name = func._schema.name
+    reason = _REFUSED.get(name)
+    if reason is not None:
+        return f"{reason}:{name[6:]}"
+    if name == "aten::repeat_interleave" and kwargs.get("output_size") is None and func._overloadname != "self_int":
+        return "data-sized-output:repeat_interleave"
+    if name in _BOOL_INDEXED:
+        indices = args[1] if len(args) > 1 else kwargs.get("indices", ())
+        if any(isinstance(i, torch.Tensor) and i.dtype in (torch.bool, torch.uint8) for i in indices or ()):
+            return f"data-sized-output:{name[6:]}(boolean mask)"
+    if name in _COPIES:
+        src = args[0] if name == "aten::_to_copy" else args[1]
+        dst_device = kwargs.get("device") if name == "aten::_to_copy" else args[0].device
+        if dst_device is not None and isinstance(src, torch.Tensor):
+            kinds = {src.device.type, torch.device(dst_device).type}
+            if len(kinds) > 1 and "cuda" in kinds:
+                return "device-copy:" + "->".join((src.device.type, torch.device(dst_device).type))
+    return None
+
+
+class _Guard(TorchDispatchMode):
+    """Raise ``_Ineligible`` on the first operation a captured graph cannot hold."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        reason = _refusal(func, args, kwargs)
+        if reason is not None:
+            raise _Ineligible(reason)
+        return func(*args, **kwargs)
+
+
+def _is_metric_like(x: Any) -> bool:
+    # duck-typed: the engine stays import-acyclic with metric.py
+    return hasattr(x, "_defaults") and hasattr(x, "update") and hasattr(x, "compute")
+
+
+def holds_nested_metrics(metric: Any) -> bool:
+    """True when ``metric`` owns inner metrics (wrappers, compositions).
+
+    Running such an update as a graph would run the inner metrics' stateful host
+    machinery once at capture and bake their state into the graph, which the
+    per-attribute side-effect check cannot see (the inner object never changes
+    identity). Wrappers therefore always run eagerly; their inner metrics' own engines
+    still build the actual work. ``torch.nn.Module`` keeps submodules in ``_modules``,
+    a dict, which the scan covers.
+    """
+    for v in metric.__dict__.values():
+        if _is_metric_like(v):
+            return True
+        if isinstance(v, (list, tuple)) and any(_is_metric_like(x) for x in v):
+            return True
+        if isinstance(v, dict) and any(_is_metric_like(x) for x in v.values()):
+            return True
+    return False
+
+
+def _container_changed(live: Any, saved: Any) -> bool:
+    """Shallow in-place change detection by length and element identity."""
+    if len(live) != len(saved):
+        return True
+    if isinstance(live, list):
+        return any(a is not b for a, b in zip(live, saved))
+    if isinstance(live, dict):
+        return live.keys() != saved.keys() or any(live[k] is not saved[k] for k in saved)
+    return live != saved  # sets hold hashables only
+
+
+def traced_update(
+    metric: Any, state: Dict[str, Any], args: Sequence[Any], kwargs: Dict[str, Any], check: bool = True
+) -> Dict[str, Any]:
+    """Run ``metric``'s original update as ``state -> state``.
+
+    The metric's ``__dict__`` is snapshotted and restored wholesale, so the step never
+    leaves a buffer or a half-updated value on the live object. With ``check`` (a
+    signature's first step), an update with side effects a graph would lose
+    (rebinding a non-state attribute, or growing or changing a mutable one in place,
+    ``self.seen.append(...)``) raises ``_Ineligible``; an in-place change is rolled
+    back, so the eager fallback does not repeat it. Later steps of a signature run as
+    its graph does: whatever else the update does to the object is dropped.
+    """
+    names = tuple(metric._defaults)
+    snapshot = dict(metric.__dict__)
+    containers = (
+        {
+            k: (list(v) if isinstance(v, list) else dict(v) if isinstance(v, dict) else set(v))
+            for k, v in snapshot.items()
+            if k not in names and isinstance(v, (list, dict, set))
+        }
+        if check
+        else {}
+    )
+    try:
+        for k in names:
+            object.__setattr__(metric, k, state[k])
+        metric._raw_update(*args, **kwargs)
+        out = {k: getattr(metric, k) for k in names}
+        for k, v in metric.__dict__.items() if check else ():
+            if k in names or k in _BOOKKEEPING:
+                continue
+            if snapshot.get(k, _FALLBACK) is not v:
+                raise _Ineligible(f"update writes non-state attribute {k!r}")
+            if k in containers and _container_changed(v, containers[k]):
+                raise _Ineligible(f"update mutates non-state container {k!r} in place")
+        return out
+    finally:
+        metric.__dict__.clear()
+        metric.__dict__.update(snapshot)
+        for k, saved in containers.items():
+            live = snapshot[k]
+            if _container_changed(live, saved):
+                if isinstance(live, list):
+                    live[:] = saved
+                else:
+                    live.clear()
+                    live.update(saved)
+
+
+def is_static(x: Any) -> bool:
+    """Whether ``x`` is an engine's static state buffer (written in place by replays)."""
+    return isinstance(x, torch.Tensor) and getattr(x, STATIC_MARK, False)
+
+
+def _storage(x: torch.Tensor) -> int:
+    return x.untyped_storage().data_ptr()
+
+
+def detach_from_static(value: Any, states: Sequence[Any]) -> Any:
+    """``value`` with every tensor that shares storage with one of ``states``' static
+    buffers replaced by a copy: a value handed out must not change under the next
+    replay."""
+    live = {_storage(s) for s in states if is_static(s)}
+    if not live:
+        return value
+    return apply_to_collection(value, torch.Tensor, lambda t: t.clone() if _storage(t) in live else t)
+
+
+def protected_ids(metric: Any) -> set:
+    """Storage addresses of tensors that outlive the state slot: the registered
+    defaults that ``reset`` restores, the ``sync`` snapshot ``_cache``, a cached
+    ``compute`` value and the last ``forward`` value."""
+    ids = {_storage(v) for v in metric._defaults.values() if isinstance(v, torch.Tensor)}
+    for holder in (metric._cache, metric._computed, metric._forward_cache):
+        if holder is not None:
+            apply_to_collection(holder, torch.Tensor, lambda t: ids.add(_storage(t)))
+    return ids
+
+
+def shield_state(metric: Any, buffers: Dict[str, torch.Tensor], stats: EngineStats) -> None:
+    """Give every protected holder that shares storage with a static buffer its own
+    copy before a replay writes the buffers in place (counted in ``donation_copies``)."""
+    live = {_storage(b) for b in buffers.values()}
+    if not live & protected_ids(metric):
+        return
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        if _storage(t) not in live:
+            return t
+        stats.donation_copies += 1
+        return t.clone()
+
+    for k, v in metric._defaults.items():
+        if isinstance(v, torch.Tensor):
+            metric._defaults[k] = copy(v)
+    for holder in ("_cache", "_computed", "_forward_cache"):
+        value = metric.__dict__.get(holder)
+        if value is not None:
+            metric.__dict__[holder] = apply_to_collection(value, torch.Tensor, copy)
+
+
+def state_signature(state: Dict[str, torch.Tensor]) -> Tuple:
+    """Shape / dtype / device key over a state dict."""
+    return tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in state.items())
+
+
+def input_signature(inputs: Sequence[Any]) -> Optional[Tuple]:
+    """Shape / dtype / device key for the inputs, or None when one is not a tensor."""
+    sig = []
+    for a in inputs:
+        if not isinstance(a, torch.Tensor):
+            return None
+        sig.append((tuple(a.shape), a.dtype, a.device))
+    return tuple(sig)
+
+
+def needs_grad(inputs: Sequence[torch.Tensor]) -> bool:
+    """Whether an input records a gradient: such an update keeps the eager path's
+    autograd semantics (a graph replay records none)."""
+    return torch.is_grad_enabled() and any(a.requires_grad for a in inputs)
+
+
+def static_state_buffers(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fresh static state buffers shaped like ``state``, marked ``STATIC_MARK``."""
+    bufs = {}
+    for k, v in state.items():
+        buf = torch.zeros_like(v, memory_format=torch.contiguous_format)
+        setattr(buf, STATIC_MARK, True)
+        bufs[k] = buf
+    return bufs
+
+
+class StaticInputs:
+    """One signature's static input buffers and the copy of a batch into them.
+
+    Batched inputs (``ndim >= 1``) get ``bucket`` rows when bucketed; the rows past the
+    batch stay zero (the pad rows). ``rows`` remembers how many leading rows hold data,
+    so a later, shorter batch zeroes only what the longer one left behind.
+    """
+
+    __slots__ = ("buffers", "bucket", "rows", "n_pad", "pad_value")
+
+    def __init__(self, inputs: Sequence[torch.Tensor], bucket: Optional[int]) -> None:
+        self.bucket = bucket
+        self.buffers: List[torch.Tensor] = [
+            torch.zeros(bucketing.bucketed_shape(a, bucket) if bucket else a.shape, dtype=a.dtype, device=a.device)
+            for a in inputs
+        ]
+        self.rows = 0
+        # the pad-row count the graph reads; -1: not written yet
+        self.n_pad = torch.zeros((), dtype=torch.int32, device=inputs[0].device) if bucket else None
+        self.pad_value = -1
+
+    def fill(self, inputs: Sequence[torch.Tensor], stats: EngineStats) -> None:
+        """Copy a batch in: the data rows, a zero tail where needed, the pad count."""
+        with torch.no_grad():
+            if self.bucket is None:
+                for dst, src in zip(self.buffers, inputs):
+                    dst.copy_(src)
+                    stats.input_copy_bytes += src.nbytes
+                return
+            n = bucketing.batch_size(inputs)
+            for dst, src in zip(self.buffers, inputs):
+                if src.ndim == 0:
+                    dst.copy_(src)
+                else:
+                    dst[:n].copy_(src)
+                    if n < self.rows:
+                        dst[n : self.rows].zero_()
+                stats.input_copy_bytes += src.nbytes
+            self.rows = n
+            n_pad = self.bucket - n
+            if n_pad != self.pad_value:
+                self.n_pad.fill_(n_pad)
+                self.pad_value = n_pad
+
+
+def pad_subtract_into(
+    out: Dict[str, torch.Tensor],
+    unit: Optional[Dict[str, torch.Tensor]],
+    n_pad: Optional[torch.Tensor],
+    buffers: Dict[str, torch.Tensor],
+) -> None:
+    """Write ``out - n_pad * unit`` (or ``out`` when not bucketed) into ``buffers``,
+    one operation per state."""
+    for k, buf in buffers.items():
+        if unit is not None:
+            torch.addcmul(out[k], unit[k], n_pad, value=-1, out=buf)
+        elif out[k] is not buf:
+            buf.copy_(out[k])
+
+
+def check_fixed_point(name: str, out: Dict[str, torch.Tensor], buffers: Dict[str, torch.Tensor]) -> None:
+    """A graph writes each state back into its buffer: an update that changes a
+    state's shape, dtype or kind builds no graph (the next signature may)."""
+    for k, buf in buffers.items():
+        v = out[k]
+        if not isinstance(v, torch.Tensor) or v.shape != buf.shape or v.dtype != buf.dtype or v.device != buf.device:
+            raise _Ineligible(f"{name} changes state {k!r} to {type(v).__name__} {getattr(v, 'dtype', '')}")
+
+
+def under_capture(device: torch.device) -> bool:
+    """Whether the caller is itself capturing a CUDA graph on ``device``: its capture
+    records the eager update, as the JAX engine leaves an update under someone else's
+    trace to the eager path."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def capture(body, pool: Any, device: torch.device) -> Tuple[Any, Dict[str, int]]:
+    """Capture ``body()`` into a ``torch.cuda.CUDAGraph`` on ``pool``, on ``device``.
+
+    Returns the graph and the kernel launches it holds. The wrappers count a launch
+    when they are called; under capture they record instead of launching, so their
+    counts are put back and each replay adds the recorded ones. A capture error
+    propagates: the guard passed this step, so failing to capture it is a fault.
+    """
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()
+    with torch.cuda.device(device), torch.no_grad():
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            body()
+    held = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    ops.set_launch_counts(before)
+    return graph, held
+
+
+def run_update(
+    metric: Any,
+    state_in: Dict[str, torch.Tensor],
+    flat: Sequence[torch.Tensor],
+    n_args: int,
+    kw_names: Tuple[str, ...],
+    bucketed: bool,
+    unit: Optional[Dict[str, torch.Tensor]],
+    guard: bool,
+) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """One metric's update on the static inputs ``flat``: ``(out, unit)``, where ``unit``
+    is the pad rows' contribution when bucketed (the given constant, or computed here
+    when a 0-d input feeds it). ``guard``: the first step of a signature."""
+    with torch.no_grad(), (_Guard() if guard else nullcontext()):
+        out = traced_update(metric, state_in, flat[:n_args], dict(zip(kw_names, flat[n_args:])), check=guard)
+        if bucketed and unit is None:
+            rows = bucketing.pad_row_constants(flat)
+            unit_flat = [r if r is not None else b for r, b in zip(rows, flat)]
+            zeros = {k: torch.zeros_like(v) for k, v in state_in.items()}
+            unit = traced_update(
+                metric, zeros, unit_flat[:n_args], dict(zip(kw_names, unit_flat[n_args:])), check=guard
+            )
+    return out, unit
+
+
+def constant_unit(
+    metric: Any,
+    state: Dict[str, torch.Tensor],
+    inputs: Sequence[torch.Tensor],
+    n_args: int,
+    kw_names: Tuple[str, ...],
+    buffers: Dict[str, torch.Tensor],
+) -> Optional[Dict[str, torch.Tensor]]:
+    """The pad rows' contribution ``update(zeros, one_pad_row)`` when every input is
+    batched: it then depends on nothing that changes, so it is computed once, at the
+    signature's first step (guarded), and kept. None when a 0-d input feeds it."""
+    if not all(a.ndim >= 1 for a in inputs):
+        return None
+    zeros = {k: torch.zeros_like(v) for k, v in state.items()}
+    rows = bucketing.pad_row_constants(inputs)
+    with torch.no_grad(), _Guard():
+        unit = traced_update(metric, zeros, rows[:n_args], dict(zip(kw_names, rows[n_args:])))
+    check_fixed_point("the pad-row update", unit, buffers)
+    return unit
+
+
+def structural_refusal(metric: Any) -> Optional[str]:
+    """Why ``metric`` can never run as a graph (no state, a list state, inner
+    metrics), or None."""
+    defaults = metric._defaults
+    if not defaults:
+        return "stateless"
+    if any(isinstance(d, list) for d in defaults.values()):
+        return "list-state"
+    if holds_nested_metrics(metric):
+        return "nested-metric"
+    return None
+
+
+class _Entry:
+    """One built signature: its static inputs, the members its step updates with their
+    static state buffers and constant pad-row units (when no input is 0-d), and, on the
+    card, its graph and the kernel launches the graph holds."""
+
+    __slots__ = ("inputs", "members", "buffers", "units", "n_args", "kw_names", "graph", "launches")
+
+    def __init__(
+        self,
+        inputs: StaticInputs,
+        members: List[Tuple[str, Any]],
+        buffers: Dict[str, Dict[str, torch.Tensor]],
+        units: Dict[str, Optional[Dict[str, torch.Tensor]]],
+        n_args: int,
+        kw_names: Tuple[str, ...],
+    ) -> None:
+        self.inputs = inputs
+        self.members = members
+        self.buffers = buffers
+        self.units = units
+        self.n_args = n_args
+        self.kw_names = kw_names
+        self.graph: Any = None
+        self.launches: Dict[str, int] = {}
+
+    def run(self) -> None:
+        """The step body: every member's update on its static buffers and the static
+        inputs, the pad-subtract identity, the write back into the buffers."""
+        bucketed = self.inputs.bucket is not None
+        for name, m in self.members:
+            bufs = self.buffers[name]
+            out, unit = run_update(
+                m, bufs, self.inputs.buffers, self.n_args, self.kw_names, bucketed, self.units[name], guard=False
+            )
+            with torch.no_grad():
+                pad_subtract_into(out, unit, self.inputs.n_pad, bufs)
+
+
+class GraphEngine:
+    """Captured update graphs over the states of one or more metrics fed by one batch.
+
+    ``run`` is one step; a subclass picks the members and counts what its first step
+    leaves out (``_count_refusals``). A signature keeps at least ``min_members``.
+    """
+
+    min_members = 1
+
+    def __init__(self, owner: str) -> None:
+        self._cache: Dict[Tuple, Any] = {}
+        self._buffers: Dict[Tuple, Dict[str, torch.Tensor]] = {}  # (member, state signature) -> static buffers
+        self._pool: Any = None  # this engine's CUDA graph memory pool, made at the first capture
+        self._bucket_ok: Dict[str, bool] = {}  # per member, frozen on first sight
+        self.stats = EngineStats(owner)
+
+    def run(
+        self, members: List[Tuple[str, Any]], args: Tuple[Any, ...], kwargs: Dict[str, Any]
+    ) -> Optional[List[Tuple[str, Any]]]:
+        """One step over ``members`` (each holding tensor states) through the signature's
+        graph (its plain step on the CPU): the members whose states it wrote, or None
+        when the whole step falls back (counted). Never raises for eligibility reasons;
+        raises when an eligible signature fails to capture or a built one fails to run.
+        """
+        st = self.stats
+        kw_names = tuple(sorted(kwargs))
+        inputs = [*args, *(kwargs[k] for k in kw_names)]
+        in_sig = input_signature(inputs)
+        if in_sig is None:
+            st.fallback("non-tensor-input")
+            return None
+        if needs_grad(inputs):
+            st.fallback("grad-input")
+            return None
+        device = members[0][1].device
+        if under_capture(device):
+            st.fallback("under-capture")
+            return None
+        states = {name: {k: getattr(m, k) for k in m._defaults} for name, m in members}
+        bucket = self._bucket(members, inputs)
+        if bucket is not None:
+            in_sig = tuple((bucketing.bucketed_shape(a, bucket), a.dtype, a.device) for a in inputs)
+        state_sig = tuple((name, state_signature(states[name])) for name, _ in members)
+        key = (bucket, len(args), kw_names, state_sig, in_sig)
+        entry = self._cache.get(key)
+        if entry is _FALLBACK:
+            st.fallback("uncompilable-signature")
+            return None
+        first = entry is None
+        if first:
+            entry = self._build(key, members, states, inputs)
+            if entry is None:
+                return None
+        else:
+            for name, m in entry.members:
+                shield_state(m, entry.buffers[name], st)
+                copy_into_buffers(states[name], entry.buffers[name], st)
+            entry.inputs.fill(inputs, st)
+            if entry.graph is not None:
+                entry.graph.replay()
+                ops.add_launches(entry.launches)
+                st.replays += 1
+            elif device.type == "cuda":
+                raise RuntimeError("a CUDA engine step has no captured graph")
+            else:
+                entry.run()
+        st.traces += first
+        st.cache_hits += not first
+        st.dispatches += 1
+        st.metrics_updated += len(entry.members)
+        for name, m in entry.members:
+            for k, buf in entry.buffers[name].items():
+                if states[name][k] is not buf:
+                    setattr(m, k, buf)  # the next replay updates the metric's state in place
+        return entry.members
+
+    def _count_refusals(self, refused: List[Tuple[str, str]], demoted: bool) -> None:
+        """Count the members a signature's first step left out, as ``(name, reason)``;
+        ``demoted``: too few members were left to build it. One metric: its reason is
+        the step's fallback reason."""
+        for _, reason in refused:
+            self.stats.fallback(reason)
+
+    # ------------------------------------------------------------------ internals
+
+    def _bucket(self, members: List[Tuple[str, Any]], inputs: List[torch.Tensor]) -> Optional[int]:
+        """The shape bucket of this batch when every member supports the pad-subtract
+        identity for it (``engine/bucketing.py``), else None (an exact-shape graph)."""
+        if not config.BUCKETING_ENABLED:
+            return None
+        for name, m in members:
+            ok = self._bucket_ok.get(name)
+            if ok is None:
+                ok = self._bucket_ok[name] = bucketing.bucket_eligible(m)
+            if not ok or not bucketing.pad_rows_neutral(m, inputs):
+                return None
+        n = bucketing.batch_size(inputs)
+        if n is None or n == 0:
+            return None
+        bucket = bucketing.next_bucket(n)
+        self.stats.bucketed_steps += 1
+        self.stats.bucket_pad_rows += bucket - n
+        self.stats.bucket_sizes.add(bucket)
+        return bucket
+
+    def _state_buffers(self, name: str, m: Any, sig: Tuple, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The member's static state buffers for ``sig``, shielded from other holders
+        when another signature already wrote them."""
+        bufs = self._buffers.get((name, sig))
+        if bufs is None:
+            bufs = self._buffers[(name, sig)] = static_state_buffers(state)
+        else:
+            shield_state(m, bufs, self.stats)
+        return bufs
+
+    def _build(
+        self,
+        key: Tuple,
+        members: List[Tuple[str, Any]],
+        states: Dict[str, Dict[str, torch.Tensor]],
+        inputs: List[torch.Tensor],
+    ) -> Optional[_Entry]:
+        """First step of a signature: each member's guarded warm-up (on copies of its
+        state, so a refusal midway leaves it intact), which is this step's update; the
+        survivors' results into their buffers; then, on a CUDA device, the capture.
+        None, with the signature demoted, when fewer than ``min_members`` pass."""
+        st = self.stats
+        bucket, n_args, kw_names = key[:3]
+        static = StaticInputs(inputs, bucket)
+        static.fill(inputs, st)
+        passed: List[Tuple[str, Any]] = []
+        results: Dict[str, tuple] = {}
+        buffers: Dict[str, Dict[str, torch.Tensor]] = {}
+        refused: List[Tuple[str, str]] = []
+        for (name, m), (_, sig) in zip(members, key[3]):
+            bufs = self._state_buffers(name, m, sig, states[name])
+            try:
+                unit = None
+                if bucket is not None:
+                    unit = constant_unit(m, states[name], static.buffers, n_args, kw_names, bufs)
+                clones = {k: v.clone() for k, v in states[name].items()}
+                out, unit = run_update(m, clones, static.buffers, n_args, kw_names, bucket is not None, unit, guard=True)
+                check_fixed_point("update", out, bufs)
+            except Exception as exc:  # noqa: BLE001 -- a failed first step leaves its member out
+                refused.append((name, str(exc) if isinstance(exc, _Ineligible) else f"trace-failed:{type(exc).__name__}"))
+                continue
+            passed.append((name, m))
+            results[name] = (out, unit)
+            buffers[name] = bufs
+        demoted = len(passed) < self.min_members
+        self._count_refusals(refused, demoted)
+        if demoted:
+            self._cache[key] = _FALLBACK
+            return None
+        with torch.no_grad():
+            for name, (out, unit) in results.items():
+                pad_subtract_into(out, unit, static.n_pad, buffers[name])
+        # a unit that a 0-d input feeds is recomputed in every step
+        batched = all(a.ndim >= 1 for a in inputs)
+        units = {name: unit if batched else None for name, (_, unit) in results.items()}
+        entry = _Entry(static, passed, buffers, units, n_args, kw_names)
+        device = members[0][1].device
+        if device.type == "cuda":
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            entry.graph, entry.launches = capture(entry.run, self._pool, device)
+            st.captures += 1
+        self._cache[key] = entry
+        return entry
+
+
+class CompiledUpdate(GraphEngine):
+    """Compiled-step cache for ONE metric instance.
+
+    Made at the metric's first engine-enabled update (``Metric._engine_step``); never
+    pickled or cloned (graphs and buffers belong to the instance).
+    """
+
+    def __init__(self, metric: Any) -> None:
+        super().__init__(type(metric).__name__)
+        self._metric = metric
+        self._disabled_reason = structural_refusal(metric)
+
+    def step(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> bool:
+        """Run one update through the engine; False requests the eager fallback."""
+        m = self._metric
+        if self._disabled_reason is not None:
+            self.stats.fallback(self._disabled_reason)
+            return False
+        if not all(isinstance(getattr(m, k), torch.Tensor) for k in m._defaults):
+            self.stats.fallback("non-tensor-state")
+            return False
+        return self.run([("", m)], args, kwargs) is not None
+
+
+def copy_into_buffers(state: Dict[str, torch.Tensor], buffers: Dict[str, torch.Tensor], stats: EngineStats) -> None:
+    """Copy each live state that is not its static buffer into it (``donation_copies``)."""
+    with torch.no_grad():
+        for k, buf in buffers.items():
+            if state[k] is not buf:
+                buf.copy_(state[k])
+                stats.donation_copies += 1

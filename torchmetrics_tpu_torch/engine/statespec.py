@@ -14,6 +14,10 @@ Two things the collection and the packed sync read:
   that off (back to the first-step value-equality discovery); an unknown value
   raises.
 
+- **row additivity**: ``stamp_row_additive`` records, when a state is registered, the
+  class's ``_engine_row_additive`` opt-in (the JAX package's ``StateSpec.row_additive``);
+  the engine's shape buckets read it through ``row_additive``.
+
 The JAX package's ``StateSpec`` registry, its roles and its shard rules have no
 counterpart yet.
 """
@@ -55,6 +59,17 @@ def fold_name(dist_reduce_fx: Any) -> Tuple[str, Optional[Callable]]:
 def state_fold(metric: Any, name: str) -> Tuple[str, Optional[Callable]]:
     """``(fold, fold_fn)`` of one registered state, from the metric's ``_reductions``."""
     return fold_name(metric._reductions.get(name))
+
+
+def stamp_row_additive(metric: Any, name: str) -> None:
+    """Record at registration whether state ``name`` is additive over batch rows: the
+    class declares it once with ``_engine_row_additive = True``."""
+    metric._row_additive[name] = bool(getattr(type(metric), "_engine_row_additive", False))
+
+
+def row_additive(metric: Any, name: str) -> bool:
+    """Whether state ``name`` was registered as row-additive (``stamp_row_additive``)."""
+    return bool(getattr(metric, "_row_additive", {}).get(name, False))
 
 
 def cse_enabled() -> bool:

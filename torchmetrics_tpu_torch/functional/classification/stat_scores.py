@@ -35,6 +35,14 @@ def _sigmoid_if_logits(preds: torch.Tensor) -> torch.Tensor:
     return torch.where(is_probs, preds, torch.sigmoid(preds))
 
 
+def _zero_rows_neutral(threshold: Optional[float], inputs) -> bool:
+    """Whether a zero row counts the same inside a batch of ``inputs`` as alone (the
+    engine's bucketing check). A float batch of logits is sigmoided as a whole, which
+    turns the row into 0.5, a positive iff ``threshold < 0.5``; alone, 0.0 is never one.
+    ``threshold=None``: no sigmoid (multiclass labels come from a per-row argmax)."""
+    return threshold is None or threshold >= 0.5 or not any(a.is_floating_point() for a in inputs)
+
+
 def _count_stats(preds: torch.Tensor, target: torch.Tensor, sum_dims) -> Counts4:
     """tp/fp/tn/fn int32 counters; targets masked to -1 count in none of them."""
     tp = ((target == preds) & (target == 1)).sum(dim=sum_dims, dtype=torch.int32).squeeze()

@@ -9,15 +9,21 @@ metric's ``device``; ``update`` places its tensor inputs there with
 ``device=None`` means ``torch.device("cuda")``: a metric is built for the card and
 refuses to run elsewhere unless the caller asks for ``device="cpu"``.
 
+``update`` goes through the compiled update engine (``engine/compiled.py``: one CUDA
+graph replay per step) whenever the engine is on for the metric: ``compiled_update=True``,
+or ``None`` (the default) with the process-wide policy on, which it is by default for a
+metric on a CUDA device (``engine/config.py``). Updates the engine cannot run as a
+graph fall back to the eager path, counted with their reason in ``EngineStats``.
+
 ``sync`` (and so ``compute`` across processes) takes the packed route of
 ``engine/epoch.py`` unless a ``dist_sync_fn`` is given, ``compute_on_cpu`` is on or a
 sub-world ``process_group`` is named: those take the eager per-tensor path, counted as
-a fallback. The JAX package gates the packed route on its engine policy, which is on
-for accelerator backends; the port has no engine tier, so it always takes it.
+a fallback. The JAX package gates the packed route on its engine policy; the port
+always takes it.
 
-The JAX package's engine tiers (compiled, scan and async dispatch) and its
-``CompositionalMetric`` have no counterpart yet, so their keyword arguments are
-rejected like any other unknown one.
+The JAX package's scan and async dispatch tiers and its ``CompositionalMetric`` have
+no counterpart yet: ``scan_steps`` and ``async_dispatch`` are rejected like any other
+unknown keyword argument.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torchmetrics_tpu_torch.engine.compiled import CompiledUpdate, detach_from_static, is_static
+from torchmetrics_tpu_torch.engine.config import engine_enabled
+from torchmetrics_tpu_torch.engine.statespec import stamp_row_additive
 from torchmetrics_tpu_torch.parallel.packing import shape_fingerprint
 from torchmetrics_tpu_torch.parallel.sync import distributed_available, gather_all_tensors
 from torchmetrics_tpu_torch.utilities.data import (
@@ -90,6 +99,8 @@ class Metric(torch.nn.Module):
         distributed_available_fn: predicate for "is distributed".
         sync_on_compute: sync automatically inside ``compute``.
         compute_with_cache: cache the computed value until the next update or reset.
+        compiled_update: ``None`` (follow the engine policy), ``True`` / ``False`` (force
+            the compiled update engine on / off for this metric).
     """
 
     is_differentiable: Optional[bool] = None
@@ -128,11 +139,19 @@ class Metric(torch.nn.Module):
             raise ValueError(
                 f"Expected keyword argument `compute_with_cache` to be a `bool` but got {self.compute_with_cache}"
             )
+        # compiled update engine (engine/): None = follow the process-wide policy
+        # (auto-on for a CUDA device), True/False forces it for this metric
+        self.compiled_update = kwargs.pop("compiled_update", None)
+        if self.compiled_update is not None and not isinstance(self.compiled_update, bool):
+            raise ValueError(
+                f"Expected keyword argument `compiled_update` to be a `bool` or `None` but got {self.compiled_update}"
+            )
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
 
         self._defaults: Dict[str, Union[List, torch.Tensor]] = {}
+        self._row_additive: Dict[str, bool] = {}  # engine/statespec.py, stamped by add_state
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
 
@@ -140,6 +159,7 @@ class Metric(torch.nn.Module):
         self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
         self._update_signature = inspect.signature(self.update)
         self._epoch = None  # engine/epoch.py EpochEngine, made at the first packed sync
+        self._engine = None  # engine/compiled.py CompiledUpdate, made at the first engine step
         # True while every state is the one add_state or reset put there: set by
         # reset, cleared by any write to a registered state (__setattr__). States are
         # clones of their defaults, so an identity test cannot tell.
@@ -203,6 +223,7 @@ class Metric(torch.nn.Module):
         self._defaults[name] = default
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
+        stamp_row_additive(self, name)
 
     # ------------------------------------------------------------------ forward
 
@@ -261,9 +282,12 @@ class Metric(torch.nn.Module):
         return batch_val
 
     def _copy_state_refs(self) -> Dict[str, Any]:
-        # states are replaced, never written in place, so references are a snapshot
+        # the eager path replaces states and never writes them in place, so references
+        # are a snapshot; an engine's static buffer is written in place by the next
+        # replay, so it is copied
         refs: Dict[str, Any] = {
-            attr: (list(v) if isinstance(v := getattr(self, attr), list) else v) for attr in self._defaults
+            attr: (list(v) if isinstance(v := getattr(self, attr), list) else v.clone() if is_static(v) else v)
+            for attr in self._defaults
         }
         refs["__none_folded__"] = frozenset(self._none_folded)
         return refs
@@ -541,15 +565,34 @@ class Metric(torch.nn.Module):
         return x
 
     def _wrap_update(self, update: Callable) -> Callable:
+        self._raw_update = update  # the unwrapped body: what the engine runs as a graph
+
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
             self._computed = None
             self._update_count += 1
-            update(*(self._place(a) for a in args), **{k: self._place(v) for k, v in kwargs.items()})
+            args = tuple(self._place(a) for a in args)
+            kwargs = {k: self._place(v) for k, v in kwargs.items()}
+            if not self._engine_step(args, kwargs):
+                update(*args, **kwargs)
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
         return wrapped_func
+
+    def _engine_step(self, args: tuple, kwargs: Dict[str, Any]) -> bool:
+        """Route one update through the compiled engine; False = run it eagerly."""
+        if not self._epoch_enabled():
+            return False
+        if self._engine is None:
+            self._engine = CompiledUpdate(self)
+        return self._engine.step(args, kwargs)
+
+    def _epoch_enabled(self) -> bool:
+        """Engine enablement for this metric: ``compiled_update`` > overrides > auto."""
+        if self.compiled_update is None:
+            return engine_enabled(self._device)
+        return self.compiled_update
 
     def _move_list_states_to_cpu(self) -> None:
         for key in self._defaults:
@@ -574,6 +617,9 @@ class Metric(torch.nn.Module):
                 should_unsync=self._should_unsync,
             ):
                 value = _squeeze_if_scalar(compute(*args, **kwargs))
+                # a value handed out never shares storage with a buffer the next
+                # engine replay writes in place
+                value = detach_from_static(value, [getattr(self, a) for a in self._defaults])
             if self.compute_with_cache:
                 self._computed = value
             return value
@@ -615,13 +661,17 @@ class Metric(torch.nn.Module):
         return deepcopy(self)
 
     def __getstate__(self) -> Dict[str, Any]:
-        """Drop the wrapped bound methods and the sync engine for pickling;
-        ``__setstate__`` re-wraps."""
-        state = {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
+        """Drop the wrapped bound methods and the engines (graphs and buffers belong to
+        the instance) for pickling, ``clone`` and ``deepcopy``; ``__setstate__`` re-wraps."""
+        state = {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_raw_update")}
         state["_epoch"] = None
+        state["_engine"] = None
         return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
+        state.setdefault("compiled_update", None)
+        state.setdefault("_engine", None)
+        state.setdefault("_row_additive", {})
         super().__setstate__(state)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from torchmetrics_tpu_torch.ops import _build
+from torchmetrics_tpu_torch.utilities.data import _bincount
 
 #: kernel launches since import (or since a caller set it to 0)
 LAUNCHES = 0
@@ -60,10 +61,10 @@ def _stat_counts_plain(
     drop = num_classes
     am_v = torch.where(valid, am, drop)
     tgt_v = torch.where(valid, target, drop).long()
-    tp = torch.bincount(torch.where(am_v == tgt_v, am_v, drop), minlength=num_classes + 1)
-    pred_count = torch.bincount(am_v, minlength=num_classes + 1)
-    tgt_count = torch.bincount(tgt_v, minlength=num_classes + 1)
-    return tuple(x[:num_classes].to(torch.int32) for x in (tp, pred_count, tgt_count))  # type: ignore[return-value]
+    # fixed-size scatter counts (``_bincount``): a ``torch.bincount`` output is sized
+    # from the data, which no captured graph can hold, while the kernel's is not
+    tp = _bincount(torch.where(am_v == tgt_v, am_v, drop), minlength=num_classes)
+    return tp, _bincount(am_v, minlength=num_classes), _bincount(tgt_v, minlength=num_classes)
 
 
 def stat_counts(
