@@ -36,7 +36,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    AUROC (T=200), F1 macro and micro, accuracy and a multilabel confusion matrix, with
    ``ignore_index=-1`` on ~5 % of the target elements, over 16 updates of 8192x80
    logits beside an F1's ``forward`` per batch; checked as the binary path;
-8. task routers: each of the eleven routers once per task on the card, against the CPU;
+8. task routers: each of the twenty routers once per task it has, on the card, against the CPU;
    and a multiclass F1 update on integer labels (the staged per-class count) under
    ``set_sync_debug_mode("error")``;
 9. sync, two ranks on the one card (gloo, CUDA tensors, spawned processes, a join
@@ -66,7 +66,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (bucketed) against eager, and an accuracy replay and a fused binary replay under
    ``set_sync_debug_mode("error")``. Then engine on against eager per update (and per
    accuracy ``forward``, three rounds), in turns in this call: host µs, device busy and
-   operations, idle share, and the batch copy into the static inputs.
+   operations, idle share, and the batch copy into the static inputs;
+12. the rest of the stat-scores family, on the batches of phases 4-7, each path 16
+   updates eagerly, then again with the engine on, then ``compute``: ImageNet-1k logits
+   into accuracy, specificity and Hamming distance (one stat-scores group, K1 once per
+   update) and Jaccard, MCC and quadratic kappa (one 1000 x 1000 confusion-matrix
+   group); CIFAR-10 scores into AUROC and the three fixed-point metrics (one binned
+   group, K2 once per update); the 2^20 binary logits into specificity, Hamming, IoU,
+   MCC, kappa and recall at 90 % precision beside a binned AUROC; the MS-COCO
+   multilabel logits into exact match, Hamming, specificity, IoU, MCC and precision at
+   50 % recall beside the binned macro mAP. Groups, launches per update, every state
+   against the CPU run, the engine run bit-equal to eager, values within the CPU tests'
+   tolerances, the fixed-point curves falling back on every engine update, the
+   stat-scores and confusion-matrix updates under ``set_sync_debug_mode("error")``.
+   Also the ImageNet top-5 accuracy on the stable-sort path (eager and engine, against
+   the CPU, no host sync) with the top-5 selection timed alone, the sigmoid check (the
+   same logits sliced from a 2^20 batch and as 7 rows give bit-identical probabilities;
+   card against CPU mismatches counted) and each path's update µs, engine on against
+   eager, in turns.
 
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
@@ -117,6 +134,13 @@ _NOTE = (
     " device_ops_per_call: every device operation of one call (kernel and memset); library_ms is null:"
     " no single PyTorch call computes this function"
 )
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The port's sigmoid, the one its binary and multilabel metrics apply to logits."""
+    from torchmetrics_tpu_torch.utilities.compute import _sigmoid as port_sigmoid
+
+    return port_sigmoid(x)
 
 
 def _log(msg: str) -> None:
@@ -700,7 +724,8 @@ def _multilabel_batches(gen: torch.Generator, n_batches: int = N_BATCHES, n: int
 def _run_task_path(name: str, members_fn, groups: set, batches: list, forward_member) -> tuple:
     """One collection over ``batches`` (``update``, then ``compute``) beside one member's
     ``forward`` per batch, launches counted over exactly that; then every state against
-    the same run on the CPU, which takes the card's own sigmoid of the logits."""
+    the same run on the CPU, which takes the card's own sigmoid of the logits (the
+    port's ``_sigmoid``, computed on the card)."""
     from torchmetrics_tpu_torch import MetricCollection
     from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
 
@@ -725,7 +750,7 @@ def _run_task_path(name: str, members_fn, groups: set, batches: list, forward_me
     ref = MetricCollection(members_fn(device="cpu"))
     forward_cpu = forward_member(device="cpu")
     for i, (p, t) in enumerate(batches):
-        probs, target = torch.sigmoid(p).cpu(), t.cpu()
+        probs, target = _sigmoid(p).cpu(), t.cpu()
         ref.update(probs, target)
         _assert_close_any(f"{name} forward {i}", batch_values[i], forward_cpu(probs, target), ACC_ATOL)
     _assert_close_any(f"{name} forward compute", forward_final, forward_cpu.compute(), ACC_ATOL)
@@ -735,7 +760,7 @@ def _run_task_path(name: str, members_fn, groups: set, batches: list, forward_me
         atol = AUROC_ATOL if member in ("auroc", "ap", "map", "auroc_exact") else ACC_ATOL
         _assert_close_any(f"{name} {member}", values[member], ref_values[member], atol)
     sigmoid = batches[0][0]
-    mismatched = int((torch.sigmoid(sigmoid).cpu() != torch.sigmoid(sigmoid.cpu())).sum())
+    mismatched = int((_sigmoid(sigmoid).cpu() != _sigmoid(sigmoid.cpu())).sum())
     summary = {
         "groups": sorted(sorted(g) for g in got_groups),
         "launches": launches,
@@ -809,6 +834,19 @@ _ROUTERS = (
     "StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
     "PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision",
 )
+_ALL_TASKS = ("binary", "multiclass", "multilabel")
+# the rest of the stat-scores family: router -> (its tasks, extra keyword arguments)
+_FAMILY_ROUTERS = {
+    "Specificity": (_ALL_TASKS, {}),
+    "HammingDistance": (_ALL_TASKS, {}),
+    "ExactMatch": (("multiclass", "multilabel"), {}),
+    "JaccardIndex": (_ALL_TASKS, {}),
+    "MatthewsCorrCoef": (_ALL_TASKS, {}),
+    "CohenKappa": (("binary", "multiclass"), {"weights": "quadratic"}),
+    "RecallAtFixedPrecision": (_ALL_TASKS, {"min_precision": 0.5, "thresholds": N_THRESH}),
+    "PrecisionAtFixedRecall": (_ALL_TASKS, {"min_recall": 0.5, "thresholds": N_THRESH}),
+    "SpecificityAtSensitivity": (_ALL_TASKS, {"min_sensitivity": 0.5, "thresholds": N_THRESH}),
+}
 
 
 def run_routers(gen: torch.Generator) -> None:
@@ -822,16 +860,19 @@ def run_routers(gen: torch.Generator) -> None:
         "multiclass": (torch.randn(n, c, generator=gen).softmax(dim=1), torch.randint(0, c, (n,), generator=gen)),
         "multilabel": (torch.rand(n, c, generator=gen), torch.randint(0, 2, (n, c), generator=gen)),
     }
-    for router in _ROUTERS:
-        extra = {"thresholds": N_THRESH} if router in ("PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision") else {}
-        for task, (preds, target) in inputs.items():
-            kwargs = dict(task=task, num_classes=c if task == "multiclass" else None,
-                          num_labels=c if task == "multilabel" else None, **extra)
+    curves = ("PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision")
+    table = {**{r: (_ALL_TASKS, {"thresholds": N_THRESH} if r in curves else {}) for r in _ROUTERS}, **_FAMILY_ROUTERS}
+    for router, (tasks, extra) in table.items():
+        for task in tasks:
+            preds, target = inputs[task]
+            kwargs = dict(task=task, num_classes=c if task == "multiclass" else None, **extra)
+            if router != "CohenKappa":  # the kappa router has no multilabel task and no num_labels
+                kwargs["num_labels"] = c if task == "multilabel" else None
             card, host = getattr(tm, router)(**kwargs), getattr(tm, router)(**kwargs, device="cpu")
             got, want = card(preds.cuda(), target.cuda()), host(preds, target)
             for i, (g, w) in enumerate(zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,))):
                 _assert_close_any(f"router {router} {task} {type(card).__name__} output {i}", g, w, AUROC_ATOL)
-    _log(f"  {len(_ROUTERS)} routers x 3 tasks: equal to the CPU")
+    _log(f"  {len(table)} routers, once per task: equal to the CPU")
     # integer label inputs take the staged per-class count, not K1
     preds, target = inputs["multiclass"]
     _updates_without_sync(
@@ -1313,6 +1354,332 @@ def time_engine(acc_batches: list, cifar_batches: list, binary_batches: list, mu
     return out
 
 
+# ---------------------------------------------------------------- the rest of the stat-scores family
+
+TOP_K = 5  # the standard ImageNet top-5
+KAPPA_RTOL = 2e-6  # kappa's weighted float32 sums over C * C cells, added in another order
+FIXED_POINT = ("rfp", "pfr", "sas")
+CURVES = ("auroc", "map", *FIXED_POINT)  # binned curve states: their updates read the host
+
+
+def _imagenet_family(device=None, validate_args: bool = True) -> dict:
+    """ImageNet-1k logits: a stat-scores group (K1) and a confusion-matrix group
+    (a 1000 x 1000 int32 state)."""
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(device=device, validate_args=validate_args)
+    c = ACC_CLASSES
+    return {
+        "acc": tm.MulticlassAccuracy(c, average="macro", **common),
+        "spec": tm.MulticlassSpecificity(c, average="macro", **common),
+        "hamming": tm.MulticlassHammingDistance(c, average="macro", **common),
+        "iou": tm.MulticlassJaccardIndex(c, **common),
+        "mcc": tm.MulticlassMatthewsCorrCoef(c, **common),
+        "kappa": tm.MulticlassCohenKappa(c, weights="quadratic", **common),
+    }
+
+
+def _cifar_fixed_point(device=None, validate_args: bool = True) -> dict:
+    """CIFAR-10 scores: AUROC and the three fixed-point metrics over one binned state (K2)."""
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(thresholds=N_THRESH, device=device, validate_args=validate_args)
+    c = CIFAR_CLASSES
+    return {
+        "auroc": tm.MulticlassAUROC(c, **common),
+        "rfp": tm.MulticlassRecallAtFixedPrecision(c, min_precision=0.5, **common),
+        "pfr": tm.MulticlassPrecisionAtFixedRecall(c, min_recall=0.5, **common),
+        "sas": tm.MulticlassSpecificityAtSensitivity(c, min_sensitivity=0.5, **common),
+    }
+
+
+def _binary_family(device=None, validate_args: bool = True) -> dict:
+    """The click-through-rate eval: specificity, Hamming distance, IoU, MCC, kappa and
+    recall at 90 % precision beside the binned AUROC."""
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(device=device, validate_args=validate_args)
+    return {
+        "spec": tm.BinarySpecificity(**common),
+        "hamming": tm.BinaryHammingDistance(**common),
+        "iou": tm.BinaryJaccardIndex(**common),
+        "mcc": tm.BinaryMatthewsCorrCoef(**common),
+        "kappa": tm.BinaryCohenKappa(**common),
+        "rfp": tm.BinaryRecallAtFixedPrecision(min_precision=0.9, thresholds=N_THRESH, **common),
+        "auroc": tm.BinaryAUROC(thresholds=N_THRESH, **common),
+    }
+
+
+def _multilabel_family(device=None, validate_args: bool = True) -> dict:
+    """MS-COCO's 80 categories with ignored labels: exact match, Hamming distance,
+    specificity, IoU, MCC and precision at 50 % recall beside the binned macro mAP."""
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(num_labels=ML_LABELS, ignore_index=ML_IGNORE, device=device, validate_args=validate_args)
+    return {
+        "exact": tm.MultilabelExactMatch(**common),
+        "hamming": tm.MultilabelHammingDistance(**common),
+        "spec": tm.MultilabelSpecificity(**common),
+        "iou": tm.MultilabelJaccardIndex(**common),
+        "mcc": tm.MultilabelMatthewsCorrCoef(**common),
+        "pfr": tm.MultilabelPrecisionAtFixedRecall(min_recall=0.5, thresholds=N_THRESH, **common),
+        "map": tm.MultilabelAveragePrecision(thresholds=N_THRESH, **common),
+    }
+
+
+# name -> (members, groups, K1 and K2 launches per eager update, inputs for the CPU run)
+_FAMILY_PATHS = {
+    "imagenet": (
+        _imagenet_family,
+        {frozenset({"acc", "spec", "hamming"}), frozenset({"iou", "mcc", "kappa"})},
+        {"stat_counts": 1, "multi_threshold": 0},
+        "logits",
+    ),
+    "cifar": (
+        _cifar_fixed_point,
+        {frozenset({"auroc", "rfp", "pfr", "sas"})},
+        {"stat_counts": 0, "multi_threshold": 1},
+        "logits",
+    ),
+    "binary": (
+        _binary_family,
+        {frozenset({"spec", "hamming"}), frozenset({"iou", "mcc", "kappa"}), frozenset({"rfp", "auroc"})},
+        {"stat_counts": 0, "multi_threshold": 1},
+        "sigmoid",
+    ),
+    "multilabel": (
+        _multilabel_family,
+        {frozenset({"exact"}), frozenset({"hamming", "spec"}), frozenset({"iou", "mcc"}), frozenset({"pfr", "map"})},
+        {"stat_counts": 0, "multi_threshold": 1},
+        "sigmoid",
+    ),
+}
+
+
+def _outputs(value) -> tuple:
+    return value if isinstance(value, tuple) else (value,)
+
+
+def _close_to_cpu(name: str, member: str, got, want) -> float:
+    """A value against the CPU run's: fixed-point operating points and MCC exactly
+    (host float64 from equal counts), kappa relative ``KAPPA_RTOL``, curves ``AUROC_ATOL``,
+    the other ratios ``ACC_ATOL``. Returns the largest absolute difference."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        diff = (g - w).abs().max().item() if g.numel() else 0.0
+        if member in FIXED_POINT or member == "mcc":
+            ok = torch.equal(g, w)
+        elif member == "kappa":
+            ok = bool(((g - w).abs() <= ACC_ATOL + KAPPA_RTOL * w.abs()).all())
+        else:
+            ok = bool(((g - w).abs() <= (AUROC_ATOL if member in ("auroc", "map") else ACC_ATOL)).all())
+        if g.shape != w.shape or not ok or not torch.isfinite(g).all():
+            raise AssertionError(f"family {name} {member} output {i}: cuda {g.tolist()} vs cpu {w.tolist()}")
+        worst = max(worst, diff)
+    return worst
+
+
+def _bit_equal(name: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(_outputs(got), _outputs(want))):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{name} output {i}: engine {g.tolist()} vs eager {w.tolist()}")
+
+
+def run_family_path(name: str, batches: list) -> dict:
+    """One path of the rest of the stat-scores family: 16 updates eagerly, then the same
+    with the engine on, then ``compute``. Groups, K1 / K2 launches per update, every state
+    against the CPU run and the engine run bit-equal to eager, values within the CPU
+    tests' tolerances, the fixed-point curves falling back on every engine update, and
+    the stat-scores and confusion-matrix updates with no host sync."""
+    from torchmetrics_tpu_torch import MetricCollection, ops
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    members_fn, groups, per_update, cpu_kind = _FAMILY_PATHS[name]
+    n = len(batches)
+    runs = {}
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            ops.set_launch_counts({"stat_counts": 0, "multi_threshold": 0})
+            mc = MetricCollection(members_fn(validate_args=False))
+            for p, t in batches:
+                mc.update(p, t)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            runs[mode] = (mc, launches, mc.compute())
+    (eager, eager_launches, eager_values), (mc, engine_launches, values) = runs["eager"], runs["engine"]
+
+    got_groups = {frozenset(g) for g in mc.compute_groups.values()}
+    if got_groups != groups or {frozenset(g) for g in eager.compute_groups.values()} != groups:
+        raise AssertionError(f"family {name}: compute groups {mc.compute_groups}, expected {groups}")
+    want = {k: v * n for k, v in per_update.items()}
+    if eager_launches != want:
+        raise AssertionError(f"family {name}: eager launches {eager_launches}, expected {want}")
+    # under the engine K2 stays eager (the curves fall back); K1 runs in the fused graph:
+    # the warm-up step's launch, the pad-row unit's once per signature, one per replay
+    want_engine = {"stat_counts": (n + 1) if per_update["stat_counts"] else 0, "multi_threshold": want["multi_threshold"]}
+    if engine_launches != want_engine:
+        raise AssertionError(f"family {name}: engine launches {engine_launches}, expected {want_engine}")
+
+    to_cpu = (lambda p, t: (p.cpu(), t.cpu())) if cpu_kind == "logits" else (lambda p, t: (_sigmoid(p).cpu(), t.cpu()))
+    host = MetricCollection(members_fn(device="cpu", validate_args=False))
+    for p, t in batches:
+        host.update(*to_cpu(p, t))
+    host_values = host.compute()
+    worst = {}
+    for member in mc.keys(keep_base=True):
+        _assert_same_states(f"family {name} {member} engine vs eager", mc[member], eager[member])
+        _assert_same_states(f"family {name} {member} vs cpu", eager[member], host[member])
+        _bit_equal(f"family {name} {member}", values[member], eager_values[member])
+        worst[member] = _close_to_cpu(name, member, values[member], host_values[member])
+
+    # the engine's split: fused owners with no fallback, the curve owner eager every update
+    owners = [g.owner for g in mc._groups.values()]
+    curve_owners = [o for o in owners if o in CURVES]
+    discovery = 0 if all(mc._cse_signatures.get(o) is not None for o in owners) else 1
+    fused = mc._fused_engine
+    fused_stats = None if fused is None else fused.stats.as_dict()
+    if len(owners) - len(curve_owners) >= 2:
+        st = fused.stats
+        if st.eager_fallbacks or st.dispatches != n - discovery or st.captures != 1:
+            raise AssertionError(f"family {name}: fused engine {st}")
+        _check_replays(f"family {name} fused", fused)
+    for owner in curve_owners:
+        own = mc._modules[owner]._engine.stats
+        if own.dispatches or own.eager_fallbacks != n - discovery:
+            raise AssertionError(f"family {name}: {owner} should fall back every update: {own}")
+
+    # no host sync in the stat-scores and confusion-matrix updates (eager)
+    eligible = [m for k, m in members_fn(validate_args=False).items() if k not in CURVES]
+    if eligible:
+        with engine_context(False):
+            _updates_without_sync(f"family {name}", eligible, batches[0])
+    summary = {
+        "groups": sorted(sorted(g) for g in got_groups),
+        "launches_eager": eager_launches,
+        "launches_engine": engine_launches,
+        "discovery_steps": discovery,
+        "fused": fused_stats,
+        "falling_back": {o: mc._modules[o]._engine.stats.as_dict() for o in curve_owners},
+        "max_abs_diff_to_cpu": worst,
+        "values": {k: [v.tolist() if v.numel() < 12 else f"{tuple(v.shape)} tensor" for v in _outputs(val)]
+                   for k, val in values.items()},
+    }
+    _log(f"  family {name}: groups {summary['groups']}, {n} updates eager and with the engine, launches"
+         f" {eager_launches} / {engine_launches}; states equal to the CPU, engine bit-equal to eager")
+    return summary
+
+
+def run_top_k(acc_batches: list) -> dict:
+    """``MulticlassAccuracy(top_k=5)`` on the staged stable-sort path, eagerly and with
+    the engine, against the CPU; its updates with no host sync; and the top-5 selection
+    alone (``select_topk``) beside ``Tensor.topk`` at 8192 x 1000."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy, ops
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.utilities.data import select_topk
+
+    batches = acc_batches[:4]
+    runs = {}
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            ops.set_launch_counts({"stat_counts": 0, "multi_threshold": 0})
+            m = MulticlassAccuracy(ACC_CLASSES, top_k=TOP_K, validate_args=False)
+            for p, t in batches:
+                m.update(p, t)
+            runs[mode] = (m, m.compute(), ops.launch_counts())
+    (eager, eager_value, _), (engine, value, launches) = runs["eager"], runs["engine"]
+    host = MulticlassAccuracy(ACC_CLASSES, top_k=TOP_K, validate_args=False, device="cpu")
+    for p, t in batches:
+        host.update(p.cpu(), t.cpu())
+    _assert_same_states("top-5 engine vs eager", engine, eager)
+    _assert_same_states("top-5 vs cpu", eager, host)
+    _bit_equal("top-5", value, eager_value)
+    _assert_close("top-5 vs cpu", value, host.compute(), ACC_ATOL)
+    st = engine._engine.stats
+    if st.eager_fallbacks or st.dispatches != len(batches):
+        raise AssertionError(f"top-5 under the engine: {st}")
+    with engine_context(False):
+        _updates_without_sync("top-5", [MulticlassAccuracy(ACC_CLASSES, top_k=TOP_K, validate_args=False)], batches[0])
+    for _ in range(2):  # the first engine step builds and captures
+        engine.update(*batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.update(*batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    inputs = [p for p, _ in acc_batches[:4]]
+    sort_ms = _median_ms(lambda i: select_topk(inputs[i % 4], TOP_K, dim=1), iters=50)
+    sort_prof = _device_profile(lambda i: select_topk(inputs[i % 4], TOP_K, dim=1), iters=20)
+    topk_ms = _median_ms(lambda i: inputs[i % 4].topk(TOP_K, dim=1), iters=50)
+    out = {
+        "launches_engine": launches,
+        "engine": st.as_dict(),
+        "select_topk_ms": sort_ms,
+        "select_topk_device_us": sort_prof["device_busy_us"],
+        "select_topk_device_ops": sort_prof["device_ops"],
+        "select_topk_kernels_us": sort_prof["kernels_us"],
+        "tensor_topk_ms": topk_ms,
+        "value": float(value),
+    }
+    _log(f"  top-5 accuracy: engine {st.dispatches} steps, no fallback, equal to eager and to the CPU;"
+         f" select_topk {sort_ms * 1e3:.1f} us (Tensor.topk {topk_ms * 1e3:.1f} us)")
+    return out
+
+
+def check_sigmoid(binary_batches: list, multilabel_batches: list) -> dict:
+    """The port's sigmoid on the card: the same logits sliced from a 2^20 (or 8192 x 80)
+    batch and taken as a 7-row batch give bit-identical probabilities; and how often the
+    card's and the CPU's results differ, for the port's helper and for ``torch.sigmoid``."""
+    out = {}
+    for name, x in (("binary_2^20", binary_batches[0][0]), ("multilabel_8192x80", multilabel_batches[0][0])):
+        whole, part = _sigmoid(x), _sigmoid(x[:7].clone())
+        if not torch.equal(whole[:7], part):
+            raise AssertionError(f"sigmoid {name}: the first 7 rows differ from the same rows as a batch of 7")
+        old_whole, old_part = torch.sigmoid(x), torch.sigmoid(x[:7].clone())
+        x_cpu = x.cpu()
+        out[name] = {
+            "values": x.numel(),
+            "helper_cuda_vs_cpu": int((whole.cpu() != _sigmoid(x_cpu)).sum()),
+            "torch_sigmoid_cuda_vs_cpu": int((old_whole.cpu() != torch.sigmoid(x_cpu)).sum()),
+            "torch_sigmoid_cuda_7_rows_vs_sliced": int((old_whole[:7] != old_part).sum()),
+            "torch_sigmoid_cpu_7_rows_vs_sliced": int((torch.sigmoid(x_cpu)[:7] != torch.sigmoid(x_cpu[:7].clone())).sum()),
+        }
+    _log(f"  sigmoid: sliced rows bit-identical on the card; card vs CPU differ on "
+         + ", ".join(f"{k} {v['helper_cuda_vs_cpu']} of {v['values']} (torch.sigmoid {v['torch_sigmoid_cuda_vs_cpu']})"
+                     for k, v in out.items()))
+    return out
+
+
+def time_family(batches_by_path: dict) -> dict:
+    """Each family path's collection ``update`` (``validate_args=False``), engine on
+    against eager, in turns (eager, engine, engine, eager) in this one call: host µs to a
+    device sync, device busy, operations, idle share and the largest device items."""
+    from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    paths = {name: (lambda fn=_FAMILY_PATHS[name][0]: MetricCollection(fn(validate_args=False)), batches)
+             for name, batches in batches_by_path.items()}
+    paths["top5"] = (lambda: MulticlassAccuracy(ACC_CLASSES, top_k=TOP_K, validate_args=False), batches_by_path["imagenet"])
+    out = {}
+    for name, (make, batches) in paths.items():
+        runs = {"eager": [], "engine": []}
+        for mode in ("eager", "engine", "engine", "eager"):
+            with engine_context(mode == "engine"):
+                m = make()
+                m.update(*batches[0])  # settles groups, builds and captures
+                runs[mode].append(_timed(lambda i, m=m: m.update(*batches[i % len(batches)])))
+        out[name] = {mode: {k: (statistics.mean(r[k] for r in rs) if isinstance(rs[0][k], float) else rs[0][k])
+                            for k in rs[0]} for mode, rs in runs.items()}
+        out[name]["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs.items()}
+    _log("  family times: " + ", ".join(
+        f"{k} {v['eager']['update_us']:.1f} -> {v['engine']['update_us']:.1f} us" for k, v in out.items()
+    ))
+    return out
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -1565,11 +1932,11 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/11] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/12] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/11] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/12] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -1579,30 +1946,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/11] kernels against their plain versions")
+        _log("[3/12] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/11] main path")
+        _log("[4/12] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/11] collection path")
+        _log("[5/12] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/11] binary path")
+        _log("[6/12] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/11] multilabel path")
+        _log("[7/12] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/11] task routers")
+        _log("[8/12] task routers")
         run_routers(gen)
 
-        _log("[9/11] sync, two ranks on one card")
+        _log("[9/12] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/11] times")
+        _log("[10/12] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -1615,9 +1982,9 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/11] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/12] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
-    sigmoid_to_cpu = lambda p, t: (torch.sigmoid(p).cpu(), t.cpu())  # noqa: E731
+    sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
     engine = {
         "accuracy": run_engine_accuracy(acc_batches),
@@ -1637,6 +2004,15 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
+    _log("[12/12] the rest of the stat-scores family, eagerly and with the engine")
+    family_batches = {
+        "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
+    }
+    family = {name: run_family_path(name, batches) for name, batches in family_batches.items()}
+    family["top5"] = run_top_k(acc_batches)
+    family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
+    family["times"] = time_family(family_batches)
+
     for entry in kernels:
         k = entry["name"]
         entry["launches_by_path"] = {
@@ -1645,6 +2021,9 @@ def main() -> int:
             "binary": binary_launches[k],
             "multilabel": multilabel_launches[k],
             **{f"{path}_engine": engine[path]["launches"][k] for path in ("accuracy", "collection", "binary", "multilabel")},
+            **{f"family_{path}": family[path]["launches_eager"][k] for path in family_batches},
+            **{f"family_{path}_engine": family[path]["launches_engine"][k] for path in family_batches},
+            "family_top5_engine": family["top5"]["launches_engine"][k],
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs; the pad-row unit is computed once per signature, outside the graph"
@@ -1652,7 +2031,7 @@ def main() -> int:
             else "K2 runs eagerly: the binned curves fall back (their [0, 1] range check reads the host)"
         )
 
-    results = {"updates": updates, "engine": engine, "sync_2rank": sync, "card": smi}
+    results = {"updates": updates, "engine": engine, "family": family, "sync_2rank": sync, "card": smi}
     print(json.dumps(results), flush=True)
     if "--out" in sys.argv:
         path = sys.argv[sys.argv.index("--out") + 1]

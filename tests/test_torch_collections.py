@@ -106,24 +106,39 @@ def _update_both(port, ref, preds, target):
     ref.update(jnp.asarray(preds), jnp.asarray(target))
 
 
+def _discovered_by_jax(spec) -> dict:
+    """The JAX collection's groups after its first update (value discovery)."""
+    ref = JaxMetricCollection(_members(spec, False))
+    ref.update(*(jnp.asarray(x) for x in _batches(seed=2)[0]))
+    return ref.compute_groups
+
+
 @pytest.mark.parametrize(
     ("spec", "kwargs", "settled_when_built"),
     [
-        (ALL_SIGNATURE, {}, True),
-        (MIXED, {}, False),
-        (VETO, {}, False),
-        (MIXED, dict(compute_groups=[["acc", "acc_w"], ["auroc", "auroc_w"], ["auroc_exact"], ["cm", "cm_t"]]), True),
-        (MIXED, dict(compute_groups=False), False),
+        (ALL_SIGNATURE, {}, (True, True)),
+        (MIXED, {}, (False, False)),
+        (VETO, {}, (True, False)),
+        (
+            MIXED,
+            dict(compute_groups=[["acc", "acc_w"], ["auroc", "auroc_w"], ["auroc_exact"], ["cm", "cm_t"]]),
+            (True, True),
+        ),
+        (MIXED, dict(compute_groups=False), (False, False)),
     ],
     ids=["all-signature", "mixed", "veto", "explicit", "off"],
 )
 def test_compute_groups_match_jax(spec, kwargs, settled_when_built):
+    """``settled_when_built``: (port, JAX). The binned multiclass AUROC declares a
+    reduction signature, which the JAX package's does not: the port builds at once the
+    groups the JAX package reaches at its first update, and a collection whose every
+    member declares one (``veto``) has nothing left to discover."""
     port, ref = _pair(spec, **kwargs)
-    assert port.compute_groups == ref.compute_groups
-    assert port._groups_checked == ref._groups_checked == settled_when_built
+    assert (port._groups_checked, ref._groups_checked) == settled_when_built
+    built = port.compute_groups
     batches = _batches(seed=1)
     _update_both(port, ref, *batches[0])
-    assert port.compute_groups == ref.compute_groups
+    assert port.compute_groups == ref.compute_groups == built
     _assert_states(port, ref)
     for preds, target in batches[1:]:
         _update_both(port, ref, preds, target)
@@ -133,9 +148,10 @@ def test_compute_groups_match_jax(spec, kwargs, settled_when_built):
 
 
 def test_expected_groups():
-    """What the parity above holds, spelled out: signature fusion, value discovery, veto."""
+    """What the parity above holds, spelled out: signature fusion (the binned AUROCs
+    too), value discovery (which finds nothing more here), veto."""
     port = MetricCollection(_members(MIXED, True))
-    assert port.compute_groups == {0: ["acc", "acc_w"], 1: ["auroc"], 2: ["auroc_exact"], 3: ["auroc_w"], 4: ["cm", "cm_t"]}
+    assert port.compute_groups == {0: ["acc", "acc_w"], 1: ["auroc", "auroc_w"], 2: ["auroc_exact"], 3: ["cm", "cm_t"]}
     port.update(*(torch.from_numpy(x) for x in _batches(seed=2)[0]))
     assert port.compute_groups == {0: ["acc", "acc_w"], 1: ["auroc", "auroc_w"], 2: ["auroc_exact"], 3: ["cm", "cm_t"]}
     veto = MetricCollection(_members(VETO, True))
@@ -158,12 +174,15 @@ def test_cse_switch_matches_jax(cse):
 @pytest.mark.parametrize("spec", [ALL_SIGNATURE, MIXED], ids=["all-signature", "mixed"])
 @pytest.mark.parametrize(("prefix", "postfix"), [(None, None), ("val_", None), (None, "_ep"), ("val_", "_ep")])
 def test_forward_and_compute_match_jax(spec, prefix, postfix):
+    """``forward`` never runs the JAX collection's value discovery, so its groups stay
+    as built; the port's are the ones that discovery finds (the binned AUROCs declare
+    a reduction signature), and every value agrees."""
     port, ref = _pair(spec, prefix=prefix, postfix=postfix)
     for preds, target in _batches(seed=4):
         _assert_values(
             port(torch.from_numpy(preds), torch.from_numpy(target)), ref(jnp.asarray(preds), jnp.asarray(target))
         )
-    assert port.compute_groups == ref.compute_groups
+    assert port.compute_groups == _discovered_by_jax(spec)
     _assert_values(port.compute(), ref.compute())
     assert list(port.keys()) == list(ref.keys())
 

@@ -30,6 +30,7 @@ from torchmetrics_tpu import MetricCollection as JaxMetricCollection
 from torchmetrics_tpu import classification as jc
 from torchmetrics_tpu.engine import engine_context as jax_engine_context
 from torchmetrics_tpu.metric import Metric as JaxMetric
+from tests.torch_parity import assert_states
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch import classification as tc
 from torchmetrics_tpu_torch.engine import (
@@ -617,9 +618,21 @@ def test_fused_collection_survives_bad_member():
         np.testing.assert_allclose(out[k].numpy(), np.asarray(want[k]), atol=RATIO_ATOL, err_msg=k)
 
 
+def _plus_discovery_step(jax_stats, **extra) -> Dict[str, Any]:
+    """The JAX engine's counters with the first update added: the JAX collection runs
+    it eagerly to discover its groups, where the port's collection, whose members all
+    declare a reduction signature, has its groups when built and steps at once."""
+    out = jax_counters(jax_stats)
+    for key, value in extra.items():
+        out[key] += value
+    return out
+
+
 def test_fused_collection_excludes_the_binned_curve():
-    """Accuracy, a binned AUROC and a confusion matrix: the discovery step runs eagerly,
-    then two fused steps of the two eligible owners; the curve falls back on its own."""
+    """Accuracy, a binned AUROC and a confusion matrix: every member declares a
+    reduction signature, so there is no discovery step: three fused steps of the two
+    eligible owners, and the curve falls back on its own at every update. The JAX
+    package discovers its groups eagerly at the first update and fuses the other two."""
     kinds = ["acc", "auroc", "cm"]
     batches = _batches([32] * 3, seed=25)
     with engine_context(True), jax_engine_context(True, donate=True):
@@ -627,12 +640,14 @@ def test_fused_collection_excludes_the_binned_curve():
         ref = JaxMetricCollection(_members("jax", kinds))
         _collection_parity(port, ref, batches, kinds)
         fst = port._fused_engine.stats
-        assert (fst.traces, fst.dispatches, fst.metrics_updated) == (1, 2, 4)
+        assert (fst.traces, fst.dispatches, fst.metrics_updated) == (1, 3, 6)
         assert list(fst.fallback_reasons) == ["member:auroc:host-read:_local_scalar_dense"]
-        assert port_counters(fst) == jax_counters(ref._fused_engine.stats)
+        assert port_counters(fst) == _plus_discovery_step(
+            ref._fused_engine.stats, cache_hits=1, dispatches=1, metrics_updated=2
+        )
         curve, ref_curve = port._modules["auroc"]._engine.stats, ref._modules["auroc"]._engine.stats
-        assert (curve.eager_fallbacks, curve.dispatches) == (2, 0)
-        assert port_counters(curve) == jax_counters(ref_curve)
+        assert (curve.eager_fallbacks, curve.dispatches) == (3, 0)
+        assert port_counters(curve) == _plus_discovery_step(ref_curve, eager_fallbacks=1)
 
 
 def test_fused_collection_honors_per_metric_opt_out():
@@ -930,3 +945,173 @@ def test_inputs_a_graph_cannot_take_fall_back():
         assert dict(m._engine.stats.fallback_reasons) == {"non-tensor-input": 1, "grad-input": 1}
         assert m._engine.stats.dispatches == 1
         assert m.compute().tolist() == [16.0] * NUM_CLASSES
+
+
+# ---------------------------------------------------------------- the rest of the stat-scores family
+
+# kind -> (constructor over a module, input kind, expected split on the port's engine:
+# "replay" runs every update as its graph step, "fallback" runs every update eagerly)
+_FAMILY = {
+    "multiclass-specificity": (lambda m, d: m.MulticlassSpecificity(NUM_CLASSES, average="macro", **d), "mc", "replay"),
+    "multiclass-hamming": (lambda m, d: m.MulticlassHammingDistance(NUM_CLASSES, average="weighted", **d), "mc", "replay"),
+    "multiclass-specificity-top2": (
+        lambda m, d: m.MulticlassSpecificity(NUM_CLASSES, top_k=2, average="none", **d), "mc", "replay"
+    ),
+    "binary-specificity": (lambda m, d: m.BinarySpecificity(**d), "bin", "replay"),
+    "multilabel-hamming": (lambda m, d: m.MultilabelHammingDistance(3, average="micro", **d), "ml", "replay"),
+    "multiclass-jaccard": (lambda m, d: m.MulticlassJaccardIndex(NUM_CLASSES, **d), "mc", "replay"),
+    "multiclass-mcc": (lambda m, d: m.MulticlassMatthewsCorrCoef(NUM_CLASSES, **d), "mc", "replay"),
+    "multiclass-kappa": (lambda m, d: m.MulticlassCohenKappa(NUM_CLASSES, weights="quadratic", **d), "mc", "replay"),
+    "binary-jaccard": (lambda m, d: m.BinaryJaccardIndex(**d), "bin", "replay"),
+    "multilabel-mcc": (lambda m, d: m.MultilabelMatthewsCorrCoef(3, **d), "ml", "replay"),
+    "multilabel-exact-match": (lambda m, d: m.MultilabelExactMatch(3, **d), "ml", "replay"),
+    "multiclass-exact-match": (lambda m, d: m.MulticlassExactMatch(NUM_CLASSES, **d), "mc", "replay"),
+    "multilabel-exact-match-samplewise": (
+        lambda m, d: m.MultilabelExactMatch(3, multidim_average="samplewise", **d), "ml3", "fallback"
+    ),
+    "multiclass-recall-at-precision": (
+        lambda m, d: m.MulticlassRecallAtFixedPrecision(NUM_CLASSES, min_precision=0.5, thresholds=20, **d),
+        "mc",
+        "fallback",
+    ),
+    "binary-precision-at-recall": (
+        lambda m, d: m.BinaryPrecisionAtFixedRecall(min_recall=0.5, thresholds=20, **d), "bin", "fallback"
+    ),
+    "multilabel-specificity-at-sensitivity": (
+        lambda m, d: m.MultilabelSpecificityAtSensitivity(3, min_sensitivity=0.5, thresholds=20, **d),
+        "ml",
+        "fallback",
+    ),
+}
+
+
+def _family_batches(inputs: str, sizes, seed: int):
+    """Probabilities for multiclass, logits (a sigmoid) for binary and multilabel."""
+    if inputs == "mc":
+        return _batches(sizes, seed)
+    rng = np.random.RandomState(seed)
+    shape = {"bin": lambda n: (n,), "ml": lambda n: (n, 3), "ml3": lambda n: (n, 3, 4)}[inputs]
+    return [((rng.randn(*shape(n)) * 2).astype(np.float32), rng.randint(0, 2, shape(n))) for n in sizes]
+
+
+def _family_value(value):
+    return tuple(np.asarray(v) for v in value) if isinstance(value, tuple) else np.asarray(value)
+
+
+@pytest.mark.parametrize("kind", sorted(_FAMILY))
+def test_family_replay_and_fallback_split(kind):
+    """Each new family on the engine against its eager run and the JAX package's engine:
+    the stat-scores and confusion-matrix derivatives and global exact match replay, the
+    fixed-point curves fall back on every update (their range check reads the host),
+    samplewise exact match falls back on its list state; the counters equal the JAX
+    engine's."""
+    make, inputs, split = _FAMILY[kind]
+    batches = _family_batches(inputs, [32, 32, 17, 32, 9], seed=40)
+    with engine_context(True):
+        port = make(tc, {"validate_args": False, "device": "cpu"})
+        for b in batches:
+            port.update(*_t(b))
+        got = port.compute()
+    with engine_context(False):
+        eager = make(tc, {"validate_args": False, "device": "cpu"})
+        for b in batches:
+            eager.update(*_t(b))
+        want_eager = eager.compute()
+    with jax_engine_context(True, donate=True):
+        ref = make(jc, {"validate_args": False})
+        for b in batches:
+            ref.update(*_j(b))
+        want = ref.compute()
+    st = port._engine.stats
+    if split == "replay":
+        assert st.eager_fallbacks == 0 and st.dispatches == len(batches)
+    else:
+        assert st.eager_fallbacks == len(batches) and st.dispatches == 0
+    assert port_counters(st) == jax_counters(ref._engine.stats)
+    for g, e, w in zip(*(v if isinstance(v, tuple) else (v,) for v in (got, want_eager, want))):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(e))
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=RATIO_ATOL, rtol=2e-6)
+    assert_states(port, ref)
+
+
+def _family_members(side, validate=False):
+    mod = tc if side == "port" else jc
+    kw = {"validate_args": validate, **_dev(side)}
+    return {
+        "acc": mod.MulticlassAccuracy(NUM_CLASSES, average="macro", **kw),
+        "spec": mod.MulticlassSpecificity(NUM_CLASSES, average="macro", **kw),
+        "hamming": mod.MulticlassHammingDistance(NUM_CLASSES, average="macro", **kw),
+        "iou": mod.MulticlassJaccardIndex(NUM_CLASSES, **kw),
+        "mcc": mod.MulticlassMatthewsCorrCoef(NUM_CLASSES, **kw),
+        "kappa": mod.MulticlassCohenKappa(NUM_CLASSES, weights="quadratic", **kw),
+    }
+
+
+@pytest.mark.parametrize("sizes", [[32] * 4, [32, 17, 9, 32, 5]], ids=["fixed", "ragged"])
+def test_family_collection_fuses_both_groups(sizes):
+    """Accuracy, specificity and Hamming distance (one stat-scores group) and Jaccard,
+    MCC and kappa (one confusion-matrix group): one fused step per update, the values
+    of the members run one by one, and the JAX package's groups and counters."""
+    batches = _batches(sizes, seed=41)
+    with engine_context(True), jax_engine_context(True, donate=True):
+        port = MetricCollection(_family_members("port"))
+        ref = JaxMetricCollection(_family_members("jax"))
+        assert sorted(map(sorted, port.compute_groups.values())) == [["acc", "hamming", "spec"], ["iou", "kappa", "mcc"]]
+        for b in batches:
+            port.update(*_t(b))
+            ref.update(*_j(b))
+        fst = port._fused_engine.stats
+        assert (fst.dispatches, fst.eager_fallbacks, fst.metrics_updated) == (len(sizes), 0, 2 * len(sizes))
+        assert port_counters(fst) == jax_counters(ref._fused_engine.stats)
+        assert port.compute_groups == ref.compute_groups
+        out, want = port.compute(), ref.compute()
+    plain = MetricCollection(_family_members("port"), fused_dispatch=False, compute_groups=False)
+    with engine_context(False):
+        for b in batches:
+            plain.update(*_t(b))
+        expected = plain.compute()
+    for k in expected:
+        np.testing.assert_array_equal(out[k].numpy(), expected[k].numpy(), err_msg=k)
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(want[k]), atol=RATIO_ATOL, rtol=2e-6, err_msg=k)
+
+
+_FAMILY_THRESHOLDED = {
+    "binary-specificity": (lambda mod, thr, d: mod.BinarySpecificity(threshold=thr, validate_args=False, **d), None),
+    "binary-jaccard": (lambda mod, thr, d: mod.BinaryJaccardIndex(threshold=thr, validate_args=False, **d), None),
+    "multilabel-hamming": (
+        lambda mod, thr, d: mod.MultilabelHammingDistance(3, threshold=thr, validate_args=False, **d),
+        3,
+    ),
+    "multilabel-mcc": (
+        lambda mod, thr, d: mod.MultilabelMatthewsCorrCoef(3, threshold=thr, validate_args=False, **d),
+        3,
+    ),
+    "multilabel-exact-match": (
+        lambda mod, thr, d: mod.MultilabelExactMatch(3, threshold=thr, validate_args=False, **d),
+        3,
+    ),
+}
+
+
+@pytest.mark.parametrize("threshold", [0.3, 0.5])
+@pytest.mark.parametrize("kind", sorted(_FAMILY_THRESHOLDED))
+def test_family_ragged_logits_at_both_thresholds(kind, threshold):
+    """Ragged logits at thresholds 0.3 and 0.5: the engine's counts equal the eager
+    run's exactly and the JAX package's eager run's values, whichever way the batch is
+    bucketed (exact shapes under 0.5, where a zero pad row would count as a positive)."""
+    make, labels = _FAMILY_THRESHOLDED[kind]
+    batches = _logit_batches([5, 13, 5, 13], labels, seed=42)
+    with engine_context(True):
+        port = make(tc, threshold, {"device": "cpu"})
+        got = _run(port, batches, _t)
+    with engine_context(False):
+        eager_metric = make(tc, threshold, {"device": "cpu"})
+        eager = _run(eager_metric, batches, _t)
+    with jax_engine_context(False):
+        want = _run(make(jc, threshold, {}), batches, _j)
+    np.testing.assert_array_equal(got, eager)
+    np.testing.assert_allclose(got, want, atol=RATIO_ATOL)
+    for attr in port._defaults:
+        np.testing.assert_array_equal(getattr(port, attr).numpy(), getattr(eager_metric, attr).numpy(), err_msg=attr)
+    st = port._engine.stats
+    assert (st.dispatches, st.eager_fallbacks) == (4, 0)

@@ -32,13 +32,18 @@ import torchmetrics_tpu_torch as tm
 from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
 routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
-           "PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision")
+           "PrecisionRecallCurve", "ROC", "AUROC", "AveragePrecision", "Specificity", "HammingDistance",
+           "ExactMatch", "JaccardIndex", "MatthewsCorrCoef", "RecallAtFixedPrecision", "PrecisionAtFixedRecall",
+           "SpecificityAtSensitivity")
 every_class = [n for n in tm.__all__ if n.startswith(("Binary", "Multiclass", "Multilabel"))]
-assert len(every_class) == 33, every_class
+assert len(every_class) == 58, every_class
+FLOORS = {"RecallAtFixedPrecision": "min_precision", "PrecisionAtFixedRecall": "min_recall",
+          "SpecificityAtSensitivity": "min_sensitivity"}
 
 def args(name):
     width = {"num_classes": 5} if name.startswith("Multiclass") else {"num_labels": 5} if name.startswith("Multilabel") else {}
-    return {**width, **({"beta": 1.0} if "FBeta" in name else {})}
+    floor = {v: 0.5 for k, v in FLOORS.items() if name.endswith(k)}
+    return {**width, **floor, **({"beta": 1.0} if "FBeta" in name else {})}
 
 for make in (
     lambda: MulticlassAccuracy(num_classes=5),
@@ -46,7 +51,8 @@ for make in (
     lambda: MulticlassConfusionMatrix(num_classes=5),
     lambda: MetricCollection({"cm": MulticlassConfusionMatrix(num_classes=5)}),
     *(lambda n=n: getattr(tm, n)(**args(n)) for n in every_class),
-    *(lambda r=r: getattr(tm, r)(task="multilabel", num_labels=3) for r in routers),
+    *(lambda r=r: getattr(tm, r)(task="multilabel", num_labels=3, **args(r)) for r in routers),
+    lambda: tm.CohenKappa(task="binary"),
 ):
     try:
         make()

@@ -124,3 +124,82 @@ def test_router_kwargs_reach_the_metric():
     assert metric.max_fpr == 0.2 and metric.confmat.shape == (5, 2, 2)
     metric = ttm.StatScores(task="multiclass", num_classes=C, top_k=2, multidim_average="samplewise", device="cpu")
     assert metric.top_k == 2 and metric.tp == []
+
+
+# the rest of the stat-scores family: router -> (its tasks, extra keyword arguments)
+FAMILY_MODULAR = {
+    "Specificity": (TASKS, {}),
+    "HammingDistance": (TASKS, dict(average="macro")),
+    "ExactMatch": (["multiclass", "multilabel"], {}),
+    "JaccardIndex": (TASKS, dict(average="weighted")),
+    "MatthewsCorrCoef": (TASKS, {}),
+    "CohenKappa": (["binary", "multiclass"], dict(weights="linear")),
+    "RecallAtFixedPrecision": (TASKS, dict(min_precision=0.5, thresholds=9)),
+    "PrecisionAtFixedRecall": (TASKS, dict(min_recall=0.5, thresholds=9)),
+    "SpecificityAtSensitivity": (TASKS, dict(min_sensitivity=0.5, thresholds=9)),
+}
+FAMILY_FUNCTIONAL = {
+    "specificity": (TASKS, dict(average="macro")),
+    "hamming_distance": (TASKS, {}),
+    "exact_match": (["multiclass", "multilabel"], {}),
+    "jaccard_index": (TASKS, {}),
+    "matthews_corrcoef": (TASKS, {}),
+    "cohen_kappa": (["binary", "multiclass"], dict(weights="quadratic")),
+    "recall_at_fixed_precision": (TASKS, dict(min_precision=0.6, thresholds=7)),
+    "precision_at_fixed_recall": (TASKS, dict(min_recall=0.6)),
+    "specificity_at_sensitivity": (TASKS, dict(min_sensitivity=0.6, thresholds=7)),
+}
+
+
+def _family_widths(router: str, task: str) -> dict:
+    widths = _widths(task)
+    if router.lower().replace("_", "") == "cohenkappa":
+        widths.pop("num_labels")  # the kappa router takes no num_labels
+    return widths
+
+
+def _family_cases(table):
+    return [(name, task) for name, (tasks, _) in sorted(table.items()) for task in tasks]
+
+
+@pytest.mark.parametrize(("router", "task"), _family_cases(FAMILY_MODULAR))
+def test_family_modular_router(router, task):
+    kwargs = dict(task=task, **_family_widths(router, task), **FAMILY_MODULAR[router][1])
+    port = getattr(ttm, router)(**kwargs, device="cpu")
+    ref = getattr(jtm, router)(**kwargs)
+    assert type(port).__name__ == type(ref).__name__
+    assert type(port).__name__.startswith(PORT_CLASS_PREFIX[task]) and isinstance(port, ttm.Metric)
+    for seed in range(2):
+        preds, target = _inputs(task, seed)
+        assert_close(
+            port(torch.from_numpy(preds), torch.from_numpy(target)),
+            ref(jnp.asarray(preds), jnp.asarray(target)),
+            ATOL, msg=f"{router} forward",
+        )
+    assert_close(port.compute(), ref.compute(), ATOL, msg=f"{router} compute")
+
+
+@pytest.mark.parametrize(("router", "task"), _family_cases(FAMILY_FUNCTIONAL))
+def test_family_functional_router(router, task):
+    preds, target = _inputs(task, 8)
+    kwargs = dict(task=task, **_family_widths(router, task), **FAMILY_FUNCTIONAL[router][1])
+    assert_close(
+        getattr(tfn, router)(torch.from_numpy(preds), torch.from_numpy(target), **kwargs),
+        getattr(jfn, router)(jnp.asarray(preds), jnp.asarray(target), **kwargs),
+        ATOL, msg=router,
+    )
+
+
+@pytest.mark.parametrize("router", sorted(FAMILY_MODULAR))
+def test_family_router_refusals_match_jax(router):
+    """A missing width, an unknown task and a task the family does not have raise the
+    JAX package's errors, word for word."""
+    extra = FAMILY_MODULAR[router][1]
+    for kwargs in (dict(task="multiclass"), dict(task="multilabel"), dict(task="binary"), dict(task="regression")):
+        if kwargs["task"] in FAMILY_MODULAR[router][0] and kwargs["task"] == "binary":
+            continue
+        with pytest.raises(ValueError) as port_err:
+            getattr(ttm, router)(**kwargs, **extra, device="cpu")
+        with pytest.raises(ValueError) as ref_err:
+            getattr(jtm, router)(**kwargs, **extra)
+        assert str(port_err.value) == str(ref_err.value)

@@ -5,12 +5,13 @@ package at the three protocol levels of ``tests/differential/harness.py``: the
 per-batch ``forward`` value, the fold of two replicas via ``merge_state``, and the epoch
 ``compute``.
 
-Sigmoid: ``jax.nn.sigmoid`` (XLA on the CPU) and ``torch.sigmoid`` differ by up to two
-ulp on some 0.4 % of float32 logits (``test_torch_binary.py::test_sigmoid_difference_is_bounded``).
-Where logits go in, ``jax_scores`` hands the JAX side the same logits when the two
-sigmoids put every score on the same side of every threshold, and the port's own
-probabilities otherwise, so integer counts can be held exactly. Exact-mode score lists
-hold sigmoid outputs themselves; they are held to ``SIGMOID_ATOL``.
+Sigmoid: ``jax.nn.sigmoid`` (XLA on the CPU, ``1 / (1 + exp(-x))`` in float32) and the
+port's ``_sigmoid`` (float32 logits go through float64 and are rounded once) differ by
+up to two ulp (``test_torch_binary.py::test_sigmoid_difference_is_bounded``). Where
+logits go in, ``jax_scores`` hands the JAX side the same logits when the two sigmoids
+put every score on the same side of every threshold, and the port's own probabilities
+otherwise, so integer counts can be held exactly. Exact-mode score lists hold sigmoid
+outputs themselves; they are held to ``SIGMOID_ATOL``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+from torchmetrics_tpu_torch.utilities.compute import _sigmoid
 
 # two ulp of a float32 in [0.5, 1): the largest sigmoid difference seen, and allowed
 SIGMOID_ATOL = 2.0**-23
@@ -80,7 +83,7 @@ def jax_scores(preds: np.ndarray, thresholds=None, threshold: float = 0.5) -> np
     if preds.dtype.kind != "f" or np.all((preds >= 0) & (preds <= 1)):
         return preds
     j = np.asarray(jax.nn.sigmoid(jnp.asarray(preds)))
-    t = torch.sigmoid(torch.from_numpy(preds)).numpy()
+    t = _sigmoid(torch.from_numpy(preds)).numpy()
     edges = [np.float32(threshold)]
     thr = thresholds_array(thresholds)
     if thr is not None:

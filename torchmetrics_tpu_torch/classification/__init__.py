@@ -18,11 +18,21 @@ from torchmetrics_tpu_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from torchmetrics_tpu_torch.classification.cohen_kappa import (
+    BinaryCohenKappa,
+    CohenKappa,
+    MulticlassCohenKappa,
+)
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
+)
+from torchmetrics_tpu_torch.classification.exact_match import (
+    ExactMatch,
+    MulticlassExactMatch,
+    MultilabelExactMatch,
 )
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
@@ -33,6 +43,30 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MulticlassFBetaScore,
     MultilabelF1Score,
     MultilabelFBetaScore,
+)
+from torchmetrics_tpu_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
+)
+from torchmetrics_tpu_torch.classification.jaccard import (
+    BinaryJaccardIndex,
+    JaccardIndex,
+    MulticlassJaccardIndex,
+    MultilabelJaccardIndex,
+)
+from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
+)
+from torchmetrics_tpu_torch.classification.precision_fixed_recall import (
+    BinaryPrecisionAtFixedRecall,
+    MulticlassPrecisionAtFixedRecall,
+    MultilabelPrecisionAtFixedRecall,
+    PrecisionAtFixedRecall,
 )
 from torchmetrics_tpu_torch.classification.precision_recall import (
     BinaryPrecision,
@@ -50,11 +84,29 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
+from torchmetrics_tpu_torch.classification.recall_fixed_precision import (
+    BinaryRecallAtFixedPrecision,
+    MulticlassRecallAtFixedPrecision,
+    MultilabelRecallAtFixedPrecision,
+    RecallAtFixedPrecision,
+)
 from torchmetrics_tpu_torch.classification.roc import (
     BinaryROC,
     MulticlassROC,
     MultilabelROC,
     ROC,
+)
+from torchmetrics_tpu_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
+)
+from torchmetrics_tpu_torch.classification.specificity_sensitivity import (
+    BinarySpecificityAtSensitivity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelSpecificityAtSensitivity,
+    SpecificityAtSensitivity,
 )
 from torchmetrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
@@ -70,42 +122,76 @@ __all__ = [
     "BinaryAUROC",
     "BinaryAccuracy",
     "BinaryAveragePrecision",
+    "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryHammingDistance",
+    "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
+    "BinaryPrecisionAtFixedRecall",
     "BinaryPrecisionRecallCurve",
     "BinaryROC",
     "BinaryRecall",
+    "BinaryRecallAtFixedPrecision",
+    "BinarySpecificity",
+    "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "CohenKappa",
     "ConfusionMatrix",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
+    "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
+    "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassHammingDistance",
+    "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
+    "MulticlassPrecisionAtFixedRecall",
     "MulticlassPrecisionRecallCurve",
     "MulticlassROC",
     "MulticlassRecall",
+    "MulticlassRecallAtFixedPrecision",
+    "MulticlassSpecificity",
+    "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
     "MultilabelAUROC",
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
+    "MultilabelHammingDistance",
+    "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
     "MultilabelPrecision",
+    "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
     "MultilabelRecall",
+    "MultilabelRecallAtFixedPrecision",
+    "MultilabelSpecificity",
+    "MultilabelSpecificityAtSensitivity",
     "MultilabelStatScores",
     "Precision",
+    "PrecisionAtFixedRecall",
     "PrecisionRecallCurve",
     "ROC",
     "Recall",
+    "RecallAtFixedPrecision",
+    "Specificity",
+    "SpecificityAtSensitivity",
     "StatScores",
 ]

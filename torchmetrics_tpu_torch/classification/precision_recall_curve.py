@@ -6,12 +6,12 @@ curve at compute time); ``thresholds`` given keeps a ``(T, [C,] 2, 2)`` sum-redu
 int32 confusion tensor (binned curve, counted by kernel K2). ROC, AUROC and average
 precision subclass these and change only ``compute``.
 
-Binned binary and multilabel curves declare a reduction signature (their thresholds,
-``ignore_index`` and width), which the JAX package's do not: a ``MetricCollection``
-then merges, say, a binned AUROC and an average precision over the same thresholds
-when it is built, and K2 runs once per update from the first one, where the first-step
-value discovery would run it once per member at that step. The groups are the ones
-that discovery finds. The multiclass curve keeps the JAX package's discovery.
+Binned curves declare a reduction signature (their thresholds, ``ignore_index`` and
+width), which the JAX package's do not: a ``MetricCollection`` then merges, say, a
+binned AUROC and an average precision, or a multiclass AUROC and the fixed-point
+metrics, over the same thresholds when it is built, and K2 runs once per update from
+the first one, where the first-step value discovery would run it once per member at
+that step. The groups are the ones that discovery finds.
 """
 
 from __future__ import annotations
@@ -171,6 +171,9 @@ class MulticlassPrecisionRecallCurve(_CurveMetric):
                 preds, target, self.num_classes, self.thresholds, self._sorted_thresholds
             )
         )
+
+    def _cse_signature(self) -> Optional[tuple]:
+        return self._binned_signature(int(self.num_classes))
 
     def compute(self):
         """Final per-class (precision, recall, thresholds)."""

@@ -23,7 +23,11 @@ is the one-metric case, ``engine/fusion.py``'s ``FusedUpdate`` a collection's ow
   state) clones static buffers, ``compute`` never returns a tensor that shares a
   buffer's storage, and ``shield_state`` gives any other holder it finds
   (``protected_ids``: the registered defaults, ``_cache``, ``_computed``,
-  ``_forward_cache``) a copy before a replay.
+  ``_forward_cache``) a copy before a replay. A reference the caller took itself is
+  not among them: after ``h = m.tp; m.update(...)`` under the engine, ``h`` is the
+  buffer and holds the new count. In the JAX package the donation deletes ``h``
+  instead, and reading it raises. The port keeps this difference and does not copy
+  the states on every step to hide it.
 - **Eligibility without a tracer.** The first step of a signature runs each member's
   update under ``_Guard``, a ``TorchDispatchMode`` that raises ``_Ineligible`` on every
   operation that reads a value on the host or sizes an output from data

@@ -27,7 +27,7 @@ import torch
 from torchmetrics_tpu_torch.functional.classification.stat_scores import _label_values_check
 from torchmetrics_tpu_torch.ops.multi_threshold import multi_threshold_confmat, sort_thresholds
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _is_floating
-from torchmetrics_tpu_torch.utilities.compute import _safe_divide
+from torchmetrics_tpu_torch.utilities.compute import _safe_divide, _sigmoid
 from torchmetrics_tpu_torch.utilities.data import _cumsum
 from torchmetrics_tpu_torch.utilities.enums import _route_task
 
@@ -151,7 +151,7 @@ def _binary_precision_recall_curve_format(
     if ignore_index is not None:
         target = torch.where(target == ignore_index, -1, target)
     if not _all_in_unit_interval(preds):
-        preds = torch.sigmoid(preds)
+        preds = _sigmoid(preds)
     return preds, target, _adjust_threshold_arg(thresholds, preds.device)
 
 
@@ -384,7 +384,7 @@ def _multilabel_precision_recall_curve_format(
     preds = torch.movedim(preds, 1, -1).reshape(-1, num_labels)
     target = torch.movedim(target, 1, -1).reshape(-1, num_labels)
     if not _all_in_unit_interval(preds):
-        preds = torch.sigmoid(preds)
+        preds = _sigmoid(preds)
     thresholds = _adjust_threshold_arg(thresholds, preds.device)
     if ignore_index is not None:
         idx = target == ignore_index

@@ -22,7 +22,7 @@ import torch
 
 from torchmetrics_tpu_torch.ops.stat_counts import _argmax_nan_first, stat_counts
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _is_floating
-from torchmetrics_tpu_torch.utilities.compute import _safe_divide
+from torchmetrics_tpu_torch.utilities.compute import _safe_divide, _sigmoid
 from torchmetrics_tpu_torch.utilities.data import _bincount, select_topk
 from torchmetrics_tpu_torch.utilities.enums import _route_task
 
@@ -30,9 +30,10 @@ Counts4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _sigmoid_if_logits(preds: torch.Tensor) -> torch.Tensor:
-    """Sigmoid iff any value lies outside [0, 1]: chosen on the device, never read back."""
+    """Sigmoid (``_sigmoid``) iff any value lies outside [0, 1]: chosen on the device,
+    never read back."""
     is_probs = ((preds >= 0) & (preds <= 1)).all()
-    return torch.where(is_probs, preds, torch.sigmoid(preds))
+    return torch.where(is_probs, preds, _sigmoid(preds))
 
 
 def _zero_rows_neutral(threshold: Optional[float], inputs) -> bool:
@@ -50,6 +51,13 @@ def _count_stats(preds: torch.Tensor, target: torch.Tensor, sum_dims) -> Counts4
     fp = ((target != preds) & (target == 0)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
     tn = ((target == preds) & (target == 0)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
     return tp, fp, tn, fn
+
+
+def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Int32 one-hot of labels in ``[0, num_classes)`` as a comparison with the class
+    indices: ``torch.nn.functional.one_hot`` checks the labels' range on the host, a
+    sync that keeps an update out of a captured graph."""
+    return (labels[..., None] == torch.arange(num_classes, device=labels.device)).to(torch.int32)
 
 
 def _label_values_check(values: torch.Tensor, allowed: set, what: str, hint: str) -> None:
@@ -275,13 +283,11 @@ def _multiclass_stat_scores_update(
         if top_k > 1:
             preds_oh = torch.movedim(select_topk(preds, topk=top_k, dim=1), 1, -1)
         else:
-            safe_preds = preds.clamp(0, num_classes - 1).long()
-            preds_oh = torch.nn.functional.one_hot(safe_preds, num_classes).to(torch.int32)
+            preds_oh = _one_hot(preds.clamp(0, num_classes - 1), num_classes)
             # out-of-range predictions one-hot to nothing
             pred_valid = (preds >= 0) & (preds < num_classes)
             preds_oh = preds_oh * pred_valid[..., None].to(torch.int32)
-        safe_target = target.clamp(0, num_classes - 1).long()
-        target_oh = torch.nn.functional.one_hot(safe_target, num_classes).to(torch.int32)
+        target_oh = _one_hot(target.clamp(0, num_classes - 1), num_classes)
         # ignored rows -> -1: matches neither ==1 nor ==0 in any counter
         target_oh = torch.where(valid[..., None], target_oh, -1)
         sum_dims = (0, 1) if multidim_average == "global" else (1,)

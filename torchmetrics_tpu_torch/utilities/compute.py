@@ -7,6 +7,22 @@ from typing import Optional
 import torch
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The sigmoid every binary and multilabel path applies to logits.
+
+    Float32 is computed in float64 and rounded once, so a logit's probability does not
+    depend on the tensor it sits in: ``torch.sigmoid`` on the CPU gives float32 results
+    that change with the batch shape, and the card's differs from the CPU's. Half and
+    bfloat16 take ``1 / (1 + exp(-x))`` in their own dtype, operation by operation, as
+    ``jax.nn.sigmoid`` computes them in the JAX package. Float64 stays as it is.
+    """
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x.to(torch.float64)).to(torch.float32)
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return 1 / (1 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
 def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 0.0) -> torch.Tensor:
     """Division with ``x/0 -> zero_division``; integer inputs divide in float32."""
     num = num if num.is_floating_point() else num.to(torch.float32)

@@ -52,8 +52,17 @@ def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> 
 
 
 def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
-    """Int32 mask of the top-k entries along ``dim``."""
-    idx = prob_tensor.argmax(dim=dim, keepdim=True) if topk == 1 else prob_tensor.topk(topk, dim=dim).indices
+    """Int32 mask of the top-k entries along ``dim``.
+
+    ``topk > 1`` takes the first k indices of a stable descending sort: NaN ranks
+    highest and a tie goes to the lower index, as ``jax.lax.top_k`` in the JAX package
+    decides. ``Tensor.topk`` picks other indices among tied values. The sort reads
+    nothing back to the host, so it can be captured in a graph.
+    """
+    if topk == 1:
+        idx = prob_tensor.argmax(dim=dim, keepdim=True)
+    else:
+        idx = torch.sort(prob_tensor, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
     mask = torch.zeros_like(prob_tensor, dtype=torch.int32)
     return mask.scatter_(dim, idx, 1)
 

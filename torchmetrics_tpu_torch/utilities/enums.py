@@ -62,6 +62,20 @@ class ClassificationTask(EnumStr):
     MULTILABEL = "multilabel"
 
 
+class ClassificationTaskNoBinary(EnumStr):
+    """Task router values of the metrics without a binary variant (exact match)."""
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """Task router values of the metrics without a multilabel variant (Cohen's kappa)."""
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"
+
+
 def _check_task_size(name: str, value: Any) -> int:
     """The task routers' check that ``num_classes`` / ``num_labels`` / ``top_k`` is an int."""
     if not isinstance(value, int):
@@ -73,13 +87,16 @@ def _route_task(
     task: str,
     num_classes: Optional[int],
     num_labels: Optional[int],
-    binary: Callable[[], Any],
+    binary: Optional[Callable[[], Any]],
     multiclass: Callable[[int], Any],
-    multilabel: Callable[[int], Any],
+    multilabel: Optional[Callable[[int], Any]],
+    tasks: type = ClassificationTask,
 ) -> Any:
     """The body of every task router: ``binary()``, ``multiclass(num_classes)`` or
-    ``multilabel(num_labels)``, the width checked to be an int."""
-    task = ClassificationTask.from_str(task)
+    ``multilabel(num_labels)``, the width checked to be an int. ``tasks`` is the enum
+    the task must belong to; a router without a binary or multilabel variant passes
+    ``None`` for it and the enum that leaves it out, whose ``from_str`` raises."""
+    task = tasks.from_str(task)
     if task == ClassificationTask.BINARY:
         return binary()
     if task == ClassificationTask.MULTICLASS:
