@@ -85,6 +85,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
    card against CPU mismatches counted) and each path's update µs, engine on against
    eager, in turns.
 
+13. the eval loop: aggregators, wrappers and checkpoints at full width, each member
+   over its batches eagerly, then with the engine on, then on the CPU. On ImageNet-1k
+   (phase 4's 16 batches of 8192 x 1000 logits) and their per-sample cross-entropy:
+   ``MeanMetric`` with a float NaN strategy and with the default ``"warn"``, ``Sum`` /
+   ``Max`` / ``Min`` / ``Cat`` of the per-batch loss, a float64 ``SumMetric``,
+   ``RunningMean(window=5)`` against the mean of the last <= 5 batch losses after each
+   update, ``ClasswiseWrapper`` over 1000 labels, ``MinMaxMetric`` computed after every
+   update, ``1 - accuracy``, ``BootStrapper`` with 10 copies (multinomial on 16
+   batches, Poisson on 4; each copy held to a CPU copy on the same drawn rows), the
+   ``MetricTracker`` of accuracy and F1 over 2 epochs of 8 batches with
+   ``best_metric``; on MS-COCO (phase 7's 8192 x 80 logits) ``MultioutputWrapper`` of
+   80 binned ``BinaryAUROC`` (and, with ~1 % NaN rows, ``remove_nans=True`` on 4
+   batches); ``MultitaskWrapper`` of the ImageNet accuracy and the COCO binned mAP.
+   States against the CPU (counts exactly, float sums relative 1e-6, AUROC / AP 1e-5),
+   the engine run bit-equal to eager, K1 / K2 launches per member, the float-strategy
+   aggregators replaying with no fallback and the host-reading ones falling back
+   counted; a resume (the mean, the classwise inner metric and the tracker's
+   collection saved to ``.npz`` after batch 8, restored on the card, run to the end)
+   equal to the uninterrupted run; then each member's update µs, host syncs, device
+   busy and idle share, engine replays / captures / fallbacks, in turns.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -93,6 +114,9 @@ with code 2 and prints no result. It imports nothing of JAX.
 
 ``python3 chip_smoke.py --out PATH`` also writes every result line, in full, to PATH as
 one JSON object (the updates line runs to tens of kilobytes).
+
+``python3 chip_smoke.py --eval-loop-only`` runs phases 1-2 and then phase 13 alone, on
+batches made for it.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -1091,14 +1115,17 @@ def _check_replays(name: str, engine) -> None:
         raise AssertionError(f"{name}: {st.replays} replays, {st.dispatches} engine steps, {st.captures} captures")
 
 
-def _assert_same_states(name: str, a, b) -> None:
-    """Every state of ``a`` exactly equal to ``b``'s (``b`` on the card or the CPU)."""
+def _assert_same_states(name: str, a, b, float_rtol: float = 0.0) -> None:
+    """Every state of ``a`` exactly equal to ``b``'s (``b`` on the card or the CPU); float
+    states within ``float_rtol`` when it is given."""
     for attr in a._defaults:
         x, y = getattr(a, attr), getattr(b, attr)
-        if isinstance(x, list):
-            x, y = (torch.cat(x), torch.cat(y)) if x else (torch.zeros(0), torch.zeros(0))
-        if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
-            raise AssertionError(f"{name}: state {attr} differs")
+        if isinstance(x, list):  # 0-d pieces (a CatMetric of scalars) flattened
+            x, y = (torch.cat([v.reshape(-1) for v in x]), torch.cat([v.reshape(-1) for v in y])) if x else (torch.zeros(0), torch.zeros(0))
+        x, y = x.cpu(), y.cpu()
+        same = torch.allclose(x, y, rtol=float_rtol, atol=0) if float_rtol and x.is_floating_point() else torch.equal(x, y)
+        if x.dtype != y.dtype or x.shape != y.shape or not same:
+            raise AssertionError(f"{name}: state {attr} differs: {x.flatten()[:8].tolist()} vs {y.flatten()[:8].tolist()}")
 
 
 def run_engine_accuracy(acc_batches: list) -> dict:
@@ -1680,6 +1707,513 @@ def time_family(batches_by_path: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the eval loop: aggregators, wrappers, checkpoints
+
+EVAL_EPOCH = 8  # MetricTracker: 2 epochs of 8 batches; the resume point
+BOOT_COPIES, POISSON_BATCHES, NAN_BATCHES = 10, 4, 4
+SUM_RTOL = 1e-6  # float sums and means: the card and the CPU add in other orders
+
+
+class _EvalInputs:
+    """Phase 13's batches on the card and their CPU copies: ImageNet-1k logits and
+    targets (phase 4's), their per-sample cross-entropy and its per-batch mean, MS-COCO
+    multilabel logits and targets (phase 7's; the CPU copy holds the card's sigmoid, as
+    the earlier phases feed it), and 4 of those with ~1 % NaN rows."""
+
+    def __init__(self, acc_batches: list, multilabel_batches: list, gen: torch.Generator) -> None:
+        import torch.nn.functional as F
+
+        self.acc = acc_batches
+        self.loss = [F.cross_entropy(p, t, reduction="none") for p, t in acc_batches]
+        self.batch_loss = [x.mean() for x in self.loss]
+        self.ml = multilabel_batches
+        self.ml_nan = []
+        for p, t in multilabel_batches[:NAN_BATCHES]:
+            p = p.clone()
+            rows = torch.randperm(ML_BATCH, generator=gen)[: ML_BATCH // 100]
+            p[rows.cuda(), torch.randint(0, ML_LABELS, (rows.numel(),), generator=gen).cuda()] = float("nan")
+            self.ml_nan.append((p, t))
+        torch.cuda.synchronize()
+        self.cpu = {
+            "acc": [(p.cpu(), t.cpu()) for p, t in self.acc],
+            "loss": [x.cpu() for x in self.loss],
+            "batch_loss": [x.cpu() for x in self.batch_loss],
+            "ml": [(_sigmoid(p).cpu(), t.cpu()) for p, t in self.ml],
+            "ml_nan": [(_sigmoid(p).cpu(), t.cpu()) for p, t in self.ml_nan],
+        }
+
+    def get(self, kind: str, i: int, cpu: bool):
+        return self.cpu[kind][i] if cpu else getattr(self, kind)[i]
+
+
+def _eval_members() -> dict:
+    """name -> (make(**kw), step(metric, inputs, i, cpu), batches, K1 and K2 launches per
+    eager update). Every classification member skips validation (a validating update
+    reads the host, and so falls back under the engine)."""
+    import torchmetrics_tpu_torch as tm
+
+    vf = {"validate_args": False}
+
+    def acc(**kw):
+        return tm.MulticlassAccuracy(ACC_CLASSES, **vf, **kw)
+
+    def on(kind):
+        def step(m, inp, i, cpu):
+            x = inp.get(kind, i, cpu)
+            m.update(*x) if isinstance(x, tuple) else m.update(x)
+
+        return step
+
+    def multitask_step(m, inp, i, cpu):
+        (p, t), (mp, mt) = inp.get("acc", i, cpu), inp.get("ml", i, cpu)
+        m.update({"classes": p, "labels": mp}, {"classes": t, "labels": mt})
+
+    def tracker_step(m, inp, i, cpu):
+        if i % EVAL_EPOCH == 0:
+            m.increment()
+        m.update(*inp.get("acc", i, cpu))
+
+    def tracker(**kw):
+        return tm.MetricTracker(tm.MetricCollection({"acc": acc(**kw), "f1": tm.MulticlassF1Score(ACC_CLASSES, **vf, **kw)}))
+
+    boot = dict(num_bootstraps=BOOT_COPIES, quantile=[0.025, 0.975], raw=True)
+    labels = [f"class_{c}" for c in range(ACC_CLASSES)]
+    auroc = dict(thresholds=N_THRESH, ignore_index=ML_IGNORE, **vf)
+    none = {"stat_counts": 0, "multi_threshold": 0}
+    k1 = {"stat_counts": 1, "multi_threshold": 0}
+    return {
+        "mean_float": (lambda **kw: tm.MeanMetric(nan_strategy=0.0, **kw), on("loss"), N_BATCHES, none),
+        "mean_warn": (lambda **kw: tm.MeanMetric(**kw), on("loss"), N_BATCHES, none),
+        "sum": (lambda **kw: tm.SumMetric(nan_strategy=0.0, **kw), on("batch_loss"), N_BATCHES, none),
+        "max": (lambda **kw: tm.MaxMetric(nan_strategy=0.0, **kw), on("batch_loss"), N_BATCHES, none),
+        "min": (lambda **kw: tm.MinMetric(nan_strategy=0.0, **kw), on("batch_loss"), N_BATCHES, none),
+        "cat": (lambda **kw: tm.CatMetric(**kw), on("batch_loss"), N_BATCHES, none),
+        "sum_float64": (lambda **kw: tm.SumMetric(**kw).set_dtype(torch.float64), on("batch_loss"), N_BATCHES, none),
+        "running_mean": (lambda **kw: tm.RunningMean(window=5, nan_strategy=0.0, **kw), on("batch_loss"), N_BATCHES, none),
+        "classwise": (lambda **kw: tm.ClasswiseWrapper(acc(average=None, **kw), labels=labels), on("acc"), N_BATCHES, k1),
+        "minmax": (lambda **kw: tm.MinMaxMetric(acc(**kw)), on("acc"), N_BATCHES, k1),
+        "one_minus_acc": (lambda **kw: 1 - acc(**kw), on("acc"), N_BATCHES, k1),
+        "boot_multinomial": (
+            lambda **kw: tm.BootStrapper(acc(**kw), sampling_strategy="multinomial", **boot), on("acc"), N_BATCHES,
+            {"stat_counts": BOOT_COPIES, "multi_threshold": 0},
+        ),
+        "boot_poisson": (
+            lambda **kw: tm.BootStrapper(acc(**kw), sampling_strategy="poisson", **boot), on("acc"), POISSON_BATCHES,
+            {"stat_counts": BOOT_COPIES, "multi_threshold": 0},
+        ),
+        "multioutput_auroc": (
+            lambda **kw: tm.MultioutputWrapper(tm.BinaryAUROC(**auroc, **kw), num_outputs=ML_LABELS, remove_nans=False),
+            on("ml"), N_BATCHES, {"stat_counts": 0, "multi_threshold": ML_LABELS},
+        ),
+        "multioutput_auroc_nan": (
+            lambda **kw: tm.MultioutputWrapper(tm.BinaryAUROC(**auroc, **kw), num_outputs=ML_LABELS, remove_nans=True),
+            on("ml_nan"), NAN_BATCHES, {"stat_counts": 0, "multi_threshold": ML_LABELS},
+        ),
+        "multitask": (
+            lambda **kw: tm.MultitaskWrapper({
+                "classes": acc(**kw),
+                "labels": tm.MultilabelAveragePrecision(ML_LABELS, thresholds=N_THRESH, ignore_index=ML_IGNORE, **vf, **kw),
+            }),
+            multitask_step, N_BATCHES, {"stat_counts": 1, "multi_threshold": 1},
+        ),
+        "tracker": (tracker, tracker_step, N_BATCHES, k1),
+    }
+
+
+def _nested(obj, path: str = ""):
+    """``(path, object)`` for ``obj`` and every metric, collection and tracker inside it
+    (wrappers, composites, collections and trackers opened), in a fixed order."""
+    import torchmetrics_tpu_torch as tm
+
+    yield path, obj
+    if isinstance(obj, tm.MetricTracker):
+        children = [(f"[{i}]", m) for i, m in enumerate(obj._metrics)]
+    elif isinstance(obj, tm.MetricCollection):
+        children = [(f".{k}", m) for k, m in obj.items(keep_base=True, copy_state=False)]
+    elif isinstance(obj, tm.Metric):
+        children = []
+        for key, value in sorted((k, v) for k, v in vars(obj).items() if k != "_modules") + sorted(obj._modules.items()):
+            if isinstance(value, list):
+                children += [(f".{key}[{i}]", v) for i, v in enumerate(value)]
+            elif isinstance(value, dict):
+                children += [(f".{key}.{k}", v) for k, v in value.items()]
+            else:
+                children.append((f".{key}", value))
+    else:
+        children = []
+    for suffix, child in children:
+        if isinstance(child, (tm.Metric, tm.MetricCollection, tm.MetricTracker)):
+            yield from _nested(child, path + suffix)
+
+
+def _leaf_metrics(obj) -> list:
+    """``(path, metric)`` for every metric with states inside ``obj``."""
+    import torchmetrics_tpu_torch as tm
+
+    return [(p or type(m).__name__, m) for p, m in _nested(obj) if isinstance(m, tm.Metric) and m._defaults]
+
+
+def _member_engines(obj) -> list:
+    """Every update engine inside ``obj``: each metric's own and each collection's fused one."""
+    import torchmetrics_tpu_torch as tm
+
+    engines = []
+    for _, x in _nested(obj):
+        engine = x._fused_engine if isinstance(x, tm.MetricCollection) else getattr(x, "_engine", None)
+        if engine is not None:
+            engines.append(engine)
+    return engines
+
+
+def _engine_summary(obj) -> dict:
+    engines = _member_engines(obj)
+    reasons: dict = {}
+    for e in engines:
+        for r, n in e.stats.fallback_reasons.items():
+            reasons[r] = reasons.get(r, 0) + n
+    total = lambda f: sum(getattr(e.stats, f) for e in engines)  # noqa: E731
+    return {"engines": len(engines), "dispatches": total("dispatches"), "replays": total("replays"),
+            "captures": total("captures"), "traces": total("traces"), "fallbacks": total("eager_fallbacks"),
+            "fallback_reasons": reasons}
+
+
+def _flat_values(value) -> list:
+    """A compute result as a flat list of tensors (dicts by key, in order)."""
+    if isinstance(value, dict):
+        return [t for k in sorted(value) for t in _flat_values(value[k])]
+    if isinstance(value, (list, tuple)):
+        return [t for v in value for t in _flat_values(v)]
+    return [value if isinstance(value, torch.Tensor) else torch.as_tensor(value)]
+
+
+def _hold_states_to_cpu(name: str, card, host) -> None:
+    """Integer states exactly, float states within ``SUM_RTOL`` (dtype equal)."""
+    got, want = _leaf_metrics(card), _leaf_metrics(host)
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"eval {name}: leaf metrics {[p for p, _ in got]} vs cpu {[p for p, _ in want]}")
+    for (path, g), (_, c) in zip(got, want):
+        _assert_same_states(f"eval {name}{path} vs cpu", g, c, float_rtol=SUM_RTOL)
+
+
+def _hold_values_to_cpu(name: str, got, want) -> float:
+    atol = AUROC_ATOL if name.startswith(("multioutput", "multitask")) else ACC_ATOL
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(_flat_values(got), _flat_values(want))):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        diff = (g - w).abs().max().item() if g.numel() else 0.0
+        bound = atol + SUM_RTOL * w.abs()
+        if g.shape != w.shape or not torch.isfinite(g).all() or not bool(((g - w).abs() <= bound).all()):
+            raise AssertionError(f"eval {name} value {i}: cuda {g.flatten()[:8].tolist()} vs cpu {w.flatten()[:8].tolist()}")
+        worst = max(worst, diff)
+    return worst
+
+
+class _RecordingSampler:
+    """Stands in for the bootstrap sampler: records every draw of the real one, or
+    replays recorded draws (on the CPU, for the CPU run)."""
+
+    def __init__(self, real) -> None:
+        self.real, self.draws, self.replay = real, [], None
+
+    def __call__(self, size, strategy, generator):
+        if self.replay is not None:
+            return self.replay.pop(0)
+        idx = self.real(size, strategy, generator)
+        self.draws.append(idx)
+        return idx
+
+
+def _per_step_checks(name: str, m, inp, i: int, cpu: bool):
+    """What a member checks after each update: the running mean against the mean of
+    the last <= 5 batch losses, the min / max computed after every update."""
+    if name == "running_mean":
+        window = torch.stack([inp.get("batch_loss", j, cpu) for j in range(max(0, i - 4), i + 1)])
+        got, want = m.compute().double(), window.double().mean()
+        if not abs(float(got) - float(want)) <= SUM_RTOL * abs(float(want)):
+            raise AssertionError(f"eval running_mean after update {i}: {float(got)} vs {float(want)} over its window")
+        return got
+    if name == "minmax":
+        return m.compute()
+    return None
+
+
+def run_eval_loop(inp: "_EvalInputs") -> dict:
+    """Phase 13: each member over its batches eagerly, then with the engine on, then on
+    the CPU; states and values against the CPU, the engine run bit-equal to eager, K1 /
+    K2 launches per member, the bootstrap draws, the resume from checkpoints, the
+    engine's replays / captures / fallbacks by reason."""
+    from torchmetrics_tpu_torch import ops
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.wrappers import bootstrapping
+
+    members = _eval_members()
+    sampler = _RecordingSampler(bootstrapping._bootstrap_sampler)
+    bootstrapping._bootstrap_sampler = sampler
+    out: dict = {}
+    values: dict = {}
+    resume = None
+    try:
+        for name, (make, step, n, per_update) in members.items():
+            t0 = time.perf_counter()
+            runs = {}
+            for mode in ("eager", "engine"):
+                with engine_context(mode == "engine"):
+                    sampler.draws = []
+                    ops.set_launch_counts({"stat_counts": 0, "multi_threshold": 0})
+                    m = make()
+                    if hasattr(m, "_generator"):
+                        m._generator.manual_seed(13)
+                    checks = []
+                    for i in range(n):
+                        if mode == "engine" and i == EVAL_EPOCH and name in ("mean_float", "classwise", "tracker"):
+                            resume = _save_resume_point(resume, name, m)
+                        step(m, inp, i, False)
+                        checks.append(_per_step_checks(name, m, inp, i, False))
+                    torch.cuda.synchronize()
+                    launches = ops.launch_counts()
+                    runs[mode] = (m, m.compute(), launches, sampler.draws, checks)
+            (eager, eager_val, eager_launches, eager_draws, eager_checks) = runs["eager"]
+            (engine, engine_val, engine_launches, engine_draws, engine_checks) = runs["engine"]
+            for (path, a), (_, b) in zip(_leaf_metrics(engine), _leaf_metrics(eager)):
+                _assert_same_states(f"eval {name}{path} engine vs eager", a, b)
+            for i, (g, w) in enumerate(zip(_flat_values(engine_val), _flat_values(eager_val))):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise AssertionError(f"eval {name} value {i}: engine {g.flatten()[:8].tolist()} vs eager {w.flatten()[:8].tolist()}")
+            values[name] = eager_val
+            if name == "one_minus_acc":
+                for run, val in ((eager, eager_val), (engine, engine_val)):
+                    if not torch.equal(val, 1 - run.metric_b.compute()):
+                        raise AssertionError(f"eval 1 - acc: {float(val)} is not 1 - {float(run.metric_b.compute())}")
+            if len(eager_draws) != len(engine_draws) or any(not torch.equal(a, b) for a, b in zip(eager_draws, engine_draws)):
+                raise AssertionError(f"eval {name}: the engine run drew other bootstrap rows than the eager run")
+
+            want = {k: v * n for k, v in per_update.items()}
+            if eager_launches != want:
+                raise AssertionError(f"eval {name}: eager launches {eager_launches}, expected {want}")
+            want_engine = _engine_launches(name, engine, n, per_update, engine_draws)
+            if engine_launches != want_engine:
+                raise AssertionError(f"eval {name}: engine launches {engine_launches}, expected {want_engine}")
+
+            sampler.replay = [d.cpu() for d in eager_draws]
+            t_card = time.perf_counter() - t0
+            host = make(device="cpu")
+            host_checks = []
+            for i in range(n):
+                step(host, inp, i, True)
+                host_checks.append(_per_step_checks(name, host, inp, i, True))
+            sampler.replay = None
+            _hold_states_to_cpu(name, eager, host)
+            worst = _hold_values_to_cpu(name, eager_val, host.compute())
+            for i, (g, w) in enumerate(zip(eager_checks, host_checks)):
+                if g is not None:
+                    worst = max(worst, _hold_values_to_cpu(f"{name} step {i}", g, w))
+            for i, (g, w) in enumerate(zip(engine_checks, eager_checks)):
+                if g is not None and any(not torch.equal(a, b) for a, b in zip(_flat_values(g), _flat_values(w))):
+                    raise AssertionError(f"eval {name} step {i}: engine {g} vs eager {w}")
+            out[name] = {
+                "updates": n,
+                "launches_eager": eager_launches,
+                "launches_engine": engine_launches,
+                "engine": _engine_summary(engine),
+                "bootstrap_draws": [int(d.numel()) for d in eager_draws][:BOOT_COPIES * 2],
+                "max_abs_diff_to_cpu": worst,
+                "seconds_card_runs": t_card,
+                "seconds_with_cpu_run": time.perf_counter() - t0,
+            }
+            _log(f"  eval {name}: {n} updates held; launches {eager_launches} / {engine_launches};"
+                 f" {t_card:.1f} s on the card, {out[name]['seconds_with_cpu_run']:.1f} s with the CPU run")
+            _check_member_engine(name, out[name]["engine"], n)
+            if name == "tracker":
+                out[name].update(_tracker_report(engine, host))
+            if name in ("tracker", "boot_multinomial"):
+                fp = engine.state_footprint() if name == "boot_multinomial" else engine[-1].state_footprint()
+                out[name]["state_footprint"] = fp
+                if name == "boot_multinomial":
+                    out[name]["copies_state_bytes"] = sum(c.state_footprint()["total_bytes"] for c in engine.metrics)
+                _log(f"  eval {name} state_footprint: {fp}"
+                     + (f"; its {BOOT_COPIES} copies hold {out[name]['copies_state_bytes']} bytes" if name == "boot_multinomial" else
+                        f"; best_metric {out[name]['best_metric']} at step {out[name]['best_step']},"
+                        f" captures per epoch {out[name]['captures_per_epoch']}"))
+            runs.clear()
+        a, b = values["mean_float"], values["mean_warn"]
+        if not torch.allclose(a, b, rtol=SUM_RTOL, atol=0):
+            raise AssertionError(f"eval: MeanMetric(nan_strategy=0.0) {float(a)} vs MeanMetric() {float(b)}")
+        out["mean_float_equals_mean_warn_bitwise"] = bool(torch.equal(a, b))
+        out["resume"] = _resume(resume, inp)
+    finally:
+        bootstrapping._bootstrap_sampler = sampler.real
+    _log(f"  eval loop: {len(members)} members eagerly, with the engine and on the CPU; states held, engine"
+         f" bit-equal to eager; launches eager K1 {sum(v['launches_eager']['stat_counts'] for v in out.values() if isinstance(v, dict) and 'launches_eager' in v)},"
+         f" K2 {sum(v['launches_eager']['multi_threshold'] for v in out.values() if isinstance(v, dict) and 'launches_eager' in v)}")
+    return out
+
+
+def _engine_launches(name: str, engine, n: int, per_update: dict, draws: list) -> dict:
+    """K1 / K2 launches expected with the engine on. The curves (BinaryAUROC, mAP) fall
+    back, so K2 runs eagerly, once per update. K1 runs in the graphs: per signature a
+    warm-up step's launch and the pad-row unit's, then one per replay, so n + 1 for a
+    metric fed one batch shape; the Poisson copies' resamples fall into one or two
+    shape buckets each; the tracker's epochs each capture their own graph."""
+    from torchmetrics_tpu_torch.engine.bucketing import next_bucket
+
+    k1, k2 = per_update["stat_counts"], per_update["multi_threshold"]
+    if name == "boot_poisson":
+        per_copy = [draws[c::BOOT_COPIES] for c in range(BOOT_COPIES)]
+        k1_total = sum(len(d) + len({next_bucket(int(x.numel())) for x in d}) for d in per_copy)
+    elif name == "tracker":
+        k1_total = (n // EVAL_EPOCH) * (EVAL_EPOCH + 1)
+    else:
+        k1_total = k1 * (n + 1)
+    return {"stat_counts": k1_total, "multi_threshold": k2 * n}
+
+
+def _check_member_engine(name: str, st: dict, n: int) -> None:
+    """The aggregators with a float strategy replay with no fallback; the host-reading
+    strategies and the list state fall back on every update, counted by reason."""
+    if name in ("mean_float", "sum", "max", "min"):
+        if st["fallbacks"] or st["captures"] != 1 or st["replays"] != n - 1:
+            raise AssertionError(f"eval {name}: should replay every update after its capture: {st}")
+    expected = {"mean_warn": "host-read", "sum_float64": "host-read", "cat": "list-state"}.get(name)
+    if expected and (st["dispatches"] or not any(r.startswith(expected) for r in st["fallback_reasons"])):
+        raise AssertionError(f"eval {name}: should fall back ({expected}) on every update: {st}")
+
+
+def _tracker_report(card, host) -> dict:
+    best, step = card.best_metric(return_step=True)
+    want_best, want_step = host.best_metric(return_step=True)
+    if step != want_step or any(abs(best[k] - want_best[k]) > ACC_ATOL for k in best):
+        raise AssertionError(f"eval tracker best_metric: cuda {best, step} vs cpu {want_best, want_step}")
+    captures = [_engine_summary(epoch)["captures"] for epoch in card._metrics]
+    if captures != [1] * len(captures):
+        raise AssertionError(f"eval tracker: each epoch's copy should capture its own graph once, got {captures}")
+    return {"best_metric": best, "best_step": step, "captures_per_epoch": captures}
+
+
+def _save_resume_point(resume, name: str, metric):
+    """After batch ``EVAL_EPOCH``: save the mean, the classwise wrapper's inner metric and
+    the tracker's current collection to ``.npz`` files."""
+    from torchmetrics_tpu_torch.utilities.checkpoint import save_metric_state
+
+    if resume is None:
+        resume = {"dir": tempfile.TemporaryDirectory(), "saved": {}}
+    target = metric.metric if name == "classwise" else metric[-1] if name == "tracker" else metric
+    path = os.path.join(resume["dir"].name, f"{name}.npz")
+    save_metric_state(target, path)
+    resume["saved"][name] = path
+    return resume
+
+
+def _resume(resume, inp) -> dict:
+    """Restore each checkpoint into fresh metrics on the card (engine on), run the rest
+    of the batches, and hold the states to the uninterrupted engine run exactly."""
+    import torchmetrics_tpu_torch as tm
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.utilities.checkpoint import restore_metric_state
+
+    members = _eval_members()
+    out = {}
+    try:
+        with engine_context(True):
+            for name, path in resume["saved"].items():
+                make, step, n, _ = members[name]
+                whole = make()
+                for i in range(n):
+                    step(whole, inp, i, False)
+                fresh = make()
+                if name == "tracker":
+                    fresh.increment()
+                    restore_metric_state(fresh[-1], path)
+                elif name == "classwise":
+                    restore_metric_state(fresh.metric, path)
+                else:
+                    restore_metric_state(fresh, path)
+                for i in range(EVAL_EPOCH, n):
+                    step(fresh, inp, i, False)
+                torch.cuda.synchronize()
+                pairs = list(zip(_leaf_metrics(fresh), _leaf_metrics(whole)))
+                if len(pairs) != len(_leaf_metrics(whole)):
+                    raise AssertionError(f"eval resume {name}: {len(pairs)} leaf metrics, expected {len(_leaf_metrics(whole))}")
+                for (path_, a), (_, b) in pairs:
+                    _assert_same_states(f"eval resume {name}{path_}", a, b)
+                got, want = _flat_values(fresh.compute() if name != "tracker" else fresh.compute_all()), _flat_values(
+                    whole.compute() if name != "tracker" else whole.compute_all())
+                if any(not torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"eval resume {name}: values differ from the uninterrupted run")
+                out[name] = {"file_bytes": os.path.getsize(path), "restored_at": EVAL_EPOCH, "equal": True}
+    finally:
+        resume["dir"].cleanup()
+    _log(f"  eval resume: {sorted(out)} saved after batch {EVAL_EPOCH}, restored on the card, equal to the uninterrupted run")
+    return out
+
+
+def time_eval_loop(inp: "_EvalInputs") -> dict:
+    """Each member's ``update`` eagerly and with the engine on, in turns (eager, engine,
+    engine, eager): host µs to a device sync, host syncs per update, device busy and idle
+    share over 8 updates, the largest device items, and the engine's counters."""
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    out = {}
+    # the 80-copy multioutput updates take ~30 ms each, most of it host work, and the
+    # profiler multiplies that: fewer updates, and one turn each way
+    heavy = ("multioutput_auroc", "multioutput_auroc_nan", "multitask", "boot_poisson")
+    widest = ("multioutput_auroc", "multioutput_auroc_nan")
+    for name, (make, step, n, _) in _eval_members().items():
+        t0 = time.perf_counter()
+        timed_step = (lambda m, i: m.update(*inp.acc[i % n])) if name == "tracker" else (lambda m, i: step(m, inp, i % n, False))
+        runs = {"eager": [], "engine": []}
+        for mode in ("eager", "engine") if name in widest else ("eager", "engine", "engine", "eager"):
+            with engine_context(mode == "engine"):
+                m = make()
+                if name == "tracker":
+                    m.increment()
+                timed_step(m, 0)  # builds and captures
+                iters = 2 if name in widest else 4 if name in heavy else 16
+                wall = _host_us_per_call(lambda i, m=m: timed_step(m, i), iters=iters, repeats=3)
+                prof = _device_profile(lambda i, m=m: timed_step(m, i), iters=1 if name in widest else 4 if name in heavy else 8)
+                busy = prof["device_busy_us"]
+                runs[mode].append({
+                    "update_us": wall,
+                    "host_syncs_per_update": _syncs_per_call(lambda m=m: timed_step(m, 1)),
+                    "device_busy_us": busy,
+                    "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+                    "device_ops": prof["device_ops"],
+                    "kernels_us": prof["kernels_us"],
+                    "engine": _engine_summary(m),
+                })
+        out[name] = {
+            mode: {k: (statistics.mean(r[k] for r in rs) if isinstance(rs[0][k], float) else rs[0][k]) for k in rs[0]}
+            for mode, rs in runs.items()
+        }
+        out[name]["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs.items()}
+        out[name]["seconds"] = time.perf_counter() - t0
+        eager, eng = out[name]["eager"], out[name]["engine"]
+        busy = lambda r: "busy not measured" if r["device_busy_us"] is None else (  # noqa: E731
+            f"busy {r['device_busy_us']:.1f} us, idle {r['device_idle_share']:.2f}")
+        _log(f"  eval {name} ({out[name]['seconds']:.1f} s): eager {eager['update_us']:.1f} us ({eager['host_syncs_per_update']} syncs,"
+             f" {busy(eager)}), engine {eng['update_us']:.1f} us ({eng['host_syncs_per_update']} syncs, {busy(eng)});"
+             f" engine {out[name]['engine']['engine']['replays']} replays, {out[name]['engine']['engine']['captures']} captures,"
+             f" fallbacks {out[name]['engine']['engine']['fallback_reasons']}")
+    _check_eval_syncs(out)
+    return out
+
+
+def _check_eval_syncs(times: dict) -> None:
+    """0 host syncs on the engine path for the float-strategy aggregators and the
+    multinomial bootstrap; at most 1 per copy per update for the Poisson one; the
+    multioutput wrapper's NaN removal adds at most 1 per update to what its curves read."""
+    engine = {name: t["engine"]["host_syncs_per_update"] for name, t in times.items()}
+    if engine["mean_warn"] != 1 or times["mean_warn"]["eager"]["host_syncs_per_update"] != 1:
+        raise AssertionError(f"eval mean_warn: its NaN test should read the host once per update: {times['mean_warn']}")
+    for name in ("mean_float", "sum", "max", "min", "running_mean", "boot_multinomial", "one_minus_acc", "minmax", "classwise"):
+        if engine[name]:
+            raise AssertionError(f"eval {name}: {engine[name]} host syncs per update on the engine path, expected 0")
+    if engine["boot_poisson"] > BOOT_COPIES:
+        raise AssertionError(f"eval boot_poisson: {engine['boot_poisson']} host syncs per update, at most {BOOT_COPIES}")
+    extra = engine["multioutput_auroc_nan"] - engine["multioutput_auroc"]
+    if extra > 1:
+        raise AssertionError(f"eval multioutput NaN removal: {extra} host syncs per update beyond the curves', at most 1")
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -1932,44 +2466,54 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/12] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/13] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/12] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/13] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
         print(smi, flush=True)
         print(json.dumps({"binned_update": time_binned_update(gen)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--eval-loop-only"]:
+        acc_batches = [
+            (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        _log("[13/13] the eval loop: aggregators, wrappers and checkpoints")
+        inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
+        print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
+        print(smi, flush=True)
+        return 0
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/12] kernels against their plain versions")
+        _log("[3/13] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/12] main path")
+        _log("[4/13] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/12] collection path")
+        _log("[5/13] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/12] binary path")
+        _log("[6/13] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/12] multilabel path")
+        _log("[7/13] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/12] task routers")
+        _log("[8/13] task routers")
         run_routers(gen)
 
-        _log("[9/12] sync, two ranks on one card")
+        _log("[9/13] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/12] times")
+        _log("[10/13] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -1982,7 +2526,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/12] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/13] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -2004,7 +2548,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/12] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/13] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -2012,6 +2556,12 @@ def main() -> int:
     family["top5"] = run_top_k(acc_batches)
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
+
+    _log("[13/13] the eval loop: aggregators, wrappers and checkpoints")
+    inp = _EvalInputs(acc_batches, multilabel_batches, gen)
+    eval_loop = run_eval_loop(inp)
+    eval_loop["times"] = time_eval_loop(inp)
+    del inp
 
     for entry in kernels:
         k = entry["name"]
@@ -2024,6 +2574,8 @@ def main() -> int:
             **{f"family_{path}": family[path]["launches_eager"][k] for path in family_batches},
             **{f"family_{path}_engine": family[path]["launches_engine"][k] for path in family_batches},
             "family_top5_engine": family["top5"]["launches_engine"][k],
+            "eval_loop": sum(v["launches_eager"][k] for v in eval_loop.values() if isinstance(v, dict) and "launches_eager" in v),
+            "eval_loop_engine": sum(v["launches_engine"][k] for v in eval_loop.values() if isinstance(v, dict) and "launches_engine" in v),
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs; the pad-row unit is computed once per signature, outside the graph"
@@ -2031,7 +2583,7 @@ def main() -> int:
             else "K2 runs eagerly: the binned curves fall back (their [0, 1] range check reads the host)"
         )
 
-    results = {"updates": updates, "engine": engine, "family": family, "sync_2rank": sync, "card": smi}
+    results = {"updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "sync_2rank": sync, "card": smi}
     print(json.dumps(results), flush=True)
     if "--out" in sys.argv:
         path = sys.argv[sys.argv.index("--out") + 1]

@@ -37,6 +37,15 @@ routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Sco
            "SpecificityAtSensitivity")
 every_class = [n for n in tm.__all__ if n.startswith(("Binary", "Multiclass", "Multilabel"))]
 assert len(every_class) == 58, every_class
+AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
+WRAPPERS = (  # each builds its base metric with the given keyword arguments
+    lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
+    lambda **kw: tm.ClasswiseWrapper(tm.CatMetric(**kw)),
+    lambda **kw: tm.MinMaxMetric(tm.SumMetric(**kw)),
+    lambda **kw: tm.MultioutputWrapper(tm.MeanMetric(**kw), num_outputs=1),
+    lambda **kw: tm.MultitaskWrapper({"task": tm.MeanMetric(**kw)}),
+    lambda **kw: tm.BootStrapper(tm.SumMetric(**kw), num_bootstraps=2),
+)
 FLOORS = {"RecallAtFixedPrecision": "min_precision", "PrecisionAtFixedRecall": "min_recall",
           "SpecificityAtSensitivity": "min_sensitivity"}
 
@@ -53,6 +62,9 @@ for make in (
     *(lambda n=n: getattr(tm, n)(**args(n)) for n in every_class),
     *(lambda r=r: getattr(tm, r)(task="multilabel", num_labels=3, **args(r)) for r in routers),
     lambda: tm.CohenKappa(task="binary"),
+    *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
+    lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
+    *WRAPPERS,
 ):
     try:
         make()
@@ -61,6 +73,21 @@ for make in (
     else:
         raise AssertionError("a metric without `device` must not fall back to the CPU")
 assert MulticlassAccuracy(num_classes=5, device="cpu").device.type == "cpu"
+# a wrapper, an aggregator and a composite run where their metric lives
+cpu_metrics = [getattr(tm, n)(device="cpu") for n in AGGREGATORS]
+cpu_metrics += [w(device="cpu") for w in WRAPPERS]
+cpu_metrics += [tm.SumMetric(device="cpu") + 1, 1 - tm.MaxMetric(device="cpu")]
+for m in cpu_metrics:
+    assert m.device.type == "cpu", m
+    if isinstance(m, tm.MultitaskWrapper):
+        m.update({"task": torch.ones(3)}, {"task": torch.ones(3)})
+    else:
+        m.update(torch.ones(3, 1), torch.ones(3, 1)) if isinstance(m, tm.MultioutputWrapper) else m.update(torch.ones(3))
+    m.compute()
+tracker = tm.MetricTracker(tm.SumMetric(device="cpu"))
+tracker.increment()
+tracker.update(torch.ones(2))
+assert tracker.compute().device.type == "cpu"
 print("refused")
 """
 

@@ -428,6 +428,14 @@ class MetricCollection:
         for name, metric in self.items(keep_base=True, copy_state=False):
             metric.load_state_dict(state_dict, prefix=f"{name}.")
 
+    def state_footprint(self) -> Dict[str, Any]:
+        """Bytes held by the member states; ``unique_bytes`` counts once a buffer that
+        compute-group views share with their owner (``diag/costs.py``)."""
+        self._materialize_group_views()
+        from torchmetrics_tpu_torch.diag.costs import state_footprint
+
+        return state_footprint(self)
+
     # ------------------------------------------------------------------ membership
 
     def add_metrics(
@@ -626,3 +634,22 @@ class MetricCollection:
         for metric in self.values(copy_state=False):
             metric.to(device)
         return self
+
+    def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
+        """Cast the floating states of every metric."""
+        for metric in self.values(copy_state=False):
+            metric.set_dtype(dst_type)
+        return self
+
+    def plot(self, val: Optional[Any] = None, ax: Optional[Any] = None, together: bool = False) -> Any:
+        """Plot every metric: in one figure (``together``) or one figure each."""
+        if val is None:
+            val = self.compute()
+        if together:
+            from torchmetrics_tpu_torch.utilities.plot import plot_single_or_multi_val
+
+            return plot_single_or_multi_val(val, ax=ax)
+        return [
+            m.plot(val[k] if isinstance(val, dict) and k in val else None)
+            for k, m in self.items(keep_base=False, copy_state=False)
+        ]

@@ -4,9 +4,11 @@
 (numpy arrays, lists of them, and the ``_update_count`` int) into what the port's
 ``Metric.load_state_dict`` takes, so an evaluation started on the TPU can finish on the
 GPU; ``collection_state_from_jax`` does the same for a ``MetricCollection.state_dict()``
-(flat ``"<member>.<state>"`` keys), member by member. Dtypes are pinned to the JAX package's defaults: integer states to int32 (the
-counters' dtype; JAX's 64-bit mode widens them to int64 when they fold) and float
-states to float32. A value that does not fit int32 raises instead of wrapping.
+(flat ``"<member>.<state>"`` keys), member by member. Integer states are pinned to
+int32, the counters' dtype (JAX's 64-bit mode widens them to int64 when they fold); a
+value that does not fit int32 raises instead of wrapping. Float states keep their
+width here, and the port's ``load_state_dict`` casts each float state to the dtype of
+its registered default: float32, or what ``set_dtype`` chose.
 """
 
 from __future__ import annotations
@@ -20,13 +22,11 @@ _INT32 = np.iinfo(np.int32)
 
 
 def _tensor(value: Any, device: torch.device) -> torch.Tensor:
-    arr = np.asarray(value)
+    arr = np.array(value)  # a copy: a JAX array's host view is read-only
     if arr.dtype.kind in "iu":
         if arr.size and (arr.min() < _INT32.min or arr.max() > _INT32.max):
             raise ValueError(f"integer state with values in [{arr.min()}, {arr.max()}] does not fit int32")
         arr = arr.astype(np.int32)
-    elif arr.dtype.kind == "f":
-        arr = arr.astype(np.float32)
     return torch.as_tensor(arr, device=device)
 
 

@@ -21,9 +21,18 @@ sub-world ``process_group`` is named: those take the eager per-tensor path, coun
 a fallback. The JAX package gates the packed route on its engine policy; the port
 always takes it.
 
-The JAX package's scan and async dispatch tiers and its ``CompositionalMetric`` have
-no counterpart yet: ``scan_steps`` and ``async_dispatch`` are rejected like any other
-unknown keyword argument.
+Arithmetic on metrics (``metric + 1``, ``1 - acc``, ``a @ b``, ``abs(m)``, ``m[0]``)
+builds a lazy ``CompositionalMetric``. ``set_dtype`` is the only cast of the states:
+``float`` / ``double`` / ``half`` / ``type`` are no-ops, as in the JAX package, and
+override ``torch.nn.Module``'s casts. ``__eq__`` composes too, so ``Metric`` defines
+``__hash__`` from the class and the identities of the metric and its states: the hash
+changes when a state is replaced, and no code of the package keys a dict or a set by
+a metric.
+
+The JAX package's scan and async dispatch tiers have no counterpart yet:
+``scan_steps`` and ``async_dispatch`` are rejected like any other unknown keyword
+argument. ``state_specs`` waits for the port's ``StateSpec`` registry and
+``snapshot_compute`` for ``serve/``.
 """
 
 from __future__ import annotations
@@ -150,6 +159,7 @@ class Metric(torch.nn.Module):
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
 
+        self._dtype = torch.float32  # of Python float defaults; set_dtype changes it
         self._defaults: Dict[str, Union[List, torch.Tensor]] = {}
         self._row_additive: Dict[str, bool] = {}  # engine/statespec.py, stamped by add_state
         self._persistent: Dict[str, bool] = {}
@@ -190,6 +200,11 @@ class Metric(torch.nn.Module):
         """Device of the metric states."""
         return self._device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """Floating dtype of the states (``set_dtype`` changes it)."""
+        return self._dtype
+
     def add_state(
         self,
         name: str,
@@ -203,7 +218,7 @@ class Metric(torch.nn.Module):
         selects how the state folds across processes and across ``forward`` steps.
         """
         if isinstance(default, (int, float)):
-            default = torch.tensor(default, dtype=torch.float32 if isinstance(default, float) else torch.int32)
+            default = torch.tensor(default, dtype=self._dtype if isinstance(default, float) else torch.int32)
         if not (isinstance(default, torch.Tensor) or (isinstance(default, list) and not default)):
             raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
         if isinstance(dist_reduce_fx, str):
@@ -642,6 +657,27 @@ class Metric(torch.nn.Module):
         """Override to compute the final value from state."""
         raise NotImplementedError
 
+    # ------------------------------------------------------------------ plot
+
+    def plot(self, *_: Any, **__: Any) -> Any:
+        """Override to plot the metric value."""
+        raise NotImplementedError
+
+    def _plot(self, val: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot one value or a sequence of values (``utilities/plot.py``)."""
+        from torchmetrics_tpu_torch.utilities.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            name=self.__class__.__name__,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+        )
+
     # ------------------------------------------------------------------ lifecycle
 
     def reset(self) -> None:
@@ -655,6 +691,12 @@ class Metric(torch.nn.Module):
         self._is_synced = False
         self._none_folded = set()
         self._state_fresh = True
+
+    def state_footprint(self) -> Dict[str, Any]:
+        """Bytes held by this metric's states (``diag/costs.py``)."""
+        from torchmetrics_tpu_torch.diag.costs import state_footprint
+
+        return state_footprint(self)
 
     def clone(self) -> "Metric":
         """Deep copy of the metric."""
@@ -695,22 +737,53 @@ class Metric(torch.nn.Module):
     def to(self, device: Union[str, torch.device]) -> "Metric":  # type: ignore[override]
         """Move every state (and its default) to ``device``."""
         self._device = resolve_device(device)
-
-        def _move(x: Any) -> Any:
-            return x.to(self._device) if isinstance(x, torch.Tensor) else x
-
         fresh = self._state_fresh  # a move keeps the values
-        for attr in self._defaults:
-            val = getattr(self, attr)
-            setattr(self, attr, [_move(v) for v in val] if isinstance(val, list) else _move(val))
-            self._defaults[attr] = _move(self._defaults[attr])
+        self._map_states(lambda x: x.to(self._device) if isinstance(x, torch.Tensor) else x, include_defaults=True)
         self._state_fresh = fresh
-        if self._computed is not None:
-            self._computed = apply_to_collection(self._computed, torch.Tensor, _move)
         return self
 
     def cpu(self) -> "Metric":  # type: ignore[override]
         return self.to("cpu")
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast the floating states and their defaults to ``dst_type``."""
+        self._dtype = dst_type
+
+        def _cast(x: Any) -> Any:
+            return x.to(dst_type) if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+        fresh = self._state_fresh  # a cast keeps the values
+        self._map_states(_cast, include_defaults=True)
+        self._state_fresh = fresh
+        return self
+
+    def float(self) -> "Metric":  # type: ignore[override]
+        """No-op: use ``set_dtype``."""
+        return self
+
+    def double(self) -> "Metric":  # type: ignore[override]
+        """No-op: use ``set_dtype``."""
+        return self
+
+    def half(self) -> "Metric":  # type: ignore[override]
+        """No-op: use ``set_dtype``."""
+        return self
+
+    def type(self, dst_type: Any) -> "Metric":  # type: ignore[override]
+        """No-op: use ``set_dtype``."""
+        return self
+
+    def _map_states(self, fn: Callable, include_defaults: bool = False) -> None:
+        """Apply ``fn`` to every state tensor (list elements too), the cached value and,
+        with ``include_defaults``, the registered defaults."""
+        for attr in self._defaults:
+            val = getattr(self, attr)
+            setattr(self, attr, [fn(v) for v in val] if isinstance(val, list) else fn(val))
+            if include_defaults:
+                d = self._defaults[attr]
+                self._defaults[attr] = [fn(v) for v in d] if isinstance(d, list) else fn(d)
+        if self._computed is not None:
+            self._computed = apply_to_collection(self._computed, torch.Tensor, fn)
 
     # ------------------------------------------------------------------ persistence
 
@@ -753,6 +826,9 @@ class Metric(torch.nn.Module):
                 setattr(self, key, [torch.as_tensor(v, device=self._device) for v in val])
             else:
                 arr = torch.as_tensor(val, device=self._device)
+                default = self._defaults[key]
+                if isinstance(default, torch.Tensor) and default.is_floating_point() and arr.is_floating_point():
+                    arr = arr.to(default.dtype)  # a float state keeps the dtype set_dtype gave it
                 setattr(self, key, arr)
                 # checkpoints carry no fold flags: recover a None-reduced state's
                 # stacked-shard marker from its rank
@@ -770,5 +846,218 @@ class Metric(torch.nn.Module):
         if restored_any:
             self._computed = None
 
+    def __hash__(self) -> int:
+        """Hash of the class and the identities of the metric and its states."""
+        hash_vals: list = [self.__class__.__name__, id(self)]
+        for key in self._defaults:
+            val = getattr(self, key)
+            if isinstance(val, list):
+                hash_vals.extend(id(v) for v in val)
+            else:
+                hash_vals.append(id(val))
+        return hash(tuple(hash_vals))
+
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+    # ------------------------------------------------------------------ operators
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.true_divide, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.floor_divide, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.remainder, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(torch.ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(torch.ge, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        # the JAX package's ``+m`` is ``abs``, and ``-m`` is ``-abs``: copied as they are
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __inv__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_not, self, None)
+
+    __invert__ = __inv__
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
+    def __getnewargs__(self) -> tuple:
+        return tuple(self.__getstate__().get("_defaults", ()))
+
+    __iter__ = None
+
+
+def _neg(x: torch.Tensor) -> torch.Tensor:
+    return -torch.abs(x)
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic over metrics: ``op(metric_a, metric_b)`` on their values.
+
+    Its device is its first operand metric's, so ``acc + 1`` on a CPU metric runs on
+    the CPU; number and tensor operands move there. It holds no state: each operand
+    metric updates, syncs and resets itself.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch import SumMetric
+        >>> total = SumMetric(device="cpu")
+        >>> doubled = 2 * total
+        >>> doubled.update(torch.tensor([1.0, 2.0]))
+        >>> float(doubled.compute())
+        6.0
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, torch.Tensor, None],
+        metric_b: Union[Metric, float, int, torch.Tensor, None],
+    ) -> None:
+        operand = metric_a if isinstance(metric_a, Metric) else metric_b
+        super().__init__(device=operand.device if isinstance(operand, Metric) else None)
+        self.op = operator
+        self.metric_a = self._operand(metric_a)
+        self.metric_b = self._operand(metric_b)
+
+    def _operand(self, x: Any) -> Any:
+        if isinstance(x, (int, float, torch.Tensor, np.ndarray)):
+            return torch.as_tensor(x, device=self._device)
+        return x
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass  # the operand metrics sync themselves
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            self._forward_cache = None
+        elif val_b is None:
+            self._forward_cache = None if isinstance(self.metric_b, Metric) else self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        op_name = self.op.__name__ if hasattr(self.op, "__name__") else self.op
+        return f"{self.__class__.__name__}(\n  {op_name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        return compute
