@@ -106,6 +106,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    equal to the uninterrupted run; then each member's update µs, host syncs, device
    busy and idle share, engine replays / captures / fallbacks, in turns.
 
+14. the engine tier, on phase 4's and phase 5's batches with ``validate_args=False`` and
+   ``update()`` driven: accuracy (16 updates of 8192 x 1000 and one of 5000 rows) with
+   ``scan_steps=8`` (two kb=8 drains and a kb=1 tail), then with ``async_dispatch=2``;
+   the config #2 collection with ``scan_steps=8`` (the stat-scores and confusion-matrix
+   owners queued, AUROC running K2 eagerly on every update); quarantine ``1`` with a NaN
+   batch at update 5 of the accuracy path (the state equals the run without it, the
+   counter reads 1); a compensated ``SumMetric`` and ``MeanMetric`` over 1024 updates of
+   8192 float32 losses with ``scan_steps=16`` (within 2 ulp of the float64 sum, the naive
+   run's drift beside it); the cached compute on each path. Every state bit-equal to the
+   eager run on the card and to the CPU run (the compensated float states within relative
+   1e-6 of the CPU's); K1's launches equal to Σ kb over the drains plus the probe's
+   warm-ups, and against the profiler's kernel events over one kb=8 drain; K2's equal to
+   the updates; one enqueue, one drain and one join under ``set_sync_debug_mode("error")``.
+   Then, in turns in this call, per-update host µs for eager, the one-step engine, scan
+   K=8 and scan K=8 + async with device busy and idle share; the host time of one engine
+   step by part (signature key, shield, batch copy, replay) and of a scan enqueue (its own
+   ``host_breakdown`` line); whether ``CUDAGraph.replay`` releases the GIL, read over the
+   replay calls alone; accuracy's ``forward``, engine against eager, in five interleaved
+   pairs. Last, an operation a CUDA graph cannot hold raises out of the engine's capture.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -116,7 +136,7 @@ with code 2 and prints no result. It imports nothing of JAX.
 one JSON object (the updates line runs to tens of kilobytes).
 
 ``python3 chip_smoke.py --eval-loop-only`` runs phases 1-2 and then phase 13 alone, on
-batches made for it.
+batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -126,6 +146,7 @@ first on ``sys.path``, so two checkouts can be compared in turns in one call.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import multiprocessing
 import os
@@ -225,35 +246,70 @@ def _host_us_per_call(fn, iters: int, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def _device_profile(fn, iters: int) -> dict:
+def _mean_measured(values) -> "float | None":
+    """The mean of the runs that measured a value (None where the profiler saw no device
+    activity), or None when none did."""
+    measured = [v for v in values if v is not None]
+    return statistics.mean(measured) if measured else None
+
+
+def _mean_runs(rs: list) -> dict:
+    """One mode's runs folded into one record: a float key's mean over the runs that
+    measured it, another key's first value. ``empty_windows`` sums the profiler windows
+    that saw no device activity and were tried again; ``profiled_runs`` counts the runs
+    whose device figures entered the means."""
+    out = {k: (_mean_measured(r[k] for r in rs) if any(isinstance(r[k], float) for r in rs) else rs[0][k]) for k in rs[0]}
+    out["empty_windows"] = sum(r["empty_windows"] for r in rs)
+    out["profiled_runs"] = f"{sum(r['device_busy_us'] is not None for r in rs)} of {len(rs)}"
+    return out
+
+
+#: every profiler window of the run: how many, how many recorded no device activity
+#: (and were tried again), and how many calls gave up after ``attempts`` empty windows
+PROFILE_WINDOWS = {"windows": 0, "empty": 0, "gave_up": 0}
+
+
+def _device_profile(fn, iters: int, attempts: int = 3) -> dict:
     """Device time per call of ``fn(i)`` by kernel name (torch.profiler, CUPTI).
 
     Returns ``{"device_busy_us": ..., "device_ops": ..., "kernels_us": {name: us},
     "memcpy_us": ...}`` (``device_ops``: kernels, memsets and copies on the device per
-    call; ``memcpy_us``: the copies alone), or ``None`` values when the profiler records
-    no device activity.
+    call; ``memcpy_us``: the copies alone; ``empty_windows``: the windows that recorded
+    no device activity and were tried again), or ``None`` values when none of the
+    ``attempts`` windows recorded any.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
     per_kernel: dict = {}
     n_events = 0
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            name = event.name[:80]
-            per_kernel[name] = per_kernel.get(name, 0.0) + event.time_range.elapsed_us() / iters
-            n_events += 1
+    empty = 0
+    for _ in range(attempts):  # a window now and then records no device activity: try again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        PROFILE_WINDOWS["windows"] += 1
+        for event in prof.events():
+            if event.device_type == DeviceType.CUDA:
+                name = event.name[:80]
+                per_kernel[name] = per_kernel.get(name, 0.0) + event.time_range.elapsed_us() / iters
+                n_events += 1
+        if per_kernel:
+            break
+        empty += 1
+        PROFILE_WINDOWS["empty"] += 1
     if not per_kernel:
-        return {"device_busy_us": None, "device_ops": None, "kernels_us": None, "memcpy_us": None}
+        PROFILE_WINDOWS["gave_up"] += 1
+        return {"device_busy_us": None, "device_ops": None, "kernels_us": None, "memcpy_us": None, "empty_windows": empty}
     top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
     memcpy = sum(us for name, us in per_kernel.items() if "Memcpy" in name)
-    return {"device_busy_us": sum(per_kernel.values()), "device_ops": n_events / iters, "kernels_us": top, "memcpy_us": memcpy}
+    return {
+        "device_busy_us": sum(per_kernel.values()), "device_ops": n_events / iters, "kernels_us": top,
+        "memcpy_us": memcpy, "empty_windows": empty,
+    }
 
 
 # ---------------------------------------------------------------- inputs
@@ -1326,6 +1382,7 @@ def _timed(step, iters: int = 16) -> dict:
         "device_ops": prof["device_ops"],
         "input_copy_us": prof["memcpy_us"],
         "kernels_us": prof["kernels_us"],
+        "empty_windows": prof["empty_windows"],
     }
 
 
@@ -1355,8 +1412,7 @@ def time_engine(acc_batches: list, cifar_batches: list, binary_batches: list, mu
                 call = m.update if kind == "update" else m
                 call(*batches[0])  # settles groups, builds and captures
                 runs[mode].append(_timed(lambda i, call=call: call(*batches[i % len(batches)])))
-        out[name] = {mode: {k: (statistics.mean(r[k] for r in rs) if isinstance(rs[0][k], float) else rs[0][k])
-                            for k in rs[0]} for mode, rs in runs.items()}
+        out[name] = {mode: _mean_runs(rs) for mode, rs in runs.items()}
         out[name]["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs.items()}
     # the launch counters against the profiler's kernel events over the same engine updates
     m = tm.MulticlassAccuracy(ACC_CLASSES, validate_args=False)
@@ -1698,8 +1754,7 @@ def time_family(batches_by_path: dict) -> dict:
                 m = make()
                 m.update(*batches[0])  # settles groups, builds and captures
                 runs[mode].append(_timed(lambda i, m=m: m.update(*batches[i % len(batches)])))
-        out[name] = {mode: {k: (statistics.mean(r[k] for r in rs) if isinstance(rs[0][k], float) else rs[0][k])
-                            for k in rs[0]} for mode, rs in runs.items()}
+        out[name] = {mode: _mean_runs(rs) for mode, rs in runs.items()}
         out[name]["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs.items()}
     _log("  family times: " + ", ".join(
         f"{k} {v['eager']['update_us']:.1f} -> {v['engine']['update_us']:.1f} us" for k, v in out.items()
@@ -2178,12 +2233,10 @@ def time_eval_loop(inp: "_EvalInputs") -> dict:
                     "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
                     "device_ops": prof["device_ops"],
                     "kernels_us": prof["kernels_us"],
+                    "empty_windows": prof["empty_windows"],
                     "engine": _engine_summary(m),
                 })
-        out[name] = {
-            mode: {k: (statistics.mean(r[k] for r in rs) if isinstance(rs[0][k], float) else rs[0][k]) for k in rs[0]}
-            for mode, rs in runs.items()
-        }
+        out[name] = {mode: _mean_runs(rs) for mode, rs in runs.items()}
         out[name]["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs.items()}
         out[name]["seconds"] = time.perf_counter() - t0
         eager, eng = out[name]["eager"], out[name]["engine"]
@@ -2453,6 +2506,599 @@ def time_task_path(members_fn, batches: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 14: the engine tier
+
+SCAN_K = 8
+COMP_UPDATES, COMP_WIDTH, COMP_K = 1024, 8192, 16  # the compensated sums' stream
+QUARANTINED_AT = 4  # update 5 of the accuracy path carries a NaN
+TIER_ROUNDS = 3  # timing rounds, each (eager, engine, scan, async, async, scan, engine, eager)
+FORWARD_PAIRS = 5
+
+
+def _zero_launches() -> None:
+    from torchmetrics_tpu_torch import ops
+
+    ops.set_launch_counts({"stat_counts": 0, "multi_threshold": 0})
+
+
+def _launches() -> dict:
+    from torchmetrics_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    return ops.launch_counts()
+
+
+def _kb_total(stats) -> int:
+    """Σ kb over a queue's drains: every drained step, pad steps included, launches."""
+    return stats.scan_steps_folded + stats.scan_pad_steps
+
+
+def _ulp32(x: float) -> float:
+    """The spacing of float32 at ``x``."""
+    v = torch.tensor(x, dtype=torch.float32)
+    return float(torch.nextafter(v, torch.tensor(float("inf"))) - v)
+
+
+def _check_compute_cache(name: str, metric, computes: int) -> dict:
+    """The cached compute: one build, then replays (``engine/epoch.py``)."""
+    st = metric._epoch.stats
+    got = {k: getattr(st, k) for k in ("compute_traces", "compute_dispatches", "compute_cache_hits", "eager_fallbacks")}
+    want = {"compute_traces": 1, "compute_dispatches": computes, "compute_cache_hits": computes - 1, "eager_fallbacks": 0}
+    if got != want:
+        raise AssertionError(f"{name}: cached compute counters {got} ({dict(st.fallback_reasons)}), expected {want}")
+    return got
+
+
+def run_scan_accuracy(acc_batches: list) -> dict:
+    """Part 1: ``MulticlassAccuracy(1000)`` over 16 updates of 8192 x 1000 plus one 5000-row
+    update with ``scan_steps=8`` (two drains of kb=8 and a kb=1 tail), then the same with
+    ``async_dispatch=2``. States bit-equal to the eager run on the card and to the CPU run;
+    K1 launched Σ kb times plus the probe's two warm-ups (its guarded update and its pad-row
+    unit); a second ``compute`` replays the cached compute graph."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    stream = list(acc_batches) + [tuple(x[:ACC_RAGGED] for x in acc_batches[0])]
+    with engine_context(False):
+        eager = MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+        for p, t in stream:
+            eager.update(p, t)
+        eager_value = eager.compute()
+    host = MulticlassAccuracy(ACC_CLASSES, validate_args=False, device="cpu")
+    for p, t in stream:
+        host.update(p.cpu(), t.cpu())
+    out = {}
+    for name, kw in (("scan", {}), ("scan_async", {"async_dispatch": 2})):
+        _zero_launches()
+        m = MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K, **kw)
+        for p, t in stream:
+            m.update(p, t)
+        value = m.compute()
+        launches = _launches()
+        st = m._engine.stats
+        want = {"scan_dispatches": 3, "scan_steps_folded": len(stream), "scan_pad_steps": 0, "eager_fallbacks": 0}
+        got = {k: getattr(st, k) for k in want}
+        if got != want:
+            raise AssertionError(f"scan accuracy ({name}) counters {got}, expected {want}")
+        if launches != {"stat_counts": _kb_total(st) + 2, "multi_threshold": 0}:
+            raise AssertionError(f"scan accuracy ({name}) launches {launches}, expected Σkb {_kb_total(st)} + 2 warm-ups")
+        if kw and st.async_dispatches < 1:
+            raise AssertionError(f"scan accuracy ({name}): no drain rode the worker: {st}")
+        _assert_same_states(f"scan accuracy ({name}) vs eager", m, eager)
+        _assert_same_states(f"scan accuracy ({name}) vs cpu", m, host)
+        _equal(f"scan accuracy ({name}) compute", value, eager_value)
+        m._computed = None
+        _equal(f"scan accuracy ({name}) cached compute", m.compute(), eager_value)
+        out[name] = {
+            "launches": launches, "engine": st.as_dict(), "compute": _check_compute_cache(f"scan accuracy ({name})", m, 2),
+        }
+        _log(f"  accuracy, scan_steps=8{' + async_dispatch=2' if kw else ''}: {len(stream)} updates in"
+             f" {st.scan_dispatches} drains (Σkb {_kb_total(st)}), async drains {st.async_dispatches}, K1 {launches['stat_counts']};"
+             " states equal to eager and to the CPU")
+    return out
+
+
+def run_scan_collection(batches: list) -> dict:
+    """Part 2: the config #2 collection with ``scan_steps=8``: the stat-scores and
+    confusion-matrix owners ride the fused queue, the binned AUROC falls back and runs K2
+    eagerly on every update."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    members = lambda **kw: _collection_members(validate_args=False, **kw)  # noqa: E731
+    _zero_launches()
+    mc = MetricCollection(members(), scan_steps=SCAN_K)
+    for p, t in batches:
+        mc.update(p, t)
+    values = mc.compute()
+    launches = _launches()
+    with engine_context(False):
+        eager = MetricCollection(members())
+        for p, t in batches:
+            eager.update(p, t)
+        eager_values = eager.compute()
+    host = MetricCollection(members(device="cpu"))
+    for p, t in batches:
+        host.update(p.cpu(), t.cpu())
+    fe = mc._fused_engine
+    st = fe.stats
+    if fe._scan._plan.names != {"acc", "confmat"}:
+        raise AssertionError(f"scan collection: fused owners {fe._scan._plan.names}")
+    if st.scan_steps_folded != len(batches) or st.eager_fallbacks:
+        raise AssertionError(f"scan collection counters {st}")
+    # the fused signature is not bucketed (AUROC is no row-additive member): no pad-row
+    # unit, one warm-up launch (the probe's guarded update)
+    want = {"stat_counts": _kb_total(st) + 1, "multi_threshold": len(batches)}
+    if launches != want:
+        raise AssertionError(f"scan collection launches {launches}, expected {want}")
+    for name in values:
+        _assert_same_states(f"scan collection {name} vs eager", mc[name], eager[name])
+        _assert_same_states(f"scan collection {name} vs cpu", mc[name], host[name])
+        if not torch.equal(values[name], eager_values[name]):
+            raise AssertionError(f"scan collection {name}: {values[name].tolist()} vs eager {eager_values[name].tolist()}")
+    auroc_fallbacks = mc["auroc"]._engine.stats.eager_fallbacks
+    if auroc_fallbacks != len(batches):
+        raise AssertionError(f"scan collection: AUROC fell back {auroc_fallbacks} times, expected {len(batches)}")
+    compute = {name: mc[name]._epoch.stats.as_dict() for name in values if mc[name]._epoch is not None}
+    _log(f"  config #2 collection, scan_steps=8: owners acc and confmat fused in {st.scan_dispatches} drains,"
+         f" AUROC eager on every update; launches {launches}; states equal to eager and to the CPU")
+    return {"launches": launches, "engine": st.as_dict(), "compute": compute}
+
+
+def run_scan_quarantine(acc_batches: list) -> dict:
+    """Part 3: quarantine ``1`` with a NaN batch at update 5 of the accuracy path, queued:
+    the state equals the run without that batch, bit for bit, and the counter reads 1."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.engine import engine_context, quarantine_context
+
+    poisoned = acc_batches[QUARANTINED_AT][0].clone()
+    poisoned[17, 3] = float("nan")
+    stream = list(acc_batches)
+    stream[QUARANTINED_AT] = (poisoned, acc_batches[QUARANTINED_AT][1])
+    clean = [b for i, b in enumerate(acc_batches) if i != QUARANTINED_AT]
+    _zero_launches()
+    with quarantine_context(True):
+        m = MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K)
+        for p, t in stream:
+            m.update(p, t)
+        value = m.compute()
+        launches = _launches()
+        count = int(m._quarantined_count)
+        with engine_context(False):
+            eager_q = MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+            for p, t in stream:
+                eager_q.update(p, t)
+    with engine_context(False):
+        without = MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+        for p, t in clean:
+            without.update(p, t)
+        want_value = without.compute()
+    st = m._engine.stats
+    if count != 1 or st.quarantined_batches != 1 or int(eager_q._quarantined_count) != 1:
+        raise AssertionError(f"quarantine: counter {count}, reported {st.quarantined_batches}, eager {int(eager_q._quarantined_count)}")
+    _assert_same_states("quarantine scan vs the run without the batch", m, without)
+    _assert_same_states("quarantine eager vs the run without the batch", eager_q, without)
+    _equal("quarantine compute", value, want_value)
+    if launches["stat_counts"] != _kb_total(st) + 2:
+        raise AssertionError(f"quarantine launches {launches}, expected Σkb {_kb_total(st)} + 2")
+    _log(f"  quarantine: a NaN batch at update {QUARANTINED_AT + 1} of {len(stream)} skipped on the card, counter {count};"
+         " the state equals the run without it")
+    return {"launches": launches, "engine": st.as_dict(), "quarantined": count}
+
+
+def run_compensated(gen: torch.Generator) -> dict:
+    """Part 4: a compensated ``SumMetric`` and ``MeanMetric`` over 1024 updates of 8192
+    float32 losses with ``scan_steps=16``, against the float64 sum (within 2 ulp), beside
+    the naive float32 run's drift; the compensated states bit-equal to the eager
+    compensated run on the card, within relative 1e-6 of the CPU run."""
+    from torchmetrics_tpu_torch import MeanMetric, SumMetric
+    from torchmetrics_tpu_torch.engine import compensated_context, engine_context
+
+    losses = (torch.rand(COMP_UPDATES, COMP_WIDTH, generator=gen) * 4).cuda()
+    ref_sum = float(losses.double().sum())
+    ref_mean = ref_sum / (COMP_UPDATES * COMP_WIDTH)
+
+    def run(device=None, **kw):
+        dev = {} if device is None else {"device": device}
+        s, m = SumMetric(nan_strategy=0.0, **dev, **kw), MeanMetric(nan_strategy=0.0, **dev, **kw)
+        rows = losses if device is None else losses.cpu()
+        for row in rows:
+            s.update(row)
+            m.update(row)
+        return s, m, s.compute(), m.compute()
+
+    with compensated_context(True):
+        s, m, s_val, m_val = run(scan_steps=COMP_K)
+        with engine_context(False):
+            es, em, es_val, em_val = run()
+        hs, hm, hs_val, hm_val = run(device="cpu")
+    naive_s, naive_m, naive_val, naive_mean = run()
+    ulp_sum, ulp_mean = _ulp32(ref_sum), _ulp32(ref_mean)
+    err_sum, err_mean = float(s_val) - ref_sum, float(m_val) - ref_mean
+    if abs(err_sum) > 2 * ulp_sum or abs(err_mean) > 2 * ulp_mean:
+        raise AssertionError(f"compensated: sum off by {err_sum} (ulp {ulp_sum}), mean off by {err_mean} (ulp {ulp_mean})")
+    for name, got, want in (("sum", s, es), ("mean", m, em)):
+        _assert_same_states(f"compensated {name} scan vs eager", got, want)
+        for k, r in got._comp_residuals.items():
+            if not torch.equal(r, want._comp_residuals[k]):
+                raise AssertionError(f"compensated {name}: residual {k} differs from the eager run")
+    for name, got, want in (("sum", s, hs), ("mean", m, hm)):
+        _assert_same_states(f"compensated {name} vs cpu", got, want, float_rtol=1e-6)
+    st = s._engine.stats
+    if st.compensated_steps != COMP_UPDATES or st.scan_steps_folded != COMP_UPDATES or st.eager_fallbacks:
+        raise AssertionError(f"compensated sum counters {st}")
+    out = {
+        "reference_float64": ref_sum,
+        "sum": float(s_val), "sum_err": err_sum, "sum_err_ulp": err_sum / ulp_sum,
+        "mean": float(m_val), "mean_err": err_mean, "mean_err_ulp": err_mean / ulp_mean,
+        "naive_sum": float(naive_val), "naive_sum_err": float(naive_val) - ref_sum,
+        "naive_sum_err_ulp": (float(naive_val) - ref_sum) / ulp_sum,
+        "naive_mean_err_ulp": (float(naive_mean) - ref_mean) / ulp_mean,
+        "engine": st.as_dict(),
+    }
+    _log(f"  compensated: sum {float(s_val)!r} vs float64 {ref_sum!r} ({out['sum_err_ulp']:+.2f} ulp), naive"
+         f" {float(naive_val)!r} ({out['naive_sum_err_ulp']:+.1f} ulp); mean {out['mean_err_ulp']:+.2f} ulp,"
+         f" naive {out['naive_mean_err_ulp']:+.1f} ulp")
+    return out
+
+
+def check_scan_launches_against_profiler(acc_batches: list) -> dict:
+    """K1's counted launches over one queued drain of kb=8 against the profiler's kernel
+    events over the same updates."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch import MulticlassAccuracy, ops
+
+    m = MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K)
+    for p, t in acc_batches[:SCAN_K]:
+        m.update(p, t)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["stat_counts"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for p, t in acc_batches[SCAN_K : 2 * SCAN_K]:
+            m.update(p, t)
+        torch.cuda.synchronize()
+    counted = ops.launch_counts()["stat_counts"] - before
+    events = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "stat_counts_kernel" in e.name)
+    if events == 0 or counted != events or counted != SCAN_K:
+        raise AssertionError(f"scan: {counted} K1 launches counted over one kb=8 drain, {events} kernel events")
+    return {"updates": SCAN_K, "counted": counted, "profiler_kernel_events": events}
+
+
+def check_scan_no_sync(acc_batches: list) -> None:
+    """One enqueue, one drain and one join under ``set_sync_debug_mode("error")``."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+
+    sync = MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K)
+    background = MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K, async_dispatch=2)
+    for m in (sync, background):  # build and capture the kb=8 and kb=1 graphs of every ring
+        for p, t in acc_batches + acc_batches[:9]:
+            m.update(p, t)
+        m.compute()
+    torch.cuda.synchronize()
+    before = background._engine.stats.async_dispatches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sync.update(*acc_batches[0])  # one enqueue
+        sync._engine._scan.drain("sync-check")  # one drain (the kb=1 graph)
+        for p, t in acc_batches[:SCAN_K]:  # the 8th enqueue hands the buffer to the worker
+            background.update(p, t)
+        background._engine._scan.join_async("sync-check")  # one join
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if background._engine.stats.async_dispatches != before + 1:
+        raise AssertionError(f"the checked buffer did not ride the worker: {background._engine.stats}")
+    _log("  an enqueue, a drain and a join ran under set_sync_debug_mode('error')")
+
+
+def _window_us(make, batches: list, iters: int = 16, repeats: int = 5, forward: bool = False) -> float:
+    """Median host µs per update (or forward) over ``iters`` calls, the queue drained and
+    the device synchronized inside the window."""
+    m = make()
+    call = m if forward else m.update
+    for i in range(iters):
+        call(*batches[i % len(batches)])
+    m._drain_scan("timing")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for i in range(iters):
+            call(*batches[i % len(batches)])
+        m._drain_scan("timing")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e6 / iters)
+    del m, call
+    gc.collect()  # an engine and its metric hold each other: free the graphs and slots now
+    return statistics.median(times)
+
+
+def _window_profile(make, batches: list, iters: int = 16) -> dict:
+    m = make()
+    for i in range(iters):
+        m.update(*batches[i % len(batches)])
+    m._drain_scan("timing")
+
+    def window(_):
+        for i in range(iters):
+            m.update(*batches[i % len(batches)])
+        m._drain_scan("timing")
+
+    prof = _device_profile(window, iters=1)
+    busy = prof["device_busy_us"]
+    return {"device_busy_us_per_update": None if busy is None else busy / iters, "device_ops_per_update": None
+            if prof["device_ops"] is None else prof["device_ops"] / iters, "empty_windows": prof["empty_windows"]}
+
+
+def _step_breakdown(acc_batches: list) -> dict:
+    """The host time of one engine step by part (each part repeated alone): the
+    signature key, the shield (and the copy of a state that is not its buffer), the batch
+    copy into the static inputs, the replay; then a scan enqueue by part. Each figure is
+    the host time to launch a few calls after a device sync (median of 25), few enough
+    that the launch queue never fills: the host's cost, not the device time."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy, ops
+    from torchmetrics_tpu_torch.engine.compiled import copy_into_buffers, shield_state, state_signature, step_state
+
+    def per_call(fn, calls: int = 16, repeats: int = 25) -> float:
+        fn()
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    batch = acc_batches[0]
+    m = MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+    m.update(*batch)
+    m.update(*batch)
+    eng = m._engine
+    (entry,) = [e for e in eng._cache.values() if hasattr(e, "plans")]
+    members = [("", m)]
+    inputs = list(batch)
+
+    def key():
+        in_sig = eng._eligible_inputs(members, inputs)
+        states = {"": step_state(m)}
+        bucket = eng._bucket(members, inputs)
+        sig = tuple((a.shape, a.dtype, a.device) for a in inputs) if bucket else in_sig
+        return eng._cache.get((bucket, 2, (), (("", state_signature(states[""])),), sig))
+
+    def shield():
+        for plan in entry.plans:
+            shield_state(plan.metric, plan.buffers, eng.stats)
+            copy_into_buffers(step_state(plan.metric), plan.buffers, eng.stats)
+
+    def replay():
+        entry.graph.replay()
+        ops.add_launches(entry.launches)
+
+    step = {
+        "signature_key_us": per_call(key),
+        "shield_us": per_call(shield),
+        "batch_copy_us": per_call(lambda: entry.inputs.fill(inputs, eng.stats)),
+        "replay_us": per_call(replay),
+        "update_us": per_call(lambda: m.update(*batch)),
+    }
+    step["other_us"] = step["update_us"] - sum(v for k, v in step.items() if k != "update_us")
+
+    q = MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K)
+    for _ in range(2 * SCAN_K):
+        q.update(*batch)
+    q._drain_scan("timing")
+    queue = q._engine._scan
+    (plan,) = [p for p in queue._plans.values() if hasattr(p, "rings")]
+    ring = plan.rings[0]
+    qmembers = [("", q)]
+    slot = iter(range(1 << 30))
+
+    def enqueue_key():
+        eng_q = q._engine
+        in_sig = eng_q._eligible_inputs(qmembers, inputs)
+        eng_q._bucket(qmembers, inputs)
+        return (2, (), in_sig, ("",), SCAN_K) == queue._fast[0]
+
+    def drain_8():
+        for p, t in [batch] * SCAN_K:
+            q.update(p, t)
+
+    enqueue = {
+        "signature_key_us": per_call(enqueue_key),
+        "batch_copy_us": per_call(lambda: ring.fill(next(slot) % (SCAN_K - 1), inputs, plan.bucket, q._engine.stats)),
+        "update_us_amortized": per_call(drain_8, calls=2) / SCAN_K,
+    }
+    # the enqueue alone: seven updates that do not reach K, the drain excluded
+    def seven():
+        for _ in range(SCAN_K - 1):
+            q.update(*batch)
+        queue.discard("timing")
+
+    enqueue["enqueue_us"] = per_call(seven, calls=2) / (SCAN_K - 1)
+    enqueue["other_us"] = enqueue["enqueue_us"] - enqueue["signature_key_us"] - enqueue["batch_copy_us"]
+    return {"engine_step": step, "scan_enqueue": enqueue}
+
+
+def check_gil_release(acc_batches: list, windows: int = 100) -> dict:
+    """Whether ``CUDAGraph.replay`` releases the GIL, from the replay calls alone.
+
+    A spinner thread counts in a pure-Python loop. The main thread makes ``windows``
+    calls of each kind, each from an idle card (a synchronize before it, outside the
+    window, so the launch queue never fills), and reads the spinner's count just before
+    and just after the call. A call that releases the GIL hands it to the waiting
+    spinner, which then counts inside the window; a call that holds it leaves the count
+    unchanged (a forced switch waits for a bytecode boundary, and there is none inside a
+    C++ call). Two controls bracket the replay: ``time.sleep(1e-5)`` releases the GIL,
+    ``sum(range(300))`` holds it. The replay is read as releasing when its share of
+    windows with progress lies nearer the releasing control's."""
+    import threading
+
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+
+    m = MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+    m.update(*acc_batches[0])
+    m.update(*acc_batches[0])
+    (entry,) = [e for e in m._engine._cache.values() if hasattr(e, "plans")]
+    graph = entry.graph
+    counter = [0]
+    stop = [False]
+
+    def spin():
+        while not stop[0]:
+            counter[0] += 1
+
+    def measure(call) -> dict:
+        progressed, counts, spans = 0, 0, 0.0
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            c0, t0 = counter[0], time.perf_counter()
+            call()
+            t1, c1 = time.perf_counter(), counter[0]
+            progressed += c1 > c0
+            counts += c1 - c0
+            spans += t1 - t0
+        return {
+            "windows_with_progress": progressed / windows,
+            "spinner_counts_per_window": counts / windows,
+            "window_us": spans / windows * 1e6,
+        }
+
+    thread = threading.Thread(target=spin, daemon=True)
+    thread.start()
+    try:
+        out = {
+            "releasing_control": measure(lambda: time.sleep(1e-5)),
+            "replay": measure(graph.replay),
+            "holding_control": measure(lambda: sum(range(300))),
+        }
+    finally:
+        stop[0] = True
+        thread.join()
+    torch.cuda.synchronize()
+    share = {k: v["windows_with_progress"] for k, v in out.items()}
+    out["windows"] = windows
+    out["replay_releases_gil"] = abs(share["replay"] - share["releasing_control"]) < abs(
+        share["replay"] - share["holding_control"]
+    )
+    return out
+
+
+def time_engine_tier(acc_batches: list) -> dict:
+    """Per-update host µs, accuracy ``update`` at 8192 x 1000, for eager, the one-step
+    engine, scan K=8 and scan K=8 + async (in turns, three rounds), with device busy and
+    idle share; the step and enqueue breakdowns; the GIL check; and accuracy ``forward``
+    eager against engine in five interleaved pairs."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    makers = {
+        "eager": (lambda: MulticlassAccuracy(ACC_CLASSES, validate_args=False), False),
+        "engine": (lambda: MulticlassAccuracy(ACC_CLASSES, validate_args=False), True),
+        "scan8": (lambda: MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K), True),
+        "scan8_async": (
+            lambda: MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=SCAN_K, async_dispatch=2), True,
+        ),
+    }
+    runs = {name: [] for name in makers}
+    order = ("eager", "engine", "scan8", "scan8_async", "scan8_async", "scan8", "engine", "eager")
+    for _ in range(TIER_ROUNDS):
+        for name in order:
+            make, engine = makers[name]
+            with engine_context(engine):
+                runs[name].append(_window_us(make, acc_batches))
+    per_update = {}
+    for name, (make, engine) in makers.items():
+        with engine_context(engine):
+            prof = _window_profile(make, acc_batches)
+        mean = statistics.mean(runs[name])
+        busy = prof["device_busy_us_per_update"]
+        per_update[name] = {
+            "update_us": mean, "update_us_runs": runs[name], **prof,
+            "device_idle_share": None if busy is None else max(0.0, 1 - busy / mean),
+        }
+    pairs = []
+    for _ in range(FORWARD_PAIRS):
+        pair = {}
+        for name, engine in (("eager", False), ("engine", True)):
+            with engine_context(engine):
+                pair[name] = _window_us(makers["eager"][0], acc_batches, forward=True)
+        pairs.append(pair)
+    diffs = [p["engine"] - p["eager"] for p in pairs]
+    forward = {
+        "pairs": pairs, "engine_minus_eager_us": diffs, "mean_diff_us": statistics.mean(diffs),
+        "engine_faster_in": sum(d < 0 for d in diffs), "of": len(diffs),
+    }
+    out = {
+        "per_update": per_update, "forward_pairs": forward, "breakdown": _step_breakdown(acc_batches),
+        "gil": check_gil_release(acc_batches),
+    }
+    _log("  engine tier times: " + ", ".join(f"{k} {v['update_us']:.1f} us" for k, v in per_update.items())
+         + f"; forward engine-eager {forward['mean_diff_us']:+.1f} us (engine faster in {forward['engine_faster_in']}/"
+         f"{len(diffs)}); replay releases the GIL: {out['gil']['replay_releases_gil']}")
+    print(json.dumps({"host_breakdown": out["breakdown"]}), flush=True)
+    return out
+
+
+def check_capture_error_raises() -> dict:
+    """An operation a CUDA graph cannot hold raises out of the engine's capture, as a
+    fault: it is not classified as a transient failure, retried or run eagerly instead.
+    Afterwards the caller's stream is current again and the card still computes."""
+    from torchmetrics_tpu_torch import Metric
+    from torchmetrics_tpu_torch.engine import txn
+
+    class Synchronizing(Metric):
+        full_state_update = False
+
+        def __init__(self):
+            super().__init__()
+            self.add_state("total", torch.zeros(()), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + x.sum()
+            torch.cuda.current_stream().synchronize()  # not permitted while the stream captures
+
+        def compute(self):
+            return self.total
+
+    m = Synchronizing()
+    stream = torch.cuda.current_stream()
+    x = torch.ones(64, device="cuda")
+    try:
+        m.update(x)
+    except RuntimeError as exc:
+        raised = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+        if txn.classify_dispatch_error(exc) is not None:
+            raise AssertionError(f"a capture fault was classified as transient: {raised}") from exc
+    else:
+        raise AssertionError(f"a synchronize inside the capture did not raise: {m._engine.stats.as_dict()}")
+    if torch.cuda.current_stream() != stream:
+        raise AssertionError("the failed capture left another stream current")
+    if float((x * 2).sum()) != 128.0:
+        raise AssertionError("the card computes wrongly after a failed capture")
+    _log(f"  an illegal operation inside the capture raised: {raised}")
+    return {"raised": raised, "fallback_reasons": dict(m._engine.stats.fallback_reasons)}
+
+
+def run_engine_tier(acc_batches: list, cifar_batches: list, gen: torch.Generator) -> dict:
+    """Phase 14: the scan queue, its background drains, the quarantine and compensated
+    riders and the cached compute on the paths of phases 4 and 5."""
+    out = {
+        "accuracy": run_scan_accuracy(acc_batches),
+        "collection": run_scan_collection(cifar_batches),
+        "quarantine": run_scan_quarantine(acc_batches),
+        "compensated": run_compensated(gen),
+        "launch_count_check": check_scan_launches_against_profiler(acc_batches),
+    }
+    check_scan_no_sync(acc_batches)
+    out["times"] = time_engine_tier(acc_batches)
+    out["capture_fault"] = check_capture_error_raises()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -2466,23 +3112,37 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/13] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/14] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/13] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/14] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
         print(smi, flush=True)
         print(json.dumps({"binned_update": time_binned_update(gen)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--engine-tier-only"]:
+        acc_batches = [
+            (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        cifar_batches = [
+            (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        _log("[14/14] the engine tier: scan queue, async drains, riders, cached compute")
+        tier = run_engine_tier(acc_batches, cifar_batches, gen)
+        print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
         acc_batches = [
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/13] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/14] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -2490,30 +3150,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/13] kernels against their plain versions")
+        _log("[3/14] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/13] main path")
+        _log("[4/14] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/13] collection path")
+        _log("[5/14] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/13] binary path")
+        _log("[6/14] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/13] multilabel path")
+        _log("[7/14] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/13] task routers")
+        _log("[8/14] task routers")
         run_routers(gen)
 
-        _log("[9/13] sync, two ranks on one card")
+        _log("[9/14] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/13] times")
+        _log("[10/14] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -2526,7 +3186,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/13] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/14] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -2548,7 +3208,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/13] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/14] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -2557,11 +3217,14 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/13] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/14] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
+
+    _log("[14/14] the engine tier: scan queue, async drains, riders, cached compute")
+    engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
     for entry in kernels:
         k = entry["name"]
@@ -2576,14 +3239,22 @@ def main() -> int:
             "family_top5_engine": family["top5"]["launches_engine"][k],
             "eval_loop": sum(v["launches_eager"][k] for v in eval_loop.values() if isinstance(v, dict) and "launches_eager" in v),
             "eval_loop_engine": sum(v["launches_engine"][k] for v in eval_loop.values() if isinstance(v, dict) and "launches_engine" in v),
+            "scan_accuracy": engine_tier["accuracy"]["scan"]["launches"][k],
+            "scan_async_accuracy": engine_tier["accuracy"]["scan_async"]["launches"][k],
+            "scan_collection": engine_tier["collection"]["launches"][k],
+            "scan_quarantine": engine_tier["quarantine"]["launches"][k],
         }
         entry["engine"] = (
-            "K1 runs inside the captured graphs; the pad-row unit is computed once per signature, outside the graph"
+            "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
+            " once per signature, outside the graph"
             if k == "stat_counts"
             else "K2 runs eagerly: the binned curves fall back (their [0, 1] range check reads the host)"
         )
 
-    results = {"updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "sync_2rank": sync, "card": smi}
+    results = {
+        "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
+        "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
+    }
     print(json.dumps(results), flush=True)
     if "--out" in sys.argv:
         path = sys.argv[sys.argv.index("--out") + 1]

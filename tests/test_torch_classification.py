@@ -24,6 +24,7 @@ import torch
 import torchmetrics_tpu.classification as jc
 import torchmetrics_tpu_torch.classification as tc
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 N_BATCHES, BATCH, C, T = 4, 64, 5, 11
 ACC_ATOL, AUROC_ATOL = 1e-6, 1e-5
@@ -260,14 +261,25 @@ def test_sync_through_injected_gather(port_cls, ref_cls, kwargs, atol):
 
 def test_engine_kwargs_are_rejected():
     """``compiled_update`` takes a bool or None (the JAX package's message otherwise);
-    the scan and async tiers have no counterpart, so their keywords stay unknown."""
+    ``scan_steps`` and ``async_dispatch`` take the JAX package's values (coerced as its
+    ``coerce_k`` / ``coerce_inflight`` do) and reject the rest with its messages."""
     for value in (True, False, None):
         assert tc.MulticlassAccuracy(num_classes=C, device="cpu", compiled_update=value).compiled_update is value
     with pytest.raises(ValueError, match="`compiled_update` to be a `bool` or `None`"):
         tc.MulticlassAccuracy(num_classes=C, device="cpu", compiled_update=1)
-    for kw in ("scan_steps", "async_dispatch"):
-        with pytest.raises(ValueError, match="Unexpected keyword"):
-            tc.MulticlassAccuracy(num_classes=C, device="cpu", **{kw: True})
+    accepted = {"scan_steps": (None, 0, False, 2, 8, 1024), "async_dispatch": (None, 0, False, True, 1, 2, 16)}
+    rejected = {"scan_steps": (True, 1, -2, 1025, 2.5), "async_dispatch": (-1, 17, 2.5, "2")}
+    for kw in accepted:
+        for value in accepted[kw]:
+            port = getattr(tc.MulticlassAccuracy(num_classes=C, device="cpu", **{kw: value}), kw)
+            ref = getattr(jc.MulticlassAccuracy(num_classes=C, **{kw: value}), kw)
+            assert port == ref and type(port) is type(ref), (kw, value, port, ref)
+        for value in rejected[kw]:
+            with pytest.raises(Exception) as jax_err:
+                jc.MulticlassAccuracy(num_classes=C, **{kw: value})
+            with pytest.raises(TorchMetricsUserError) as port_err:
+                tc.MulticlassAccuracy(num_classes=C, device="cpu", **{kw: value})
+            assert str(port_err.value) == str(jax_err.value)
 
 
 def test_states_live_on_the_requested_device_and_inputs_are_placed():

@@ -25,6 +25,7 @@ from torchmetrics_tpu import MetricCollection as JaxMetricCollection
 from torchmetrics_tpu.engine.statespec import cse_context as jax_cse_context
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.engine.statespec import cse_context
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 C, T, N_BATCHES, BATCH = 5, 11, 4, 48
 ATOL = {"acc": 1e-6, "auroc": 1e-5}
@@ -329,14 +330,24 @@ def test_freshness_marker():
 
 def test_engine_knobs_take_only_their_off_values():
     """``fused_dispatch`` takes None, True or False (a bool or None, as in the JAX
-    package); the scan and async knobs, which have no counterpart, only their off values."""
+    package); the scan and async knobs take the JAX package's values, coerced as its
+    ``coerce_k`` / ``coerce_inflight`` do, and reject the rest with its messages."""
     members = _members({"acc": ALL_SIGNATURE["acc"]}, True)
+    ref_members = _members({"acc": ALL_SIGNATURE["acc"]}, False)
     for value in (None, True, False):
         assert MetricCollection(dict(members), fused_dispatch=value).fused_dispatch is value
     with pytest.raises(ValueError, match="fused_dispatch"):
         MetricCollection(dict(members), fused_dispatch=4)
-    for knob in ("scan_steps", "async_dispatch"):
-        for off in (None, False, 0):
-            MetricCollection(dict(members), **{knob: off})
-        with pytest.raises(ValueError, match=knob):
-            MetricCollection(dict(members), **{knob: 4})
+    accepted = {"scan_steps": (None, False, 0, 4, 1024), "async_dispatch": (None, False, 0, True, 4, 16)}
+    rejected = {"scan_steps": (True, 1, 1025, "4"), "async_dispatch": (-1, 17, 0.5)}
+    for knob in accepted:
+        for value in accepted[knob]:
+            port = getattr(MetricCollection(dict(members), **{knob: value}), knob)
+            ref = getattr(JaxMetricCollection(dict(ref_members), **{knob: value}), knob)
+            assert port == ref and type(port) is type(ref), (knob, value, port, ref)
+        for value in rejected[knob]:
+            with pytest.raises(Exception) as jax_err:
+                JaxMetricCollection(dict(ref_members), **{knob: value})
+            with pytest.raises(TorchMetricsUserError) as port_err:
+                MetricCollection(dict(members), **{knob: value})
+            assert str(port_err.value) == str(jax_err.value)

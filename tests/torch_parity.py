@@ -125,3 +125,54 @@ def three_levels(
     assert pa.update_count == ra.update_count == len(batches)
     assert_close(pa.compute(), ra.compute(), atol, rtol, "merged compute")
     assert_close(pa.compute(), epoch, atol, rtol, "merged against one instance")
+
+
+# ---------------------------------------------------------------- the engine tier
+
+#: the config #2 collection (stat scores, macro and weighted accuracy, binned AUROC, two
+#: confusion matrices) at a test width
+CONFIG2_CLASSES, CONFIG2_THRESHOLDS = 5, 20
+
+
+def tier_batches(sizes: Sequence[int], seed: int = 0, classes: int = 5) -> list:
+    """Seeded ``(scores (n, classes) float32 in [0, 1), labels (n,) int64)`` batches."""
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(n, classes).astype(np.float32), rng.randint(0, classes, n).astype(np.int64)) for n in sizes]
+
+
+def to_port(batch) -> tuple:
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in batch)
+
+
+def to_jax(batch) -> tuple:
+    return tuple(jnp.asarray(x) for x in batch)
+
+
+def config2_members(port: bool, classes: int = CONFIG2_CLASSES, **kwargs) -> dict:
+    """The config #2 members, on the port (CPU) or the JAX package."""
+    if port:
+        from torchmetrics_tpu_torch import classification as pkg
+
+        kwargs = {"device": "cpu", **kwargs}
+    else:
+        from torchmetrics_tpu import classification as pkg
+    return {
+        "stats": pkg.MulticlassStatScores(classes, validate_args=False, **kwargs),
+        "acc": pkg.MulticlassAccuracy(classes, average="macro", validate_args=False, **kwargs),
+        "acc_w": pkg.MulticlassAccuracy(classes, average="weighted", validate_args=False, **kwargs),
+        "auroc": pkg.MulticlassAUROC(classes, thresholds=CONFIG2_THRESHOLDS, validate_args=False, **kwargs),
+        "confmat": pkg.MulticlassConfusionMatrix(classes, validate_args=False, **kwargs),
+        "confmat_t": pkg.MulticlassConfusionMatrix(classes, normalize="true", validate_args=False, **kwargs),
+    }
+
+
+def assert_same_states(port, ref, float_rtol: float = 0.0) -> None:
+    """Every registered state of ``port`` against ``ref`` (a port metric or a JAX one):
+    integer states equal, float states within ``float_rtol`` (exact when 0)."""
+    for attr in ref._defaults:
+        p, r = np_(getattr(port, attr)), np.asarray(getattr(ref, attr))
+        assert p.shape == r.shape, f"{attr}: {p.shape} vs {r.shape}"
+        if p.dtype.kind == "f" and float_rtol:
+            np.testing.assert_allclose(p, r, rtol=float_rtol, atol=0, err_msg=attr)
+        else:
+            np.testing.assert_array_equal(p, r.astype(p.dtype) if r.dtype.kind == p.dtype.kind else r, err_msg=attr)

@@ -144,6 +144,10 @@ class SumMetric(BaseAggregator):
         6.0
     """
 
+    #: the update is additive in its sum-reduced state (``new = old + g(batch)``): the
+    #: compensated accumulation (``engine/numerics.py``) may run it on a zeroed state
+    _engine_state_additive = True
+
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("sum", torch.tensor(0.0, dtype=torch.float32), nan_strategy, **kwargs)
 
@@ -197,6 +201,9 @@ class MeanMetric(BaseAggregator):
     """
 
     weight: torch.Tensor
+
+    #: additive in both sum-reduced states: compensation-eligible (``engine/numerics.py``)
+    _engine_state_additive = True
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("sum", torch.tensor(0.0, dtype=torch.float32), nan_strategy, **kwargs)

@@ -25,23 +25,39 @@ form a compute group:
   After a fused step the views re-anchor on the owners' static buffers, which later
   replays update in place, so a retained member handle keeps reading live state.
 
+- **Scan and async.** ``scan_steps=K`` (or ``TORCHMETRICS_TPU_SCAN``) queues the fused
+  step on the fused engine's ``FusedScan`` (``engine/scan.py``): K steps fold in one
+  replay of a K-step graph, owners the probe refuses (the binned curves) update
+  eagerly beside it. ``async_dispatch`` moves the drains to a background worker
+  (``engine/async_dispatch.py``). Every observation (``forward``, ``compute``,
+  ``state_dict``, ``load_state_dict``, ``clone``, ``to``, ``set_dtype``,
+  ``state_footprint``, a membership change) drains first and ``reset`` discards; a
+  drain re-anchors the views. Under ``TORCHMETRICS_TPU_QUARANTINE=error`` the batch is
+  admitted once for every owner before any state moves.
+
 ``forward`` runs every member's own ``forward``, owners and views alike.
 ``fused_dispatch=False`` turns the fused step and the packed compute sync off, as the
-engine being off does in the JAX package. The JAX package's scan queue and async
-dispatch have no counterpart: ``scan_steps`` and ``async_dispatch`` take only ``None``
-/ ``False`` / ``0``.
+engine being off does in the JAX package.
+
+Left out against the JAX package: the sentinel and the sampled drift audit
+(``diag/``), ``persist``, the resilience layer (bounded collectives, degraded re-plans),
+``snapshot_compute`` (``serve/``) and the instrumentation (events, histograms).
 """
 
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 from copy import deepcopy
 from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from torchmetrics_tpu_torch.engine import txn
+from torchmetrics_tpu_torch.engine.async_dispatch import coerce_inflight, resolve_async
 from torchmetrics_tpu_torch.engine.config import engine_enabled
 from torchmetrics_tpu_torch.engine.fusion import FusedUpdate
+from torchmetrics_tpu_torch.engine.scan import coerce_k, discard_metrics, flush_metrics, scan_k
 from torchmetrics_tpu_torch.engine.statespec import cse_enabled, reduction_signature
 from torchmetrics_tpu_torch.metric import Metric
 from torchmetrics_tpu_torch.utilities.data import allclose
@@ -76,6 +92,7 @@ class _ComputeGroup:
     def materialize_views(self, modules: Dict[str, Metric], copy: bool = False) -> None:
         """Push the owner's states into every view member (clones when ``copy``)."""
         owner = modules[self.owner]
+        owner_ref = weakref.ref(owner)
         for name in self.names[1:]:
             view = modules[name]
             for state in owner._defaults:
@@ -83,6 +100,9 @@ class _ComputeGroup:
                 setattr(view, state, _copied(value) if copy else value)
             view._update_count = owner._update_count
             view._computed = None
+            # a view observes its owner's state: its observations drain the owner's
+            # queue (a view never queues itself)
+            view._scan_peer = owner_ref
             # fold markers travel with the states they describe
             view._none_folded = set(owner._none_folded)
 
@@ -116,13 +136,6 @@ def _states_equal(metric1: Metric, metric2: Metric) -> bool:
     return True
 
 
-def _no_engine_knob(name: str, value: Any) -> Any:
-    """The JAX package's scan and async knobs: only their "off" values are accepted."""
-    if value is None or value is False or (value == 0 and not isinstance(value, bool)):
-        return value
-    raise ValueError(f"`{name}={value!r}` is not supported: the port has no engine tier for it (use None or False)")
-
-
 class MetricCollection:
     """Dict of metrics sharing one call pattern, with automatic compute groups.
 
@@ -135,8 +148,10 @@ class MetricCollection:
         fused_dispatch: ``None`` (follow the engine policy, on for CUDA metrics), ``True``
             (force the one-graph fused step on) or ``False`` (fused step and packed
             compute sync off).
-        scan_steps: ``None`` or ``0`` only.
-        async_dispatch: ``None``, ``False`` or ``0`` only.
+        scan_steps: ``None`` (follow ``TORCHMETRICS_TPU_SCAN`` / ``scan_context``), ``0`` /
+            ``False`` (off) or K in [2, 1024]: queue K fused steps per graph replay.
+        async_dispatch: ``None`` (follow ``TORCHMETRICS_TPU_ASYNC``), ``False`` / ``0``
+            (off), ``True`` or an in-flight bound in [1, 16]: drain on a background worker.
 
     Example:
         >>> import torch
@@ -170,8 +185,8 @@ class MetricCollection:
         if fused_dispatch is not None and not isinstance(fused_dispatch, bool):
             raise ValueError(f"Expected `fused_dispatch` to be a bool or None but got {fused_dispatch}")
         self.fused_dispatch = fused_dispatch
-        self.scan_steps = _no_engine_knob("scan_steps", scan_steps)
-        self.async_dispatch = _no_engine_knob("async_dispatch", async_dispatch)
+        self.scan_steps = coerce_k(scan_steps)
+        self.async_dispatch = coerce_inflight(async_dispatch)
         self._groups_checked: bool = False
         self._state_is_copy: bool = False
         self._epoch_sync = None  # engine/epoch.py CollectionEpoch, made at the first packed compute
@@ -187,6 +202,7 @@ class MetricCollection:
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Every member's own ``forward`` (batch values); kwargs filtered per signature."""
+        self._drain_scan("observation:forward")
         return self._compute_and_reduce("forward", *args, **kwargs)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
@@ -199,11 +215,29 @@ class MetricCollection:
         """
         if self._groups_checked:
             owners = [(group.owner, self._modules[group.owner]) for group in self._groups.values()]
-            handled = self._fused_step(owners, args, kwargs)
+            prechecked = txn.quarantine_error()
+            if prechecked:
+                # the fused step bypasses the members' update wrappers: admit the batch
+                # for every owner before any state can change
+                placed = tuple(owners[0][1]._place(a) for a in args) if owners else args
+                for _, owner in owners:
+                    txn.admission_check_or_raise(owner, placed, owner._filter_kwargs(**kwargs))
+            handled, scan_active = self._fused_step(owners, args, kwargs)
             for name, owner in owners:
                 if name not in handled:
+                    if prechecked:
+                        owner._admission_prechecked = True
                     owner.update(*args, **owner._filter_kwargs(**kwargs))
-            if handled or any(owner._engine is not None for _, owner in owners):
+                    sq = owner._engine._scan if owner._engine is not None else None
+                    if sq is not None and sq.on_drain is None:
+                        # an owner queueing on its own engine re-anchors the views
+                        # when its queue drains, wherever the drain fires
+                        sq.on_drain = self._anchor_views_after_scan
+            if scan_active:
+                # a queued step changes no buffer binding: each drain re-anchors
+                if self._state_is_copy:
+                    self._materialize_group_views()
+            elif handled or any(owner._engine is not None for _, owner in owners):
                 # re-anchor the views NOW on the owners' static buffers: a member
                 # handle retained from an earlier accessor keeps reading live state
                 self._state_is_copy = False
@@ -232,19 +266,51 @@ class MetricCollection:
             self._materialize_group_views()
             self._groups_checked = True
 
-    def _fused_step(self, owners: List[Tuple[str, Metric]], args: tuple, kwargs: dict) -> set:
-        """Try the one-graph fused step over the group owners; the names it handled."""
+    def _fused_step(self, owners: List[Tuple[str, Metric]], args: tuple, kwargs: dict) -> Tuple[set, bool]:
+        """Try the one-graph fused step over the group owners, queued when a scan depth
+        is active: ``(names handled, scan active)``. The scan knob is read only where
+        the engine is on."""
         enabled = self.fused_dispatch
         if enabled is None:
             enabled = bool(owners) and engine_enabled(owners[0][1].device)
-        if not enabled or len(owners) < 2:
-            return set()
+        k = self._scan_depth() if enabled else None
         fe = self._fused_engine
-        if fe is None or [n for n, _ in fe.metrics] != [n for n, _ in owners]:
+        stale = fe is not None and [n for n, _ in fe.metrics] != [n for n, _ in owners]
+        if fe is not None and (k is None or stale) and fe._scan is not None and fe._scan.pending:
+            # leftover steps (a closed scope, the engine turned off, an owner set about
+            # to change) drain before anything else applies
+            fe._scan.drain("scan-disabled" if not stale else "signature-change")
+        if not enabled or len(owners) < 2:
+            return set(), k is not None
+        if fe is None or stale:
             fe = self._fused_engine = FusedUpdate(owners)
+            fe.on_scan_drain = self._anchor_views_after_scan
         # the inputs onto the owners' device, as each owner's own update places them
         place = owners[0][1]._place
-        return fe.step(tuple(place(a) for a in args), kwargs)
+        placed = tuple(place(a) for a in args)
+        if k is not None:
+            handled = fe.scan_step(placed, kwargs, k, resolve_async(self.async_dispatch))
+            return (handled if handled is not None else set()), True
+        return fe.step(placed, kwargs), False
+
+    def _scan_depth(self) -> Optional[int]:
+        """The active scan queue depth for this collection, or None (unqueued)."""
+        if self.scan_steps is not None:
+            return self.scan_steps or None  # 0 = forced off
+        return scan_k()
+
+    def _anchor_views_after_scan(self) -> None:
+        if self._groups_checked:
+            self._state_is_copy = False
+            self._materialize_group_views()
+
+    def _drain_scan(self, reason: str) -> int:
+        """Drain the fused queue and every member's own queue before member states are
+        read, then re-anchor the views."""
+        drained = flush_metrics(list(self._modules.values()), reason)
+        if drained:
+            self._anchor_views_after_scan()
+        return drained
 
     # ------------------------------------------------------------------ group discovery
 
@@ -296,6 +362,7 @@ class MetricCollection:
         the whole collection); then each member computes on the synced states and the
         owners unsync.
         """
+        self._drain_scan("observation:compute")
         restore = self._packed_epoch_sync()
         try:
             return self._compute_and_reduce("compute")
@@ -389,7 +456,9 @@ class MetricCollection:
     # ------------------------------------------------------------------ lifecycle
 
     def reset(self) -> None:
-        """Reset every metric; group views re-anchor to the (reset) owners."""
+        """Reset every metric; group views re-anchor to the (reset) owners. The fused
+        queue's steps are discarded with the states they would have moved."""
+        discard_metrics(list(self._modules.values()), "reset")
         for metric in self.values(copy_state=False):
             metric.reset()
         if self._enable_compute_groups and self._groups_checked:
@@ -405,7 +474,9 @@ class MetricCollection:
         return mc
 
     def __getstate__(self) -> Dict[str, Any]:
-        """The sync and fused engines belong to the instance: never pickled or copied."""
+        """The sync and fused engines belong to the instance: never pickled or copied.
+        The fused queue's steps fold into the owners first."""
+        self._drain_scan("observation:clone")
         state = self.__dict__.copy()
         state["_epoch_sync"] = None
         state["_fused_engine"] = None
@@ -418,6 +489,7 @@ class MetricCollection:
 
     def state_dict(self) -> Dict[str, Any]:
         """Flat state dict keyed ``"<member>.<state>"``."""
+        self._drain_scan("observation:state_dict")
         destination: Dict[str, Any] = {}
         for name, metric in self.items(keep_base=True, copy_state=False):
             metric.state_dict(destination, prefix=f"{name}.")
@@ -425,12 +497,14 @@ class MetricCollection:
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         """Restore from ``state_dict`` (or from ``interop.collection_state_from_jax``)."""
+        self._drain_scan("observation:load_state_dict")
         for name, metric in self.items(keep_base=True, copy_state=False):
             metric.load_state_dict(state_dict, prefix=f"{name}.")
 
     def state_footprint(self) -> Dict[str, Any]:
         """Bytes held by the member states; ``unique_bytes`` counts once a buffer that
         compute-group views share with their owner (``diag/costs.py``)."""
+        self._drain_scan("observation:state_footprint")
         self._materialize_group_views()
         from torchmetrics_tpu_torch.diag.costs import state_footprint
 
@@ -441,7 +515,10 @@ class MetricCollection:
     def add_metrics(
         self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
     ) -> None:
-        """Register metrics from a dict, a sequence or one instance."""
+        """Register metrics from a dict, a sequence or one instance. A membership change
+        drops the fused engine: its queued steps fold into the members first."""
+        if getattr(self, "_modules", None):
+            self._drain_scan("observation:membership-change")
         if isinstance(metrics, Metric):
             metrics = [metrics]
         if isinstance(metrics, Sequence):
@@ -631,12 +708,14 @@ class MetricCollection:
 
     def to(self, device: Union[str, torch.device]) -> "MetricCollection":
         """Move all metric states to ``device``."""
+        self._drain_scan("observation:device-move")
         for metric in self.values(copy_state=False):
             metric.to(device)
         return self
 
     def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
         """Cast the floating states of every metric."""
+        self._drain_scan("observation:set_dtype")
         for metric in self.values(copy_state=False):
             metric.set_dtype(dst_type)
         return self

@@ -48,20 +48,36 @@ is the one-metric case, ``engine/fusion.py``'s ``FusedUpdate`` a collection's ow
 - **Launch accounting.** A replay launches the kernels recorded in its graph without
   calling their wrappers, so the capture records how many launches of each kernel a
   graph holds (``ops.launch_counts``) and each replay adds them.
+- **Riders.** The step body is JAX ``make_step_body``'s order, written once
+  (``member_update`` then ``write_step``) and held by the one-step graphs and by each
+  step of a scan graph (``engine/scan.py``): the update, the pad-subtract identity, the
+  compensated two-sum (``engine/numerics.py``), the quarantine transaction
+  (``engine/txn.py``). The riders' tensors (the quarantine counter, the residuals)
+  join the step's state under reserved keys (``statespec.RIDER_KEYS``, exempt from
+  pad-subtract) and get static buffers like the states. A step with riders computes
+  each candidate in full before it writes a buffer, so the transaction selects
+  against the intact pre-step values.
+- **The fallback ladder.** A classified failure while building a signature (an
+  out-of-memory error allocating its static inputs, in its warm-up or in its capture,
+  which ends cleanly and releases the graph's memory) retries the batch as
+  half-bucket chunks, then eagerly, for this step only (``CompiledUpdate._ladder_step``);
+  an unclassified capture error still raises.
 
 Anything that cannot run as a fixed graph (list states, non-tensor inputs, a wrapper
 holding inner metrics, a side effect on a non-state attribute, a host read) falls back
 to the eager path and is counted in ``EngineStats``.
 
 Left out against the JAX engine: the donation switch (a graph always writes its
-buffers in place), the sentinel, transaction and numerics riders, ``persist``, the
-``diag`` / ``profile`` instrumentation, the fallback ladder (``_ladder_step``) and the
-scan queue (``scan_step``). ``state_invalidated`` has no counterpart: no step consumes
-a buffer here, and a first step writes no state until the guard has passed.
+buffers in place), the sentinel rider and the sampled drift audit (``diag/sentinel.py``,
+``diag/profile.py``, ``diag/hist.py`` are not ported), ``persist`` (the executable
+cache and its prewarm manifest) and the ``diag`` / ``profile`` instrumentation; the
+resilience layer belongs to the sync (``engine/epoch.py``) and is not ported either. ``state_invalidated`` has no counterpart: no step
+consumes a buffer here, and a first step writes no state until the guard has passed.
 """
 
 from __future__ import annotations
 
+import gc
 from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -181,31 +197,43 @@ def traced_update(
 ) -> Dict[str, Any]:
     """Run ``metric``'s original update as ``state -> state``.
 
-    The metric's ``__dict__`` is snapshotted and restored wholesale, so the step never
-    leaves a buffer or a half-updated value on the live object. With ``check`` (a
-    signature's first step), an update with side effects a graph would lose
-    (rebinding a non-state attribute, or growing or changing a mutable one in place,
+    With ``check`` (a signature's first step) the metric's ``__dict__`` is snapshotted
+    and restored wholesale, so the step never leaves a buffer or a half-updated value
+    on the live object, and an update with side effects a graph would lose (rebinding
+    a non-state attribute, or growing or changing a mutable one in place,
     ``self.seen.append(...)``) raises ``_Ineligible``; an in-place change is rolled
     back, so the eager fallback does not repeat it. Later steps of a signature run as
-    its graph does: whatever else the update does to the object is dropped.
+    its graph does: the first step proved that the update writes only its states, so
+    only those (and the freshness marker) are put back, and nothing else of the
+    object is touched, which lets a background drain (``engine/async_dispatch.py``)
+    run the body while the caller updates the metric's bookkeeping.
     """
     names = tuple(metric._defaults)
+    if not check:
+        saved = {k: metric.__dict__.get(k, _FALLBACK) for k in (*names, *_BOOKKEEPING)}
+        try:
+            for k in names:
+                object.__setattr__(metric, k, state[k])
+            metric._raw_update(*args, **kwargs)
+            return {k: getattr(metric, k) for k in names}
+        finally:
+            for k, v in saved.items():
+                if v is _FALLBACK:
+                    metric.__dict__.pop(k, None)
+                else:
+                    metric.__dict__[k] = v
     snapshot = dict(metric.__dict__)
-    containers = (
-        {
-            k: (list(v) if isinstance(v, list) else dict(v) if isinstance(v, dict) else set(v))
-            for k, v in snapshot.items()
-            if k not in names and isinstance(v, (list, dict, set))
-        }
-        if check
-        else {}
-    )
+    containers = {
+        k: (list(v) if isinstance(v, list) else dict(v) if isinstance(v, dict) else set(v))
+        for k, v in snapshot.items()
+        if k not in names and isinstance(v, (list, dict, set))
+    }
     try:
         for k in names:
             object.__setattr__(metric, k, state[k])
         metric._raw_update(*args, **kwargs)
         out = {k: getattr(metric, k) for k in names}
-        for k, v in metric.__dict__.items() if check else ():
+        for k, v in metric.__dict__.items():
             if k in names or k in _BOOKKEEPING:
                 continue
             if snapshot.get(k, _FALLBACK) is not v:
@@ -216,14 +244,14 @@ def traced_update(
     finally:
         metric.__dict__.clear()
         metric.__dict__.update(snapshot)
-        for k, saved in containers.items():
+        for k, saved_container in containers.items():
             live = snapshot[k]
-            if _container_changed(live, saved):
+            if _container_changed(live, saved_container):
                 if isinstance(live, list):
-                    live[:] = saved
+                    live[:] = saved_container
                 else:
                     live.clear()
-                    live.update(saved)
+                    live.update(saved_container)
 
 
 def is_static(x: Any) -> bool:
@@ -361,7 +389,7 @@ def pad_subtract_into(
     buffers: Dict[str, torch.Tensor],
 ) -> None:
     """Write ``out - n_pad * unit`` (or ``out`` when not bucketed) into ``buffers``,
-    one operation per state."""
+    one operation per state: the step's write when it carries no rider."""
     for k, buf in buffers.items():
         if unit is not None:
             torch.addcmul(out[k], unit[k], n_pad, value=-1, out=buf)
@@ -372,8 +400,8 @@ def pad_subtract_into(
 def check_fixed_point(name: str, out: Dict[str, torch.Tensor], buffers: Dict[str, torch.Tensor]) -> None:
     """A graph writes each state back into its buffer: an update that changes a
     state's shape, dtype or kind builds no graph (the next signature may)."""
-    for k, buf in buffers.items():
-        v = out[k]
+    for k, v in out.items():
+        buf = buffers[k]
         if not isinstance(v, torch.Tensor) or v.shape != buf.shape or v.dtype != buf.dtype or v.device != buf.device:
             raise _Ineligible(f"{name} changes state {k!r} to {type(v).__name__} {getattr(v, 'dtype', '')}")
 
@@ -390,63 +418,48 @@ def capture(body, pool: Any, device: torch.device) -> Tuple[Any, Dict[str, int]]
 
     Returns the graph and the kernel launches it holds. The wrappers count a launch
     when they are called; under capture they record instead of launching, so their
-    counts are put back and each replay adds the recorded ones. A capture error
-    propagates: the guard passed this step, so failing to capture it is a fault.
+    counts are put back and each replay adds the recorded ones. An error inside the
+    capture ends it, releases the graph's memory and propagates, the body's own error
+    first: the ladder (``engine/txn.py``) classifies an out-of-memory error and retries
+    the batch smaller; any other capture error is a fault. The caller drops its pool
+    after a failed capture (a capture that could not end leaves its pool recording).
+
+    The garbage collector is off during the capture: it could free another engine's
+    graph (an engine and its metric hold each other), and destroying a graph is not
+    permitted while a stream captures. A capture that cannot end (an operation the
+    graph could not hold invalidated it) skips ``torch.cuda.graph``'s return to the
+    caller's stream, so that stream is set back here.
     """
     graph = torch.cuda.CUDAGraph()
     before = ops.launch_counts()
-    with torch.cuda.device(device), torch.no_grad():
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-            body()
+    err: Optional[BaseException] = None
+    collecting = gc.isenabled()
+    caller_stream = torch.cuda.current_stream(device)
+    gc.disable()  # torch.cuda.graph collects once on entry
+    try:
+        with torch.cuda.device(device), torch.no_grad():
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                try:
+                    body()
+                except BaseException as exc:  # noqa: BLE001 -- re-raised below, after the capture ends
+                    err = exc
+    except BaseException:
+        torch.cuda.set_stream(caller_stream)
+        if err is None:
+            ops.set_launch_counts(before)
+            raise
+    finally:
+        if collecting:
+            gc.enable()
     held = {k: v - before[k] for k, v in ops.launch_counts().items()}
     ops.set_launch_counts(before)
+    if err is not None:
+        try:
+            graph.reset()
+        except Exception:  # noqa: BLE001 -- the graph is dropped either way
+            pass
+        raise err
     return graph, held
-
-
-def run_update(
-    metric: Any,
-    state_in: Dict[str, torch.Tensor],
-    flat: Sequence[torch.Tensor],
-    n_args: int,
-    kw_names: Tuple[str, ...],
-    bucketed: bool,
-    unit: Optional[Dict[str, torch.Tensor]],
-    guard: bool,
-) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
-    """One metric's update on the static inputs ``flat``: ``(out, unit)``, where ``unit``
-    is the pad rows' contribution when bucketed (the given constant, or computed here
-    when a 0-d input feeds it). ``guard``: the first step of a signature."""
-    with torch.no_grad(), (_Guard() if guard else nullcontext()):
-        out = traced_update(metric, state_in, flat[:n_args], dict(zip(kw_names, flat[n_args:])), check=guard)
-        if bucketed and unit is None:
-            rows = bucketing.pad_row_constants(flat)
-            unit_flat = [r if r is not None else b for r, b in zip(rows, flat)]
-            zeros = {k: torch.zeros_like(v) for k, v in state_in.items()}
-            unit = traced_update(
-                metric, zeros, unit_flat[:n_args], dict(zip(kw_names, unit_flat[n_args:])), check=guard
-            )
-    return out, unit
-
-
-def constant_unit(
-    metric: Any,
-    state: Dict[str, torch.Tensor],
-    inputs: Sequence[torch.Tensor],
-    n_args: int,
-    kw_names: Tuple[str, ...],
-    buffers: Dict[str, torch.Tensor],
-) -> Optional[Dict[str, torch.Tensor]]:
-    """The pad rows' contribution ``update(zeros, one_pad_row)`` when every input is
-    batched: it then depends on nothing that changes, so it is computed once, at the
-    signature's first step (guarded), and kept. None when a 0-d input feeds it."""
-    if not all(a.ndim >= 1 for a in inputs):
-        return None
-    zeros = {k: torch.zeros_like(v) for k, v in state.items()}
-    rows = bucketing.pad_row_constants(inputs)
-    with torch.no_grad(), _Guard():
-        unit = traced_update(metric, zeros, rows[:n_args], dict(zip(kw_names, rows[n_args:])))
-    check_fixed_point("the pad-row update", unit, buffers)
-    return unit
 
 
 def structural_refusal(metric: Any) -> Optional[str]:
@@ -462,42 +475,188 @@ def structural_refusal(metric: Any) -> Optional[str]:
     return None
 
 
-class _Entry:
-    """One built signature: its static inputs, the members its step updates with their
-    static state buffers and constant pad-row units (when no input is 0-d), and, on the
-    card, its graph and the kernel launches the graph holds."""
+# ------------------------------------------------------------------ riders
 
-    __slots__ = ("inputs", "members", "buffers", "units", "n_args", "kw_names", "graph", "launches")
 
-    def __init__(
-        self,
-        inputs: StaticInputs,
-        members: List[Tuple[str, Any]],
-        buffers: Dict[str, Dict[str, torch.Tensor]],
-        units: Dict[str, Optional[Dict[str, torch.Tensor]]],
-        n_args: int,
-        kw_names: Tuple[str, ...],
-    ) -> None:
-        self.inputs = inputs
-        self.members = members
+def gather_riders(metric: Any) -> Dict[str, torch.Tensor]:
+    """The rider tensors that join ``metric``'s step state under the active policy: the
+    quarantine counter (``engine/txn.py``) and the compensation residuals
+    (``engine/numerics.py``), each under its reserved key. Created at first use."""
+    from torchmetrics_tpu_torch.engine import numerics, txn
+
+    riders: Dict[str, torch.Tensor] = {}
+    if txn.quarantine_enabled():
+        riders[txn.STATE_KEY] = txn.ensure_count(metric)
+    if numerics.compensation_active(metric):
+        for k, r in numerics.ensure_residuals(metric).items():
+            riders[numerics.residual_key(k)] = r
+    return riders
+
+
+def step_state(metric: Any) -> Dict[str, torch.Tensor]:
+    """The registered states and the active riders: what one step reads and writes."""
+    state = {k: getattr(metric, k) for k in metric._defaults}
+    state.update(gather_riders(metric))
+    return state
+
+
+def bind_buffers(metric: Any, state: Dict[str, Any], buffers: Dict[str, torch.Tensor]) -> None:
+    """Make ``metric``'s states and riders its static buffers (where they are not
+    already): the next replay updates them in place."""
+    from torchmetrics_tpu_torch.engine import numerics, txn
+
+    residuals = None
+    for k, buf in buffers.items():
+        if state.get(k) is buf:
+            continue
+        if k == txn.STATE_KEY:
+            metric.__dict__[txn.ATTR] = buf
+        elif k.startswith(numerics.STATE_KEY):
+            if residuals is None:
+                residuals = dict(metric.__dict__.get(numerics.ATTR) or {})
+            residuals[k[len(numerics.STATE_KEY) :]] = buf
+        else:
+            setattr(metric, k, buf)
+    if residuals is not None:
+        metric.__dict__[numerics.ATTR] = residuals
+
+
+class MemberPlan:
+    """One metric's part of a built signature: its static state buffers (riders
+    included), its constant pad-row unit (None when a 0-d input feeds it or the step is
+    not bucketed), and its riders: the compensated states and the admission check."""
+
+    __slots__ = ("name", "metric", "buffers", "unit", "comp_names", "comp", "admission")
+
+    def __init__(self, name: str, metric: Any, buffers: Dict[str, torch.Tensor], inputs: Sequence[torch.Tensor]) -> None:
+        from torchmetrics_tpu_torch.engine import numerics, txn
+
+        self.name = name
+        self.metric = metric
         self.buffers = buffers
-        self.units = units
+        self.unit: Optional[Dict[str, torch.Tensor]] = None
+        self.comp_names = tuple(k for k in numerics.comp_state_names(metric) if numerics.residual_key(k) in buffers)
+        self.comp = numerics.build_compensation(self.comp_names) if self.comp_names else None
+        self.admission = txn.build_admission(metric, inputs) if txn.STATE_KEY in buffers else None
+
+    @property
+    def riders(self) -> bool:
+        return self.comp is not None or self.admission is not None
+
+
+def member_update(
+    plan: MemberPlan,
+    state: Dict[str, torch.Tensor],
+    flat: Sequence[torch.Tensor],
+    n_args: int,
+    kw_names: Tuple[str, ...],
+    bucketed: bool,
+    guard: bool,
+) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """The update body of one member on ``state`` and the inputs ``flat``: ``(out,
+    unit)``, ``out`` the registered states after the update (the compensated ones as
+    the batch's pure contribution: the body runs on zeroed copies of them) and ``unit``
+    the pad rows' contribution when bucketed (the plan's constant, or computed here
+    when a 0-d input feeds it). ``guard``: the first step of a signature."""
+    m = plan.metric
+    update_in = {k: torch.zeros_like(state[k]) if k in plan.comp_names else state[k] for k in m._defaults}
+    unit = plan.unit
+    with torch.no_grad(), (_Guard() if guard else nullcontext()):
+        out = traced_update(m, update_in, flat[:n_args], dict(zip(kw_names, flat[n_args:])), check=guard)
+        if bucketed and unit is None:
+            rows = bucketing.pad_row_constants(flat)
+            unit_flat = [r if r is not None else b for r, b in zip(rows, flat)]
+            zeros = {k: torch.zeros_like(v) for k, v in update_in.items()}
+            unit = traced_update(m, zeros, unit_flat[:n_args], dict(zip(kw_names, unit_flat[n_args:])), check=guard)
+    return out, unit
+
+
+def write_step(
+    plan: MemberPlan,
+    state: Dict[str, torch.Tensor],
+    out: Dict[str, torch.Tensor],
+    unit: Optional[Dict[str, torch.Tensor]],
+    n_pad: Optional[torch.Tensor],
+    flat: Sequence[torch.Tensor],
+    valid: Optional[torch.Tensor] = None,
+    buffers: Optional[Dict[str, torch.Tensor]] = None,
+) -> None:
+    """Finish one member's step into its buffers (or into ``buffers``), in JAX ``make_step_body``'s order:
+    pad-subtract, then the compensated two-sum, then the quarantine transaction; a scan
+    step (``valid`` given) then keeps the carry where the step is a pad step.
+
+    ``state`` holds the pre-step values (the buffers themselves after a signature's
+    first step): each candidate is computed in full before any buffer is written, so
+    the transaction and the mask select against intact old values. Without riders or a
+    mask the write is one operation per state (``pad_subtract_into``).
+    """
+    buffers = plan.buffers if buffers is None else buffers
+    with torch.no_grad():
+        if valid is None and not plan.riders:
+            pad_subtract_into(out, unit, n_pad, buffers)
+            return
+        cand = {k: torch.addcmul(v, unit[k], n_pad, value=-1) if unit is not None else v for k, v in out.items()}
+        if plan.comp is not None:
+            cand = plan.comp(state, cand)
+        if plan.admission is not None:
+            from torchmetrics_tpu_torch.engine import txn
+
+            cand = txn.transact(state, cand, plan.admission(flat))
+        for k, buf in buffers.items():
+            if valid is not None:
+                torch.where(valid, cand[k], buf, out=buf)  # one operation: the select writes the buffer
+            elif cand[k] is not buf:
+                buf.copy_(cand[k])
+
+
+def run_members(
+    plans: Sequence[MemberPlan],
+    flat: Sequence[torch.Tensor],
+    n_pad: Optional[torch.Tensor],
+    n_args: int,
+    kw_names: Tuple[str, ...],
+    bucketed: bool,
+    valid: Optional[torch.Tensor] = None,
+) -> None:
+    """One step of every member on its static buffers: the body a one-step graph and
+    each step of a scan graph (``engine/scan.py``) hold."""
+    for plan in plans:
+        out, unit = member_update(plan, plan.buffers, flat, n_args, kw_names, bucketed, guard=False)
+        write_step(plan, plan.buffers, out, unit, n_pad, flat, valid)
+
+
+class _Entry:
+    """One built signature: its static inputs, its members' plans and, on the card,
+    its graph and the kernel launches the graph holds."""
+
+    __slots__ = ("inputs", "plans", "n_args", "kw_names", "graph", "launches")
+
+    def __init__(self, inputs: StaticInputs, plans: List[MemberPlan], n_args: int, kw_names: Tuple[str, ...]) -> None:
+        self.inputs = inputs
+        self.plans = plans
         self.n_args = n_args
         self.kw_names = kw_names
         self.graph: Any = None
         self.launches: Dict[str, int] = {}
 
+    @property
+    def members(self) -> List[Tuple[str, Any]]:
+        return [(p.name, p.metric) for p in self.plans]
+
     def run(self) -> None:
         """The step body: every member's update on its static buffers and the static
-        inputs, the pad-subtract identity, the write back into the buffers."""
-        bucketed = self.inputs.bucket is not None
-        for name, m in self.members:
-            bufs = self.buffers[name]
-            out, unit = run_update(
-                m, bufs, self.inputs.buffers, self.n_args, self.kw_names, bucketed, self.units[name], guard=False
-            )
-            with torch.no_grad():
-                pad_subtract_into(out, unit, self.inputs.n_pad, bufs)
+        inputs, the pad-subtract identity and the riders, the write into the buffers."""
+        run_members(
+            self.plans, self.inputs.buffers, self.inputs.n_pad, self.n_args, self.kw_names, self.inputs.bucket is not None
+        )
+
+
+class _BuildFailed(Exception):
+    """A classified failure (out of memory) while building a signature."""
+
+    def __init__(self, exc: BaseException) -> None:
+        super().__init__(str(exc))
+        self.exc = exc
 
 
 class GraphEngine:
@@ -505,6 +664,8 @@ class GraphEngine:
 
     ``run`` is one step; a subclass picks the members and counts what its first step
     leaves out (``_count_refusals``). A signature keeps at least ``min_members``.
+    ``_scan`` is the engine's K-step queue (``engine/scan.py``), made at its first
+    queued step.
     """
 
     min_members = 1
@@ -514,6 +675,8 @@ class GraphEngine:
         self._buffers: Dict[Tuple, Dict[str, torch.Tensor]] = {}  # (member, state signature) -> static buffers
         self._pool: Any = None  # this engine's CUDA graph memory pool, made at the first capture
         self._bucket_ok: Dict[str, bool] = {}  # per member, frozen on first sight
+        self._transient_fails: Dict[Tuple, int] = {}  # key -> classified build failures (ladder budget)
+        self._scan: Any = None
         self.stats = EngineStats(owner)
 
     def run(
@@ -522,23 +685,16 @@ class GraphEngine:
         """One step over ``members`` (each holding tensor states) through the signature's
         graph (its plain step on the CPU): the members whose states it wrote, or None
         when the whole step falls back (counted). Never raises for eligibility reasons;
-        raises when an eligible signature fails to capture or a built one fails to run.
+        raises when an eligible signature fails to capture for a reason that is not
+        classified, or a built one fails to run.
         """
         st = self.stats
         kw_names = tuple(sorted(kwargs))
         inputs = [*args, *(kwargs[k] for k in kw_names)]
-        in_sig = input_signature(inputs)
+        in_sig = self._eligible_inputs(members, inputs)
         if in_sig is None:
-            st.fallback("non-tensor-input")
             return None
-        if needs_grad(inputs):
-            st.fallback("grad-input")
-            return None
-        device = members[0][1].device
-        if under_capture(device):
-            st.fallback("under-capture")
-            return None
-        states = {name: {k: getattr(m, k) for k in m._defaults} for name, m in members}
+        states = {name: step_state(m) for name, m in members}
         bucket = self._bucket(members, inputs)
         if bucket is not None:
             in_sig = tuple((bucketing.bucketed_shape(a, bucket), a.dtype, a.device) for a in inputs)
@@ -550,31 +706,71 @@ class GraphEngine:
             return None
         first = entry is None
         if first:
-            entry = self._build(key, members, states, inputs)
+            try:
+                entry = self._build(key, members, states, inputs)
+            except _BuildFailed as failed:
+                from torchmetrics_tpu_torch.engine import txn
+
+                applied = isinstance(failed.exc, _Applied)
+                exc = failed.exc.exc if applied else failed.exc
+                classified = txn.classify_and_demote(self._cache, _FALLBACK, self._transient_fails, key, exc)
+                if applied:
+                    # the warm-up wrote this step; only the graph is missing (retried
+                    # at the signature's next step, within the budget)
+                    st.fallback_reasons[f"capture-{classified}"] += 1
+                    st.dispatches += 1
+                    st.metrics_updated += len(members)
+                    return members
+                return self._on_build_failure(members, args, kwargs, bucket, classified)
             if entry is None:
                 return None
         else:
-            for name, m in entry.members:
-                shield_state(m, entry.buffers[name], st)
-                copy_into_buffers(states[name], entry.buffers[name], st)
+            for plan in entry.plans:
+                shield_state(plan.metric, plan.buffers, st)
+                copy_into_buffers(states[plan.name], plan.buffers, st)
             entry.inputs.fill(inputs, st)
             if entry.graph is not None:
                 entry.graph.replay()
                 ops.add_launches(entry.launches)
                 st.replays += 1
-            elif device.type == "cuda":
+            elif members[0][1].device.type == "cuda":
                 raise RuntimeError("a CUDA engine step has no captured graph")
             else:
                 entry.run()
         st.traces += first
         st.cache_hits += not first
         st.dispatches += 1
-        st.metrics_updated += len(entry.members)
-        for name, m in entry.members:
-            for k, buf in entry.buffers[name].items():
-                if states[name][k] is not buf:
-                    setattr(m, k, buf)  # the next replay updates the metric's state in place
+        st.metrics_updated += len(entry.plans)
+        for plan in entry.plans:
+            bind_buffers(plan.metric, states[plan.name], plan.buffers)
+        self._count_riders(entry.plans, 1)
         return entry.members
+
+    def _eligible_inputs(self, members: List[Tuple[str, Any]], inputs: List[Any]) -> Optional[Tuple]:
+        """The inputs' signature, or None (counted) when the step cannot run as a graph:
+        a non-tensor input, an input that records a gradient, a caller's capture."""
+        st = self.stats
+        in_sig = input_signature(inputs)
+        if in_sig is None:
+            st.fallback("non-tensor-input")
+            return None
+        if needs_grad(inputs):
+            st.fallback("grad-input")
+            return None
+        if under_capture(members[0][1].device):
+            st.fallback("under-capture")
+            return None
+        return in_sig
+
+    def _count_riders(self, plans: Sequence[MemberPlan], steps: int) -> None:
+        self.stats.compensated_steps += steps * sum(1 for p in plans if p.comp is not None)
+
+    def _on_build_failure(
+        self, members: List[Tuple[str, Any]], args: Tuple[Any, ...], kwargs: Dict[str, Any], bucket: Optional[int], classified: str
+    ) -> Optional[List[Tuple[str, Any]]]:
+        """A classified failure building a signature: this step falls back (counted)."""
+        self.stats.fallback(f"dispatch-{classified}")
+        return None
 
     def _count_refusals(self, refused: List[Tuple[str, str]], demoted: bool) -> None:
         """Count the members a signature's first step left out, as ``(name, reason)``;
@@ -615,6 +811,51 @@ class GraphEngine:
             shield_state(m, bufs, self.stats)
         return bufs
 
+    def prepare(
+        self,
+        members: List[Tuple[str, Any]],
+        state_sigs: Sequence[Tuple],
+        states: Dict[str, Dict[str, torch.Tensor]],
+        flat: Sequence[torch.Tensor],
+        n_pad: Optional[torch.Tensor],
+        bucketed: bool,
+        n_args: int,
+        kw_names: Tuple[str, ...],
+    ) -> Tuple[List[MemberPlan], List[Tuple[str, str]], Dict[str, Dict[str, torch.Tensor]]]:
+        """The guarded first step of a signature on the static inputs ``flat``: each
+        member's plan, its constant pad-row unit, and its update under ``_Guard`` on
+        copies of its state (so a refusal midway leaves it intact). Returns the plans
+        that passed, the refusals as ``(name, reason)`` and each passing member's step
+        result (every state and rider), not yet written. That run is also the warm-up
+        a capture needs. A classified failure (out of memory) raises ``_BuildFailed``.
+        """
+        plans: List[MemberPlan] = []
+        refused: List[Tuple[str, str]] = []
+        results: Dict[str, Dict[str, torch.Tensor]] = {}
+        batched = all(a.ndim >= 1 for a in flat)
+        for (name, m), sig in zip(members, state_sigs):
+            try:
+                plan = MemberPlan(name, m, self._state_buffers(name, m, sig, states[name]), flat)
+                if bucketed and batched:
+                    plan.unit = constant_unit(m, states[name], flat, n_args, kw_names, plan.buffers)
+                clones = {k: v.clone() for k, v in states[name].items()}
+                out, unit = member_update(plan, clones, flat, n_args, kw_names, bucketed, guard=True)
+                check_fixed_point("update", out, plan.buffers)
+                # staged: the live state may be this signature's buffer, and a member
+                # must not move before the signature is known to build
+                staged = {k: torch.empty_like(b) for k, b in plan.buffers.items()}
+                write_step(plan, clones, out, unit, n_pad, flat, buffers=staged)
+            except Exception as exc:  # noqa: BLE001 -- a failed first step leaves its member out
+                from torchmetrics_tpu_torch.engine import txn
+
+                if txn.classify_dispatch_error(exc) is not None:
+                    raise _BuildFailed(exc) from exc
+                refused.append((name, str(exc) if isinstance(exc, _Ineligible) else f"trace-failed:{type(exc).__name__}"))
+                continue
+            plans.append(plan)
+            results[name] = staged
+        return plans, refused, results
+
     def _build(
         self,
         key: Tuple,
@@ -622,53 +863,79 @@ class GraphEngine:
         states: Dict[str, Dict[str, torch.Tensor]],
         inputs: List[torch.Tensor],
     ) -> Optional[_Entry]:
-        """First step of a signature: each member's guarded warm-up (on copies of its
-        state, so a refusal midway leaves it intact), which is this step's update; the
-        survivors' results into their buffers; then, on a CUDA device, the capture.
-        None, with the signature demoted, when fewer than ``min_members`` pass."""
+        """First step of a signature: the guarded warm-up (``prepare``), which is this
+        step's update, written into the survivors' buffers; then, on a CUDA device, the
+        capture. None, with the signature demoted, when fewer than ``min_members`` pass.
+        A classified failure (allocating the static inputs, in the warm-up or in the
+        capture) raises ``_BuildFailed``."""
+        from torchmetrics_tpu_torch.engine import txn
+
         st = self.stats
         bucket, n_args, kw_names = key[:3]
-        static = StaticInputs(inputs, bucket)
+        try:
+            static = StaticInputs(inputs, bucket)
+        except Exception as exc:  # noqa: BLE001 -- classified below
+            if txn.classify_dispatch_error(exc) is None:
+                raise
+            raise _BuildFailed(exc) from exc
         static.fill(inputs, st)
-        passed: List[Tuple[str, Any]] = []
-        results: Dict[str, tuple] = {}
-        buffers: Dict[str, Dict[str, torch.Tensor]] = {}
-        refused: List[Tuple[str, str]] = []
-        for (name, m), (_, sig) in zip(members, key[3]):
-            bufs = self._state_buffers(name, m, sig, states[name])
-            try:
-                unit = None
-                if bucket is not None:
-                    unit = constant_unit(m, states[name], static.buffers, n_args, kw_names, bufs)
-                clones = {k: v.clone() for k, v in states[name].items()}
-                out, unit = run_update(m, clones, static.buffers, n_args, kw_names, bucket is not None, unit, guard=True)
-                check_fixed_point("update", out, bufs)
-            except Exception as exc:  # noqa: BLE001 -- a failed first step leaves its member out
-                refused.append((name, str(exc) if isinstance(exc, _Ineligible) else f"trace-failed:{type(exc).__name__}"))
-                continue
-            passed.append((name, m))
-            results[name] = (out, unit)
-            buffers[name] = bufs
-        demoted = len(passed) < self.min_members
+        plans, refused, results = self.prepare(
+            members, [sig for _, sig in key[3]], states, static.buffers, static.n_pad, bucket is not None, n_args, kw_names
+        )
+        demoted = len(plans) < self.min_members
         self._count_refusals(refused, demoted)
         if demoted:
             self._cache[key] = _FALLBACK
             return None
         with torch.no_grad():
-            for name, (out, unit) in results.items():
-                pad_subtract_into(out, unit, static.n_pad, buffers[name])
-        # a unit that a 0-d input feeds is recomputed in every step
-        batched = all(a.ndim >= 1 for a in inputs)
-        units = {name: unit if batched else None for name, (_, unit) in results.items()}
-        entry = _Entry(static, passed, buffers, units, n_args, kw_names)
+            for plan in plans:
+                for k, buf in plan.buffers.items():
+                    buf.copy_(results[plan.name][k])
+        entry = _Entry(static, plans, n_args, kw_names)
         device = members[0][1].device
         if device.type == "cuda":
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            entry.graph, entry.launches = capture(entry.run, self._pool, device)
+            try:
+                entry.graph, entry.launches = capture(entry.run, self._pool, device)
+            except Exception as exc:  # noqa: BLE001 -- classified below; the step's result is written
+                self._pool = None
+                if txn.classify_dispatch_error(exc) is None:
+                    raise
+                # the warm-up already wrote this step: the ladder must not apply it again
+                for plan in plans:
+                    bind_buffers(plan.metric, states[plan.name], plan.buffers)
+                raise _BuildFailed(_Applied(exc)) from exc
             st.captures += 1
         self._cache[key] = entry
         return entry
+
+
+class _Applied(Exception):
+    """A classified capture failure after the warm-up step already applied the batch."""
+
+    def __init__(self, exc: BaseException) -> None:
+        super().__init__(f"{type(exc).__name__}: {exc}")
+        self.exc = exc
+
+
+def constant_unit(
+    metric: Any,
+    state: Dict[str, torch.Tensor],
+    inputs: Sequence[torch.Tensor],
+    n_args: int,
+    kw_names: Tuple[str, ...],
+    buffers: Dict[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """The pad rows' contribution ``update(zeros, one_pad_row)`` when every input is
+    batched: it then depends on nothing that changes, so it is computed once, at the
+    signature's first step (guarded), and kept."""
+    zeros = {k: torch.zeros_like(state[k]) for k in metric._defaults}
+    rows = bucketing.pad_row_constants(inputs)
+    with torch.no_grad(), _Guard():
+        unit = traced_update(metric, zeros, rows[:n_args], dict(zip(kw_names, rows[n_args:])))
+    check_fixed_point("the pad-row update", unit, buffers)
+    return unit
 
 
 class CompiledUpdate(GraphEngine):
@@ -693,6 +960,67 @@ class CompiledUpdate(GraphEngine):
             self.stats.fallback("non-tensor-state")
             return False
         return self.run([("", m)], args, kwargs) is not None
+
+    def scan_step(self, args: Tuple[Any, ...], kwargs: Dict[str, Any], k: int, async_inflight: Optional[int] = None) -> bool:
+        """Queue one update for the K-step scan drain (``engine/scan.py``); False
+        requests the eager fallback for this step, after the queue drained."""
+        if self._disabled_reason is not None:
+            self.stats.fallback(self._disabled_reason)
+            return False
+        if self._scan is None:
+            from torchmetrics_tpu_torch.engine.scan import MetricScan
+
+            self._scan = MetricScan(self)
+        return self._scan.push(args, kwargs, k, async_inflight)
+
+    def _on_build_failure(self, members, args, kwargs, bucket, classified):
+        if bucket is not None and classified is not None and self._ladder_step(args, kwargs, bucket, classified):
+            return members
+        st = self.stats
+        st.fallback(f"dispatch-{classified}")
+        return None
+
+    def _ladder_step(self, args: Tuple[Any, ...], kwargs: Dict[str, Any], bucket: int, classified: str) -> bool:
+        """Fallback-ladder rung 2: retry the batch as half-bucket chunks.
+
+        A classified failure building bucket ``b`` re-enters the same machinery with the
+        batch split at ``b/2``, exact for the row-additive metrics bucketing admits.
+        The first chunk failing leaves the state untouched (False: the caller's eager
+        rung takes the whole batch); a second chunk failing after the first applied runs
+        eagerly here, with quarantine parity. Under quarantine the whole batch is
+        admitted once (one host read) before chunking, so a poisoned batch is skipped
+        whole and counted once.
+        """
+        from torchmetrics_tpu_torch.engine import txn
+
+        half = bucket // 2
+        if half < config.MIN_BUCKET:
+            return False
+        kw_names = tuple(sorted(kwargs))
+        flat = list(args) + [kwargs[k] for k in kw_names]
+        n = bucketing.batch_size(flat)
+        if n is None or n <= half:
+            return False
+        st = self.stats
+        m = self._metric
+        if txn.quarantine_enabled():
+            if bool(txn.build_admission(m, flat)(flat)):
+                m.__dict__[txn.ATTR] = txn.ensure_count(m) + 1
+                return True
+
+        def chunk(lo: int, hi: int) -> Tuple[Tuple[Any, ...], Dict[str, Any]]:
+            sliced = [a[lo:hi] if getattr(a, "ndim", 0) >= 1 and a.shape[0] == n else a for a in flat]
+            return tuple(sliced[: len(args)]), dict(zip(kw_names, sliced[len(args) :]))
+
+        head_args, head_kwargs = chunk(0, half)
+        if not self.step(head_args, head_kwargs):
+            return False  # nothing applied: the whole batch goes eager upstream
+        st.ladder_retries += 1
+        rest_args, rest_kwargs = chunk(half, n)
+        if not self.step(rest_args, rest_kwargs):
+            txn.eager_apply(m, rest_args, rest_kwargs)  # the head chunk is in: the rest runs here
+            st.fallback("ladder-eager-chunk")
+        return True
 
 
 def copy_into_buffers(state: Dict[str, torch.Tensor], buffers: Dict[str, torch.Tensor], stats: EngineStats) -> None:

@@ -12,14 +12,18 @@ excluded and reported back to the caller, which updates them eagerly; one bad me
 never un-fuses the rest. Shape bucketing applies when every eligible member supports
 the pad-subtract identity (``engine/bucketing.py``).
 
-Left out against the JAX engine: the sentinel, transaction and numerics riders (and
-with them ``build_fused_riders``), ``persist``, the ``diag`` / ``profile``
-instrumentation and the scan queue.
+Each member carries its own riders (``engine/compiled.py``: the quarantine transaction
+and the compensated two-sum, the JAX ``build_fused_riders``) inside the one graph.
+``scan_step`` queues the step on the engine's ``FusedScan`` (``engine/scan.py``); a
+drain calls ``on_scan_drain`` (the collection re-anchors its views).
+
+Left out against the JAX engine: the sentinel rider, ``persist`` and the ``diag`` /
+``profile`` instrumentation.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -35,6 +39,7 @@ class FusedUpdate(GraphEngine):
         self.metrics: List[Tuple[str, Any]] = list(metrics)
         super().__init__("fused:" + ",".join(type(m).__name__ for _, m in self.metrics))
         self._member_ok: Dict[str, bool] = {}  # structural eligibility, frozen on first sight
+        self.on_scan_drain: Optional[Callable[[], None]] = None  # set by the owning collection
 
     def eligible_members(self) -> List[Tuple[str, Any]]:
         """The members structurally able to fuse right now (opt-outs honored)."""
@@ -71,6 +76,17 @@ class FusedUpdate(GraphEngine):
             m._computed = None
             m._update_count += 1
         return {name for name, _ in handled}
+
+    def scan_step(
+        self, args: Tuple[Any, ...], kwargs: Dict[str, Any], k: int, async_inflight: Optional[int] = None
+    ) -> Optional[Set[str]]:
+        """Queue one fused step (``engine/scan.py``); the names of the members it will
+        update, or None when nothing was queued (the caller updates every owner)."""
+        if self._scan is None:
+            from torchmetrics_tpu_torch.engine.scan import FusedScan
+
+            self._scan = FusedScan(self)
+        return self._scan.push(args, kwargs, k, async_inflight)
 
     def _count_refusals(self, refused: List[Tuple[str, str]], demoted: bool) -> None:
         for name, reason in refused:

@@ -16,10 +16,16 @@ Two things the collection and the packed sync read:
 
 - **row additivity**: ``stamp_row_additive`` records, when a state is registered, the
   class's ``_engine_row_additive`` opt-in (the JAX package's ``StateSpec.row_additive``);
-  the engine's shape buckets read it through ``row_additive``.
+  the engine's shape buckets read it through ``row_additive``. ``state_additive`` reads
+  the scalar aggregators' ``_engine_state_additive`` (``new = old + g(batch)``), which
+  the compensated accumulation (``engine/numerics.py``) needs.
+- **rider keys**: the reserved state keys under which the quarantine counter and the
+  compensation residuals ride a compiled step (``RIDER_KEYS``). The pad-subtract
+  identity never reaches them: the update body returns the registered states alone,
+  and the riders fold after it (``engine/compiled.py``'s ``write_step``).
 
 The JAX package's ``StateSpec`` registry, its roles and its shard rules have no
-counterpart yet.
+counterpart yet, nor has the sentinel's rider key (``diag/sentinel.py`` is not ported).
 """
 
 from __future__ import annotations
@@ -32,6 +38,14 @@ from torchmetrics_tpu_torch.utilities.data import dim_zero_cat, dim_zero_max, di
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 CSE_ENV_VAR = "TORCHMETRICS_TPU_CSE"
+
+#: the reserved keys the riders take in a compiled step's state dict. A compensated
+#: state ``x`` rides its residual as ``COMPENSATION_KEY + x``.
+QUARANTINE_KEY = "__quarantine__"
+COMPENSATION_KEY = "__compensation__"
+
+#: the riders' own keys (a residual key starts with ``COMPENSATION_KEY``)
+RIDER_KEYS = frozenset({QUARANTINE_KEY, COMPENSATION_KEY})
 
 _FOLD_BY_FN = {
     dim_zero_sum: "sum",
@@ -65,6 +79,12 @@ def stamp_row_additive(metric: Any, name: str) -> None:
     """Record at registration whether state ``name`` is additive over batch rows: the
     class declares it once with ``_engine_row_additive = True``."""
     metric._row_additive[name] = bool(getattr(type(metric), "_engine_row_additive", False))
+
+
+def state_additive(metric: Any) -> bool:
+    """Whether the class declares its update additive in its states
+    (``_engine_state_additive``: ``new = old + g(batch)``)."""
+    return bool(getattr(type(metric), "_engine_state_additive", False))
 
 
 def row_additive(metric: Any, name: str) -> bool:

@@ -1,7 +1,9 @@
 """Engine counters (counterpart of ``torchmetrics_tpu/engine/stats.py``).
 
-Every ``CompiledUpdate`` / ``FusedUpdate`` (update engine) and every ``EpochEngine`` /
-``CollectionEpoch`` (packed sync) owns one ``EngineStats``. All live instances
+Every ``CompiledUpdate`` / ``FusedUpdate`` (update engine, with its scan queue and
+async drains) and every ``EpochEngine`` / ``CollectionEpoch`` (packed sync, cached
+compute) owns one ``EngineStats``; a metric that quarantines or compensates with no
+engine gets one too (``engine/txn.py``). All live instances
 register in a module-level weak set, so ``engine_report`` can aggregate a
 process-wide view without keeping dead metrics alive. The counters are the evidence
 that an update took a captured graph ("0 captures after warm-up", "one replay per
@@ -29,20 +31,43 @@ _COUNTER_FIELDS = (
     "bucketed_steps",  # steps that rode a shape bucket
     "bucket_pad_rows",  # pad rows added across bucketed steps
     "input_copy_bytes",  # bytes copied into static input buffers (the batch, once per step)
+    # --- multi-step scan dispatch (engine/scan.py): queued K-step drains ---
+    "scan_dispatches",  # scan drains executed (each = one replay of a kb-step graph)
+    "scan_steps_folded",  # real update steps folded across all scan drains
+    "scan_pad_steps",  # masked no-op steps added to fill a power-of-two kb graph
+    "scan_flushes",  # queue flushes (drains + discards), by reason in scan_flush_reasons
+    # --- async background drains (engine/async_dispatch.py) ---
+    "async_submits",  # buffers swapped out and handed to the background worker
+    "async_dispatches",  # background drains the worker replayed
+    "async_joins",  # observation joins that actually waited on in-flight work
+    "async_join_wait_us",  # host µs observers spent waiting at joins
+    "async_overlap_us",  # worker drain µs during which no caller waited on it
+    "async_backpressure_waits",  # submits that blocked on the bounded in-flight window
+    "async_replayed_steps",  # steps replayed on the caller after a worker drain failed
+    # --- transactional layer (engine/txn.py): quarantine + fallback ladder ---
+    "quarantined_batches",  # poisoned batches skipped in-graph (filled at the sanctioned read)
+    "ladder_retries",  # build failures that stepped down to a smaller bucket
+    # --- numerics layer (engine/numerics.py): compensated accumulation ---
+    "compensated_steps",  # updates whose accumulate rode the two-sum
+    "reanchors",  # epoch-boundary (value, residual) folds into a clean anchor
     # --- packed sync (engine/epoch.py) ---
     "packed_syncs",  # packed syncs completed
     "sync_collectives",  # collectives issued by packed syncs (metadata gather + one per buffer)
+    "compute_traces",  # compute graphs built (each: one guarded run, plus one capture on the card)
+    "compute_dispatches",  # computes served by a built graph (fused sync-and-compute included)
+    "compute_cache_hits",  # compute dispatches served without a new build
 )
 
 
 class EngineStats:
     """Mutable counter block for one engine instance (see ``_COUNTER_FIELDS``)."""
 
-    __slots__ = ("owner", "fallback_reasons", "bucket_sizes", "__weakref__", *_COUNTER_FIELDS)
+    __slots__ = ("owner", "fallback_reasons", "scan_flush_reasons", "bucket_sizes", "__weakref__", *_COUNTER_FIELDS)
 
     def __init__(self, owner: str = "") -> None:
         self.owner = owner
         self.fallback_reasons: Counter = Counter()
+        self.scan_flush_reasons: Counter = Counter()
         self.bucket_sizes: set = set()
         for f in _COUNTER_FIELDS:
             setattr(self, f, 0)
@@ -57,6 +82,7 @@ class EngineStats:
         for f in _COUNTER_FIELDS:
             setattr(self, f, 0)
         self.fallback_reasons.clear()
+        self.scan_flush_reasons.clear()
         self.bucket_sizes.clear()
 
     def as_dict(self) -> Dict[str, Any]:
@@ -65,6 +91,8 @@ class EngineStats:
         out["bucket_count"] = len(self.bucket_sizes)
         if self.fallback_reasons:
             out["fallback_reasons"] = {k: self.fallback_reasons[k] for k in sorted(self.fallback_reasons)}
+        if self.scan_flush_reasons:
+            out["scan_flush_reasons"] = {k: self.scan_flush_reasons[k] for k in sorted(self.scan_flush_reasons)}
         return out
 
     def __repr__(self) -> str:

@@ -29,10 +29,21 @@ override ``torch.nn.Module``'s casts. ``__eq__`` composes too, so ``Metric`` def
 changes when a state is replaced, and no code of the package keys a dict or a set by
 a metric.
 
-The JAX package's scan and async dispatch tiers have no counterpart yet:
-``scan_steps`` and ``async_dispatch`` are rejected like any other unknown keyword
-argument. ``state_specs`` waits for the port's ``StateSpec`` registry and
-``snapshot_compute`` for ``serve/``.
+``scan_steps`` (``engine/scan.py``: K queued steps folded by one replay of a K-step
+graph) and ``async_dispatch`` (``engine/async_dispatch.py``: those drains on a
+background worker) take the JAX package's values and errors; every state observation
+(``forward``, ``compute``, ``sync``, ``merge_state``, ``state_dict``,
+``load_state_dict``, ``clone``, ``to``, ``set_dtype``, ``state_footprint``) drains the
+queue first and ``reset`` discards it. ``TORCHMETRICS_TPU_QUARANTINE``
+(``engine/txn.py``) and ``TORCHMETRICS_TPU_COMPENSATED`` (``engine/numerics.py``) add
+their riders to the eager path and to every graph; ``compute`` reads the quarantine
+counter and re-anchors the compensated sums. With the engine on, ``compute`` runs as a
+cached graph per state signature (``engine/epoch.py``), and across processes as the
+packed exchange plus one graph for the fold and the compute.
+
+Left out against the JAX package: the sentinel and the drift audit (``diag/``),
+``persist``, the resilience layer (bounded collectives, degraded re-plans),
+``state_specs`` (the ``StateSpec`` registry) and ``snapshot_compute`` (``serve/``).
 """
 
 from __future__ import annotations
@@ -47,8 +58,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from torchmetrics_tpu_torch.engine import numerics, txn
+from torchmetrics_tpu_torch.engine.async_dispatch import coerce_inflight, resolve_async
 from torchmetrics_tpu_torch.engine.compiled import CompiledUpdate, detach_from_static, is_static
 from torchmetrics_tpu_torch.engine.config import engine_enabled
+from torchmetrics_tpu_torch.engine.scan import coerce_k, discard_metric, flush_metric, scan_k
 from torchmetrics_tpu_torch.engine.statespec import stamp_row_additive
 from torchmetrics_tpu_torch.parallel.packing import shape_fingerprint
 from torchmetrics_tpu_torch.parallel.sync import distributed_available, gather_all_tensors
@@ -110,6 +124,11 @@ class Metric(torch.nn.Module):
         compute_with_cache: cache the computed value until the next update or reset.
         compiled_update: ``None`` (follow the engine policy), ``True`` / ``False`` (force
             the compiled update engine on / off for this metric).
+        scan_steps: ``None`` (follow ``TORCHMETRICS_TPU_SCAN`` / ``scan_context``), ``0`` /
+            ``False`` (off) or K in [2, 1024]: queue K updates per graph replay.
+        async_dispatch: ``None`` (follow ``TORCHMETRICS_TPU_ASYNC`` / ``async_context``),
+            ``False`` / ``0`` (off), ``True`` or an in-flight bound in [1, 16]: drain the
+            scan queue on a background worker.
     """
 
     is_differentiable: Optional[bool] = None
@@ -155,6 +174,11 @@ class Metric(torch.nn.Module):
             raise ValueError(
                 f"Expected keyword argument `compiled_update` to be a `bool` or `None` but got {self.compiled_update}"
             )
+        # the scan queue (engine/scan.py): None = the process policy, 0/False = off for
+        # this metric, an int K >= 2 = depth K; async drains (engine/async_dispatch.py)
+        # layer on it: None = the policy, False/0 = off, True/int = on with that bound
+        self.scan_steps = coerce_k(kwargs.pop("scan_steps", None))
+        self.async_dispatch = coerce_inflight(kwargs.pop("async_dispatch", None))
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -177,6 +201,8 @@ class Metric(torch.nn.Module):
         self._computed = None
         self._forward_cache = None
         self._update_count = 0
+        self._forward_depth = 0  # > 0 inside forward: its updates bypass the scan queue
+        self._in_batch_value = False  # forward's batch compute: no quarantine read
         self._to_sync = self.sync_on_compute
         self._should_unsync = True
         self._cache: Optional[Dict[str, Any]] = None
@@ -248,10 +274,20 @@ class Metric(torch.nn.Module):
             raise TorchMetricsUserError(
                 "The Metric shouldn't be synced when performing ``forward``. HINT: Did you forget to call ``unsync``?"
             )
-        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
-            self._forward_cache = self._forward_full_state_update(*args, **kwargs)
-        else:
-            self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
+        # forward returns a value: queued steps fold in first, and forward's own
+        # updates bypass the queue
+        self._drain_scan("observation:forward")
+        self._forward_depth += 1
+        try:
+            # quarantine takes the full-state path: its global update gets the
+            # device select, where the reduce path's count-weighted mean fold would
+            # dilute the state by every quarantined batch
+            if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step or txn.quarantine_enabled():
+                self._forward_cache = self._forward_full_state_update(*args, **kwargs)
+            else:
+                self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
+        finally:
+            self._forward_depth -= 1
         return self._forward_cache
 
     @contextmanager
@@ -262,9 +298,11 @@ class Metric(torch.nn.Module):
         self._should_unsync = False
         _temp_compute_on_cpu = self.compute_on_cpu
         self.compute_on_cpu = False
+        self._in_batch_value = True
         try:
             yield
         finally:
+            self._in_batch_value = False
             self._is_synced = False
             self._should_unsync = True
             self._to_sync = self.sync_on_compute
@@ -300,19 +338,38 @@ class Metric(torch.nn.Module):
         # the eager path replaces states and never writes them in place, so references
         # are a snapshot; an engine's static buffer is written in place by the next
         # replay, so it is copied
+        def owned(v: Any) -> Any:
+            return v.clone() if is_static(v) else v
+
         refs: Dict[str, Any] = {
-            attr: (list(v) if isinstance(v := getattr(self, attr), list) else v.clone() if is_static(v) else v)
-            for attr in self._defaults
+            attr: (list(v) if isinstance(v := getattr(self, attr), list) else owned(v)) for attr in self._defaults
         }
         refs["__none_folded__"] = frozenset(self._none_folded)
+        # the riders ride sync and forward snapshots like states: a packed sync folds
+        # them across ranks, so unsync must restore the local ones
+        if txn.ATTR in self.__dict__:
+            refs[txn.ATTR] = owned(self.__dict__[txn.ATTR])
+            refs["_quarantine_reported"] = self.__dict__.get("_quarantine_reported", 0)
+        if numerics.ATTR in self.__dict__:
+            refs[numerics.ATTR] = {k: owned(v) for k, v in self.__dict__[numerics.ATTR].items()}
         return refs
 
     def _restore_state_refs(self, cache: Dict[str, Any]) -> None:
+        # a reported-watermark change inside the window means a quarantine read
+        # surfaced the world total: the restored local count is already reported
+        read_in_window = (
+            "_quarantine_reported" in cache
+            and self.__dict__.get("_quarantine_reported", 0) != cache["_quarantine_reported"]
+        )
         for attr, val in cache.items():
             if attr == "__none_folded__":
                 self._none_folded = set(val)
+            elif attr in (txn.ATTR, "_quarantine_reported", numerics.ATTR):
+                self.__dict__[attr] = val
             else:
                 setattr(self, attr, val)
+        if read_in_window:
+            txn.mark_reported(self)
 
     def _fold(
         self,
@@ -353,21 +410,49 @@ class Metric(torch.nn.Module):
         Mean states are weighted by update counts (taken from the incoming metric, or
         ``incoming_count`` for raw dicts).
         """
+        # both sides of the fold are observed: their queued steps fold in first
+        self._drain_scan("observation:merge_state")
         incoming_folded: Optional[frozenset] = None  # raw dicts: unknown -> ndim fallback
         if isinstance(incoming_state, Metric):
-            incoming_count = int(incoming_state._update_count)
+            incoming_state._drain_scan("observation:merge_state")
+            incoming_count = numerics.py_count(incoming_state._update_count)
             incoming_folded = frozenset(incoming_state._none_folded)
+            source = incoming_state.__dict__
             incoming_state = {attr: getattr(incoming_state, attr) for attr in incoming_state._defaults}
-        self_count = int(self._update_count)
-        incoming_count = int(incoming_count)
+        else:
+            source = incoming_state
+        incoming_quarantined = source.get(txn.ATTR)
+        incoming_q_reported = source.get("_quarantine_reported", 0)
+        incoming_res = dict(source.get(numerics.ATTR) or {})
+        self_count = numerics.py_count(self._update_count)
+        incoming_count = numerics.py_count(incoming_count)
+        self_res = self.__dict__.get(numerics.ATTR) or {}
+        merged_res: Dict[str, Any] = dict(self_res)
         for attr in self._defaults:
+            first, second = getattr(self, attr), incoming_state[attr]
+            reduce_fn = self._reductions[attr]
+            if (attr in self_res or attr in incoming_res) and reduce_fn in (dim_zero_sum, dim_zero_mean):
+                zeros = torch.zeros_like(first)
+                r1, r2 = self_res.get(attr, zeros), incoming_res.get(attr, zeros)
+                if reduce_fn is dim_zero_sum:
+                    # compensated shards fold by two-sum: the residuals add, and the
+                    # values' exact fold error joins them
+                    reduced, err = numerics.two_sum(first, second)
+                    merged_res[attr] = r1 + r2 + err
+                else:
+                    # a mean-reduced residual folds with the values' count weighting
+                    total = max(self_count + incoming_count, 1)
+                    reduced = (self_count * first + incoming_count * second) / total
+                    merged_res[attr] = (self_count * r1 + incoming_count * r2) / total
+                setattr(self, attr, reduced)
+                continue
             setattr(
                 self,
                 attr,
                 self._fold(
                     attr,
-                    getattr(self, attr),
-                    incoming_state[attr],
+                    first,
+                    second,
                     self_count,
                     incoming_count,
                     attr in self._none_folded,
@@ -375,6 +460,12 @@ class Metric(torch.nn.Module):
                 ),
             )
         self._update_count = self_count + incoming_count
+        if self_res or incoming_res:
+            self.__dict__[numerics.ATTR] = merged_res
+        if incoming_quarantined is not None:
+            # additive in the counter and in the reported watermark
+            self.__dict__[txn.ATTR] = txn.ensure_count(self) + incoming_quarantined
+            self.__dict__["_quarantine_reported"] = self.__dict__.get("_quarantine_reported", 0) + incoming_q_reported
         self._computed = None
 
     def _fold_none_tensors(
@@ -396,20 +487,46 @@ class Metric(torch.nn.Module):
     def _reduce_states(self, incoming_state: Dict[str, Any]) -> None:
         """Fold the snapshotted global state (``incoming_state``) with the batch state."""
         global_folded = incoming_state.get("__none_folded__")
+        global_res = incoming_state.get(numerics.ATTR) or {}
+        local_res = self.__dict__.get(numerics.ATTR) or {}
+        merged_res: Dict[str, Any] = dict(local_res)
         for attr in self._defaults:
+            global_state, local_state = incoming_state[attr], getattr(self, attr)
+            reduce_fn = self._reductions[attr]
+            if (attr in global_res or attr in local_res) and reduce_fn in (dim_zero_sum, dim_zero_mean):
+                zeros = torch.zeros_like(global_state)
+                g_res, l_res = global_res.get(attr, zeros), local_res.get(attr, zeros)
+                if reduce_fn is dim_zero_sum:
+                    # the global (value, residual) absorbs the batch through the same
+                    # two-sum the compiled step uses
+                    reduced, merged_res[attr] = numerics.two_sum(global_state, local_state + g_res + l_res)
+                else:
+                    count = self._update_count
+                    reduced = ((count - 1) * global_state + local_state) / count
+                    merged_res[attr] = ((count - 1) * g_res + l_res) / count
+                setattr(self, attr, reduced)
+                continue
             setattr(
                 self,
                 attr,
                 self._fold(
                     attr,
-                    incoming_state[attr],
-                    getattr(self, attr),
+                    global_state,
+                    local_state,
                     self._update_count - 1,
                     1,
                     None if global_folded is None else attr in global_folded,
                     attr in self._none_folded,
                 ),
             )
+        if global_res or local_res:
+            self.__dict__[numerics.ATTR] = merged_res
+        # the reset before the batch update zeroed the counter: fold the global back
+        global_quarantined = incoming_state.get(txn.ATTR)
+        local_quarantined = self.__dict__.get(txn.ATTR)
+        if global_quarantined is not None and local_quarantined is not None:
+            self.__dict__[txn.ATTR] = global_quarantined + local_quarantined
+            self.__dict__["_quarantine_reported"] = incoming_state.get("_quarantine_reported", 0)
 
     # ------------------------------------------------------------------ sync
 
@@ -514,6 +631,8 @@ class Metric(torch.nn.Module):
         """Sync the states across processes; ``unsync`` restores the local ones."""
         if self._is_synced and should_sync:
             raise TorchMetricsUserError("The Metric has already been synced.")
+        # the exchanged buffers must hold every queued step
+        self._drain_scan("observation:sync")
         if distributed_available is None:
             distributed_available = self.distributed_available_fn
         is_distributed = distributed_available() if callable(distributed_available) else None
@@ -584,24 +703,77 @@ class Metric(torch.nn.Module):
 
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
-            self._computed = None
-            self._update_count += 1
             args = tuple(self._place(a) for a in args)
             kwargs = {k: self._place(v) for k, v in kwargs.items()}
+            if txn.quarantine_mode() == txn.MODE_ERROR and not self.__dict__.pop("_admission_prechecked", False):
+                # raises before any mutation (unless the collection step admitted
+                # this very batch already: one host read per step, not two)
+                txn.admission_check_or_raise(self, args, kwargs)
+            self._computed = None
+            self._update_count += 1
             if not self._engine_step(args, kwargs):
-                update(*args, **kwargs)
+                self._run_eager_update(args, kwargs)
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
         return wrapped_func
 
+    def _run_eager_update(self, args: tuple, kwargs: Dict[str, Any]) -> None:
+        """One eager update with the riders of the compiled step (the compensated
+        two-sum, the quarantine transaction): the update wrapper's fallback and the scan
+        queue's one-step replay. The bookkeeping (``_update_count``) is the caller's."""
+        update = self._raw_update
+        if numerics.compensation_active(self):
+
+            def body() -> None:
+                numerics.eager_update(self, lambda: update(*args, **kwargs))
+
+        else:
+
+            def body() -> None:
+                update(*args, **kwargs)
+
+        if txn.quarantine_mode() == txn.MODE_QUARANTINE:
+            txn.eager_update(self, body, args, kwargs)
+        else:
+            body()
+
     def _engine_step(self, args: tuple, kwargs: Dict[str, Any]) -> bool:
-        """Route one update through the compiled engine; False = run it eagerly."""
-        if not self._epoch_enabled():
+        """Route one update through the compiled engine, queued when a scan depth is
+        active (not inside ``forward``: it asks for a value); False = run it eagerly."""
+        enabled = self._epoch_enabled()
+        k = self._scan_depth() if enabled else None
+        queueing = k is not None and not self._forward_depth
+        eng = self._engine
+        if not queueing and eng is not None and eng._scan is not None and eng._scan.pending:
+            # a queue left over from a closed scan scope or a disabled engine drains
+            # before this step applies, whatever path it takes
+            eng._scan.drain("scan-disabled")
+        if not enabled:
             return False
-        if self._engine is None:
-            self._engine = CompiledUpdate(self)
-        return self._engine.step(args, kwargs)
+        if eng is None:
+            eng = self._engine = CompiledUpdate(self)
+        if queueing:
+            # the async tier is resolved only where a scan queue is active
+            return eng.scan_step(args, kwargs, k, resolve_async(self.async_dispatch))
+        return eng.step(args, kwargs)
+
+    def _scan_depth(self) -> Optional[int]:
+        """The active scan queue depth for this metric, or None (unqueued)."""
+        if self.scan_steps is not None:
+            return self.scan_steps or None  # 0 = forced off for this metric
+        return scan_k()
+
+    def _drain_scan(self, reason: str) -> int:
+        """Drain any scan queue holding this metric's pending steps. Every state
+        observation comes here first; a compute-group view also drains its owner's
+        queue (``_scan_peer``, stamped when the views are materialized)."""
+        drained = flush_metric(self, reason)
+        peer_ref = self.__dict__.get("_scan_peer")
+        peer = peer_ref() if peer_ref is not None else None
+        if peer is not None:
+            drained += flush_metric(peer, reason)
+        return drained
 
     def _epoch_enabled(self) -> bool:
         """Engine enablement for this metric: ``compiled_update`` > overrides > auto."""
@@ -616,30 +788,89 @@ class Metric(torch.nn.Module):
                 setattr(self, key, [v.to("cpu") for v in current_val])
 
     def _wrap_compute(self, compute: Callable) -> Callable:
+        self._raw_compute = compute  # the unwrapped body: what the epoch engine captures
+
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            # compute observes the states: queued steps fold in first
+            self._drain_scan("observation:compute")
             if self._update_count == 0:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update``"
                     " method which may lead to errors, as metric states have not yet been updated.",
                     UserWarning,
                 )
+            elif not self._in_batch_value and txn.quarantine_enabled() and self.__dict__.get(txn.ATTR) is not None:
+                # compute is the epoch boundary where the counter is read; a state
+                # that every batch was quarantined from is its default
+                if txn.read_quarantine(self)["count"] >= self._update_count:
+                    rank_zero_warn(
+                        f"Every batch seen by metric {self.__class__.__name__} failed quarantine"
+                        " admission — ``compute`` is folding default (empty) state. Inspect"
+                        " the input pipeline or run with TORCHMETRICS_TPU_QUARANTINE=error.",
+                        UserWarning,
+                    )
             if self._computed is not None:
                 return self._computed
-            with self.sync_context(
-                dist_sync_fn=self.dist_sync_fn,
-                should_sync=self._to_sync,
-                should_unsync=self._should_unsync,
-            ):
-                value = _squeeze_if_scalar(compute(*args, **kwargs))
-                # a value handed out never shares storage with a buffer the next
-                # engine replay writes in place
-                value = detach_from_static(value, [getattr(self, a) for a in self._defaults])
+            if self.__dict__.get(numerics.ATTR):
+                # the epoch-boundary fold of each compensated (value, residual) pair
+                numerics.reanchor(self)
+            fused = self._epoch_sync_for_compute() if not args and not kwargs else None
+            if fused is not None:
+                from torchmetrics_tpu_torch.engine.epoch import NO_VALUE
+
+                try:
+                    value = fused[0]
+                    if value is NO_VALUE:  # the sync was packed; compute runs on the synced states
+                        value = self._engine_compute(compute, args, kwargs)
+                    value = detach_from_static(_squeeze_if_scalar(value), [getattr(self, a) for a in self._defaults])
+                finally:
+                    if self._is_synced and self._should_unsync:
+                        self.unsync()
+            else:
+                with self.sync_context(
+                    dist_sync_fn=self.dist_sync_fn,
+                    should_sync=self._to_sync,
+                    should_unsync=self._should_unsync,
+                ):
+                    value = _squeeze_if_scalar(self._engine_compute(compute, args, kwargs))
+                    # a value handed out never shares storage with a buffer the next
+                    # engine replay writes in place
+                    value = detach_from_static(value, [getattr(self, a) for a in self._defaults])
             if self.compute_with_cache:
                 self._computed = value
             return value
 
         return wrapped_func
+
+    def _engine_compute(self, compute: Callable, args: tuple, kwargs: Dict[str, Any]) -> Any:
+        """``compute`` through its cached graph when the engine is on and it is eligible
+        (``engine/epoch.py``), else the body itself."""
+        if not args and not kwargs and self._epoch_enabled():
+            handled, value = self._epoch_engine().cached_compute()
+            if handled:
+                return value
+        return compute(*args, **kwargs)
+
+    def _epoch_sync_for_compute(self) -> Optional[tuple]:
+        """The fused route of a ``compute`` across processes: the packed exchange, then
+        one graph for the fold and the compute. None when it does not apply (the
+        caller takes ``sync_context``, whose ``sync`` may still be packed); else a
+        1-tuple of the value, ``engine.epoch.NO_VALUE`` when only the sync was fused."""
+        if self._is_synced or not self._to_sync or self.dist_sync_fn is not None or self.compute_on_cpu:
+            return None
+        if self.process_group is not None or not self._epoch_enabled():
+            return None
+        available = self.distributed_available_fn
+        if not (callable(available) and available()):
+            return None
+        snapshot = self._copy_state_refs()
+        res = self._epoch_engine().sync_and_compute()
+        if res is None:
+            return None
+        self._cache = snapshot
+        self._is_synced = True
+        return res
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """Keep only the kwargs that ``update`` accepts (all of them if it takes ``**kwargs``)."""
@@ -681,7 +912,9 @@ class Metric(torch.nn.Module):
     # ------------------------------------------------------------------ lifecycle
 
     def reset(self) -> None:
-        """Reset all states to their defaults."""
+        """Reset all states to their defaults; queued steps are discarded (applying what
+        the reset wipes is the same as skipping it), the riders restart at zero."""
+        discard_metric(self, "reset")
         self._update_count = 0
         self._forward_cache = None
         self._computed = None
@@ -691,9 +924,15 @@ class Metric(torch.nn.Module):
         self._is_synced = False
         self._none_folded = set()
         self._state_fresh = True
+        if self.__dict__.get(txn.ATTR) is not None:
+            self.__dict__[txn.ATTR] = torch.zeros_like(self.__dict__[txn.ATTR])
+            self.__dict__["_quarantine_reported"] = 0
+        if self.__dict__.get(numerics.ATTR):
+            self.__dict__[numerics.ATTR] = {k: torch.zeros_like(v) for k, v in self.__dict__[numerics.ATTR].items()}
 
     def state_footprint(self) -> Dict[str, Any]:
-        """Bytes held by this metric's states (``diag/costs.py``)."""
+        """Bytes held by this metric's states, riders and engine buffers (``diag/costs.py``)."""
+        self._drain_scan("observation:state_footprint")
         from torchmetrics_tpu_torch.diag.costs import state_footprint
 
         return state_footprint(self)
@@ -704,14 +943,21 @@ class Metric(torch.nn.Module):
 
     def __getstate__(self) -> Dict[str, Any]:
         """Drop the wrapped bound methods and the engines (graphs and buffers belong to
-        the instance) for pickling, ``clone`` and ``deepcopy``; ``__setstate__`` re-wraps."""
-        state = {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_raw_update")}
+        the instance) for pickling, ``clone`` and ``deepcopy``; ``__setstate__`` re-wraps.
+        Queued steps fold in first: the copy must not lag the stream."""
+        self._drain_scan("observation:clone")
+        drop = ("update", "compute", "_raw_update", "_raw_compute", "_scan_peer", "_txn_stats")
+        state = {k: v for k, v in self.__dict__.items() if k not in drop}
         state["_epoch"] = None
         state["_engine"] = None
         return state
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         state.setdefault("compiled_update", None)
+        state.setdefault("scan_steps", None)
+        state.setdefault("async_dispatch", None)
+        state.setdefault("_forward_depth", 0)
+        state.setdefault("_in_batch_value", False)
         state.setdefault("_engine", None)
         state.setdefault("_row_additive", {})
         super().__setstate__(state)
@@ -735,7 +981,8 @@ class Metric(torch.nn.Module):
         super().__setattr__(name, value)
 
     def to(self, device: Union[str, torch.device]) -> "Metric":  # type: ignore[override]
-        """Move every state (and its default) to ``device``."""
+        """Move every state (and its default, and the riders) to ``device``."""
+        self._drain_scan("observation:device-move")
         self._device = resolve_device(device)
         fresh = self._state_fresh  # a move keeps the values
         self._map_states(lambda x: x.to(self._device) if isinstance(x, torch.Tensor) else x, include_defaults=True)
@@ -746,7 +993,9 @@ class Metric(torch.nn.Module):
         return self.to("cpu")
 
     def set_dtype(self, dst_type: torch.dtype) -> "Metric":
-        """Cast the floating states and their defaults to ``dst_type``."""
+        """Cast the floating states (their residuals with them) and their defaults to
+        ``dst_type``."""
+        self._drain_scan("observation:set_dtype")
         self._dtype = dst_type
 
         def _cast(x: Any) -> Any:
@@ -784,6 +1033,10 @@ class Metric(torch.nn.Module):
                 self._defaults[attr] = [fn(v) for v in d] if isinstance(d, list) else fn(d)
         if self._computed is not None:
             self._computed = apply_to_collection(self._computed, torch.Tensor, fn)
+        if self.__dict__.get(txn.ATTR) is not None:
+            self.__dict__[txn.ATTR] = fn(self.__dict__[txn.ATTR])
+        if self.__dict__.get(numerics.ATTR):
+            self.__dict__[numerics.ATTR] = {k: fn(v) for k, v in self.__dict__[numerics.ATTR].items()}
 
     # ------------------------------------------------------------------ persistence
 
@@ -798,7 +1051,11 @@ class Metric(torch.nn.Module):
         self, destination: Optional[Dict] = None, prefix: str = "", keep_vars: bool = False
     ) -> Dict[str, Any]:
         """Persistent states (detached tensors) plus ``_update_count``, which keeps the
-        weighting that ``merge_state`` and running means depend on."""
+        weighting that ``merge_state`` and running means depend on. Queued steps fold in
+        first; a compensated state is written anchored (``value + residual``), so a
+        restore starts from the corrected total with a zero residual."""
+        self._drain_scan("observation:state_dict")
+        residuals = self.__dict__.get(numerics.ATTR) or {}
         destination = {} if destination is None else destination
         wrote_any = False
         for key in self._defaults:
@@ -806,6 +1063,8 @@ class Metric(torch.nn.Module):
                 continue
             current_val = getattr(self, key)
             if isinstance(current_val, torch.Tensor):
+                if key in residuals and residuals[key].shape == current_val.shape:
+                    current_val = numerics.anchored_value(current_val, residuals[key])
                 destination[prefix + key] = current_val.detach().clone()
             else:
                 destination[prefix + key] = [v.detach().clone() for v in current_val]
@@ -815,7 +1074,10 @@ class Metric(torch.nn.Module):
         return destination
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "") -> None:  # type: ignore[override]
-        """Restore states saved by ``state_dict`` (or converted by ``interop.state_from_jax``)."""
+        """Restore states saved by ``state_dict`` (or converted by ``interop.state_from_jax``);
+        queued steps fold in first, and the residuals restart at zero (the saved values
+        are anchored)."""
+        self._drain_scan("observation:load_state_dict")
         restored_any = False
         for key in self._defaults:
             name = prefix + key
@@ -845,6 +1107,8 @@ class Metric(torch.nn.Module):
             self._update_count = max(self._update_count, 1)
         if restored_any:
             self._computed = None
+            if self.__dict__.get(numerics.ATTR):
+                self.__dict__[numerics.ATTR] = {k: torch.zeros_like(v) for k, v in self.__dict__[numerics.ATTR].items()}
 
     def __hash__(self) -> int:
         """Hash of the class and the identities of the metric and its states."""

@@ -26,6 +26,14 @@ on every rank with the eager guard's texts. The JAX package raises the empty-lis
 case only on the ranks whose list is empty; here every rank raises it, since every
 rank sees the same metadata.
 
+The riders ride the plan, their membership a function of the enablement knobs and
+the metric's definition alone, so every rank lays out the same buffers (enable the
+same modes on every rank): a compensated state (``engine/numerics.py``) packs its
+residual right after its value in the same reduce buffer, and the fold chains the
+ranks' (value, residual) pairs through two-sum, re-anchors, and returns the residual
+under ``numerics.SYNC_RES_PREFIX + attr``; the quarantine counter (``engine/txn.py``)
+sums in the reduce buffer.
+
 Left out against the JAX plan: the divergence audit, the cross-rank timeline, the
 degraded re-plan, sharded-state skips, the in-graph mesh exchange and sub-world
 process groups (those take the eager path).
@@ -143,7 +151,12 @@ class PackedSyncPlan:
     # ------------------------------------------------------------------ build
 
     def _build(self) -> None:
+        from torchmetrics_tpu_torch.engine import numerics, txn
+
         for owner, metric in self._metrics:
+            comp_names = numerics.comp_state_names(metric) if numerics.compensated_enabled() else ()
+            if comp_names:
+                numerics.ensure_residuals(metric)
             for attr in metric._reductions:
                 val = getattr(metric, attr)
                 default = metric._defaults[attr]
@@ -169,6 +182,19 @@ class PackedSyncPlan:
                     # drifted from its default's shape gets a verification entry
                     spec.needs_meta = tuple(default.shape) != spec.shape
                 spec.group = ("reduce:" if kind in ("sum", "mean") else "gather:") + spec.dtype
+                self.specs.append(spec)
+                if attr in comp_names and kind in ("sum", "mean"):
+                    # the (value, residual) pair folds by two-sum: the residual rides
+                    # the same buffer right after its value
+                    spec.kind = "comp-" + kind
+                    res = _Spec(owner, attr, "comp-res", spec.dtype)
+                    res.shape, res.size, res.group = spec.shape, spec.size, spec.group
+                    self.specs.append(res)
+            if txn.quarantine_enabled():
+                count = txn.ensure_count(metric)
+                spec = _Spec(owner, txn.ATTR, "sum", _dtype_name(count.dtype))
+                spec.shape, spec.size = tuple(count.shape), 1
+                spec.group = "reduce:" + spec.dtype
                 self.specs.append(spec)
 
     def _add_list_spec(self, owner: str, attr: str, fold: str, val: Any) -> None:
@@ -303,12 +329,17 @@ class PackedSyncPlan:
         """Concatenate every local state into its flat per-(role, dtype) buffer."""
         if not self._finalized:
             raise RuntimeError("finalize() must run before pack()")
+        from torchmetrics_tpu_torch.engine import numerics
+
         segments: Dict[str, List[torch.Tensor]] = {k: [] for k in self._group_sizes}
         by_owner = dict(self._metrics)
         for s in self.specs:
             if not s.group or s.size == 0:
                 continue
-            val = getattr(by_owner[s.owner], s.attr)
+            if s.kind == "comp-res":
+                val = numerics.ensure_residuals(by_owner[s.owner])[s.attr]
+            else:
+                val = getattr(by_owner[s.owner], s.attr)
             if s.kind == "none-list":
                 flat = torch.cat([e.reshape(-1) for e in val])
             elif s.kind == "cat":
@@ -345,14 +376,34 @@ class PackedSyncPlan:
         """
         if not self._finalized:
             raise RuntimeError("finalize() must run before make_fold()")
+        from torchmetrics_tpu_torch.engine import numerics
+
         specs = list(self.specs)
         empty = list(self.empty_lists)
         world = self.world_size
+        residual_of = {(s.owner, s.attr): s for s in specs if s.kind == "comp-res"}
 
         def fold(gathered: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
             out: Dict[str, Dict[str, Any]] = {}
             for s in specs:
                 dest = out.setdefault(s.owner, {})
+                if s.kind == "comp-res":
+                    continue  # folded with its value
+                if s.kind in ("comp-sum", "comp-mean"):
+                    # each rank's residual feeds back into its increment, the exact fold
+                    # error carries forward, and the pair is re-anchored
+                    rs = residual_of[(s.owner, s.attr)]
+                    values = gathered[s.group][:, s.offset : s.offset + s.size].reshape((world,) + s.shape)
+                    residuals = gathered[rs.group][:, rs.offset : rs.offset + rs.size].reshape((world,) + s.shape)
+                    total, res = values[0], residuals[0]
+                    for r in range(1, world):
+                        total, res = numerics.two_sum(total, values[r] + residuals[r] + res)
+                    total, res = numerics.two_sum(total, res)
+                    if s.kind == "comp-mean":
+                        total, res = total / world, res / world
+                    dest[s.attr] = total
+                    dest[numerics.SYNC_RES_PREFIX + s.attr] = res
+                    continue
                 if s.kind == "cat" and (not s.group or max(s.world_dim0, default=1) == 0):
                     # empty on every rank: lists stay [], tensors keep a 0-row shape
                     dest[s.attr] = (

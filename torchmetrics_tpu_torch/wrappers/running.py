@@ -75,6 +75,9 @@ class Running(Metric):
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update the base metric, then snapshot its state into the current ring slot."""
         self.base_metric.update(*args, **kwargs)
+        # the slot reads the base state: a queued update (engine/scan.py) folds in first,
+        # or the slot would take the default state and the reset discard the step
+        self.base_metric._drain_scan("observation:running-slot")
         self._fill_slot()
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
