@@ -126,6 +126,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    replay calls alone; accuracy's ``forward``, engine against eager, in five interleaved
    pairs. Last, an operation a CUDA graph cannot hold raises out of the engine's capture.
 
+15. the rest of classification and regression's sum-state metrics, each path 16 updates
+   eagerly, then with the engine on, then ``compute``, and the same on the CPU: an
+   ImageNet-1k collection (8192 x 1000 logits of a confident model) of accuracy (K1), l1
+   and l2 calibration errors (15 bins), crammer-singer and one-vs-all hinge losses and
+   macro Dice; phase 7's MS-COCO logits into coverage error, label-ranking AP and loss
+   beside the binned mAP (K2); phase 6's 2^20 click-through logits into calibration
+   error, hinge loss and binned AUROC (K2), with ``BinaryFairness`` over UCI Adult's sex
+   shares and ``BinaryGroupStatRates`` over its five race shares (seeded group ids); 2^20
+   log-normal regression rows into MSE, RMSE, MAE, MSLE, MAPE, SMAPE, WMAPE, Minkowski
+   (p=3), log-cosh, R², RSE, explained variance and Tweedie at powers 0 and 1.5, then
+   MSE and raw R² at 131072 x 8. Groups, K1 / K2 launches per update, the engine's split
+   (the rankings, fairness, Dice and regression replay; calibration, hinge and the curves
+   fall back, as in the JAX package), states against the CPU (counts and the
+   calibration streams exactly, float sums relative 2e-6), the engine run bit-equal to
+   eager, values within the stated tolerances (the calibration errors within six
+   standard deviations of a float32 sum's rounding walk), host syncs per update, the
+   updates the JAX package runs without a host read under ``set_sync_debug_mode("error")``
+   (and a Tweedie 1.5 replay), the debiased l2 calibration error, and each path's update
+   µs, engine on against eager, in turns.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -136,7 +156,8 @@ with code 2 and prints no result. It imports nothing of JAX.
 one JSON object (the updates line runs to tens of kilobytes).
 
 ``python3 chip_smoke.py --eval-loop-only`` runs phases 1-2 and then phase 13 alone, on
-batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 alone.
+batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 alone;
+``--tensor-metrics-only`` runs phases 1-2 and then phase 15 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -3099,6 +3120,479 @@ def run_engine_tier(acc_batches: list, cifar_batches: list, gen: torch.Generator
     return out
 
 
+# ---------------------------------------------------------------- phase 15: the rest of classification, regression's sums
+
+N_BINS = 15  # the calibration bins of the usual reliability diagram
+TOP1 = 0.76  # the share of ImageNet rows whose top class is the target (a ResNet-50's top-1)
+ADULT_SEX = (0.669, 0.331)  # UCI Adult's sex attribute (male, female), as in Fairlearn's docs
+ADULT_RACE = (0.854, 0.096, 0.031, 0.010, 0.008)  # White, Black, Asian-Pac-Islander, Amer-Indian-Eskimo, Other
+REG_BATCH = 1 << 20
+REG_WIDE_BATCH, REG_OUTPUTS = 131072, 8
+# float32 sums of up to 2^20 terms, reduced in other orders on the card and the CPU, some
+# terms through a log or a power an ulp apart
+TM_SUM_RTOL = 2e-6
+# R², RSE and explained variance divide by a difference of sums (Σy² - (Σy)²/n), which
+# multiplies a sum's relative error by Σy² / TSS (~4.5 on these targets)
+TM_VALUE_RTOL = 1e-5
+TWEEDIE_ATOL = 1e-6  # a power outside {0, 1, 2}: each row's deviance is a difference of O(1) terms
+# the calibration states are bit-equal on both sides; only the bins' float32 sums differ,
+# added in the atomics' order on the card
+CE_SIGMAS = 6.0
+
+
+def _ce_tolerance(rows: int) -> float:
+    """The calibration error's tolerance between the card and the CPU: a float32 sum of
+    ``rows`` terms in [0, 1] added in two orders is a random walk of roundings, whose
+    standard deviation is ``2^-24 * sqrt(rows / 3)`` of the sum; the error is a weighted
+    mean of the bins' relative errors, held to ``CE_SIGMAS`` of those."""
+    return CE_SIGMAS * 2.0**-24 * (rows / 3) ** 0.5
+
+
+def _tm_imagenet_batches(gen: torch.Generator, n_batches: int = N_BATCHES, n: int = ACC_BATCH, c: int = ACC_CLASSES) -> list:
+    """ImageNet-1k logits of a confident model: the top class is the target on ``TOP1``
+    of the rows and carries a margin of 4-10, so the softmax confidences spread over
+    [0, 1] as a trained network's do."""
+    out = []
+    for _ in range(n_batches):
+        target = torch.randint(0, c, (n,), generator=gen)
+        top = torch.where(torch.rand(n, generator=gen) < TOP1, target, torch.randint(0, c, (n,), generator=gen))
+        logits = torch.randn(n, c, generator=gen) * 1.5
+        logits.scatter_add_(1, top[:, None], 4 + 6 * torch.rand(n, 1, generator=gen))
+        out.append((logits.cuda(), target.cuda()))
+    return out
+
+
+def _tm_groups(gen: torch.Generator, n: int, shares: tuple) -> torch.Tensor:
+    return torch.multinomial(torch.tensor(shares), n, replacement=True, generator=gen).cuda()
+
+
+def _tm_regression_batches(gen: torch.Generator, n_batches: int = N_BATCHES, shape: tuple = (REG_BATCH,)) -> list:
+    """Positive log-normal targets and predictions off by a log-normal relative error."""
+    out = []
+    for _ in range(n_batches):
+        target = torch.exp(0.5 * torch.randn(*shape, generator=gen))
+        preds = target * torch.exp(0.2 * torch.randn(*shape, generator=gen))
+        out.append((preds.cuda(), target.cuda()))
+    return out
+
+
+def _tm_imagenet(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    c, common = ACC_CLASSES, dict(device=device, validate_args=False)
+    return {
+        "acc": tm.MulticlassAccuracy(c, **common),
+        "ece": tm.MulticlassCalibrationError(c, n_bins=N_BINS, **common),
+        "ece_l2": tm.MulticlassCalibrationError(c, n_bins=N_BINS, norm="l2", **common),
+        "hinge": tm.MulticlassHingeLoss(c, **common),
+        "hinge_ova": tm.MulticlassHingeLoss(c, multiclass_mode="one-vs-all", **common),
+        "dice": tm.Dice(num_classes=c, average="macro", device=device),
+    }
+
+
+def _tm_coco(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(num_labels=ML_LABELS, ignore_index=ML_IGNORE, device=device, validate_args=False)
+    return {
+        "coverage": tm.MultilabelCoverageError(**common),
+        "rank_ap": tm.MultilabelRankingAveragePrecision(**common),
+        "rank_loss": tm.MultilabelRankingLoss(**common),
+        "map": tm.MultilabelAveragePrecision(thresholds=N_THRESH, **common),
+    }
+
+
+def _tm_ctr(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(device=device, validate_args=False)
+    return {
+        "ece": tm.BinaryCalibrationError(n_bins=N_BINS, **common),
+        "hinge": tm.BinaryHingeLoss(**common),
+        "auroc": tm.BinaryAUROC(thresholds=N_THRESH, **common),
+    }
+
+
+def _tm_fairness(device=None) -> dict:
+    """Fed ``(preds, clicks, groups)``: sex for the fairness ratios, race for the rates."""
+    import torchmetrics_tpu_torch as tm
+
+    common = dict(device=device, validate_args=False)
+    return {"fair": tm.BinaryFairness(len(ADULT_SEX), task="all", **common), "rates": tm.BinaryGroupStatRates(len(ADULT_RACE), **common)}
+
+
+def _tm_regression(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    d = dict(device=device)
+    return {
+        "mse": tm.MeanSquaredError(**d), "rmse": tm.MeanSquaredError(squared=False, **d),
+        "mae": tm.MeanAbsoluteError(**d), "msle": tm.MeanSquaredLogError(**d),
+        "mape": tm.MeanAbsolutePercentageError(**d), "smape": tm.SymmetricMeanAbsolutePercentageError(**d),
+        "wmape": tm.WeightedMeanAbsolutePercentageError(**d), "minkowski": tm.MinkowskiDistance(p=3, **d),
+        "logcosh": tm.LogCoshError(**d), "r2": tm.R2Score(**d), "rse": tm.RelativeSquaredError(**d),
+        "ev": tm.ExplainedVariance(**d), "tweedie0": tm.TweedieDevianceScore(power=0.0, **d),
+        "tweedie15": tm.TweedieDevianceScore(power=1.5, **d),
+    }
+
+
+def _tm_regression_wide(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {
+        "mse8": tm.MeanSquaredError(num_outputs=REG_OUTPUTS, device=device),
+        "r2_8": tm.R2Score(num_outputs=REG_OUTPUTS, multioutput="raw_values", device=device),
+    }
+
+
+class _TensorPath:
+    """One phase-15 path. ``units``: name -> ``(make(device) -> {member: metric}, card args
+    of update i)``, one collection (or one metric) each on the card; ``host_units``: the
+    same members as the CPU run builds them, with the inputs as the card's metrics see
+    them (the card's own softmax or sigmoid where the metric applies one)."""
+
+    def __init__(self, name: str, units: dict, host_units: dict, n: int, groups: set, per_update: dict,
+                 falling_back: set, no_sync: set, ce_rows: int = 0):
+        self.name, self.units, self.host_units, self.n = name, units, host_units, n
+        self.groups, self.per_update, self.falling_back, self.no_sync = groups, per_update, falling_back, no_sync
+        self.ce_rows = ce_rows
+
+
+def _tm_unit(members: dict):
+    """A collection of ``members``, or the one metric (named by its member) when alone."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    if len(members) > 1:
+        return MetricCollection(members)
+    (name, metric), = members.items()
+    metric._tm_name = name
+    return metric
+
+
+def _tm_members(objs: dict) -> dict:
+    """member name -> metric over a path's units (a unit of one metric is named by its member)."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    out = {}
+    for obj in objs.values():
+        if isinstance(obj, MetricCollection):
+            out.update(dict(obj.items(keep_base=True, copy_state=False)))
+        else:
+            out[obj._tm_name] = obj
+    return out
+
+
+def _tm_drive(path: _TensorPath, device=None) -> tuple:
+    """Every unit over the path's updates (the CPU units when ``device="cpu"``), then
+    ``compute``: the units and a member -> value dict."""
+    objs, values = {}, {}
+    for u, (make, args) in (path.host_units if device == "cpu" else path.units).items():
+        obj = objs[u] = _tm_unit(make(device))
+        for i in range(path.n):
+            obj.update(*args(i))
+    for obj in objs.values():
+        value = obj.compute()
+        values.update({obj._tm_name: value} if hasattr(obj, "_tm_name") else value)
+    return objs, values
+
+
+def _tm_value_tol(path: _TensorPath, member: str, w: torch.Tensor) -> torch.Tensor:
+    """A value's tolerance against the CPU run (see the constants above)."""
+    if member.startswith("ece"):
+        return torch.full_like(w, _ce_tolerance(path.ce_rows))
+    if member in ("r2", "rse", "ev", "r2_8"):
+        return 1e-7 + TM_VALUE_RTOL * w.abs()
+    if member == "tweedie15":
+        return TWEEDIE_ATOL + TM_SUM_RTOL * w.abs()
+    if member in ("auroc", "map"):
+        return torch.full_like(w, AUROC_ATOL)
+    return ACC_ATOL + TM_SUM_RTOL * w.abs()
+
+
+def _tm_flat(value) -> list:
+    if isinstance(value, dict):
+        return [t for k in sorted(value) for t in _tm_flat(value[k])]
+    return [t.detach().double().cpu().reshape(-1) for t in _outputs(value)]
+
+
+def run_tensor_path(path: _TensorPath) -> dict:
+    """16 updates eagerly, then with the engine on, then ``compute``; the same on the
+    CPU. Groups, K1 / K2 launches per update, the engine's split (replays where the JAX
+    engine compiles, fallbacks where it falls back), every state against the CPU run,
+    the engine run's states bit-equal to eager, values within the stated tolerances,
+    host syncs per update."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    n = path.n
+    runs = {}
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            _zero_launches()
+            objs, values = _tm_drive(path)
+            runs[mode] = (objs, _launches(), values)
+    (eager, eager_launches, eager_values), (card, engine_launches, values) = runs["eager"], runs["engine"]
+    host, host_values = _tm_drive(path, device="cpu")
+
+    got_groups = set()
+    for objs in (eager, card):
+        found = set()
+        for obj in objs.values():
+            if isinstance(obj, MetricCollection):
+                found |= {frozenset(g) for g in obj.compute_groups.values()}
+            else:
+                found.add(frozenset({obj._tm_name}))
+        if found != path.groups:
+            raise AssertionError(f"tensor {path.name}: compute groups {sorted(map(sorted, found))}, expected {path.groups}")
+        got_groups = found
+    want = {k: v * n for k, v in path.per_update.items()}
+    if eager_launches != want:
+        raise AssertionError(f"tensor {path.name}: eager launches {eager_launches}, expected {want}")
+    # K2 stays eager under the engine (the binned curves fall back); K1 runs in the fused
+    # graph: the warm-up's launch, one per replay, and the pad-row unit's once per
+    # signature when the signature is bucketed
+    if engine_launches["multi_threshold"] != want["multi_threshold"] or engine_launches["stat_counts"] not in (
+        want["stat_counts"], want["stat_counts"] + (1 if want["stat_counts"] else 0)
+    ):
+        raise AssertionError(f"tensor {path.name}: engine launches {engine_launches}, eager {want}")
+
+    members, eager_members, host_members = _tm_members(card), _tm_members(eager), _tm_members(host)
+    diffs, failures = {}, []
+    for m, metric in members.items():
+        try:
+            _assert_same_states(f"tensor {path.name} {m} engine vs eager", metric, eager_members[m])
+            # the calibration states are the card's confidences and hits: bit-equal
+            rtol = 0.0 if m.startswith("ece") else TM_SUM_RTOL
+            _assert_same_states(f"tensor {path.name} {m} vs cpu", eager_members[m], host_members[m], float_rtol=rtol)
+        except AssertionError as exc:
+            failures.append(str(exc))
+        if isinstance(values[m], dict) and not list(values[m]) == list(eager_values[m]) == list(host_values[m]):
+            failures.append(f"tensor {path.name} {m}: keys {list(values[m])}, eager {list(eager_values[m])}, cpu {list(host_values[m])}")
+        worst = 0.0
+        for i, (g, e, w) in enumerate(zip(_tm_flat(values[m]), _tm_flat(eager_values[m]), _tm_flat(host_values[m]))):
+            tol = _tm_value_tol(path, m, w)
+            # the calibration bins are float32 atomics: their sums differ from run to run
+            if not (bool(((g - e).abs() <= tol).all()) if m.startswith("ece") else torch.equal(g, e)):
+                failures.append(f"tensor {path.name} {m} value {i}: engine {g[:8].tolist()} vs eager {e[:8].tolist()}")
+            if not bool(((e - w).abs() <= tol).all()) or not torch.isfinite(g).all() or g.shape != w.shape:
+                failures.append(f"tensor {path.name} {m} value {i}: cuda {g[:8].tolist()} vs cpu {w[:8].tolist()}")
+            rel = ((g - w).abs() / w.abs().clamp(min=1e-30)).max().item() if w.numel() else 0.0
+            worst = max(worst, rel if m not in ("auroc", "map") and not m.startswith("ece") else (g - w).abs().max().item())
+        diffs[m] = worst
+
+    # the engine's split: replays where the JAX engine compiles, fallbacks where it falls back
+    split = {}
+    for u, obj in card.items():
+        if isinstance(obj, MetricCollection):
+            owners = [g.owner for g in obj._groups.values()]
+            discovery = 0 if all(obj._cse_signatures.get(o) is not None for o in owners) else 1
+            fused = obj._fused_engine
+            eligible = [o for o in owners if o not in path.falling_back]
+            if len(eligible) >= 2:
+                st = fused.stats
+                split[f"{u}:fused"] = st.as_dict()
+                if st.eager_fallbacks or st.dispatches != n - discovery:
+                    failures.append(f"tensor {path.name} {u}: fused engine {st.as_dict()}")
+                _check_replays(f"tensor {path.name} {u} fused", fused)
+            elif eligible:
+                st = obj._modules[eligible[0]]._engine.stats
+                split[eligible[0]] = st.as_dict()
+                if st.eager_fallbacks or st.dispatches != n - discovery:
+                    failures.append(f"tensor {path.name} {eligible[0]}: engine {st.as_dict()}")
+            for o in owners:
+                if o in path.falling_back:
+                    st = obj._modules[o]._engine.stats
+                    split[o] = st.as_dict()
+                    if st.dispatches or st.eager_fallbacks != n - discovery:
+                        failures.append(f"tensor {path.name}: {o} should fall back every update: {st.as_dict()}")
+        else:
+            st = obj._engine.stats
+            split[obj._tm_name] = st.as_dict()
+            if st.eager_fallbacks or st.dispatches != n:
+                failures.append(f"tensor {path.name} {obj._tm_name}: engine {st.as_dict()}")
+            _check_replays(f"tensor {path.name} {obj._tm_name}", obj._engine)
+    if failures:
+        raise AssertionError(f"tensor {path.name}: {len(failures)} failures, max rel diffs {diffs}: " + " | ".join(failures[:12]))
+
+    # host syncs per update (eager), and the updates the JAX package runs without a host read
+    syncs = {}
+    with engine_context(False):
+        for u, (make, args) in path.units.items():
+            for m, metric in make().items():
+                metric.update(*args(0))  # first-use allocations and plan caches are not the point
+                syncs[m] = _syncs_per_call(lambda metric=metric: metric.update(*args(1)))
+            quiet = [metric for m, metric in make().items() if m in path.no_sync]
+            if quiet:
+                _updates_without_sync(f"tensor {path.name} {u}", quiet, args(0))
+    summary = {
+        "groups": sorted(sorted(g) for g in got_groups),
+        "launches_eager": eager_launches,
+        "launches_engine": engine_launches,
+        "engine_split": split,
+        "host_syncs_per_update": syncs,
+        "max_diff_to_cpu": diffs,
+        "values": {k: [round(x, 7) for x in torch.cat(_tm_flat(v))[:8].tolist()] for k, v in values.items()},
+    }
+    _log(f"  tensor {path.name}: groups {summary['groups']}, {n} updates eager and with the engine, launches"
+         f" {eager_launches} / {engine_launches}; states equal to the CPU, engine bit-equal to eager; syncs {syncs}")
+    return summary
+
+
+def _tm_paths(imagenet: list, coco: list, ctr: list, gen: torch.Generator) -> dict:
+    """The four paths of phase 15 over their batches."""
+    soft = [torch.softmax(p, dim=1).cpu() for p, _ in imagenet]  # the kernel the metrics run on the card
+    host_imagenet = [(p.cpu(), t.cpu()) for p, t in imagenet]
+    coco_host = [(_sigmoid(p).cpu(), t.cpu()) for p, t in coco]
+    ctr_host = [(_sigmoid(p).cpu(), t.cpu()) for p, t in ctr]
+    sex = [_tm_groups(gen, p.shape[0], ADULT_SEX) for p, _ in ctr]
+    race = [_tm_groups(gen, p.shape[0], ADULT_RACE) for p, _ in ctr]
+    sex_host, race_host = [g.cpu() for g in sex], [g.cpu() for g in race]
+    reg = _tm_regression_batches(gen)
+    wide = _tm_regression_batches(gen, shape=(REG_WIDE_BATCH, REG_OUTPUTS))
+    reg_host, wide_host = [(p.cpu(), t.cpu()) for p, t in reg], [(p.cpu(), t.cpu()) for p, t in wide]
+
+    def pick(members_fn, names):
+        return lambda device=None: {k: v for k, v in members_fn(device).items() if k in names}
+
+    n = len(imagenet)
+    return {
+        # one collection on the card; the CPU run of its calibration and hinge members
+        # takes the card's own softmax
+        "imagenet": _TensorPath(
+            "imagenet", {"imagenet": (_tm_imagenet, lambda i: imagenet[i])},
+            {"logits": (pick(_tm_imagenet, ("acc", "dice")), lambda i: host_imagenet[i]),
+             "probs": (pick(_tm_imagenet, ("ece", "ece_l2", "hinge", "hinge_ova")), lambda i: (soft[i], host_imagenet[i][1]))},
+            n, {frozenset({"acc"}), frozenset({"dice"}), frozenset({"ece", "ece_l2"}), frozenset({"hinge"}), frozenset({"hinge_ova"})},
+            {"stat_counts": 1, "multi_threshold": 0}, {"ece", "hinge", "hinge_ova"}, {"acc", "dice"},
+            ce_rows=n * imagenet[0][0].shape[0],
+        ),
+        "coco": _TensorPath(
+            "coco", {"coco": (_tm_coco, lambda i: coco[i])}, {"coco": (_tm_coco, lambda i: coco_host[i])}, len(coco),
+            {frozenset({"coverage"}), frozenset({"rank_ap"}), frozenset({"rank_loss"}), frozenset({"map"})},
+            {"stat_counts": 0, "multi_threshold": 1}, {"map"}, {"coverage", "rank_ap", "rank_loss"},
+        ),
+        "ctr": _TensorPath(
+            "ctr",
+            {"ctr": (_tm_ctr, lambda i: ctr[i]),
+             "fair": (pick(_tm_fairness, ("fair",)), lambda i: (*ctr[i], sex[i])),
+             "rates": (pick(_tm_fairness, ("rates",)), lambda i: (*ctr[i], race[i]))},
+            {"ctr": (_tm_ctr, lambda i: ctr_host[i]),
+             "fair": (pick(_tm_fairness, ("fair",)), lambda i: (*ctr_host[i], sex_host[i])),
+             "rates": (pick(_tm_fairness, ("rates",)), lambda i: (*ctr_host[i], race_host[i]))},
+            len(ctr), {frozenset({"ece"}), frozenset({"hinge"}), frozenset({"auroc"}), frozenset({"fair"}), frozenset({"rates"})},
+            {"stat_counts": 0, "multi_threshold": 1}, {"ece", "hinge", "auroc"}, {"fair", "rates"},
+            ce_rows=len(ctr) * ctr[0][0].shape[0],
+        ),
+        "regression": _TensorPath(
+            "regression",
+            {"main": (_tm_regression, lambda i: reg[i]), "wide": (_tm_regression_wide, lambda i: wide[i])},
+            {"main": (_tm_regression, lambda i: reg_host[i]), "wide": (_tm_regression_wide, lambda i: wide_host[i])},
+            len(reg),
+            {frozenset({"mse", "rmse"}), frozenset({"r2", "rse"}), *(frozenset({k}) for k in
+             ("mae", "msle", "mape", "smape", "wmape", "minkowski", "logcosh", "ev", "tweedie0", "tweedie15", "mse8", "r2_8"))},
+            {"stat_counts": 0, "multi_threshold": 0}, set(),
+            {"mse", "rmse", "mae", "msle", "mape", "smape", "wmape", "minkowski", "logcosh", "r2", "rse", "ev", "tweedie0",
+             "mse8", "r2_8"},
+        ),
+    }
+
+
+def check_tweedie_replay_without_sync(reg_batch: tuple) -> dict:
+    """Tweedie at power 1.5: its eager update reads the host for the domain checks; under
+    the engine they skip inside the captured body, and a replay runs under
+    ``set_sync_debug_mode("error")``."""
+    from torchmetrics_tpu_torch import TweedieDevianceScore
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    with engine_context(False):
+        eager = TweedieDevianceScore(power=1.5)
+        eager.update(*reg_batch)
+        eager_syncs = _syncs_per_call(lambda: eager.update(*reg_batch))
+    with engine_context(True):
+        m = TweedieDevianceScore(power=1.5)
+        m.update(*reg_batch)
+        m.update(*reg_batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m.update(*reg_batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    st = m._engine.stats
+    if st.eager_fallbacks or st.dispatches != 3:
+        raise AssertionError(f"tweedie 1.5 under the engine: {st.as_dict()}")
+    _check_replays("tweedie 1.5", m._engine)
+    _log(f"  tweedie 1.5: {eager_syncs} host syncs per eager update; a replay under set_sync_debug_mode('error')")
+    return {"eager_host_syncs": eager_syncs, "engine": st.as_dict()}
+
+
+def check_debiased_l2(path: _TensorPath) -> dict:
+    """The l2 calibration error with ``debias`` (the functional ``_ce_compute``) on the
+    ImageNet path's states, against the CPU."""
+    from torchmetrics_tpu_torch.functional.classification.calibration_error import _ce_compute
+    from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
+
+    card = _tm_imagenet()["ece_l2"]
+    host = _tm_imagenet(device="cpu")["ece_l2"]
+    card_args, host_args = path.units["imagenet"][1], path.host_units["probs"][1]
+    for i in range(path.n):
+        card.update(*card_args(i))
+        host.update(*host_args(i))
+    got = _ce_compute(dim_zero_cat(card.confidences), dim_zero_cat(card.accuracies), N_BINS, "l2", debias=True)
+    want = _ce_compute(dim_zero_cat(host.confidences), dim_zero_cat(host.accuracies), N_BINS, "l2", debias=True)
+    diff = abs(float(got) - float(want))
+    if diff > _ce_tolerance(path.ce_rows) or not torch.isfinite(got):
+        raise AssertionError(f"debiased l2 calibration error: cuda {float(got)} vs cpu {float(want)}")
+    return {"value": float(got), "abs_diff_to_cpu": diff}
+
+
+def time_tensor_paths(paths: dict) -> dict:
+    """Each path's ``update`` (every unit once), engine on against eager, in turns
+    (eager, engine, engine, eager): host µs to a device sync, device busy, operations,
+    idle share and the largest device items."""
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    out = {}
+    for name, path in paths.items():
+        runs = {"eager": [], "engine": []}
+        for mode in ("eager", "engine", "engine", "eager"):
+            with engine_context(mode == "engine"):
+                objs = [(_tm_unit(make()), args) for make, args in path.units.values()]
+
+                def step(i, objs=objs):
+                    for obj, args in objs:
+                        obj.update(*args(i % path.n))
+
+                step(0)  # settles groups, builds and captures
+                step(1)
+                runs[mode].append(_timed(step))
+                del objs
+                gc.collect()
+        out[name] = {mode: _mean_runs(rs) for mode, rs in runs.items()}
+        out[name]["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs.items()}
+    _log("  tensor-metric times: " + ", ".join(
+        f"{k} {v['eager']['update_us']:.1f} -> {v['engine']['update_us']:.1f} us" for k, v in out.items()
+    ))
+    return out
+
+
+def run_tensor_metrics(imagenet: list, coco: list, ctr: list, gen: torch.Generator) -> dict:
+    """Phase 15: calibration error, hinge loss, Dice (ImageNet-1k), the multilabel
+    rankings beside a binned mAP (MS-COCO), calibration, hinge and group fairness beside
+    a binned AUROC (click-through), and regression's sum-state metrics."""
+    paths = _tm_paths(imagenet, coco, ctr, gen)
+    out = {name: run_tensor_path(path) for name, path in paths.items()}
+    out["debiased_l2"] = check_debiased_l2(paths["imagenet"])
+    out["tweedie_replay"] = check_tweedie_replay_without_sync(paths["regression"].units["main"][1](0))
+    out["tolerances"] = {
+        "sum_rtol": TM_SUM_RTOL, "value_rtol_r2_rse_ev": TM_VALUE_RTOL, "tweedie_atol": TWEEDIE_ATOL,
+        "ce_atol": {k: _ce_tolerance(p.ce_rows) for k, p in paths.items() if p.ce_rows},
+    }
+    out["times"] = time_tensor_paths(paths)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -3112,11 +3606,11 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/14] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/15] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/14] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/15] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -3132,9 +3626,15 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/14] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/15] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--tensor-metrics-only"]:
+        _log("[15/15] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
+        print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -3142,7 +3642,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/14] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/15] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -3150,30 +3650,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/14] kernels against their plain versions")
+        _log("[3/15] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/14] main path")
+        _log("[4/15] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/14] collection path")
+        _log("[5/15] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/14] binary path")
+        _log("[6/15] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/14] multilabel path")
+        _log("[7/15] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/14] task routers")
+        _log("[8/15] task routers")
         run_routers(gen)
 
-        _log("[9/14] sync, two ranks on one card")
+        _log("[9/15] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/14] times")
+        _log("[10/15] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -3186,7 +3686,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/14] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/15] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -3208,7 +3708,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/14] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/15] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -3217,14 +3717,17 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/14] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/15] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/14] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/15] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
+
+    _log("[15/15] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
     for entry in kernels:
         k = entry["name"]
@@ -3243,6 +3746,8 @@ def main() -> int:
             "scan_async_accuracy": engine_tier["accuracy"]["scan_async"]["launches"][k],
             "scan_collection": engine_tier["collection"]["launches"][k],
             "scan_quarantine": engine_tier["quarantine"]["launches"][k],
+            **{f"tensor_{path}": tensor[path]["launches_eager"][k] for path in ("imagenet", "coco", "ctr")},
+            **{f"tensor_{path}_engine": tensor[path]["launches_engine"][k] for path in ("imagenet", "coco", "ctr")},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -3253,6 +3758,7 @@ def main() -> int:
 
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
+        "tensor_metrics": tensor,
         "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)

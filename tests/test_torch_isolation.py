@@ -36,7 +36,10 @@ routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Sco
            "ExactMatch", "JaccardIndex", "MatthewsCorrCoef", "RecallAtFixedPrecision", "PrecisionAtFixedRecall",
            "SpecificityAtSensitivity")
 every_class = [n for n in tm.__all__ if n.startswith(("Binary", "Multiclass", "Multilabel"))]
-assert len(every_class) == 58, every_class
+assert len(every_class) == 67, every_class
+REGRESSION = ("MeanSquaredError", "MeanAbsoluteError", "MeanSquaredLogError", "MeanAbsolutePercentageError",
+              "SymmetricMeanAbsolutePercentageError", "WeightedMeanAbsolutePercentageError", "LogCoshError",
+              "R2Score", "RelativeSquaredError", "ExplainedVariance", "TweedieDevianceScore")
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -52,7 +55,8 @@ FLOORS = {"RecallAtFixedPrecision": "min_precision", "PrecisionAtFixedRecall": "
 def args(name):
     width = {"num_classes": 5} if name.startswith("Multiclass") else {"num_labels": 5} if name.startswith("Multilabel") else {}
     floor = {v: 0.5 for k, v in FLOORS.items() if name.endswith(k)}
-    return {**width, **floor, **({"beta": 1.0} if "FBeta" in name else {})}
+    groups = {"num_groups": 2} if name in ("BinaryFairness", "BinaryGroupStatRates") else {}
+    return {**width, **floor, **groups, **({"beta": 1.0} if "FBeta" in name else {})}
 
 for make in (
     lambda: MulticlassAccuracy(num_classes=5),
@@ -62,6 +66,11 @@ for make in (
     *(lambda n=n: getattr(tm, n)(**args(n)) for n in every_class),
     *(lambda r=r: getattr(tm, r)(task="multilabel", num_labels=3, **args(r)) for r in routers),
     lambda: tm.CohenKappa(task="binary"),
+    lambda: tm.CalibrationError(task="binary"),
+    lambda: tm.HingeLoss(task="multiclass", num_classes=3),
+    lambda: tm.Dice(),
+    *(lambda n=n: getattr(tm, n)() for n in REGRESSION),
+    lambda: tm.MinkowskiDistance(p=3),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,

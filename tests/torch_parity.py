@@ -34,7 +34,12 @@ def np_(x):
 
 
 def assert_close(got, want, atol: float, rtol: float = 0.0, msg: str = "") -> None:
-    """Recursive over tuples and lists; integer arrays must be equal."""
+    """Recursive over tuples, lists and dicts; integer arrays must be equal."""
+    if isinstance(got, dict):
+        assert isinstance(want, dict) and list(got) == list(want), f"{msg}: keys {list(got)} vs {list(want)}"
+        for k in got:
+            assert_close(got[k], want[k], atol, rtol, f"{msg}[{k}]")
+        return
     if isinstance(got, (tuple, list)):
         assert isinstance(want, (tuple, list)) and len(got) == len(want), msg
         for i, (g, w) in enumerate(zip(got, want)):
@@ -48,8 +53,9 @@ def assert_close(got, want, atol: float, rtol: float = 0.0, msg: str = "") -> No
         np.testing.assert_allclose(g, w, atol=atol, rtol=rtol, err_msg=msg)
 
 
-def assert_states(port, ref, float_atol: float = 0.0) -> None:
-    """Integer states equal; float states (exact-mode score lists) within ``float_atol``."""
+def assert_states(port, ref, float_atol: float = 0.0, float_rtol: float = 0.0) -> None:
+    """Integer states equal; float states (exact-mode score lists, float sums) within
+    ``float_atol`` and ``float_rtol``; exactly equal when both are 0."""
     for attr in ref._defaults:
         p, r = getattr(port, attr), getattr(ref, attr)
         if isinstance(r, list):
@@ -60,8 +66,8 @@ def assert_states(port, ref, float_atol: float = 0.0) -> None:
         else:
             assert p.dtype in (torch.int32, torch.float32), attr
         p, r = np_(p), np.asarray(r)
-        if p.dtype.kind == "f" and float_atol:
-            np.testing.assert_allclose(p, r, atol=float_atol, rtol=0, err_msg=attr)
+        if p.dtype.kind == "f" and (float_atol or float_rtol):
+            np.testing.assert_allclose(p, r, atol=float_atol, rtol=float_rtol, err_msg=attr)
         else:
             np.testing.assert_array_equal(p, r, err_msg=attr)
 
@@ -100,31 +106,84 @@ def three_levels(
     atol: float,
     rtol: float = 0.0,
     float_state_atol: float = 0.0,
+    float_state_rtol: float = 0.0,
 ) -> None:
     """``batches``: ``(port preds, target, JAX preds)``; each level's values within the
     tolerance, states as ``assert_states`` holds them."""
+    three_levels_args(
+        make_port, make_ref, [((p, t), (jp, t)) for p, t, jp in batches], atol, rtol, float_state_atol, float_state_rtol
+    )
+
+
+def three_levels_args(
+    make_port: Callable,
+    make_ref: Callable,
+    batches: Sequence[tuple],
+    atol: float,
+    rtol: float = 0.0,
+    float_state_atol: float = 0.0,
+    float_state_rtol: float = 0.0,
+) -> None:
+    """``three_levels`` for updates of any arity: ``batches`` holds ``(port args, JAX
+    args)`` pairs of numpy arrays."""
+
+    def port_args(args):
+        return [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+
+    def ref_args(args):
+        return [jnp.asarray(a) for a in args]
+
+    state_tol = (float_state_atol, float_state_rtol)
     port, ref = make_port(), make_ref()
-    for i, (preds, target, jpreds) in enumerate(batches):
-        assert_close(
-            port(torch.from_numpy(preds), torch.from_numpy(target)),
-            ref(jnp.asarray(jpreds), jnp.asarray(target)),
-            atol, rtol, f"forward {i}",
-        )
-    assert_states(port, ref, float_state_atol)
+    for i, (pargs, jargs) in enumerate(batches):
+        assert_close(port(*port_args(pargs)), ref(*ref_args(jargs)), atol, rtol, f"forward {i}")
+    assert_states(port, ref, *state_tol)
     epoch = ref.compute()
     assert_close(port.compute(), epoch, atol, rtol, "compute")
 
     pa, pb, ra, rb = make_port(), make_port(), make_ref(), make_ref()
-    for i, (preds, target, jpreds) in enumerate(batches):
+    for i, (pargs, jargs) in enumerate(batches):
         first = i < len(batches) // 2
-        (pa if first else pb).update(torch.from_numpy(preds), torch.from_numpy(target))
-        (ra if first else rb).update(jnp.asarray(jpreds), jnp.asarray(target))
+        (pa if first else pb).update(*port_args(pargs))
+        (ra if first else rb).update(*ref_args(jargs))
     pa.merge_state(pb)
     ra.merge_state(rb)
-    assert_states(pa, ra, float_state_atol)
+    assert_states(pa, ra, *state_tol)
     assert pa.update_count == ra.update_count == len(batches)
     assert_close(pa.compute(), ra.compute(), atol, rtol, "merged compute")
     assert_close(pa.compute(), epoch, atol, rtol, "merged against one instance")
+
+
+def engine_split(make_port: Callable, make_ref: Callable, batches: Sequence[tuple], port_refusal: str = "") -> dict:
+    """The port's and the JAX package's compiled engines over the same ``(port args, JAX
+    args)`` batches: replay (dispatch) and fallback counts and reasons must agree, with
+    the JAX engine's first-step ``trace-failed:*`` refusal named as the port's guard
+    names it (``port_refusal``); the engine-on port states must be bit-equal to an eager
+    port run. The JAX side runs in 32-bit mode, the port's dtypes: in 64-bit mode an
+    eager step can change a state's dtype, and the JAX engine then traces the next step
+    of the same shapes again. Returns the port's stats."""
+    from torchmetrics_tpu.engine import engine_context as jax_engine_context
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    with jax.enable_x64(False), jax_engine_context(True, donate=True):
+        ref = make_ref()
+        for _, jargs in batches:
+            ref.update(*[jnp.asarray(a) for a in jargs])
+    with engine_context(True):
+        port = make_port()
+        for pargs, _ in batches:
+            port.update(*[torch.from_numpy(np.ascontiguousarray(a)) for a in pargs])
+    with engine_context(False):
+        eager = make_port()
+        for pargs, _ in batches:
+            eager.update(*[torch.from_numpy(np.ascontiguousarray(a)) for a in pargs])
+    assert_states(port, eager)
+    assert_close(port.compute(), eager.compute(), 0.0, 0.0, "engine against eager")
+    pst, jst = port._engine.stats, ref._engine.stats
+    jax_reasons = {(port_refusal if r.startswith("trace-failed:") else r): n for r, n in jst.fallback_reasons.items()}
+    assert dict(pst.fallback_reasons) == jax_reasons, (dict(pst.fallback_reasons), dict(jst.fallback_reasons))
+    assert (pst.dispatches, pst.eager_fallbacks) == (jst.dispatches, jst.eager_fallbacks)
+    return pst
 
 
 # ---------------------------------------------------------------- the engine tier

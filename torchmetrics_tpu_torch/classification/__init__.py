@@ -115,6 +115,20 @@ from torchmetrics_tpu_torch.classification.stat_scores import (
     StatScores,
 )
 
+from torchmetrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
+from torchmetrics_tpu_torch.classification.dice import Dice
+from torchmetrics_tpu_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
+from torchmetrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
+from torchmetrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
+)
+
 __all__ = [
     "AUROC",
     "Accuracy",
@@ -122,11 +136,15 @@ __all__ = [
     "BinaryAUROC",
     "BinaryAccuracy",
     "BinaryAveragePrecision",
+    "BinaryCalibrationError",
     "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryFairness",
+    "BinaryGroupStatRates",
     "BinaryHammingDistance",
+    "BinaryHingeLoss",
     "BinaryJaccardIndex",
     "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
@@ -138,23 +156,28 @@ __all__ = [
     "BinarySpecificity",
     "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
     "ExactMatch",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
     "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
     "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
     "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
     "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
     "MulticlassHammingDistance",
+    "MulticlassHingeLoss",
     "MulticlassJaccardIndex",
     "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
@@ -170,6 +193,7 @@ __all__ = [
     "MultilabelAccuracy",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelCoverageError",
     "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
@@ -180,6 +204,8 @@ __all__ = [
     "MultilabelPrecisionAtFixedRecall",
     "MultilabelPrecisionRecallCurve",
     "MultilabelROC",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultilabelRecall",
     "MultilabelRecallAtFixedPrecision",
     "MultilabelSpecificity",

@@ -78,7 +78,8 @@ consumes a buffer here, and a first step writes no state until the guard has pas
 from __future__ import annotations
 
 import gc
-from contextlib import nullcontext
+import threading
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -192,6 +193,26 @@ def _container_changed(live: Any, saved: Any) -> bool:
     return live != saved  # sets hold hashables only
 
 
+_BODY = threading.local()
+
+
+def in_traced_body() -> bool:
+    """Whether this thread is inside an update body that ``traced_update`` runs: a
+    signature's guarded first step, a capture, or a later step's body. A value check
+    that reads the host skips there, as the JAX package's checks skip under a tracer
+    (``TweedieDevianceScore``'s domain checks); run eagerly, it reads as before."""
+    return getattr(_BODY, "depth", 0) > 0
+
+
+@contextmanager
+def _traced_body():
+    _BODY.depth = getattr(_BODY, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _BODY.depth -= 1
+
+
 def traced_update(
     metric: Any, state: Dict[str, Any], args: Sequence[Any], kwargs: Dict[str, Any], check: bool = True
 ) -> Dict[str, Any]:
@@ -214,7 +235,8 @@ def traced_update(
         try:
             for k in names:
                 object.__setattr__(metric, k, state[k])
-            metric._raw_update(*args, **kwargs)
+            with _traced_body():
+                metric._raw_update(*args, **kwargs)
             return {k: getattr(metric, k) for k in names}
         finally:
             for k, v in saved.items():
@@ -231,7 +253,8 @@ def traced_update(
     try:
         for k in names:
             object.__setattr__(metric, k, state[k])
-        metric._raw_update(*args, **kwargs)
+        with _traced_body():
+            metric._raw_update(*args, **kwargs)
         out = {k: getattr(metric, k) for k in names}
         for k, v in metric.__dict__.items():
             if k in names or k in _BOOKKEEPING:

@@ -1,165 +1,9 @@
-"""Functional metrics of the port."""
+"""Functional metrics of the port: a flat re-export of each domain's functionals, as
+``torchmetrics_tpu.functional`` re-exports them."""
 
-from torchmetrics_tpu_torch.functional.classification import (
-    accuracy,
-    auroc,
-    average_precision,
-    binary_accuracy,
-    binary_auroc,
-    binary_average_precision,
-    binary_cohen_kappa,
-    binary_confusion_matrix,
-    binary_f1_score,
-    binary_fbeta_score,
-    binary_hamming_distance,
-    binary_jaccard_index,
-    binary_matthews_corrcoef,
-    binary_precision,
-    binary_precision_at_fixed_recall,
-    binary_precision_recall_curve,
-    binary_recall,
-    binary_recall_at_fixed_precision,
-    binary_roc,
-    binary_specificity,
-    binary_specificity_at_sensitivity,
-    binary_stat_scores,
-    cohen_kappa,
-    confusion_matrix,
-    exact_match,
-    f1_score,
-    fbeta_score,
-    hamming_distance,
-    jaccard_index,
-    matthews_corrcoef,
-    multiclass_accuracy,
-    multiclass_auroc,
-    multiclass_average_precision,
-    multiclass_cohen_kappa,
-    multiclass_confusion_matrix,
-    multiclass_exact_match,
-    multiclass_f1_score,
-    multiclass_fbeta_score,
-    multiclass_hamming_distance,
-    multiclass_jaccard_index,
-    multiclass_matthews_corrcoef,
-    multiclass_precision,
-    multiclass_precision_at_fixed_recall,
-    multiclass_precision_recall_curve,
-    multiclass_recall,
-    multiclass_recall_at_fixed_precision,
-    multiclass_roc,
-    multiclass_specificity,
-    multiclass_specificity_at_sensitivity,
-    multiclass_stat_scores,
-    multilabel_accuracy,
-    multilabel_auroc,
-    multilabel_average_precision,
-    multilabel_confusion_matrix,
-    multilabel_exact_match,
-    multilabel_f1_score,
-    multilabel_fbeta_score,
-    multilabel_hamming_distance,
-    multilabel_jaccard_index,
-    multilabel_matthews_corrcoef,
-    multilabel_precision,
-    multilabel_precision_at_fixed_recall,
-    multilabel_precision_recall_curve,
-    multilabel_recall,
-    multilabel_recall_at_fixed_precision,
-    multilabel_roc,
-    multilabel_specificity,
-    multilabel_specificity_at_sensitivity,
-    multilabel_stat_scores,
-    precision,
-    precision_at_fixed_recall,
-    precision_recall_curve,
-    recall,
-    recall_at_fixed_precision,
-    roc,
-    specicity_at_sensitivity,
-    specificity,
-    specificity_at_sensitivity,
-    stat_scores,
-)
+from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
 
-__all__ = [
-    "accuracy",
-    "auroc",
-    "average_precision",
-    "binary_accuracy",
-    "binary_auroc",
-    "binary_average_precision",
-    "binary_cohen_kappa",
-    "binary_confusion_matrix",
-    "binary_f1_score",
-    "binary_fbeta_score",
-    "binary_hamming_distance",
-    "binary_jaccard_index",
-    "binary_matthews_corrcoef",
-    "binary_precision",
-    "binary_precision_at_fixed_recall",
-    "binary_precision_recall_curve",
-    "binary_recall",
-    "binary_recall_at_fixed_precision",
-    "binary_roc",
-    "binary_specificity",
-    "binary_specificity_at_sensitivity",
-    "binary_stat_scores",
-    "cohen_kappa",
-    "confusion_matrix",
-    "exact_match",
-    "f1_score",
-    "fbeta_score",
-    "hamming_distance",
-    "jaccard_index",
-    "matthews_corrcoef",
-    "multiclass_accuracy",
-    "multiclass_auroc",
-    "multiclass_average_precision",
-    "multiclass_cohen_kappa",
-    "multiclass_confusion_matrix",
-    "multiclass_exact_match",
-    "multiclass_f1_score",
-    "multiclass_fbeta_score",
-    "multiclass_hamming_distance",
-    "multiclass_jaccard_index",
-    "multiclass_matthews_corrcoef",
-    "multiclass_precision",
-    "multiclass_precision_at_fixed_recall",
-    "multiclass_precision_recall_curve",
-    "multiclass_recall",
-    "multiclass_recall_at_fixed_precision",
-    "multiclass_roc",
-    "multiclass_specificity",
-    "multiclass_specificity_at_sensitivity",
-    "multiclass_stat_scores",
-    "multilabel_accuracy",
-    "multilabel_auroc",
-    "multilabel_average_precision",
-    "multilabel_confusion_matrix",
-    "multilabel_exact_match",
-    "multilabel_f1_score",
-    "multilabel_fbeta_score",
-    "multilabel_hamming_distance",
-    "multilabel_jaccard_index",
-    "multilabel_matthews_corrcoef",
-    "multilabel_precision",
-    "multilabel_precision_at_fixed_recall",
-    "multilabel_precision_recall_curve",
-    "multilabel_recall",
-    "multilabel_recall_at_fixed_precision",
-    "multilabel_roc",
-    "multilabel_specificity",
-    "multilabel_specificity_at_sensitivity",
-    "multilabel_stat_scores",
-    "precision",
-    "precision_at_fixed_recall",
-    "precision_recall_curve",
-    "recall",
-    "recall_at_fixed_precision",
-    "roc",
-    "specicity_at_sensitivity",
-    "specificity",
-    "specificity_at_sensitivity",
-    "stat_scores",
-]
+__all__ = list(_classification_all) + list(_regression_all)

@@ -116,6 +116,29 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     stat_scores,
 )
 
+from torchmetrics_tpu_torch.functional.classification.calibration_error import (
+    binary_calibration_error,
+    calibration_error,
+    multiclass_calibration_error,
+)
+from torchmetrics_tpu_torch.functional.classification.dice import dice
+from torchmetrics_tpu_torch.functional.classification.group_fairness import (
+    binary_fairness,
+    binary_groups_stat_rates,
+    demographic_parity,
+    equal_opportunity,
+)
+from torchmetrics_tpu_torch.functional.classification.hinge import (
+    binary_hinge_loss,
+    hinge_loss,
+    multiclass_hinge_loss,
+)
+from torchmetrics_tpu_torch.functional.classification.ranking import (
+    multilabel_coverage_error,
+    multilabel_ranking_average_precision,
+    multilabel_ranking_loss,
+)
+
 __all__ = [
     "accuracy",
     "auroc",
@@ -123,11 +146,15 @@ __all__ = [
     "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
+    "binary_calibration_error",
     "binary_cohen_kappa",
     "binary_confusion_matrix",
     "binary_f1_score",
+    "binary_fairness",
     "binary_fbeta_score",
+    "binary_groups_stat_rates",
     "binary_hamming_distance",
+    "binary_hinge_loss",
     "binary_jaccard_index",
     "binary_matthews_corrcoef",
     "binary_precision",
@@ -139,23 +166,30 @@ __all__ = [
     "binary_specificity",
     "binary_specificity_at_sensitivity",
     "binary_stat_scores",
+    "calibration_error",
     "cohen_kappa",
     "confusion_matrix",
+    "demographic_parity",
+    "dice",
+    "equal_opportunity",
     "exact_match",
     "f1_score",
     "fbeta_score",
     "hamming_distance",
+    "hinge_loss",
     "jaccard_index",
     "matthews_corrcoef",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
+    "multiclass_calibration_error",
     "multiclass_cohen_kappa",
     "multiclass_confusion_matrix",
     "multiclass_exact_match",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
     "multiclass_hamming_distance",
+    "multiclass_hinge_loss",
     "multiclass_jaccard_index",
     "multiclass_matthews_corrcoef",
     "multiclass_precision",
@@ -171,6 +205,7 @@ __all__ = [
     "multilabel_auroc",
     "multilabel_average_precision",
     "multilabel_confusion_matrix",
+    "multilabel_coverage_error",
     "multilabel_exact_match",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
@@ -180,6 +215,8 @@ __all__ = [
     "multilabel_precision",
     "multilabel_precision_at_fixed_recall",
     "multilabel_precision_recall_curve",
+    "multilabel_ranking_average_precision",
+    "multilabel_ranking_loss",
     "multilabel_recall",
     "multilabel_recall_at_fixed_precision",
     "multilabel_roc",

@@ -162,13 +162,20 @@ def _multiclass_confusion_matrix_tensor_validation(
 
 
 def _multiclass_confusion_matrix_format(
-    preds: torch.Tensor, target: torch.Tensor, ignore_index: Optional[int] = None
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    ignore_index: Optional[int] = None,
+    convert_to_labels: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Argmax logits (first index wins a tie, NaN is maximal: K1's rule) and flatten;
-    ignored targets become ``-1``."""
-    if preds.ndim == target.ndim + 1:
-        preds = _argmax_nan_first(preds)
-    preds = preds.flatten()
+    ignored targets become ``-1``. ``convert_to_labels=False`` keeps the scores as
+    ``(samples, C)`` rows (hinge loss, calibration error)."""
+    if convert_to_labels:
+        if preds.ndim == target.ndim + 1:
+            preds = _argmax_nan_first(preds)
+        preds = preds.flatten()
+    else:
+        preds = torch.movedim(preds, 1, -1).reshape(-1, preds.shape[1])
     target = target.flatten()
     if ignore_index is not None:
         target = torch.where(target == ignore_index, -1, target)

@@ -23,7 +23,7 @@ import torch
 from torchmetrics_tpu_torch.ops.stat_counts import _argmax_nan_first, stat_counts
 from torchmetrics_tpu_torch.utilities.checks import _check_same_shape, _is_floating
 from torchmetrics_tpu_torch.utilities.compute import _safe_divide, _sigmoid
-from torchmetrics_tpu_torch.utilities.data import _bincount, select_topk
+from torchmetrics_tpu_torch.utilities.data import _bincount, _one_hot, select_topk
 from torchmetrics_tpu_torch.utilities.enums import _route_task
 
 Counts4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -51,13 +51,6 @@ def _count_stats(preds: torch.Tensor, target: torch.Tensor, sum_dims) -> Counts4
     fp = ((target != preds) & (target == 0)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
     tn = ((target == preds) & (target == 0)).sum(dim=sum_dims, dtype=torch.int32).squeeze()
     return tp, fp, tn, fn
-
-
-def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """Int32 one-hot of labels in ``[0, num_classes)`` as a comparison with the class
-    indices: ``torch.nn.functional.one_hot`` checks the labels' range on the host, a
-    sync that keeps an update out of a captured graph."""
-    return (labels[..., None] == torch.arange(num_classes, device=labels.device)).to(torch.int32)
 
 
 def _label_values_check(values: torch.Tensor, allowed: set, what: str, hint: str) -> None:

@@ -23,6 +23,12 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
 
 
+def _safe_xlogy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x * log(y)`` with ``0 * log(0) = 0``."""
+    y_safe = torch.where(x == 0, torch.ones_like(y), y)
+    return torch.where(x == 0, torch.zeros_like(x * torch.log(y_safe)), x * torch.log(y_safe))
+
+
 def _safe_divide(num: torch.Tensor, denom: torch.Tensor, zero_division: float = 0.0) -> torch.Tensor:
     """Division with ``x/0 -> zero_division``; integer inputs divide in float32."""
     num = num if num.is_floating_point() else num.to(torch.float32)

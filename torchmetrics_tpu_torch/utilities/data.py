@@ -42,13 +42,22 @@ def _flatten(x: Sequence) -> list:
     return [item for sublist in x for item in sublist]
 
 
+def _one_hot(labels: torch.Tensor, num_classes: int, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """One-hot of labels along a new last axis, as a comparison with the class indices; a
+    label outside ``[0, num_classes)`` gives a row of zeros. It reads nothing back:
+    ``torch.nn.functional.one_hot`` checks the labels' range on the host, a sync that
+    keeps an update out of a captured graph."""
+    return (labels[..., None] == torch.arange(num_classes, device=labels.device)).to(dtype)
+
+
 def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> torch.Tensor:
-    """Integer labels ``(N, ...)`` to one-hot ``(N, C, ...)``."""
+    """Integer labels ``(N, ...)`` to one-hot ``(N, C, ...)``: int64 for int64 labels,
+    int32 otherwise. Only ``num_classes=None`` reads the host, for the labels' ``max()``,
+    as the JAX package does."""
     if num_classes is None:
         num_classes = int(label_tensor.max()) + 1
-    oh = torch.nn.functional.one_hot(label_tensor.long(), num_classes)
-    oh = oh.to(torch.int64 if label_tensor.dtype == torch.int64 else torch.int32)
-    return torch.movedim(oh, -1, 1)
+    dtype = torch.int64 if label_tensor.dtype == torch.int64 else torch.int32
+    return torch.movedim(_one_hot(label_tensor, num_classes, dtype), -1, 1)
 
 
 def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
