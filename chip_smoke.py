@@ -146,6 +146,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (and a Tweedie 1.5 replay), the debiased l2 calibration error, and each path's update
    µs, engine on against eager, in turns.
 
+16. regression's moments and ``cat`` states and the retrieval domain, each path 16
+   updates eagerly, then with the engine on, then ``compute``, and the same on the CPU:
+   ``distill``, ImageNet-1k student logits (as phase 15 makes them) into accuracy (K1)
+   beside ``KLDivergence()`` and ``KLDivergence(reduction="none")`` of the teacher's
+   softmax against the student's; ``regression``, phase 15's 2^20 rows into Pearson and
+   concordance (one group) beside an MSE (one fused graph carries the moments) and
+   Spearman, and 131072 x 8 into both at eight outputs;
+   ``kendall``, 16 x 4096 ranker scores rounded to 0.01 against 1-5 human labels into
+   Kendall's tau a / b / c and b with its test, the CPU side an independent O(n log n)
+   count (a Fenwick tree) in place of the port's O(n²) scan; ``embeddings``, 16 x
+   (8192, 768) pairs into ``CosineSimilarity("mean")``; ``msmarco``, MS MARCO passage dev
+   (small): 6,980 queries x 1,000 BM25 candidates, whole queries per update, into the
+   nine binary retrieval metrics (top 10, a curve to 100, one ``skip``), nDCG@10 on TREC
+   DL style grades and a binned ``BinaryAUROC`` (K2), the CPU side over the JAX
+   package's numpy pack (checked bit-equal to the card's pack, which reads the host
+   once). Groups, launches, the engine's split (Pearson, concordance, KL ``mean`` and
+   accuracy replay; the lists fall back), states and values against the CPU, the
+   engine bit-equal to eager, host syncs per update and per ``compute`` (a retrieval
+   compute reads the host once), each ``compute``'s ms (Kendall's pairs per second
+   beside its bound) and each path's update µs, engine on against eager, in turns.
+   Phase 9 also syncs a ``PearsonCorrCoef`` (stacked moments) and a ``RetrievalMAP``
+   (``None``-reduced lists of equal counts) over its two ranks, each held to the
+   ``merge_state`` fold.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -157,7 +181,8 @@ one JSON object (the updates line runs to tens of kilobytes).
 
 ``python3 chip_smoke.py --eval-loop-only`` runs phases 1-2 and then phase 13 alone, on
 batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 alone;
-``--tensor-metrics-only`` runs phases 1-2 and then phase 15 alone.
+``--tensor-metrics-only`` runs phases 1-2 and then phase 15 alone;
+``--moments-retrieval-only`` runs phases 1-2 and then phase 16 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -1026,6 +1051,54 @@ def _same_state_dict(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(flat(a[k]), flat(b[k])) for k in a)
 
 
+SYNC2_ROWS, SYNC2_QUERIES, SYNC2_DOCS = 1 << 16, 64, 100  # per batch: Pearson rows; retrieval queries x documents
+
+
+def _sync2_batches(rank: int) -> list:
+    """Three batches per rank, of equal shapes on both ranks (a ``None``-reduced list
+    syncs element by element): Pearson ``(x, y)`` and retrieval ``(scores, relevance,
+    query ids)``, each rank and batch with queries of its own."""
+    gen = torch.Generator().manual_seed(2000 + rank)
+    out = []
+    for b in range(3):
+        x = torch.randn(SYNC2_ROWS, generator=gen)
+        y = 0.6 * x + torch.randn(SYNC2_ROWS, generator=gen)
+        rel = (torch.rand(SYNC2_QUERIES * SYNC2_DOCS, generator=gen) < 0.05).long()
+        scores = torch.randn(SYNC2_QUERIES * SYNC2_DOCS, generator=gen) + 2.0 * rel
+        qids = (1000 * rank + SYNC2_QUERIES * b + torch.arange(SYNC2_QUERIES)).repeat_interleave(SYNC2_DOCS)
+        out.append(tuple(t.cuda() for t in (x, y, scores, rel, qids)))
+    return out
+
+
+def _sync2_metrics() -> dict:
+    from torchmetrics_tpu_torch.regression import PearsonCorrCoef
+    from torchmetrics_tpu_torch.retrieval import RetrievalMAP
+
+    metrics = {"pearson": PearsonCorrCoef(), "rmap": RetrievalMAP()}
+    for m in metrics.values():
+        m.persistent(True)
+    return metrics
+
+
+def _sync2_rank_body(rank: int, out_dir: str) -> dict:
+    """A ``PearsonCorrCoef`` (its moments stack per rank, ``dist_reduce_fx=None``) and a
+    ``RetrievalMAP`` (its ``None``-reduced lists gather element by element), each
+    computed across the two ranks on the packed route."""
+    metrics = _sync2_metrics()
+    for x, y, scores, rel, qids in _sync2_batches(rank):
+        metrics["pearson"].update(x, y)
+        metrics["rmap"].update(scores, rel, qids)
+    local = {k: m.state_dict() for k, m in metrics.items()}
+    values = {k: m.compute() for k, m in metrics.items()}
+    torch.cuda.synchronize()
+    torch.save({"local": local, "values": values}, os.path.join(out_dir, f"rank{rank}_tm2.pt"))
+    return {
+        k: {"packed_syncs": m._epoch.stats.packed_syncs, "sync_collectives": m._epoch.stats.sync_collectives,
+            "eager_fallbacks": m._epoch.stats.eager_fallbacks, "after_unsync_equal": _same_state_dict(local[k], m.state_dict())}
+        for k, m in metrics.items()
+    }
+
+
 def _sync_rank_body(rank: int, out_dir: str) -> dict:
     import numpy as np
 
@@ -1095,7 +1168,7 @@ def _sync_rank(rank: int, port: int, out_dir: str) -> None:
 
     try:
         with engine_context(False):  # the eager path, as in the earlier slices
-            result = {"ok": True, **_sync_rank_body(rank, out_dir)}
+            result = {"ok": True, **_sync_rank_body(rank, out_dir), "moments_lists": _sync2_rank_body(rank, out_dir)}
     except Exception as err:  # reported to the parent, which fails the phase
         result = {"ok": False, "error": f"{type(err).__name__}: {err}"}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -1144,7 +1217,31 @@ def run_sync_phase() -> dict:
                 raise AssertionError(f"sync phase: rank {rank} issued {res['sync_collectives']} collectives, expected {want_collectives}")
             if not res["after_unsync_equal"]:
                 raise AssertionError(f"sync phase: rank {rank} did not get its local state back after compute")
+            for name, st in res["moments_lists"].items():
+                if (st["packed_syncs"], st["eager_fallbacks"], st["after_unsync_equal"]) != (1, 0, True):
+                    raise AssertionError(f"sync phase: rank {rank} {name} off the packed route or not restored: {st}")
         saved = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+        saved2 = [torch.load(os.path.join(out_dir, f"rank{r}_tm2.pt")) for r in range(2)]
+
+    # Pearson and RetrievalMAP: the two ranks' local states folded with merge_state
+    moments_lists = {}
+    for name in ("pearson", "rmap"):
+        folded, other = _sync2_metrics()[name], _sync2_metrics()[name]
+        folded.load_state_dict(saved2[0]["local"][name])
+        other.load_state_dict(saved2[1]["local"][name])
+        folded.merge_state(other)
+        want = folded.compute()
+        diffs = []
+        for rank in range(2):
+            got = saved2[rank]["values"][name]
+            _assert_close(f"sync {name} rank {rank}", got, want, ACC_ATOL)
+            diffs.append(abs(float(got) - float(want)))
+        moments_lists[name] = {
+            "value": float(want), "abs_diff_to_fold": diffs,
+            "sync_collectives": [r["moments_lists"][name]["sync_collectives"] for r in results],
+        }
+    if tuple(folded.preds[0].shape) != (SYNC2_QUERIES * SYNC2_DOCS,) or len(folded.preds) != 6:
+        raise AssertionError(f"sync rmap fold: {len(folded.preds)} list elements")
 
     # the reference: the two ranks' local states folded with merge_state, on the card
     others = _sync_members()
@@ -1168,9 +1265,11 @@ def run_sync_phase() -> dict:
         "sync_collectives": [r["sync_collectives"] for r in results],
         "packed_compute_ms": [r["packed_compute_ms"] for r in results],
         "eager_compute_ms": [r["eager_compute_ms"] for r in results],
+        "moments_lists": moments_lists,
     }
     _log(f"  2 ranks: packed route, {summary['sync_collectives']} collectives ({summary['buffer_keys']} + metadata),"
-         " values equal to the merge_state fold; ragged cat state raised on both ranks")
+         " values equal to the merge_state fold; ragged cat state raised on both ranks; Pearson's stacked moments"
+         f" and RetrievalMAP's None lists on the packed route ({moments_lists}), equal to their merge_state fold")
     return summary
 
 
@@ -3246,16 +3345,21 @@ def _tm_regression_wide(device=None) -> dict:
 
 
 class _TensorPath:
-    """One phase-15 path. ``units``: name -> ``(make(device) -> {member: metric}, card args
-    of update i)``, one collection (or one metric) each on the card; ``host_units``: the
-    same members as the CPU run builds them, with the inputs as the card's metrics see
-    them (the card's own softmax or sigmoid where the metric applies one)."""
+    """One phase-15 or phase-16 path. ``units``: name -> ``(make(device) -> {member:
+    metric}, card args of update i)``, one collection (or one metric) each on the card;
+    ``host_units``: the same members as the CPU run builds them, with the inputs as the
+    card's metrics see them (the card's own softmax or sigmoid where the metric applies
+    one). ``host_prepare(objs)`` runs on the CPU units after their updates (phase 16 hands
+    some CPU members an independent reference compute); ``value_tol(member, w)`` and
+    ``state_rtol`` (member -> relative tolerance of float states) override phase 15's."""
 
     def __init__(self, name: str, units: dict, host_units: dict, n: int, groups: set, per_update: dict,
-                 falling_back: set, no_sync: set, ce_rows: int = 0):
+                 falling_back: set, no_sync: set, ce_rows: int = 0, host_prepare=None, value_tol=None,
+                 state_rtol: "dict | None" = None):
         self.name, self.units, self.host_units, self.n = name, units, host_units, n
         self.groups, self.per_update, self.falling_back, self.no_sync = groups, per_update, falling_back, no_sync
         self.ce_rows = ce_rows
+        self.host_prepare, self.value_tol, self.state_rtol = host_prepare, value_tol, state_rtol or {}
 
 
 def _tm_unit(members: dict):
@@ -3290,6 +3394,8 @@ def _tm_drive(path: _TensorPath, device=None) -> tuple:
         obj = objs[u] = _tm_unit(make(device))
         for i in range(path.n):
             obj.update(*args(i))
+    if device == "cpu" and path.host_prepare is not None:
+        path.host_prepare(objs)
     for obj in objs.values():
         value = obj.compute()
         values.update({obj._tm_name: value} if hasattr(obj, "_tm_name") else value)
@@ -3298,6 +3404,8 @@ def _tm_drive(path: _TensorPath, device=None) -> tuple:
 
 def _tm_value_tol(path: _TensorPath, member: str, w: torch.Tensor) -> torch.Tensor:
     """A value's tolerance against the CPU run (see the constants above)."""
+    if path.value_tol is not None:
+        return path.value_tol(member, w)
     if member.startswith("ece"):
         return torch.full_like(w, _ce_tolerance(path.ce_rows))
     if member in ("r2", "rse", "ev", "r2_8"):
@@ -3362,7 +3470,7 @@ def run_tensor_path(path: _TensorPath) -> dict:
         try:
             _assert_same_states(f"tensor {path.name} {m} engine vs eager", metric, eager_members[m])
             # the calibration states are the card's confidences and hits: bit-equal
-            rtol = 0.0 if m.startswith("ece") else TM_SUM_RTOL
+            rtol = path.state_rtol.get(m, 0.0 if m.startswith("ece") else TM_SUM_RTOL)
             _assert_same_states(f"tensor {path.name} {m} vs cpu", eager_members[m], host_members[m], float_rtol=rtol)
         except AssertionError as exc:
             failures.append(str(exc))
@@ -3405,6 +3513,11 @@ def run_tensor_path(path: _TensorPath) -> dict:
                     split[o] = st.as_dict()
                     if st.dispatches or st.eager_fallbacks != n - discovery:
                         failures.append(f"tensor {path.name}: {o} should fall back every update: {st.as_dict()}")
+        elif obj._tm_name in path.falling_back:
+            st = obj._engine.stats
+            split[obj._tm_name] = st.as_dict()
+            if st.dispatches or st.eager_fallbacks != n:
+                failures.append(f"tensor {path.name}: {obj._tm_name} should fall back every update: {st.as_dict()}")
         else:
             st = obj._engine.stats
             split[obj._tm_name] = st.as_dict()
@@ -3593,6 +3706,444 @@ def run_tensor_metrics(imagenet: list, coco: list, ctr: list, gen: torch.Generat
     return out
 
 
+# ---------------------------------------------------------------- phase 16: regression's moments and cat states, retrieval
+
+KD_TEMPERATURE = 2.0  # the teacher's softmax temperature, as knowledge distillation uses
+KENDALL_BATCH = 4096
+KENDALL_LEVELS = 5  # human labels on a 1-5 scale
+EMB_BATCH, EMB_DIM = 8192, 768  # BERT-base sentence embeddings
+MSM_QUERIES, MSM_CANDIDATES = 6980, 1000  # MS MARCO passage dev (small), BM25 top-1000
+MSM_POS_SHARE = 0.857  # queries with a positive among their BM25 top-1000 (BM25 recall@1000)
+MSM_SECOND_POS = 0.07  # share of those with a second positive: ~1.07 positives per query
+MSM_MARGIN = 3.5  # a positive's mean score above the negatives' (unit variance)
+MSM_TOP_K, MSM_MAX_K = 10, 100
+TM2_PATHS = ("distill", "regression", "kendall", "embeddings", "msmarco")
+# Pearson's running moments: each batch adds centred products whose float32 sums over
+# 2^20 rows the card and the CPU reduce in other orders, and the running mean's update
+# (n_prior * mean + Σx) / n carries each batch's rounding into the next
+TM2_MOMENT_RTOL = 1e-5
+# a float64 statistic rounded once to float32 on both sides (Spearman's ranks and
+# Kendall's counts are exact): at most one float32 ulp apart
+TM2_ROUNDED_RTOL = 2.0**-23
+# the cosine's per-row dot products and norms over 768 floats, and KL's over 1000
+# classes, are float32 reductions in other orders: relative 2e-6 of a row's terms
+TM2_ROW_RTOL = 2e-6
+# Kendall's pair scan: float32 operations per distinct pair that the work needs (two
+# differences and the product of their signs), for the bound
+KENDALL_OPS_PER_PAIR = 3
+
+
+def _tm2_distill_batches(gen: torch.Generator) -> tuple:
+    """ImageNet-1k student logits as phase 15 makes them, and a teacher that agrees with
+    the student up to noise: ``(logits, labels)`` for the accuracy and ``(teacher probs,
+    student probs)`` for KL(teacher ‖ student), on the card."""
+    student = _tm_imagenet_batches(gen)
+    kl = []
+    for logits, _ in student:
+        teacher = logits + torch.randn(logits.shape, generator=gen).cuda()
+        kl.append((torch.softmax(teacher / KD_TEMPERATURE, dim=1), torch.softmax(logits, dim=1)))
+    return student, kl
+
+
+def _tm2_kendall_batches(gen: torch.Generator) -> list:
+    """A ranker's scores rounded to 0.01 (ties) against human labels on a 1-5 scale that
+    agree with them up to noise."""
+    out = []
+    for _ in range(N_BATCHES):
+        score = torch.rand(KENDALL_BATCH, generator=gen)
+        label = torch.clamp(torch.round(score * KENDALL_LEVELS + 0.5 + torch.randn(KENDALL_BATCH, generator=gen)), 1, KENDALL_LEVELS)
+        out.append((torch.round(score * 100) / 100, label))
+    return [(p.cuda(), t.cuda()) for p, t in out]
+
+
+def _tm2_embedding_batches(gen: torch.Generator) -> list:
+    """Pairs of 768-wide embeddings, the second a noisy copy of the first."""
+    out = []
+    for _ in range(N_BATCHES):
+        a = torch.randn(EMB_BATCH, EMB_DIM, generator=gen)
+        out.append((a.cuda(), (a + 0.8 * torch.randn(EMB_BATCH, EMB_DIM, generator=gen)).cuda()))
+    return out
+
+
+def _tm2_msmarco_batches(gen: torch.Generator) -> list:
+    """MS MARCO passage dev (small): every query's 1000 candidates, whole queries per
+    update. ``MSM_POS_SHARE`` of the queries have a positive (a second on
+    ``MSM_SECOND_POS`` of them), the rest none; a re-ranker scores positives
+    ``MSM_MARGIN`` above the negatives. Graded relevance 0-3 as TREC DL grades: a
+    positive 2 or 3, 2 % of the negatives 1. Query ids are spread, as real ids are.
+    ``(scores, binary, graded, query ids)`` per update, on the card."""
+    has_pos = torch.rand(MSM_QUERIES, generator=gen) < MSM_POS_SHARE
+    n_pos = has_pos.long() * (1 + (torch.rand(MSM_QUERIES, generator=gen) < MSM_SECOND_POS).long())
+    slot = torch.arange(MSM_CANDIDATES).expand(MSM_QUERIES, MSM_CANDIDATES)
+    binary = (slot < n_pos[:, None]).long()
+    scores = torch.randn(MSM_QUERIES, MSM_CANDIDATES, generator=gen) + MSM_MARGIN * binary
+    graded = binary * torch.randint(2, 4, binary.shape, generator=gen)
+    graded = torch.where((binary == 0) & (torch.rand(binary.shape, generator=gen) < 0.02), 1, graded)
+    qids = (1_048_578 + 7 * torch.arange(MSM_QUERIES)).expand(MSM_CANDIDATES, MSM_QUERIES).T
+    out = []
+    for rows in torch.tensor_split(torch.arange(MSM_QUERIES), N_BATCHES):
+        out.append(tuple(x[rows].reshape(-1).cuda() for x in (scores, binary, graded, qids)))
+    return out
+
+
+def _tm2_distill(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {"acc": tm.MulticlassAccuracy(ACC_CLASSES, validate_args=False, device=device)}
+
+
+def _tm2_kl(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {"kl": tm.KLDivergence(device=device), "kl_rows": tm.KLDivergence(reduction="none", device=device)}
+
+
+def _tm2_moments(device=None, outputs: int = 1) -> dict:
+    """Pearson and concordance (one group); at one output beside an MSE, so the fused
+    collection graph carries the ``dist_reduce_fx=None`` moments."""
+    import torchmetrics_tpu_torch as tm
+
+    suffix = "" if outputs == 1 else str(outputs)
+    members = {
+        f"pearson{suffix}": tm.PearsonCorrCoef(num_outputs=outputs, device=device),
+        f"ccc{suffix}": tm.ConcordanceCorrCoef(num_outputs=outputs, device=device),
+    }
+    if outputs == 1:
+        members["mse"] = tm.MeanSquaredError(device=device)
+    return members
+
+
+def _tm2_spearman(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {"spearman": tm.SpearmanCorrCoef(device=device)}
+
+
+def _tm2_kendall(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {
+        "tau_a": tm.KendallRankCorrCoef(variant="a", device=device),
+        "tau_b": tm.KendallRankCorrCoef(variant="b", device=device),
+        "tau_c": tm.KendallRankCorrCoef(variant="c", device=device),
+        "tau_b_test": tm.KendallRankCorrCoef(variant="b", t_test=True, device=device),
+    }
+
+
+def _tm2_cosine(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {"cosine": tm.CosineSimilarity(reduction="mean", device=device)}
+
+
+def _tm2_retrieval(device=None) -> dict:
+    from torchmetrics_tpu_torch import retrieval as r
+
+    k, d = MSM_TOP_K, dict(device=device)
+    return {
+        "mrr": r.RetrievalMRR(**d), "map10": r.RetrievalMAP(top_k=k, **d), "p10": r.RetrievalPrecision(top_k=k, **d),
+        "r10": r.RetrievalRecall(top_k=k, empty_target_action="skip", **d), "fallout10": r.RetrievalFallOut(top_k=k, **d),
+        "hit10": r.RetrievalHitRate(top_k=k, **d), "rprec": r.RetrievalRPrecision(**d),
+        "curve": r.RetrievalPrecisionRecallCurve(max_k=MSM_MAX_K, **d),
+        "r_at_p": r.RetrievalRecallAtFixedPrecision(min_precision=0.1, max_k=MSM_MAX_K, **d),
+    }
+
+
+def _tm2_ndcg(device=None) -> dict:
+    from torchmetrics_tpu_torch.retrieval import RetrievalNormalizedDCG
+
+    return {"ndcg10": RetrievalNormalizedDCG(top_k=MSM_TOP_K, device=device)}
+
+
+def _tm2_auroc(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    return {"auroc": tm.BinaryAUROC(thresholds=N_THRESH, validate_args=False, device=device)}
+
+
+_TM2_RETRIEVAL = ("mrr", "map10", "p10", "r10", "fallout10", "hit10", "rprec", "curve", "r_at_p")
+
+
+def _kendall_reference(x, y) -> dict:
+    """Kendall's statistics by sorting, independent of the port's pair scan: Σ over
+    pairs of sign(dx)·sign(dy) from a Fenwick tree over y's ranks walked in x order (a
+    group of equal x is queried before it is inserted, so its pairs count 0), the tie
+    sums from the group sizes, then tau a / b / c and the two-sided p-value of b in
+    float64, as the JAX package's formulas give them."""
+    import math
+
+    import numpy as np
+
+    x, y = x.double().numpy(), y.double().numpy()
+    n = x.size
+    _, x_sizes = np.unique(x, return_counts=True)
+    _, y_rank, y_sizes = np.unique(y, return_inverse=True, return_counts=True)
+    _, xy_sizes = np.unique(np.stack([x, y], 1), axis=0, return_counts=True)
+    order = np.lexsort((y, x))
+    xs, ys = x[order], y_rank[order]
+    tree = [0] * (len(y_sizes) + 1)
+
+    def below(r: int) -> int:  # inserted elements with y rank < r
+        total = 0
+        while r > 0:
+            total, r = total + tree[r], r & (r - 1)
+        return total
+
+    s, inserted, i = 0, 0, 0
+    while i < n:
+        j = i
+        while j < n and xs[j] == xs[i]:
+            j += 1
+        for k in range(i, j):
+            r = int(ys[k])
+            s += below(r) - (inserted - below(r + 1))
+        for k in range(i, j):
+            r = int(ys[k]) + 1
+            while r < len(tree):
+                tree[r] += 1
+                r += r & -r
+            inserted += 1
+        i = j
+
+    def pairs(t):
+        return int((t * (t - 1) // 2).sum())
+
+    n0, n1, n2, n3 = n * (n - 1) // 2, pairs(x_sizes), pairs(y_sizes), pairs(xy_sizes)
+    con_plus_dis = n0 - n1 - n2 + n3
+    m = min(len(x_sizes), len(y_sizes))
+    x_p1, y_p1 = (float((t * (t - 1) * (t - 2)).sum()) for t in (x_sizes, y_sizes))
+    x_p2, y_p2 = (float((t * (t - 1) * (2 * t + 5)).sum()) for t in (x_sizes, y_sizes))
+    tau_b = s / math.sqrt((n0 - n1) * (n0 - n2))
+    var = (n * (n - 1) * (2 * n + 5) - x_p2 - y_p2) / 18 + 2 * n1 * n2 / (n * (n - 1)) + x_p1 * y_p1 / (9 * n * (n - 1) * (n - 2))
+    p_value = math.erfc(abs(s / math.sqrt(var)) / math.sqrt(2))  # 2 * Φ(-|t|)
+    clip = lambda v: min(1.0, max(-1.0, v))  # noqa: E731
+    return {
+        "concordant": (con_plus_dis + s) // 2, "discordant": (con_plus_dis - s) // 2,
+        "tau_a": clip(s / con_plus_dis), "tau_b": clip(tau_b), "tau_c": clip(2 * s / ((m - 1) / m * n**2)),
+        "p_value_b": p_value,
+    }
+
+
+def _kendall_host_prepare(objs: dict) -> None:
+    """The CPU Kendall members compute from ``_kendall_reference``: the port's own pair
+    scan does n² work, too much for a CPU at 65,536 rows and four taus."""
+    from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
+
+    for name, metric in _tm_members(objs).items():
+        ref = _kendall_reference(dim_zero_cat(metric.preds)[:, 0], dim_zero_cat(metric.target)[:, 0])
+        tau = torch.tensor(ref[name.removesuffix("_test")], dtype=torch.float32)
+        metric.compute = (lambda tau=tau, p=torch.tensor(ref["p_value_b"], dtype=torch.float32): (tau, p)) if name.endswith(
+            "_test") else (lambda tau=tau: tau)
+        metric._tm_reference = ref
+
+
+def _numpy_pack(indexes, preds, target) -> tuple:
+    """The dense matrices of the JAX package's numpy pack (``np.lexsort`` order, ``-inf``
+    / 0 / False pads), independent of the port's device-side one."""
+    import numpy as np
+
+    idx, p, t = indexes.numpy(), preds.numpy(), target.numpy()
+    order = np.lexsort((-p, idx))
+    idx, p, t = idx[order], p[order], t[order]
+    _, counts = np.unique(idx, return_counts=True)
+    n_queries, max_len = len(counts), int(counts.max())
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    ranks = np.arange(len(idx)) - np.repeat(starts, counts)
+    rows = np.repeat(np.arange(n_queries), counts)
+    preds_mat = np.full((n_queries, max_len), -np.inf, dtype=np.float32)
+    preds_mat[rows, ranks] = p
+    target_mat = np.zeros((n_queries, max_len), dtype=np.float32)
+    target_mat[rows, ranks] = t
+    valid = np.zeros((n_queries, max_len), dtype=bool)
+    valid[rows, ranks] = True
+    return torch.from_numpy(preds_mat), torch.from_numpy(target_mat), torch.from_numpy(valid)
+
+
+def _retrieval_host_prepare(objs: dict) -> None:
+    """The CPU retrieval members compute over ``_numpy_pack`` of their epoch: one pack
+    per target kind instead of one per member (the port's pack sorts 7M rows twice)."""
+    from torchmetrics_tpu_torch.retrieval import RetrievalMetric
+    from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
+
+    packs = {}
+    for metric in _tm_members(objs).values():
+        if isinstance(metric, RetrievalMetric):
+            key = metric.allow_non_binary_target
+            if key not in packs:
+                packs[key] = _numpy_pack(*(dim_zero_cat(getattr(metric, a)) for a in ("indexes", "preds", "target")))
+            metric._packed = lambda pack=packs[key]: pack
+
+
+def _tm2_value_tol(member: str, w: torch.Tensor) -> torch.Tensor:
+    """Phase 16's value tolerances against the CPU (the constants above)."""
+    if member.startswith(("spearman", "tau_")):
+        return TM2_ROUNDED_RTOL * w.abs()
+    if member.startswith(("pearson", "ccc")):
+        return 1e-7 + TM2_MOMENT_RTOL * w.abs()
+    if member in ("cosine", "kl", "kl_rows"):
+        return 1e-7 + TM2_ROW_RTOL * w.abs()
+    if member == "auroc":
+        return torch.full_like(w, AUROC_ATOL)
+    return ACC_ATOL + TM_SUM_RTOL * w.abs()  # accuracy, retrieval: float32 means over queries or rows
+
+
+def _tm2_paths(gen: torch.Generator) -> dict:
+    """The five paths of phase 16 over their batches (host copies for the CPU run)."""
+    def host(batches):
+        return [tuple(x.cpu() for x in b) for b in batches]
+
+    student, kl = _tm2_distill_batches(gen)
+    reg, wide = _tm_regression_batches(gen), _tm_regression_batches(gen, shape=(REG_WIDE_BATCH, REG_OUTPUTS))
+    kendall, emb, msm = _tm2_kendall_batches(gen), _tm2_embedding_batches(gen), _tm2_msmarco_batches(gen)
+    student_h, kl_h, reg_h, wide_h = host(student), host(kl), host(reg), host(wide)
+    kendall_h, emb_h, msm_h = host(kendall), host(emb), host(msm)
+    moments8 = lambda device=None: _tm2_moments(device, REG_OUTPUTS)  # noqa: E731
+    retrieval_names = frozenset(_TM2_RETRIEVAL)
+    moment_rtol = {m: TM2_MOMENT_RTOL for m in ("pearson", "ccc", f"pearson{REG_OUTPUTS}", f"ccc{REG_OUTPUTS}")}
+    n = N_BATCHES
+    return {
+        "distill": _TensorPath(
+            "distill",
+            {"acc": (_tm2_distill, lambda i: student[i]), "kl": (_tm2_kl, lambda i: kl[i])},
+            {"acc": (_tm2_distill, lambda i: student_h[i]), "kl": (_tm2_kl, lambda i: kl_h[i])},
+            n, {frozenset({"acc"}), frozenset({"kl"}), frozenset({"kl_rows"})},
+            {"stat_counts": 1, "multi_threshold": 0}, {"kl_rows"}, {"acc", "kl", "kl_rows"},
+            value_tol=_tm2_value_tol, state_rtol={"kl": TM2_ROW_RTOL, "kl_rows": TM2_ROW_RTOL},
+        ),
+        "regression": _TensorPath(
+            "regression",
+            {"main": (_tm2_moments, lambda i: reg[i]), "wide": (moments8, lambda i: wide[i]),
+             "spearman": (_tm2_spearman, lambda i: reg[i])},
+            {"main": (_tm2_moments, lambda i: reg_h[i]), "wide": (moments8, lambda i: wide_h[i]),
+             "spearman": (_tm2_spearman, lambda i: reg_h[i])},
+            n, {frozenset({"pearson", "ccc"}), frozenset({"mse"}), frozenset({f"pearson{REG_OUTPUTS}", f"ccc{REG_OUTPUTS}"}),
+                frozenset({"spearman"})},
+            {"stat_counts": 0, "multi_threshold": 0}, {"spearman"},
+            {"pearson", "ccc", "mse", f"pearson{REG_OUTPUTS}", f"ccc{REG_OUTPUTS}", "spearman"},
+            value_tol=_tm2_value_tol, state_rtol=moment_rtol,
+        ),
+        "kendall": _TensorPath(
+            "kendall", {"kendall": (_tm2_kendall, lambda i: kendall[i])}, {"kendall": (_tm2_kendall, lambda i: kendall_h[i])},
+            n, {frozenset({"tau_a", "tau_b", "tau_c", "tau_b_test"})}, {"stat_counts": 0, "multi_threshold": 0},
+            set(_tm2_kendall("cpu")), set(_tm2_kendall("cpu")), host_prepare=_kendall_host_prepare,
+            value_tol=_tm2_value_tol,
+        ),
+        "embeddings": _TensorPath(
+            "embeddings", {"cosine": (_tm2_cosine, lambda i: emb[i])}, {"cosine": (_tm2_cosine, lambda i: emb_h[i])},
+            n, {frozenset({"cosine"})}, {"stat_counts": 0, "multi_threshold": 0}, {"cosine"}, {"cosine"},
+            value_tol=_tm2_value_tol,
+        ),
+        "msmarco": _TensorPath(
+            "msmarco",
+            {"retrieval": (_tm2_retrieval, lambda i: (msm[i][0], msm[i][1], msm[i][3])),
+             "ndcg": (_tm2_ndcg, lambda i: (msm[i][0], msm[i][2], msm[i][3])), "auroc": (_tm2_auroc, lambda i: msm[i][:2])},
+            {"retrieval": (_tm2_retrieval, lambda i: (msm_h[i][0], msm_h[i][1], msm_h[i][3])),
+             "ndcg": (_tm2_ndcg, lambda i: (msm_h[i][0], msm_h[i][2], msm_h[i][3])),
+             "auroc": (_tm2_auroc, lambda i: (_sigmoid(msm[i][0]).cpu(), msm_h[i][1]))},
+            n, {retrieval_names, frozenset({"ndcg10"}), frozenset({"auroc"})}, {"stat_counts": 0, "multi_threshold": 1},
+            {*retrieval_names, "ndcg10", "auroc"}, {"ndcg10"}, host_prepare=_retrieval_host_prepare,
+            value_tol=_tm2_value_tol,
+        ),
+    }
+
+
+def check_retrieval_pack(path: _TensorPath) -> dict:
+    """The card's pack of the msmarco epoch (``retrieval.base._pack_query_groups``)
+    bit-equal to ``_numpy_pack`` of the same rows, with exactly one host read."""
+    from torchmetrics_tpu_torch.retrieval.base import _pack_query_groups
+
+    make, args = path.units["retrieval"]
+    epoch = [torch.cat(parts) for parts in zip(*(args(i) for i in range(path.n)))]
+    scores, target, qids = epoch
+    indexes, target32 = qids.to(torch.int32), target.to(torch.int32)
+    got = _pack_query_groups(indexes, scores, target32)
+    want = _numpy_pack(indexes.cpu(), scores.cpu(), target32.cpu())
+    for name, g, w in zip(("preds", "target", "valid"), got, want):
+        g = g.cpu()
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+            raise AssertionError(f"retrieval pack: {name} {g.dtype}{tuple(g.shape)} differs from the numpy pack's {w.dtype}{tuple(w.shape)}")
+    syncs = _syncs_per_call(lambda: _pack_query_groups(indexes, scores, target32))
+    if syncs != 1:
+        raise AssertionError(f"retrieval pack: {syncs} host reads, expected 1")
+    ms = _host_us_per_call(lambda i: _pack_query_groups(indexes, scores, target32), iters=3) / 1e3
+    _log(f"  msmarco pack: {tuple(got[0].shape)} bit-equal to the numpy pack, 1 host read, {ms:.2f} ms")
+    return {"shape": list(got[0].shape), "rows": int(scores.numel()), "host_reads": syncs, "ms": ms}
+
+
+def time_tensor2_computes(paths: dict, hbm_rate: float) -> dict:
+    """Each member's ``compute`` on the card after its path's 16 eager updates: ms (host
+    clock to a device sync, median of three, the cached value dropped each time) and host
+    syncs per compute; a retrieval compute must read the host once (twice for recall at
+    fixed precision, whose pick reads its curve), as the JAX package does. Kendall's
+    distinct pairs per second beside the bound of its pair scan."""
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.retrieval import RetrievalMetric
+
+    out = {}
+    with engine_context(False):
+        for name, path in paths.items():
+            objs = {u: _tm_unit(make()) for u, (make, _) in path.units.items()}
+            for u, (_, args) in path.units.items():
+                for i in range(path.n):
+                    objs[u].update(*args(i))
+            for m, metric in _tm_members(objs).items():
+                def once(metric=metric):
+                    metric._computed = None
+                    metric.compute()
+
+                once()
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    once()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                rec = {"ms": statistics.median(times), "host_syncs": _syncs_per_call(once)}
+                if isinstance(metric, RetrievalMetric) and rec["host_syncs"] != (2 if m == "r_at_p" else 1):
+                    raise AssertionError(f"{name} {m}: {rec['host_syncs']} host reads per compute")
+                if m.startswith("tau_"):
+                    rows = path.n * KENDALL_BATCH
+                    pairs = rows * (rows - 1) // 2
+                    ops_ms = pairs * KENDALL_OPS_PER_PAIR / _F32_RATE * 1e3
+                    bytes_ms = 2 * rows * 4 / hbm_rate * 1e3
+                    rec.update({"pairs": pairs, "pairs_per_s": pairs / (rec["ms"] / 1e3), "bound_ms": max(ops_ms, bytes_ms),
+                                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+                out[f"{name}:{m}"] = rec
+            del objs
+            gc.collect()
+    _log("  tensor2 computes: " + ", ".join(f"{k} {v['ms']:.2f} ms" for k, v in out.items()))
+    return out
+
+
+def run_tensor2(gen: torch.Generator, hbm_rate: float) -> dict:
+    """Phase 16: knowledge-distillation KL beside accuracy (K1), Pearson / concordance /
+    Spearman over regression rows, Kendall's tau over ranker scores against human
+    labels, cosine similarity of sentence embeddings, and the ten retrieval metrics over
+    MS MARCO's dev queries beside a binned AUROC (K2)."""
+    paths = _tm2_paths(gen)
+    out = {name: run_tensor_path(path) for name, path in paths.items()}
+    out["msmarco_pack"] = check_retrieval_pack(paths["msmarco"])
+    out["tolerances"] = {
+        "moment_rtol": TM2_MOMENT_RTOL, "rounded_rtol": TM2_ROUNDED_RTOL, "row_rtol": TM2_ROW_RTOL,
+        "retrieval_and_accuracy": f"{ACC_ATOL} + {TM_SUM_RTOL} relative", "auroc_atol": AUROC_ATOL,
+    }
+    out["computes"] = time_tensor2_computes(paths, hbm_rate)
+    out["times"] = time_tensor_paths(paths)
+    for name in paths:
+        t = out["times"][name]
+
+        def device(mode):
+            busy, idle = t[mode]["device_busy_us"], t[mode]["device_idle_share"]
+            return "no device work" if busy is None else f"busy {busy:.1f} us, idle {idle:.3f}"
+
+        computes = {k.split(":", 1)[1]: round(v["ms"], 2) for k, v in out["computes"].items() if k.startswith(name + ":")}
+        _log(f"  tensor2 {name}: update {t['eager']['update_us']:.1f} -> {t['engine']['update_us']:.1f} us (eager ->"
+             f" engine), syncs per update {out[name]['host_syncs_per_update']}, {device('eager')} -> {device('engine')};"
+             f" compute ms {computes}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -3606,11 +4157,11 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/15] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/16] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/15] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/16] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -3626,15 +4177,21 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/15] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/16] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/15] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/16] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--moments-retrieval-only"]:
+        _log("[16/16] regression's moments and cat states, retrieval")
+        tensor2 = run_tensor2(gen, hbm_rate)
+        print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -3642,7 +4199,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/15] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/16] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -3650,30 +4207,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/15] kernels against their plain versions")
+        _log("[3/16] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/15] main path")
+        _log("[4/16] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/15] collection path")
+        _log("[5/16] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/15] binary path")
+        _log("[6/16] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/15] multilabel path")
+        _log("[7/16] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/15] task routers")
+        _log("[8/16] task routers")
         run_routers(gen)
 
-        _log("[9/15] sync, two ranks on one card")
+        _log("[9/16] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/15] times")
+        _log("[10/16] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -3686,7 +4243,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/15] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/16] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -3708,7 +4265,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/15] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/16] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -3717,17 +4274,20 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/15] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/16] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/15] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/16] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/15] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/16] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
+
+    _log("[16/16] regression's moments and cat states, retrieval")
+    tensor2 = run_tensor2(gen, hbm_rate)
 
     for entry in kernels:
         k = entry["name"]
@@ -3748,6 +4308,8 @@ def main() -> int:
             "scan_quarantine": engine_tier["quarantine"]["launches"][k],
             **{f"tensor_{path}": tensor[path]["launches_eager"][k] for path in ("imagenet", "coco", "ctr")},
             **{f"tensor_{path}_engine": tensor[path]["launches_engine"][k] for path in ("imagenet", "coco", "ctr")},
+            **{f"tensor2_{path}": tensor2[path]["launches_eager"][k] for path in TM2_PATHS},
+            **{f"tensor2_{path}_engine": tensor2[path]["launches_engine"][k] for path in TM2_PATHS},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -3758,7 +4320,7 @@ def main() -> int:
 
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
-        "tensor_metrics": tensor,
+        "tensor_metrics": tensor, "tensor2": tensor2,
         "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)

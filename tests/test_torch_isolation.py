@@ -29,6 +29,7 @@ print("isolated")
 _NO_CUDA_DEFAULT = """
 import torch
 import torchmetrics_tpu_torch as tm
+import torchmetrics_tpu_torch.retrieval
 from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
 routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
@@ -39,7 +40,9 @@ every_class = [n for n in tm.__all__ if n.startswith(("Binary", "Multiclass", "M
 assert len(every_class) == 67, every_class
 REGRESSION = ("MeanSquaredError", "MeanAbsoluteError", "MeanSquaredLogError", "MeanAbsolutePercentageError",
               "SymmetricMeanAbsolutePercentageError", "WeightedMeanAbsolutePercentageError", "LogCoshError",
-              "R2Score", "RelativeSquaredError", "ExplainedVariance", "TweedieDevianceScore")
+              "R2Score", "RelativeSquaredError", "ExplainedVariance", "TweedieDevianceScore", "PearsonCorrCoef",
+              "ConcordanceCorrCoef", "SpearmanCorrCoef", "KendallRankCorrCoef", "CosineSimilarity", "KLDivergence")
+RETRIEVAL = [n for n in tm.retrieval.__all__ if n != "RetrievalMetric"]
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -70,6 +73,7 @@ for make in (
     lambda: tm.HingeLoss(task="multiclass", num_classes=3),
     lambda: tm.Dice(),
     *(lambda n=n: getattr(tm, n)() for n in REGRESSION),
+    *(lambda n=n: getattr(tm.retrieval, n)() for n in RETRIEVAL),
     lambda: tm.MinkowskiDistance(p=3),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),

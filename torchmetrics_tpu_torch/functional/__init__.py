@@ -5,5 +5,7 @@ from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F40
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
+from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 
-__all__ = list(_classification_all) + list(_regression_all)
+__all__ = list(_classification_all) + list(_regression_all) + list(_retrieval_all)

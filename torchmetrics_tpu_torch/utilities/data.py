@@ -130,3 +130,26 @@ def allclose(tensor1: torch.Tensor, tensor2: torch.Tensor, atol: float = 1e-8, r
 def _cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Cumulative sum; deterministic on CUDA for integer inputs."""
     return torch.cumsum(x, dim=dim)
+
+
+def _order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Int64 keys that sort as the JAX package sorts floats: ``-0.0`` ties with ``0.0``
+    and every NaN ties with every other, after ``+inf``.
+
+    ``torch.searchsorted`` bisects wrongly over a sorted tensor that holds NaN (a NaN
+    compares neither below nor above), and a float sort's NaN placement depends on the
+    NaN's sign bit on some backends; integer keys have neither problem. Every float
+    dtype converts to float64 exactly, whose bit pattern, with the magnitude bits of
+    negative values flipped, orders as an int64.
+    """
+    x = x.to(torch.float64)
+    x = torch.where(x == 0, 0.0, x)
+    bits = x.view(torch.int64)
+    keys = bits ^ ((bits >> 63) & 0x7FFFFFFFFFFFFFFF)
+    return torch.where(torch.isnan(x), torch.iinfo(torch.int64).max, keys)
+
+
+def _argsort_descending(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Stable descending order of ``x`` along ``dim`` with NaN last: the JAX package's
+    ``jnp.argsort(-x)`` (ties keep their input order)."""
+    return torch.argsort(_order_keys(-x), dim=dim, stable=True)

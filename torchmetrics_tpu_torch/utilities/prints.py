@@ -38,3 +38,21 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, category: type = UserWarning, stacklevel: int = 5, **kwargs: Any) -> None:
     warnings.warn(message, category=category, stacklevel=stacklevel, **kwargs)
+
+
+def _deprecated_root_import_class(name: str, domain: str) -> None:
+    """Warn that importing a domain metric class from the package root is deprecated."""
+    rank_zero_warn(
+        f"`torchmetrics_tpu_torch.{name}` was deprecated and will be removed in 2.0."
+        f" Import `torchmetrics_tpu_torch.{domain}.{name}` instead.",
+        DeprecationWarning,
+    )
+
+
+def _deprecated_root_import_func(name: str, domain: str) -> None:
+    """Warn that importing a domain functional from ``functional``'s root is deprecated."""
+    rank_zero_warn(
+        f"`torchmetrics_tpu_torch.functional.{name}` was deprecated and will be removed in 2.0."
+        f" Import `torchmetrics_tpu_torch.functional.{domain}.{name}` instead.",
+        DeprecationWarning,
+    )
