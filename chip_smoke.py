@@ -170,6 +170,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (``None``-reduced lists of equal counts) over its two ranks, each held to the
    ``merge_state`` fold.
 
+17. nominal association and pairwise distances, each metric path 16 updates eagerly,
+   then with the engine on, then ``compute``, and the same on the CPU: ``imagenet``, phase
+   15's ImageNet-1k logits against labels into a collection of accuracy (K1) and Cramér's
+   V, Tschuprow's T, Pearson's contingency coefficient and Theil's U at 1000 classes (one
+   table group, a count into 10^6 bins per update); ``adult``, UCI Adult's education x
+   occupation (16 x 14 values, 5.8 % missing occupation as NaN) in updates of 2^20 rows
+   into Cramér's V and Theil's U with ``nan_strategy="drop"`` (the few-bin count: 256
+   bins); ``crowd``, CIFAR-10H-shaped ratings (10,000 images x 10 classes, 51 labels
+   each) into Fleiss' kappa in counts mode and in probs mode on (625, 10, 51) scores per
+   update. Groups, K1's launches, the engine's split (the tables replay, the drop path
+   included; Fleiss' lists fall back), tables equal to the CPU's, the engine bit-equal
+   to eager, values within the stated tolerances, 0 host syncs per update, one host read
+   per table ``compute``. Then the four ``*_matrix`` functionals over a seeded 48,842 x 9
+   matrix with Adult's nine cardinalities (36 pairs), and the five pairwise functionals
+   over BERT-base-sized embeddings (linear, cosine and euclidean over 8192 x 768 against
+   itself, Manhattan and Minkowski p=3 of 2048 queries against the 8192), each with
+   ``reduction=None`` and ``"mean"``, the leading rows against the CPU: host ms, device
+   busy and idle share, host syncs and the largest device items per call, beside the
+   bound. Each metric path's update µs, engine on against eager, in turns.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -182,7 +202,8 @@ one JSON object (the updates line runs to tens of kilobytes).
 ``python3 chip_smoke.py --eval-loop-only`` runs phases 1-2 and then phase 13 alone, on
 batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 alone;
 ``--tensor-metrics-only`` runs phases 1-2 and then phase 15 alone;
-``--moments-retrieval-only`` runs phases 1-2 and then phase 16 alone.
+``--moments-retrieval-only`` runs phases 1-2 and then phase 16 alone;
+``--nominal-pairwise-only`` runs phases 1-2 and then phase 17 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -4144,6 +4165,315 @@ def run_tensor2(gen: torch.Generator, hbm_rate: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 17: nominal association, pairwise distances
+
+# UCI Adult (48,842 rows): its nine categorical columns' cardinalities, "?" counted as a
+# value where a column has missing entries (workclass, education, marital-status,
+# occupation, relationship, race, sex, native-country, income)
+ADULT_ROWS = 48842
+ADULT_CARDINALITIES = (9, 16, 7, 15, 6, 5, 2, 42, 2)
+# education's 16 levels and occupation's 14 (without "?"), by their shares in Adult
+ADULT_EDUCATION_SHARES = (0.322, 0.224, 0.164, 0.054, 0.043, 0.042, 0.036, 0.033, 0.029, 0.020, 0.018,
+                          0.016, 0.013, 0.010, 0.005, 0.002)
+ADULT_OCCUPATION_SHARES = (0.134, 0.133, 0.132, 0.122, 0.119, 0.107, 0.065, 0.052, 0.045, 0.032, 0.030,
+                           0.021, 0.005, 0.0003)
+ADULT_MISSING_OCCUPATION = 0.058  # the share of "?" in occupation
+ADULT_STREAM = 1 << 20  # education x occupation rows per update
+CROWD_IMAGES, CROWD_CLASSES, CROWD_RATERS = 10000, 10, 51  # CIFAR-10H: 10,000 test images, ~51 labels each
+CROWD_ACCURACY = 0.95  # a CIFAR-10H annotator's share of correct labels
+PAIR_QUERIES = 2048  # Manhattan / Minkowski: 2048 queries against the 8192 embeddings
+PAIR_CPU_ROWS, PAIR_CPU_ROWS_BROADCAST = 256, 16  # the CPU check's leading rows of x
+NOM_PATHS = ("imagenet", "adult", "crowd")
+# the card and the CPU compute the same float64 statistic from equal tables: one float32
+# rounding apart at most
+NOMINAL_RTOL = 1e-6
+# Fleiss' kappa is float32 sums over 10,000 rows in other orders on each side
+FLEISS_ATOL = 1e-5
+# a float32 dot product of 768 terms summed in other orders: within 2^-16 of the
+# Cauchy-Schwarz scale |x_i| |y_j| (the cosine's is 1)
+PAIR_DOT_RTOL = 2.0**-16
+# Euclidean: float64 norm algebra rounded once to float32, then a square root
+PAIR_EUCLID_RTOL = 2.0**-22
+# Manhattan and Minkowski: float32 sums of 768 positive terms in other orders
+PAIR_SUM_RTOL = 1e-5
+# float operations per element of the (N, M, d) work, for the bound
+PAIR_OPS = {"linear": 2, "cosine": 2, "euclidean": 2, "manhattan": 3, "minkowski": 5}
+
+
+def _nom_imagenet(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    c = ACC_CLASSES
+    return {
+        "acc": tm.MulticlassAccuracy(c, validate_args=False, device=device),
+        "cramers": tm.CramersV(c, device=device), "tschuprow": tm.TschuprowsT(c, device=device),
+        "pearson": tm.PearsonsContingencyCoefficient(c, device=device), "theils": tm.TheilsU(c, device=device),
+    }
+
+
+def _nom_adult(device=None) -> dict:
+    import torchmetrics_tpu_torch as tm
+
+    c = len(ADULT_EDUCATION_SHARES)
+    return {"cramers": tm.CramersV(c, nan_strategy="drop", device=device),
+            "theils": tm.TheilsU(c, nan_strategy="drop", device=device)}
+
+
+def _nom_fleiss(mode: str):
+    def make(device=None) -> dict:
+        import torchmetrics_tpu_torch as tm
+
+        return {f"fleiss_{mode}": tm.FleissKappa(mode=mode, device=device)}
+
+    return make
+
+
+def _adult_stream_batches(gen: torch.Generator) -> list:
+    """Education (float codes) and occupation (float codes, "?" as NaN) with Adult's
+    shares; occupation leans on education (a third of the rows take an occupation
+    keyed to the education level). ``(occupation, education)`` per update, on the card."""
+    edu_p, occ_p = torch.tensor(ADULT_EDUCATION_SHARES), torch.tensor(ADULT_OCCUPATION_SHARES)
+    out = []
+    for _ in range(N_BATCHES):
+        edu = torch.multinomial(edu_p, ADULT_STREAM, replacement=True, generator=gen)
+        occ = torch.multinomial(occ_p, ADULT_STREAM, replacement=True, generator=gen)
+        occ = torch.where(torch.rand(ADULT_STREAM, generator=gen) < 0.33, edu % len(ADULT_OCCUPATION_SHARES), occ).float()
+        occ = torch.where(torch.rand(ADULT_STREAM, generator=gen) < ADULT_MISSING_OCCUPATION, float("nan"), occ)
+        out.append((occ.cuda(), edu.float().cuda()))
+    return out
+
+
+def _adult_matrix(gen: torch.Generator) -> torch.Tensor:
+    """48,842 x 9 int64 codes with Adult's cardinalities, each column a noisy function of
+    one latent profile (so the columns associate), on the card."""
+    latent = torch.randint(0, 1 << 20, (ADULT_ROWS,), generator=gen)
+    cols = []
+    for k, card in enumerate(ADULT_CARDINALITIES):
+        keyed = (latent // (k + 1) + 7 * k) % card
+        cols.append(torch.where(torch.rand(ADULT_ROWS, generator=gen) < 0.5, keyed, torch.randint(0, card, (ADULT_ROWS,), generator=gen)))
+    return torch.stack(cols, 1).cuda()
+
+
+def _crowd_batches(gen: torch.Generator) -> tuple:
+    """CIFAR-10H-shaped ratings: each image's true class and ``CROWD_RATERS`` labels, a
+    share ``CROWD_ACCURACY`` of them right. Per update (625 images): the count rows
+    ``(625, 10)`` int64, and probs ``(625, 10, 51)`` float32 whose argmax over the classes
+    is each rater's label (so both modes count the same rows)."""
+    truth = torch.randint(0, CROWD_CLASSES, (CROWD_IMAGES, 1), generator=gen)
+    wrong = torch.randint(0, CROWD_CLASSES, (CROWD_IMAGES, CROWD_RATERS), generator=gen)
+    labels = torch.where(torch.rand(CROWD_IMAGES, CROWD_RATERS, generator=gen) < CROWD_ACCURACY, truth, wrong)
+    counts = (labels[:, :, None] == torch.arange(CROWD_CLASSES)).sum(1)
+    probs = torch.rand(CROWD_IMAGES, CROWD_CLASSES, CROWD_RATERS, generator=gen)
+    probs += 2.0 * (labels[:, None, :] == torch.arange(CROWD_CLASSES)[None, :, None])
+    rows = torch.tensor_split(torch.arange(CROWD_IMAGES), N_BATCHES)
+    return [(counts[r].cuda(),) for r in rows], [(probs[r].cuda(),) for r in rows]
+
+
+def _nom_value_tol(member: str, w: torch.Tensor) -> torch.Tensor:
+    if member == "acc":
+        return ACC_ATOL + TM_SUM_RTOL * w.abs()
+    if member.startswith("fleiss"):
+        return torch.full_like(w, FLEISS_ATOL)
+    return NOMINAL_RTOL * w.abs()
+
+
+def _nom_paths(imagenet: list, gen: torch.Generator) -> dict:
+    """The three metric paths of phase 17 over their batches (host copies for the CPU run)."""
+    def host(batches):
+        return [tuple(x.cpu() for x in b) for b in batches]
+
+    adult = _adult_stream_batches(gen)
+    counts, probs = _crowd_batches(gen)
+    imagenet_h, adult_h, counts_h, probs_h = host(imagenet), host(adult), host(counts), host(probs)
+    tables = frozenset({"cramers", "tschuprow", "pearson", "theils"})
+    n, none = N_BATCHES, {"stat_counts": 0, "multi_threshold": 0}
+    fleiss = {"fleiss_counts", "fleiss_probs"}
+    return {
+        "imagenet": _TensorPath(
+            "imagenet", {"imagenet": (_nom_imagenet, lambda i: imagenet[i])},
+            {"imagenet": (_nom_imagenet, lambda i: imagenet_h[i])}, n, {frozenset({"acc"}), tables},
+            {"stat_counts": 1, "multi_threshold": 0}, set(), {"acc", *tables}, value_tol=_nom_value_tol,
+        ),
+        "adult": _TensorPath(
+            "adult", {"adult": (_nom_adult, lambda i: adult[i])}, {"adult": (_nom_adult, lambda i: adult_h[i])},
+            n, {frozenset({"cramers", "theils"})}, none, set(), {"cramers", "theils"}, value_tol=_nom_value_tol,
+        ),
+        "crowd": _TensorPath(
+            "crowd", {"counts": (_nom_fleiss("counts"), lambda i: counts[i]), "probs": (_nom_fleiss("probs"), lambda i: probs[i])},
+            {"counts": (_nom_fleiss("counts"), lambda i: counts_h[i]), "probs": (_nom_fleiss("probs"), lambda i: probs_h[i])},
+            n, {frozenset({m}) for m in fleiss}, none, fleiss, fleiss, value_tol=_nom_value_tol,
+        ),
+    }
+
+
+def check_nominal_compute_reads(paths: dict) -> dict:
+    """Each table metric's ``compute`` on the card reads the host once (the table) and
+    returns float32 on the card; its ms, host clock to a device sync, median of three."""
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    out = {}
+    with engine_context(False):
+        for name in ("imagenet", "adult"):
+            make, args = paths[name].units[name]
+            for m, metric in make().items():
+                if m == "acc":
+                    continue
+                for i in range(2):
+                    metric.update(*args(i))
+
+                def once(metric=metric):
+                    metric._computed = None
+                    return metric.compute()
+
+                value = once()
+                reads = _syncs_per_call(once)
+                if reads != 1 or value.device.type != "cuda" or value.dtype != torch.float32:
+                    raise AssertionError(f"nominal {name} {m}: {reads} host reads per compute, {value.dtype} on {value.device}")
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    once()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out[f"{name}:{m}"] = {"host_reads": reads, "ms": statistics.median(times)}
+    _log("  nominal computes: " + ", ".join(f"{k} {v['ms']:.2f} ms ({v['host_reads']} read)" for k, v in out.items()))
+    return out
+
+
+def _call_record(fn, iters: int, hbm_rate: float, nbytes: int, ops: int) -> dict:
+    """Host ms per call to a device sync, device busy and idle share, the largest device
+    items and host syncs of ``fn()``, beside the least time the card could take: the
+    bytes it must move over the HBM rate, or its float operations over 67 TFLOP/s
+    (float32 and float64 alike on an H100)."""
+    ms = _host_us_per_call(lambda i: fn(), iters=iters, repeats=3) / 1e3
+    prof = _device_profile(lambda i: fn(), iters=iters)
+    busy = prof["device_busy_us"]
+    bytes_ms, ops_ms = nbytes / hbm_rate * 1e3, ops / _F32_RATE * 1e3
+    return {
+        "ms": ms, "device_busy_us": busy, "device_idle_share": None if busy is None else max(0.0, 1 - busy / (ms * 1e3)),
+        "device_ops": prof["device_ops"], "kernels_us": prof["kernels_us"], "host_syncs": _syncs_per_call(fn),
+        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+    }
+
+
+def run_adult_matrices(gen: torch.Generator, hbm_rate: float) -> dict:
+    """The four ``*_matrix`` functionals over Adult's nine columns (36 pairs, each one
+    ``unique`` sync and one table read) on the card, each equal to the CPU's."""
+    import torchmetrics_tpu_torch.functional as F
+
+    matrix = _adult_matrix(gen)
+    host = matrix.cpu()
+    out = {}
+    for name in ("cramers_v_matrix", "tschuprows_t_matrix", "pearsons_contingency_coefficient_matrix", "theils_u_matrix"):
+        fn = getattr(F, name)
+        got, want = fn(matrix), fn(host)
+        k = len(ADULT_CARDINALITIES)
+        if got.shape != (k, k) or got.device.type != "cuda" or not torch.isfinite(got).all():
+            raise AssertionError(f"adult {name}: {got.dtype}{tuple(got.shape)} on {got.device}")
+        diff = (got.cpu() - want).abs()
+        if not bool((diff <= NOMINAL_RTOL * want.abs()).all()):
+            raise AssertionError(f"adult {name}: card {got.flatten()[:6].tolist()} vs cpu {want.flatten()[:6].tolist()}")
+        # the bound: the matrix read once and the result written once
+        rec = _call_record(lambda fn=fn: fn(matrix), 1, hbm_rate, matrix.numel() * 8 + k * k * 4, 0)
+        rec.update({"max_abs_diff_to_cpu": diff.max().item(), "pairs": k * (k - 1) // 2})
+        out[name] = rec
+    _log("  adult matrices: " + ", ".join(f"{k} {v['ms']:.1f} ms, {v['host_syncs']} syncs" for k, v in out.items()))
+    return out
+
+
+def _pair_tol(kind: str, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, reduction) -> torch.Tensor:
+    if kind == "linear":
+        scale = torch.linalg.norm(x, dim=1)[:, None] * torch.linalg.norm(y, dim=1)[None, :]
+        tol = PAIR_DOT_RTOL * scale
+        return tol.mean(-1) if reduction == "mean" else tol
+    if kind == "cosine":
+        return torch.full_like(w, PAIR_DOT_RTOL)
+    return (PAIR_EUCLID_RTOL if kind == "euclidean" else PAIR_SUM_RTOL) * w.abs() + 1e-6
+
+
+def run_pairwise(gen: torch.Generator, hbm_rate: float) -> dict:
+    """BERT-base-sized embeddings: linear, cosine and euclidean over 8192 x 768 against
+    itself, Manhattan and Minkowski (p = 3) of 2048 queries against the 8192, each with
+    ``reduction=None`` and ``"mean"``; the leading rows held against the CPU. Beside the
+    distances at ``reduction=None``, the time of ``torch.cdist`` on the same inputs."""
+    import torchmetrics_tpu_torch.functional as F
+
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must run at 'highest' precision (no TF32) for the card to agree with the CPU")
+    a = torch.randn(EMB_BATCH, EMB_DIM, generator=gen)
+    b = a + 0.8 * torch.randn(EMB_BATCH, EMB_DIM, generator=gen)
+    a_card, queries = a.cuda(), b[:PAIR_QUERIES].cuda()
+    calls = [
+        ("linear", F.pairwise_linear_similarity, a_card, None, {}),
+        ("cosine", F.pairwise_cosine_similarity, a_card, None, {}),
+        ("euclidean", F.pairwise_euclidean_distance, a_card, None, {}),
+        ("manhattan", F.pairwise_manhattan_distance, queries, a_card, {}),
+        ("minkowski", F.pairwise_minkowski_distance, queries, a_card, {"exponent": 3}),
+    ]
+    out = {}
+    for kind, fn, x, y, kw in calls:
+        sub = PAIR_CPU_ROWS if y is None else PAIR_CPU_ROWS_BROADCAST
+        other = x if y is None else y
+        for reduction in (None, "mean"):
+            name = f"{kind}_{reduction or 'none'}"
+            got = fn(x, y, reduction=reduction, **kw)
+            host_x, host_other = x[:sub].cpu(), other.cpu()
+            want = fn(host_x, host_other, reduction=reduction, zero_diagonal=y is None, **kw)
+            g = got[:sub].cpu()
+            tol = _pair_tol(kind, host_x, host_other, want, reduction)
+            if g.shape != want.shape or not torch.isfinite(got).all() or not bool(((g - want).abs() <= tol).all()):
+                raise AssertionError(f"pairwise {name}: card {g.flatten()[:6].tolist()} vs cpu {want.flatten()[:6].tolist()}")
+            rows, others = x.shape[0], other.shape[0]
+            # the inputs read once and the output written once; PAIR_OPS per (row, other, dim) element
+            nbytes = ((rows + (0 if y is None else others)) * EMB_DIM + rows * (others if reduction is None else 1)) * 4
+            rec = _call_record(lambda: fn(x, y, reduction=reduction, **kw), 3, hbm_rate, nbytes,
+                               PAIR_OPS[kind] * rows * others * EMB_DIM)
+            rec.update({"shape": [rows, others, EMB_DIM], "cpu_rows": sub, "max_abs_diff_to_cpu": (g - want).abs().max().item()})
+            # one library call of the same distances, timed beside, used nowhere in the port
+            p = {"euclidean": 2.0, "manhattan": 1.0, "minkowski": 3.0}.get(kind)
+            rec["library_ms"] = None if p is None or reduction else _host_us_per_call(
+                lambda i: torch.cdist(x, other, p=p), iters=3, repeats=3) / 1e3
+            out[name] = rec
+            del got
+    _log("  pairwise: " + ", ".join(
+        f"{k} {v['ms']:.2f} ms (bound {v['bound_ms']:.3f}, {v['bound_by']}; torch.cdist {v['library_ms']})" for k, v in out.items()
+    ))
+    return out
+
+
+def run_nominal_pairwise(imagenet: list, gen: torch.Generator, hbm_rate: float) -> dict:
+    """Phase 17: the four table metrics beside accuracy (K1) over ImageNet-1k logits, Cramér's
+    V and Theil's U over UCI Adult's education x occupation stream with missing values
+    dropped, the four ``*_matrix`` functionals over Adult's nine columns, Fleiss' kappa
+    over CIFAR-10H ratings in both modes, and the five pairwise functionals over
+    BERT-base-sized embeddings."""
+    paths = _nom_paths(imagenet, gen)
+    out = {name: run_tensor_path(path) for name, path in paths.items()}
+    counts_value, probs_value = (out["crowd"]["values"][m] for m in ("fleiss_counts", "fleiss_probs"))
+    if counts_value != probs_value:
+        raise AssertionError(f"crowd: counts mode {counts_value} and probs mode {probs_value} count the same rows")
+    out["computes"] = check_nominal_compute_reads(paths)
+    out["adult_matrices"] = run_adult_matrices(gen, hbm_rate)
+    out["pairwise"] = run_pairwise(gen, hbm_rate)
+    out["tolerances"] = {
+        "nominal_rtol": NOMINAL_RTOL, "fleiss_atol": FLEISS_ATOL, "pair_dot_rtol_of_norms": PAIR_DOT_RTOL,
+        "pair_euclid_rtol": PAIR_EUCLID_RTOL, "pair_sum_rtol": PAIR_SUM_RTOL,
+    }
+    out["times"] = time_tensor_paths(paths)
+    for name in paths:
+        t = out["times"][name]
+
+        def device(mode):
+            busy, idle = t[mode]["device_busy_us"], t[mode]["device_idle_share"]
+            return "no device work" if busy is None else f"busy {busy:.1f} us, idle {idle:.3f}"
+
+        items = {k[:48]: round(v, 1) for k, v in list((t["eager"]["kernels_us"] or {}).items())[:4]}
+        _log(f"  nominal {name}: update {t['eager']['update_us']:.1f} -> {t['engine']['update_us']:.1f} us (eager ->"
+             f" engine), syncs per update {out[name]['host_syncs_per_update']}, {device('eager')} -> {device('engine')};"
+             f" largest eager items {items}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -4157,11 +4487,11 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/16] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/17] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/16] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/17] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -4177,21 +4507,27 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/16] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/17] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/16] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/17] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/16] regression's moments and cat states, retrieval")
+        _log("[16/17] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--nominal-pairwise-only"]:
+        _log("[17/17] nominal association and pairwise distances")
+        nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
+        print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -4199,7 +4535,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/16] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/17] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -4207,30 +4543,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/16] kernels against their plain versions")
+        _log("[3/17] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/16] main path")
+        _log("[4/17] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/16] collection path")
+        _log("[5/17] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/16] binary path")
+        _log("[6/17] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/16] multilabel path")
+        _log("[7/17] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/16] task routers")
+        _log("[8/17] task routers")
         run_routers(gen)
 
-        _log("[9/16] sync, two ranks on one card")
+        _log("[9/17] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/16] times")
+        _log("[10/17] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -4243,7 +4579,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/16] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/17] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -4265,7 +4601,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/16] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/17] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -4274,20 +4610,23 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/16] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/17] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/16] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/17] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/16] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/17] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/16] regression's moments and cat states, retrieval")
+    _log("[16/17] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
+
+    _log("[17/17] nominal association and pairwise distances")
+    nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
     for entry in kernels:
         k = entry["name"]
@@ -4310,6 +4649,8 @@ def main() -> int:
             **{f"tensor_{path}_engine": tensor[path]["launches_engine"][k] for path in ("imagenet", "coco", "ctr")},
             **{f"tensor2_{path}": tensor2[path]["launches_eager"][k] for path in TM2_PATHS},
             **{f"tensor2_{path}_engine": tensor2[path]["launches_engine"][k] for path in TM2_PATHS},
+            **{f"nominal_{path}": nominal[path]["launches_eager"][k] for path in NOM_PATHS},
+            **{f"nominal_{path}_engine": nominal[path]["launches_engine"][k] for path in NOM_PATHS},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -4320,7 +4661,7 @@ def main() -> int:
 
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
-        "tensor_metrics": tensor, "tensor2": tensor2,
+        "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal,
         "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)

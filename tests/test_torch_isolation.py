@@ -43,6 +43,7 @@ REGRESSION = ("MeanSquaredError", "MeanAbsoluteError", "MeanSquaredLogError", "M
               "R2Score", "RelativeSquaredError", "ExplainedVariance", "TweedieDevianceScore", "PearsonCorrCoef",
               "ConcordanceCorrCoef", "SpearmanCorrCoef", "KendallRankCorrCoef", "CosineSimilarity", "KLDivergence")
 RETRIEVAL = [n for n in tm.retrieval.__all__ if n != "RetrievalMetric"]
+NOMINAL = ("CramersV", "TschuprowsT", "PearsonsContingencyCoefficient", "TheilsU")
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -75,6 +76,8 @@ for make in (
     *(lambda n=n: getattr(tm, n)() for n in REGRESSION),
     *(lambda n=n: getattr(tm.retrieval, n)() for n in RETRIEVAL),
     lambda: tm.MinkowskiDistance(p=3),
+    *(lambda n=n: getattr(tm, n)(num_classes=3) for n in NOMINAL),
+    lambda: tm.FleissKappa(mode="probs"),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,

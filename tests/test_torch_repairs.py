@@ -1,10 +1,15 @@
-"""Three faults of the port against the JAX package, and the multiclass curve's
+"""Four faults of the port against the JAX package, and the multiclass curve's
 reduction signature.
 
-- Top-k ties: ``select_topk`` takes the first k of a stable descending sort, so tied
-  scores pick the lower index first and NaN ranks highest, as ``jax.lax.top_k`` does
-  (``Tensor.topk`` picks other indices among ties). The top-k update reads nothing
-  back to the host, so it runs as a graph step under the engine.
+- Top-k order: ``select_topk`` takes the first k of a stable sort of IEEE total-order
+  keys, so tied scores pick the lower index first, +0.0 ranks above -0.0 and a NaN
+  ranks by its sign bit (+NaN first, -NaN last), as ``jax.lax.top_k`` does
+  (``Tensor.topk`` picks other indices among ties; a float sort ties the zeros and
+  ranks every NaN first). The top-k update reads nothing back to the host, so it runs
+  as a graph step under the engine.
+- Kendall's tau-c on a column with one distinct value: the distinct count is an exact
+  integer, so tau-c is 0/0 = NaN at every size, as scipy gives. The JAX package's float
+  Σ 1/t gives ±0.0 at some sizes (n = 9); both give NaN at n = 12.
 - The sigmoid: float32 logits go through float64 and are rounded once, so a logit's
   probability does not depend on the batch it sits in (``torch.sigmoid`` on the CPU
   gives float32 results that change with the tensor's shape).
@@ -32,14 +37,18 @@ import torchmetrics_tpu_torch.classification as tc
 from tests.torch_parity import assert_close, three_levels
 from torchmetrics_tpu import MetricCollection as JaxMetricCollection
 from torchmetrics_tpu.engine import engine_context as jax_engine_context
+from torchmetrics_tpu.functional.classification.dice import dice as jax_dice
+from torchmetrics_tpu.functional.regression import kendall_rank_corrcoef as jax_kendall
 from torchmetrics_tpu.utilities.data import select_topk as jax_select_topk
 from torchmetrics_tpu_torch import MetricCollection
 from torchmetrics_tpu_torch.engine import compiled, engine_context
+from torchmetrics_tpu_torch.functional.classification.dice import dice
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     _binary_precision_recall_curve_format,
     _multilabel_precision_recall_curve_format,
 )
 from torchmetrics_tpu_torch.functional.classification.stat_scores import _sigmoid_if_logits
+from torchmetrics_tpu_torch.functional.regression import kendall_rank_corrcoef
 from torchmetrics_tpu_torch.utilities.data import select_topk
 
 RATIO_ATOL, AP_ATOL = 1e-6, 1e-5
@@ -140,6 +149,89 @@ def test_top_k_update_replays_under_the_engine(top_k):
     st, ref_st = port._engine.stats, ref._engine.stats
     assert (st.eager_fallbacks, st.dispatches) == (ref_st.eager_fallbacks, ref_st.dispatches) == (0, len(batches))
     assert_close(port.compute(), ref.compute(), RATIO_ATOL)
+
+
+def _signed_rows(kind: str, seed: int, n: int = 64, classes: int = 5) -> np.ndarray:
+    """Logits rounded to integers (rows holding both -0.0 and +0.0), or rows with an
+    ``inf - inf`` NaN, whose sign bit is set on x86 (a -NaN), beside +NaN."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.standard_normal((n, classes)) * 0.6).astype(np.float32)
+    if kind == "nan":
+        with np.errstate(invalid="ignore"):
+            neg_nan = np.float32(np.inf) - np.float32(np.inf)
+        x[::3, 1] = np.copysign(np.float32(np.nan), np.float32(-1.0))
+        x[1::4, 3] = neg_nan
+        x[2::5, 0] = np.float32(np.nan)
+        x[::7, 4] = -np.inf
+    assert (np.signbit(x) & (x == 0)).any() or np.isnan(x).any()
+    return x
+
+
+@pytest.mark.parametrize("kind", ["zeros", "nan"])
+def test_select_topk_orders_signed_zeros_and_nan_as_lax_top_k(kind):
+    x = _signed_rows(kind, seed=1)
+    for k in (2, 3, 4):
+        np.testing.assert_array_equal(
+            select_topk(torch.from_numpy(x), k, dim=1).numpy(), np.asarray(jax_select_topk(jnp.asarray(x), k, dim=1))
+        )
+
+
+@pytest.mark.parametrize("kind", ["zeros", "nan"])
+@pytest.mark.parametrize("engine", [False, True])
+def test_top2_micro_accuracy_on_signed_rows(kind, engine):
+    """``MulticlassAccuracy(5, top_k=2, average="micro")`` equals the JAX package's on
+    rows that hold both zeros or a -NaN, eagerly and under the engine (where every
+    update replays)."""
+    batches = [(_signed_rows(kind, seed), np.random.default_rng(seed).integers(0, 5, 64)) for seed in (2, 3)]
+    kwargs = dict(num_classes=5, top_k=2, average="micro", validate_args=False)
+    with engine_context(engine):
+        port = tc.MulticlassAccuracy(**kwargs, device="cpu")
+        for preds, target in batches:
+            port.update(torch.from_numpy(preds), torch.from_numpy(target))
+        got = port.compute()
+    ref = jc.MulticlassAccuracy(**kwargs)
+    for preds, target in batches:
+        ref.update(jnp.asarray(preds), jnp.asarray(target))
+    assert_close(got, ref.compute(), RATIO_ATOL, msg=kind)
+    if engine:
+        assert (port._engine.stats.dispatches, port._engine.stats.eager_fallbacks) == (len(batches), 0)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "nan"])
+@pytest.mark.parametrize("average", ["micro", "macro"])
+def test_dice_top2_on_signed_rows(kind, average):
+    preds = _signed_rows(kind, seed=4)
+    target = np.random.default_rng(4).integers(0, 5, preds.shape[0])
+    got = dice(torch.from_numpy(preds), torch.from_numpy(target), average=average, top_k=2, num_classes=5)
+    want = jax_dice(jnp.asarray(preds), jnp.asarray(target), average=average, top_k=2, num_classes=5)
+    assert_close(got, want, RATIO_ATOL, msg=f"{kind} {average}")
+
+
+# ------------------------------------------------------------------ Kendall's tau-c on one distinct value
+
+
+@pytest.mark.parametrize("n", [6, 7, 9, 12, 13])
+def test_kendall_tau_c_on_a_constant_column_is_nan(n):
+    """A constant column has one tie group: (m - 1) / m is exactly 0 and tau-c is NaN at
+    every size. A float Σ 1/t lands a hair off 1 at n = 6, 7, 13 (and in the JAX package
+    at n = 9), where it gave ±0.0."""
+    x = np.full(n, 0.5, dtype=np.float32)
+    y = np.round(np.linspace(0, 1, n), 1).astype(np.float32)
+    for a, b in ((x, y), (y, x)):
+        assert np.isnan(float(kendall_rank_corrcoef(torch.from_numpy(a), torch.from_numpy(b), variant="c")))
+    # taus a and b on the same column are 0/0 in both packages, and stay so
+    assert np.isnan(float(kendall_rank_corrcoef(torch.from_numpy(x), torch.from_numpy(y), variant="b")))
+
+
+@pytest.mark.parametrize(("n", "jax_is_nan"), [(9, False), (12, True)])
+def test_kendall_tau_c_constant_column_against_jax(n, jax_is_nan):
+    """The divergence kept on purpose: at n = 9 the JAX package gives ±0.0, at n = 12 NaN;
+    the port gives NaN at both."""
+    x = np.full(n, 0.5, dtype=np.float32)
+    y = np.round(np.linspace(0, 1, n), 1).astype(np.float32)
+    want = float(jax_kendall(jnp.asarray(x), jnp.asarray(y), variant="c"))
+    assert np.isnan(want) == jax_is_nan and (jax_is_nan or want == 0.0)
+    assert np.isnan(float(kendall_rank_corrcoef(torch.from_numpy(x), torch.from_numpy(y), variant="c")))
 
 
 # ------------------------------------------------------------------ the sigmoid

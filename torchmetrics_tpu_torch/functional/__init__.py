@@ -3,9 +3,15 @@
 
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
+from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.pairwise import __all__ as _pairwise_all
 from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 
-__all__ = list(_classification_all) + list(_regression_all) + list(_retrieval_all)
+__all__ = (
+    list(_classification_all) + list(_nominal_all) + list(_pairwise_all) + list(_regression_all) + list(_retrieval_all)
+)

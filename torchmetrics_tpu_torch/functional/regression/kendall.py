@@ -3,11 +3,14 @@
 The pair scan compares a block of rows with every element, so memory stays
 O(block · n) and no (n, n) matrix is built. Concordant and discordant pairs and the
 tie sums Σ(t − 1), Σ(t − 1)(t − 2) and Σ(t − 1)(2t + 5) over elements are counted in
-int64, which is exact, so the block size cannot change them; Σ 1/t and the statistics
-are float64, and tau and the p-value are rounded once to float32. Every element of a
-tie group of size t sees t equal values in its row, so Σ over groups of f(t) is Σ over
+int64, which is exact, so the block size cannot change them; the statistics are
+float64, and tau and the p-value are rounded once to float32. Every element of a tie
+group of size t sees t equal values in its row, so Σ over groups of f(t) is Σ over
 elements of f(c_i) / c_i, with no grouping. Each pair is seen twice over full rows
-(i < j and j < i, the same sign product), so the pair counts are halved.
+(i < j and j < i, the same sign product), so the pair counts are halved. The distinct
+counts (tau-c's m) are the run starts of the sorted column, an exact integer: a float
+Σ 1/t over elements lands a hair off an integer at some sizes, and a constant column
+then gives ±0.0 where (m - 1) / m is exactly 0 and tau-c is NaN.
 """
 
 from __future__ import annotations
@@ -52,11 +55,10 @@ _PAIR_ELEMENTS = 1 << 24
 def _kendall_stats_1d(x: torch.Tensor, y: torch.Tensor) -> List[torch.Tensor]:
     """The pair statistics of one (n,) pair, each pair counted from both its rows:
     concordant, discordant, Σ(t−1) of x and of y, Σ(t−1)(t−2) and Σ(t−1)(2t+5) of x,
-    the same of y (int64), and Σ 1/t of x and of y (float64)."""
+    the same of y (int64), and the distinct values of x and of y (int64)."""
     n = x.shape[0]
     block = max(1, min(n, _PAIR_ELEMENTS // max(n, 1)))
     sums = torch.zeros(8, dtype=torch.int64, device=x.device)
-    unique = torch.zeros(2, dtype=torch.float64, device=x.device)
     for start in range(0, n, block):
         dx = x[start:start + block, None] - x[None, :]
         dy = y[start:start + block, None] - y[None, :]
@@ -73,11 +75,15 @@ def _kendall_stats_1d(x: torch.Tensor, y: torch.Tensor) -> List[torch.Tensor]:
             ((cy - 1) * (cy - 2)).sum(),
             ((cy - 1) * (2 * cy + 5)).sum(),
         ])
-        unique += torch.stack([
-            (1.0 / cx.clamp(min=1).to(torch.float64)).sum(),
-            (1.0 / cy.clamp(min=1).to(torch.float64)).sum(),
-        ])
-    return [*sums.unbind(), *unique.unbind()]
+    return [*sums.unbind(), _distinct(x), _distinct(y)]
+
+
+def _distinct(x: torch.Tensor) -> torch.Tensor:
+    """The number of tie groups, int64: the run starts of the sorted values. ``-0.0``
+    ties with ``0.0`` and each NaN is a group of its own, as the pair scan's ``== 0``
+    sees them."""
+    v = torch.sort(x).values
+    return (v[1:] != v[:-1]).sum() + min(x.shape[0], 1)
 
 
 def _calculate_tau(stats: Tuple[torch.Tensor, ...], n_total: torch.Tensor, variant: _MetricVariant) -> torch.Tensor:

@@ -60,18 +60,39 @@ def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> 
     return torch.movedim(_one_hot(label_tensor, num_classes, dtype), -1, 1)
 
 
+_SAME_WIDTH_INT = {torch.float64: torch.int64, torch.float32: torch.int32, torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _total_order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Integer keys of the same width that order floats as IEEE's total order does:
+    -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN. The float bits read as a signed
+    integer, with the magnitude bits of negative values flipped. Integers are their own
+    keys."""
+    if not x.is_floating_point():
+        return x
+    int_dtype = _SAME_WIDTH_INT[x.dtype]
+    bits = x.contiguous().view(int_dtype)
+    magnitude = torch.iinfo(int_dtype).max
+    return bits ^ ((bits >> (bits.element_size() * 8 - 1)) & magnitude)
+
+
 def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
     """Int32 mask of the top-k entries along ``dim``.
 
-    ``topk > 1`` takes the first k indices of a stable descending sort: NaN ranks
-    highest and a tie goes to the lower index, as ``jax.lax.top_k`` in the JAX package
-    decides. ``Tensor.topk`` picks other indices among tied values. The sort reads
-    nothing back to the host, so it can be captured in a graph.
+    ``topk == 1`` is the argmax: the first index wins a tie and NaN of either sign is
+    maximal (K1's rule). ``topk > 1`` orders as ``jax.lax.top_k`` in the JAX package
+    does: IEEE total order (+NaN > +inf > ... > +0.0 > -0.0 > ... > -inf > -NaN), the
+    lower index first among bit-equal values. It takes the first k of a stable
+    ascending sort of the complemented total-order keys (``~key`` cannot overflow); a
+    float sort ties -0.0 with +0.0 and ranks every NaN first, and ``Tensor.topk`` picks
+    other indices among ties. The sort reads nothing back to the host, so it can be
+    captured in a graph.
     """
     if topk == 1:
         idx = prob_tensor.argmax(dim=dim, keepdim=True)
     else:
-        idx = torch.sort(prob_tensor, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
+        keys = ~_total_order_keys(prob_tensor)
+        idx = torch.sort(keys, dim=dim, stable=True).indices.narrow(dim, 0, topk)
     mask = torch.zeros_like(prob_tensor, dtype=torch.int32)
     return mask.scatter_(dim, idx, 1)
 
