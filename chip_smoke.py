@@ -190,6 +190,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    busy and idle share, host syncs and the largest device items per call, beside the
    bound. Each metric path's update µs, engine on against eager, in turns.
 
+18. the tensor half of the image domain, each path eagerly, then with the engine on, then
+   ``compute``, and the same on the CPU: ``ssim`` (``BASELINE.json`` config #3's SSIM: the
+   evaluation of a 256 x 256 generator or super-resolution model), 16 updates of 32 x 3 x
+   256 x 256 float32 in [0, 1] (seeded smooth targets; blurred, noised predictions) into a
+   collection of SSIM and MS-SSIM (``data_range=1.0``) and PSNR (``data_range=None``: the
+   min / max states on the card), beside PSNR-B on the luma (32 x 1 x 256 x 256 with an 8 x 8
+   blocking artifact, block 8) and TV on the predictions; ``pansharpening``, 16 updates of
+   8 x 4 x 256 x 256 four-band scenes and their ratio-4 pansharpened estimates into ERGAS,
+   SAM, D-lambda, RASE and UQI (``cat`` lists: one compute group that falls back, the cost
+   at the epoch end) and RMSE-SW; ``volume``, 4 updates of 2 x 1 x 64 x 128 x 128 into 3-D
+   SSIM with sigma (1.5, 1.0, 1.0). Groups, no K1 / K2 launch, the engine's split (the sum
+   states replay, the lists fall back), states and values against the CPU (SSIM, MS-SSIM,
+   UQI and D-lambda absolute 1e-5; PSNR, PSNR-B, ERGAS, RASE, RMSE-SW, SAM and the float
+   sums relative 1e-5; TV relative 1e-6), the engine bit-equal to eager; on the ssim path 0
+   host syncs and no host-to-device copy per update after the first, eagerly and with the
+   engine, the collection's members replaying in one fused graph; ``image_gradients``
+   bit-equal to the CPU's; the band products of SSIM's five-map stack (5 x 32 x 3 planes of
+   266 x 266) against the band design's bound (its MACs over 67 TFLOP/s) and the
+   separable filter's (11 taps per axis, or its bytes), beside one depthwise
+   ``F.conv2d`` of the same stack (used nowhere in the port), and their share of the
+   SSIM update's device time; each pansharpening ``compute``'s ms and host reads; each
+   path's update µs, engine on against eager, in turns.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -203,7 +226,8 @@ one JSON object (the updates line runs to tens of kilobytes).
 batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 alone;
 ``--tensor-metrics-only`` runs phases 1-2 and then phase 15 alone;
 ``--moments-retrieval-only`` runs phases 1-2 and then phase 16 alone;
-``--nominal-pairwise-only`` runs phases 1-2 and then phase 17 alone.
+``--nominal-pairwise-only`` runs phases 1-2 and then phase 17 alone;
+``--image-only`` runs phases 1-2 and then phase 18 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -4474,6 +4498,384 @@ def run_nominal_pairwise(imagenet: list, gen: torch.Generator, hbm_rate: float) 
     return out
 
 
+# ---------------------------------------------------------------- phase 18: the tensor half of the image domain
+
+IMG_BATCH, IMG_CHANNELS, IMG_SIZE = 32, 3, 256  # BASELINE #3: 256 x 256 RGB outputs of a generator
+IMG_COARSE = 32  # the targets are smooth: seeded 32 x 32 noise, upsampled
+PSNRB_BLOCK = 8
+PSNRB_DC_STEP = 0.02  # the luma of a JPEG-like decode: each 8 x 8 block shifted by a quantised DC error
+PAN_BATCH, PAN_BANDS, PAN_RATIO = 8, 4, 4  # 4-band multispectral (B, G, R, NIR), pansharpened at ratio 4
+PAN_GAINS = (0.55, 0.7, 0.8, 1.0)  # the bands' reflectance scales over one scene
+VOL_UPDATES, VOL_SHAPE, VOL_SIGMA = 4, (2, 1, 64, 128, 128), (1.5, 1.0, 1.0)
+IMAGE_PATHS = ("ssim", "pansharpening", "volume")
+# SSIM, MS-SSIM, UQI and D-lambda: absolute, against the CPU run (windowed moments from
+# band products summed in other orders)
+IMG_SSIM_ATOL = 1e-5
+# PSNR, PSNR-B, ERGAS, RASE, RMSE-SW and SAM, and every float sum state: relative
+IMG_RTOL = 1e-5
+# TV: float32 sums of |differences| in other orders
+IMG_TV_RTOL = 1e-6
+IMG_SSIM_MEMBERS = ("ssim", "msssim", "uqi", "dlambda", "ssim3d")
+PAN_LISTS = ("ergas", "sam", "dlambda", "rase", "uqi")
+
+
+def _smooth(gen: torch.Generator, shape: tuple, coarse: tuple) -> torch.Tensor:
+    """Seeded smooth images in [0, 1]: coarse noise upsampled (bilinear or trilinear) to
+    ``shape`` with a little fine texture."""
+    import torch.nn.functional as F
+
+    mode = "bilinear" if len(shape) == 4 else "trilinear"
+    low = torch.rand(*shape[:2], *coarse, generator=gen)
+    img = F.interpolate(low, size=shape[2:], mode=mode, align_corners=False)
+    return (img + 0.05 * torch.rand(*shape, generator=gen)).clamp(0, 1)
+
+
+def _blurred_noisy(target: torch.Tensor, gen: torch.Generator, noise: float) -> torch.Tensor:
+    """A 3-wide box blur of ``target`` with gaussian noise, clipped to [0, 1]."""
+    import torch.nn.functional as F
+
+    pool = F.avg_pool2d if target.ndim == 4 else F.avg_pool3d
+    blurred = pool(target, 3, stride=1, padding=1, count_include_pad=False)
+    return (blurred + noise * torch.randn(*target.shape, generator=gen)).clamp(0, 1)
+
+
+def _img_batches(gen: torch.Generator, n: int = N_BATCHES, b: int = IMG_BATCH, size: int = IMG_SIZE) -> tuple:
+    """``(preds, target)`` RGB batches and their BT.601 luma (the predictions' luma with an
+    8 x 8 blocking artifact), on the card."""
+    rgb, luma = [], []
+    weights = torch.tensor([0.299, 0.587, 0.114]).view(1, 3, 1, 1)
+    for _ in range(n):
+        target = _smooth(gen, (b, IMG_CHANNELS, size, size), (IMG_COARSE, IMG_COARSE))
+        preds = _blurred_noisy(target, gen, 0.03)
+        rgb.append((preds.cuda(), target.cuda()))
+        dc = torch.randint(-1, 2, (b, 1, size // PSNRB_BLOCK, size // PSNRB_BLOCK), generator=gen) * PSNRB_DC_STEP
+        dc = dc.repeat_interleave(PSNRB_BLOCK, 2).repeat_interleave(PSNRB_BLOCK, 3)
+        y_pred = ((preds * weights).sum(1, keepdim=True) + dc).clamp(0, 1)
+        luma.append((y_pred.cuda(), (target * weights).sum(1, keepdim=True).cuda()))
+    return rgb, luma
+
+
+def _pan_batches(gen: torch.Generator, n: int = N_BATCHES, b: int = PAN_BATCH, size: int = IMG_SIZE) -> list:
+    """4-band scenes (reflectances in (0.02, 1]) and their pansharpened estimates: the
+    scene averaged over ``PAN_RATIO`` x ``PAN_RATIO`` cells, upsampled again, with noise."""
+    import torch.nn.functional as F
+
+    gains = torch.tensor(PAN_GAINS).view(1, PAN_BANDS, 1, 1)
+    out = []
+    for _ in range(n):
+        scene = _smooth(gen, (b, 1, size, size), (IMG_COARSE, IMG_COARSE))
+        bands = (scene * gains + 0.1 * _smooth(gen, (b, PAN_BANDS, size, size), (8, 8))).clamp(0.02, 1)
+        low = F.avg_pool2d(bands, PAN_RATIO)
+        sharpened = F.interpolate(low, scale_factor=PAN_RATIO, mode="bilinear", align_corners=False)
+        preds = (sharpened + 0.01 * torch.randn(*bands.shape, generator=gen)).clamp(0.02, 1)
+        out.append((preds.cuda(), bands.cuda()))
+    return out
+
+
+def _vol_batches(gen: torch.Generator, n: int = VOL_UPDATES, shape: tuple = VOL_SHAPE) -> list:
+    """Smooth volumes (a CT or MRI patch) and blurred, noised reconstructions, on the card."""
+    out = []
+    for _ in range(n):
+        target = _smooth(gen, shape, tuple(max(2, s // 8) for s in shape[2:]))
+        out.append((_blurred_noisy(target, gen, 0.02).cuda(), target.cuda()))
+    return out
+
+
+def _img_collection(device=None) -> dict:
+    from torchmetrics_tpu_torch import image
+
+    return {
+        "ssim": image.StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+        "msssim": image.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+        "psnr": image.PeakSignalNoiseRatio(device=device),
+    }
+
+
+def _img_psnrb(device=None) -> dict:
+    from torchmetrics_tpu_torch import image
+
+    return {"psnrb": image.PeakSignalNoiseRatioWithBlockedEffect(block_size=PSNRB_BLOCK, device=device)}
+
+
+def _img_tv(device=None) -> dict:
+    from torchmetrics_tpu_torch import image
+
+    return {"tv": image.TotalVariation(device=device)}
+
+
+def _pan_members(device=None) -> dict:
+    from torchmetrics_tpu_torch import image
+
+    return {
+        "ergas": image.ErrorRelativeGlobalDimensionlessSynthesis(ratio=PAN_RATIO, device=device),
+        "sam": image.SpectralAngleMapper(device=device),
+        "dlambda": image.SpectralDistortionIndex(device=device),
+        "rase": image.RelativeAverageSpectralError(device=device),
+        "uqi": image.UniversalImageQualityIndex(device=device),
+        "rmse_sw": image.RootMeanSquaredErrorUsingSlidingWindow(device=device),
+    }
+
+
+def _vol_members(device=None) -> dict:
+    from torchmetrics_tpu_torch import image
+
+    return {"ssim3d": image.StructuralSimilarityIndexMeasure(sigma=VOL_SIGMA, device=device)}
+
+
+def _img_value_tol(member: str, w: torch.Tensor) -> torch.Tensor:
+    if member in IMG_SSIM_MEMBERS:
+        return torch.full_like(w, IMG_SSIM_ATOL)
+    return (IMG_TV_RTOL if member == "tv" else IMG_RTOL) * w.abs()
+
+
+def _img_paths(rgb: list, luma: list, pan: list, vol: list) -> dict:
+    """The three paths of phase 18 over their batches (host copies for the CPU run)."""
+    def host(batches):
+        return [tuple(x.cpu() for x in b) for b in batches]
+
+    rgb_h, luma_h, pan_h, vol_h = host(rgb), host(luma), host(pan), host(vol)
+    none = {"stat_counts": 0, "multi_threshold": 0}
+    ssim_members = {"ssim", "msssim", "psnr", "psnrb", "tv"}
+    float_states = {m: IMG_RTOL for m in ssim_members | {"rmse_sw", "ssim3d"}}
+    float_states["tv"] = IMG_TV_RTOL
+    return {
+        "ssim": _TensorPath(
+            "ssim",
+            {"collection": (_img_collection, lambda i: rgb[i]), "luma": (_img_psnrb, lambda i: luma[i]),
+             "tv": (_img_tv, lambda i: rgb[i][:1])},
+            {"collection": (_img_collection, lambda i: rgb_h[i]), "luma": (_img_psnrb, lambda i: luma_h[i]),
+             "tv": (_img_tv, lambda i: rgb_h[i][:1])},
+            len(rgb), {frozenset({m}) for m in ssim_members}, none, set(), ssim_members,
+            value_tol=_img_value_tol, state_rtol=float_states,
+        ),
+        "pansharpening": _TensorPath(
+            "pansharpening", {"pan": (_pan_members, lambda i: pan[i])}, {"pan": (_pan_members, lambda i: pan_h[i])},
+            len(pan), {frozenset(PAN_LISTS), frozenset({"rmse_sw"})}, none, set(PAN_LISTS), {"rmse_sw", *PAN_LISTS},
+            value_tol=_img_value_tol, state_rtol=float_states,
+        ),
+        "volume": _TensorPath(
+            "volume", {"volume": (_vol_members, lambda i: vol[i])}, {"volume": (_vol_members, lambda i: vol_h[i])},
+            len(vol), {frozenset({"ssim3d"})}, none, set(), {"ssim3d"},
+            value_tol=_img_value_tol, state_rtol=float_states,
+        ),
+    }
+
+
+def _host_to_device_copies(fn, iters: int = 2) -> int:
+    """Host-to-device copies the profiler records over ``iters`` calls of ``fn(i)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "HtoD" in e.name)
+
+
+def check_ssim_path_without_host_traffic(path: _TensorPath) -> dict:
+    """The ssim path's units, eagerly and with the engine: after the first update no
+    update reads the host (``set_sync_debug_mode("error")``, and 0 syncs in ``"warn"``) or
+    copies anything to the card (no ``HtoD`` copy in a profile of two updates); with the
+    engine the collection's three members replay in one fused graph."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    out = {}
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            units = [(_tm_unit(make()), args) for make, args in path.units.values()]
+
+            def step(i, units=units):
+                for obj, args in units:
+                    obj.update(*args(i % path.n))
+
+            step(0)  # the first update: group discovery, the band and index caches
+            step(1)  # the engine's capture
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step(2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = _syncs_per_call(lambda: step(3))
+            copies = _host_to_device_copies(lambda i: step(4 + i))
+            if syncs or copies:
+                raise AssertionError(f"image ssim {mode}: {syncs} host syncs, {copies} host-to-device copies per 2 updates")
+            rec = {"host_syncs_per_update": syncs, "host_to_device_copies_per_2_updates": copies}
+            if mode == "engine":
+                mc = next(obj for obj, _ in units if isinstance(obj, MetricCollection))
+                st = mc._fused_engine.stats
+                if st.eager_fallbacks or st.dispatches != 5:  # six steps, the first one discovering groups
+                    raise AssertionError(f"image ssim: the collection's fused engine {st.as_dict()}")
+                _check_replays("image ssim collection", mc._fused_engine)
+                rec["fused"] = st.as_dict()
+            out[mode] = rec
+            del units
+            gc.collect()
+    _log(f"  image ssim: 0 host syncs and 0 host-to-device copies per update after the first, eagerly and with the"
+         f" engine (set_sync_debug_mode('error')); fused replays {out['engine']['fused']['replays']}")
+    return out
+
+
+def check_image_gradients(rgb: list) -> dict:
+    """``image_gradients`` of the predictions on the card, bit-equal to the CPU's (one
+    subtraction per element)."""
+    from torchmetrics_tpu_torch.functional import image_gradients
+
+    preds = rgb[0][0]
+    dy, dx = image_gradients(preds)
+    want = image_gradients(preds.cpu())
+    for name, g, w in (("dy", dy, want[0]), ("dx", dx, want[1])):
+        if g.shape != w.shape or not torch.equal(g.cpu(), w):
+            raise AssertionError(f"image_gradients {name}: card {g.flatten()[:6].tolist()} vs cpu {w.flatten()[:6].tolist()}")
+    syncs = _syncs_per_call(lambda: image_gradients(preds))
+    return {"shape": list(dy.shape), "bit_equal_to_cpu": True, "host_syncs": syncs}
+
+
+def _gemm_share(fn, iters: int = 4) -> dict:
+    """Device µs per call of ``fn(i)``: all of it, and the part in matrix-product
+    kernels (cuBLAS / CUTLASS names) — the band products of the filters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    busy = gemm = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us() / iters
+            busy += us
+            if any(k in e.name.lower() for k in ("gemm", "xmma", "cutlass")):
+                gemm += us
+    return {"device_busy_us": busy or None, "band_product_us": gemm or None,
+            "band_share": gemm / busy if busy else None}
+
+
+def time_band_products(rgb: list, hbm_rate: float) -> dict:
+    """SSIM's two band products over BASELINE #3's five-map stack (5 x 32 x 3 planes of
+    266 x 266, an 11-tap gaussian, pad 5), CUDA-event time, beside the least time the card
+    could take for the band design (its MACs over 67 TFLOP/s) and for the separable
+    filter it stands for (11 taps per axis over 67 TFLOP/s, or bytes over the HBM rate,
+    whichever is larger: the filter's own stack and maps, and a whole update's two
+    images), and beside
+    one depthwise ``F.conv2d`` of the same stack with the 11 x 11 gaussian (a library call
+    used nowhere in the port). Then the band products' share of an SSIM update's device
+    time and of the whole ssim path's."""
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.functional.image.helper import _filter_separable_2d, _gaussian_np, _reflect_pad_2d
+
+    preds, target = rgb[0]
+    b, c, h, w = preds.shape
+    taps = _gaussian_np(11, 1.5)
+    p, t = _reflect_pad_2d(preds, 5, 5), _reflect_pad_2d(target, 5, 5)
+    stack = torch.cat([p, t, p * p, t * t, p * t])  # (5B, C, 266, 266)
+    planes, n_in = stack.shape[0] * c, stack.shape[-1]
+    n_out = n_in - len(taps) + 1
+    band = _filter_separable_2d(stack, taps, taps)
+    kernel = torch.from_numpy(taps).float()
+    weight = (kernel[:, None] * kernel[None, :]).expand(c, 1, len(taps), len(taps)).contiguous().cuda()
+    conv = F.conv2d(stack, weight, groups=c)
+    diff = (band - conv).abs().max().item()  # the same filter: float32 rounding apart
+    band_ms = _median_ms(lambda i: _filter_separable_2d(stack, taps, taps), iters=10)
+    conv_ms = _median_ms(lambda i: F.conv2d(stack, weight, groups=c), iters=10)
+    band_flop = 2 * planes * (n_out * n_in * n_in + n_out * n_out * n_in)
+    tap_flop = 2 * planes * len(taps) * (n_out * n_in + n_out * n_out)
+    nbytes = stack.numel() * 4 + band.numel() * 4  # the filter alone: the stack read, the maps written
+    update_bytes = 2 * preds.numel() * 4  # a whole SSIM update: the two images read once
+    ssim_metric = _img_collection()["ssim"]
+    ssim_share = _gemm_share(lambda i: ssim_metric.update(*rgb[i % len(rgb)]))
+    collection = _tm_unit(_img_collection())
+    path_share = _gemm_share(lambda i: collection.update(*rgb[i % len(rgb)]))
+    out = {
+        "stack": list(stack.shape), "planes": planes,
+        "band_ms": band_ms, "band_gflop": band_flop / 1e9, "band_bound_ms": band_flop / _F32_RATE * 1e3,
+        "tap_gflop": tap_flop / 1e9, "tap_bytes_mb": nbytes / 1e6,
+        "tap_bound_ms": max(tap_flop / _F32_RATE, nbytes / hbm_rate) * 1e3,
+        "tap_bound_by": "operations" if tap_flop / _F32_RATE >= nbytes / hbm_rate else "bytes",
+        "update_bytes_mb": update_bytes / 1e6,
+        "tap_update_bound_ms": max(tap_flop / _F32_RATE, update_bytes / hbm_rate) * 1e3,
+        "library_conv2d_ms": conv_ms, "conv2d_max_abs_diff": diff,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "ssim_update": ssim_share, "ssim_collection_update": path_share,
+    }
+    _log(f"  band products {out['stack']}: {band_ms * 1e3:.1f} us against {out['band_bound_ms'] * 1e3:.1f} us"
+         f" ({out['band_gflop']:.1f} GFLOP at 67 TFLOP/s) and the tap-by-tap bounds {out['tap_bound_ms'] * 1e3:.1f} us"
+         f" ({out['tap_bound_by']}; the filter alone) and {out['tap_update_bound_ms'] * 1e3:.1f} us ({out['tap_gflop']:.2f}"
+         f" GFLOP or the update's {out['update_bytes_mb']:.1f} MB); F.conv2d depthwise {conv_ms * 1e3:.1f} us; share of an SSIM update's device time"
+         f" {ssim_share['band_share']}, of the collection's {path_share['band_share']}")
+    return out
+
+
+def check_image_computes(paths: dict) -> dict:
+    """Each pansharpening ``cat`` member alone over the 16 updates: its ``compute``'s ms
+    (host clock to a device sync, median of three) and host reads."""
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    make, args = paths["pansharpening"].units["pan"]
+    out = {}
+    with engine_context(False):
+        for m, metric in make().items():
+            if m not in PAN_LISTS:
+                continue
+            for i in range(paths["pansharpening"].n):
+                metric.update(*args(i))
+
+            def once(metric=metric):
+                metric._computed = None
+                return metric.compute()
+
+            value = once()
+            reads = _syncs_per_call(once)
+            if value.device.type != "cuda" or not torch.isfinite(value).all():
+                raise AssertionError(f"image pansharpening {m}: {value} on {value.device}")
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                once()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[m] = {"host_reads": reads, "ms": statistics.median(times)}
+            del metric
+            gc.collect()
+    _log("  pansharpening computes: " + ", ".join(f"{k} {v['ms']:.2f} ms ({v['host_reads']} reads)" for k, v in out.items()))
+    return out
+
+
+def run_images(gen: torch.Generator, hbm_rate: float) -> dict:
+    """Phase 18: SSIM, MS-SSIM and PSNR in one collection beside PSNR-B on the luma and TV
+    (BASELINE #3's 256 x 256 batches), the pansharpening metrics over 4-band scenes, and
+    3-D SSIM over volumes; each path eagerly, with the engine and on the CPU."""
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must run at 'highest' precision (no TF32) for the card to agree with the CPU")
+    rgb, luma = _img_batches(gen)
+    paths = _img_paths(rgb, luma, _pan_batches(gen), _vol_batches(gen))
+    out = {name: run_tensor_path(path) for name, path in paths.items()}
+    out["ssim_host_traffic"] = check_ssim_path_without_host_traffic(paths["ssim"])
+    out["image_gradients"] = check_image_gradients(rgb)
+    out["band_products"] = time_band_products(rgb, hbm_rate)
+    out["computes"] = check_image_computes(paths)
+    out["tolerances"] = {"ssim_atol": IMG_SSIM_ATOL, "rtol": IMG_RTOL, "tv_rtol": IMG_TV_RTOL}
+    out["times"] = time_tensor_paths(paths)
+    for name in paths:
+        t = out["times"][name]
+
+        def device(mode):
+            busy, idle = t[mode]["device_busy_us"], t[mode]["device_idle_share"]
+            return "no device work" if busy is None else f"busy {busy:.1f} us, idle {idle:.3f}"
+
+        items = {k[:48]: round(v, 1) for k, v in list((t["eager"]["kernels_us"] or {}).items())[:4]}
+        _log(f"  image {name}: update {t['eager']['update_us']:.1f} -> {t['engine']['update_us']:.1f} us (eager ->"
+             f" engine), syncs per update {out[name]['host_syncs_per_update']}, {device('eager')} -> {device('engine')};"
+             f" largest eager items {items}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -4487,11 +4889,11 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/17] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/18] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/17] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/18] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -4507,27 +4909,33 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/17] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/18] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/17] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/18] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/17] regression's moments and cat states, retrieval")
+        _log("[16/18] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/17] nominal association and pairwise distances")
+        _log("[17/18] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--image-only"]:
+        _log("[18/18] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        images = run_images(gen, hbm_rate)
+        print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -4535,7 +4943,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/17] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/18] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -4543,30 +4951,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/17] kernels against their plain versions")
+        _log("[3/18] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/17] main path")
+        _log("[4/18] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/17] collection path")
+        _log("[5/18] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/17] binary path")
+        _log("[6/18] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/17] multilabel path")
+        _log("[7/18] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/17] task routers")
+        _log("[8/18] task routers")
         run_routers(gen)
 
-        _log("[9/17] sync, two ranks on one card")
+        _log("[9/18] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/17] times")
+        _log("[10/18] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -4579,7 +4987,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/17] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/18] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -4601,7 +5009,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/17] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/18] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -4610,23 +5018,26 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/17] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/18] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/17] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/18] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/17] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/18] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/17] regression's moments and cat states, retrieval")
+    _log("[16/18] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/17] nominal association and pairwise distances")
+    _log("[17/18] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
+
+    _log("[18/18] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    images = run_images(gen, hbm_rate)
 
     for entry in kernels:
         k = entry["name"]
@@ -4651,6 +5062,8 @@ def main() -> int:
             **{f"tensor2_{path}_engine": tensor2[path]["launches_engine"][k] for path in TM2_PATHS},
             **{f"nominal_{path}": nominal[path]["launches_eager"][k] for path in NOM_PATHS},
             **{f"nominal_{path}_engine": nominal[path]["launches_engine"][k] for path in NOM_PATHS},
+            **{f"image_{path}": images[path]["launches_eager"][k] for path in IMAGE_PATHS},
+            **{f"image_{path}_engine": images[path]["launches_engine"][k] for path in IMAGE_PATHS},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -4661,7 +5074,7 @@ def main() -> int:
 
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
-        "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal,
+        "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images,
         "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)

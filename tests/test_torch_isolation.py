@@ -30,6 +30,7 @@ _NO_CUDA_DEFAULT = """
 import torch
 import torchmetrics_tpu_torch as tm
 import torchmetrics_tpu_torch.retrieval
+import torchmetrics_tpu_torch.image
 from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
 routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
@@ -44,6 +45,10 @@ REGRESSION = ("MeanSquaredError", "MeanAbsoluteError", "MeanSquaredLogError", "M
               "ConcordanceCorrCoef", "SpearmanCorrCoef", "KendallRankCorrCoef", "CosineSimilarity", "KLDivergence")
 RETRIEVAL = [n for n in tm.retrieval.__all__ if n != "RetrievalMetric"]
 NOMINAL = ("CramersV", "TschuprowsT", "PearsonsContingencyCoefficient", "TheilsU")
+IMAGE = ("ErrorRelativeGlobalDimensionlessSynthesis", "MultiScaleStructuralSimilarityIndexMeasure",
+         "PeakSignalNoiseRatio", "PeakSignalNoiseRatioWithBlockedEffect", "RelativeAverageSpectralError",
+         "RootMeanSquaredErrorUsingSlidingWindow", "SpectralAngleMapper", "SpectralDistortionIndex",
+         "StructuralSimilarityIndexMeasure", "TotalVariation", "UniversalImageQualityIndex")
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -78,6 +83,7 @@ for make in (
     lambda: tm.MinkowskiDistance(p=3),
     *(lambda n=n: getattr(tm, n)(num_classes=3) for n in NOMINAL),
     lambda: tm.FleissKappa(mode="probs"),
+    *(lambda n=n: getattr(tm.image, n)() for n in IMAGE),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,

@@ -3,6 +3,8 @@
 
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
@@ -13,5 +15,10 @@ from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 
 __all__ = (
-    list(_classification_all) + list(_nominal_all) + list(_pairwise_all) + list(_regression_all) + list(_retrieval_all)
+    list(_classification_all)
+    + list(_image_all)
+    + list(_nominal_all)
+    + list(_pairwise_all)
+    + list(_regression_all)
+    + list(_retrieval_all)
 )
