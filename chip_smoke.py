@@ -213,6 +213,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
    SSIM update's device time; each pansharpening ``compute``'s ms and host reads; each
    path's update µs, engine on against eager, in turns.
 
+19. the model half of the image domain, on the port's seeded random trunks (no weights
+   are bundled): ``fid`` (``BASELINE.json`` config #3's FID: a 256 x 256 generator
+   evaluated against its training set), 32 updates per side of 32 x 3 x 256 x 256 uint8
+   images (seeded smooth scenes as the real side, coarser and noisier ones as the fake)
+   into ``FrechetInceptionDistance(2048)`` with a 0-d tensor flag on the card and
+   ``KernelInceptionDistance`` at its defaults (100 subsets of 1000), the fake side also
+   into ``InceptionScore`` (10 splits; the ``logits`` tap of the seeded trunk with its fc
+   re-centred and scaled so that IS is well above 1), eagerly and with the engine,
+   then each ``compute``. Checks: the trunk's weights equal on the card and the CPU, its
+   six taps on 2 images against the CPU's, TF32 off inside its forward; the three
+   metrics' states and values over the first 2 updates per side against the CPU run
+   (a KID of 10 subsets of 50 there; log IS relative); the full run's FID against
+   scipy's float64 ``sqrtm`` Fréchet distance of its states; the FID engine bit-equal to
+   eager on full batches, replaying every update in an exact-shape graph, KID and IS
+   falling back on their lists; one ragged
+   update of 20 images (12 zero pad images in bucket 32) within its tolerance; 0 host
+   syncs per FID update, eagerly and with the engine. Times: the trunk's forward alone
+   and its share of an update's device time, FID update µs eager against engine in
+   turns, FID ``compute`` ms and its ``eigh`` / ``eigvalsh`` ms, host reads per
+   ``compute``, KID ``compute`` ms and its peak memory, IS ``compute`` ms. ``lpips``
+   (super-resolution and image-translation evaluation), for each of ``alex``, ``vgg`` and
+   ``squeeze`` (bundled heads, seeded backbones): 16 updates of 32 pairs of 3 x 256 x 256
+   float32 in [-1, 1], eagerly and with the engine (every update falls back: the range
+   check reads the host, as in the JAX engine), then ``compute``; the first batch's first
+   4 pairs and a gradient through ``img1`` (at full float32; relative L2, beside the CPU's
+   float64 gradient) against the CPU; host syncs per update; update µs
+   and the backbone's share of the device time. No K1 / K2 launch. Every number stands
+   beside the card's ``nvidia-smi`` name and power limit (the result's ``card``).
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -227,7 +256,8 @@ batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 al
 ``--tensor-metrics-only`` runs phases 1-2 and then phase 15 alone;
 ``--moments-retrieval-only`` runs phases 1-2 and then phase 16 alone;
 ``--nominal-pairwise-only`` runs phases 1-2 and then phase 17 alone;
-``--image-only`` runs phases 1-2 and then phase 18 alone.
+``--image-only`` runs phases 1-2 and then phase 18 alone; ``--image-models-only`` runs
+phases 1-2 and then phase 19 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -239,6 +269,7 @@ from __future__ import annotations
 import datetime
 import gc
 import json
+import math
 import multiprocessing
 import os
 import socket
@@ -264,6 +295,7 @@ ML_BATCH, ML_LABELS, ML_IGNORE = 8192, 80, -1  # MS-COCO's 80 categories, multil
 # HBM rate by card (bytes/s), from NVIDIA's data sheets
 _HBM_RATE = (("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12), ("H100", 3.35e12))
 _F32_RATE = 67e12  # H100 SXM float32 outside the tensor cores, op/s
+_F64_RATE = 67e12  # H100 SXM float64 on the tensor cores, op/s
 _NOTE = (
     "ms: CUDA-event time per wrapper call at the path's shape (output allocation included);"
     " kernel_device_ms: the kernel's own device time (torch.profiler); device_ms and"
@@ -4876,6 +4908,558 @@ def run_images(gen: torch.Generator, hbm_rate: float) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------- phase 19: the model half of the image domain
+
+FIDM_UPDATES, FIDM_BATCH, FIDM_SIZE = 32, 32, 256  # BASELINE #3: 1024 real and 1024 fake 256 x 256 images per side
+FIDM_CHECK_UPDATES = 2  # per side, held against the CPU run
+FIDM_RAGGED = 20  # one ragged update: bucket 32, 12 zero pad images
+KID_CHECK_SUBSETS, KID_CHECK_SIZE = 10, 50  # the CPU comparison's KID (64 samples per side)
+LPIPS_NETS = ("alex", "vgg", "squeeze")
+LPIPS_UPDATES, LPIPS_BATCH = 16, 32  # super-resolution / translation eval: 512 pairs of 256 x 256
+# float32 features of the card (cuDNN, no TF32) against the CPU's (oneDNN): other
+# summation orders through ~94 convolutions. Measured at ~1e-6 of a tap's scale; TF32
+# would give ~1e-3. Taps, feature states and the float64 sums of them: |card - cpu| <=
+# FEATURE_SCALE_TOL x max|cpu|.
+FEATURE_SCALE_TOL = 1e-4
+# FID moves ~0.4x a relative feature perturbation (a CPU probe at 1e-6 .. 1e-4)
+FIDM_VALUE_RTOL = 1e-4
+# the full run's FID against scipy.linalg.sqrtm of Σ₁Σ₂ in float64 (1.2e-7 apart on a CPU probe)
+FIDM_SQRTM_RTOL = 1e-5
+# KID: float32 kernel sums over 50 x 50 subsets cancel; a CPU probe put float32 2.6e-4 of
+# the mean away from float64. Mean and std: |card - cpu| <= KID_TOL x |cpu mean|
+KID_TOL = 2e-3
+# IS: the seeded trunk's logits are nearly the same for every image (IS - 1 ~ 4e-5, a few
+# float32 steps above 1), so the phase's IS reads the ``logits`` tap (the fc with its
+# bias) of the seeded trunk with the fc re-centred and scaled: bias -weight @ (the mean
+# 2048 feature of 8 fake images, the side IS scores), then weight and bias scaled so that
+# on those images each logit's std is IS_LOGIT_STD. The logits then spread over the
+# images, IS sits well above 1 and no probability underflows, and log IS is held to a
+# relative tolerance: on a CPU probe (IS 3.17 over 24 images of 64 x 64), noise of
+# 1.5e-6 of the features' scale (the card's measured tap difference) moved log IS by at
+# most 2.1e-5 of itself. The std over the splits is held to the same bound, times the mean.
+IS_LOGIT_STD = 2.0
+IS_LOG_RTOL = 5e-4
+# the ragged update: other convolution algorithms for 32 rows than for 20, and the
+# pad-subtract identity in float64
+FIDM_RAGGED_TOL = 1e-5
+# LPIPS distances (~0.1): absolute. Their gradient through ``img1`` (backward at full
+# float32): relative L2 distance to the CPU's. A pair's normalized features nearly cancel
+# in ``(n0 - n1)**2``, so float32 rounding is amplified: a CPU probe put VGG's float32
+# gradient 5.3e-4 (relative L2; 4.0e-3 of its largest element) from float64's, AlexNet's
+# and SqueezeNet's ~5e-6; the float64 CPU gradient is reported beside it.
+LPIPS_ATOL, LPIPS_GRAD_L2_TOL = 1e-5, 2e-2
+
+
+def _gan_batches(gen: torch.Generator, n: int, b: int, size: int) -> tuple:
+    """Seeded uint8 images on the card: ``real`` smooth scenes (32 x 32 noise upsampled,
+    fine texture), ``fake`` a generator's samples (coarser, noisier, brighter)."""
+    real = [(_smooth(gen, (b, 3, size, size), (32, 32)) * 255).to(torch.uint8).cuda() for _ in range(n)]
+    fake = []
+    for _ in range(n):
+        img = _smooth(gen, (b, 3, size, size), (16, 16))
+        img = (0.8 * img + 0.15 + 0.1 * torch.rand(img.shape, generator=gen)).clamp(0, 1)
+        fake.append((img * 255).to(torch.uint8).cuda())
+    return real, fake
+
+
+def _scale_diff(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """``max|got - want| / max|want|`` (got on the card, want on the CPU); raise above ``tol``."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: card {tuple(got.shape)} (finite: {bool(torch.isfinite(got).all())}), cpu {tuple(want.shape)}")
+    scale = want.abs().max().item() or 1.0
+    diff = (got - want).abs().max().item() / scale
+    if diff > tol:
+        raise AssertionError(f"{name}: max |card - cpu| is {diff:.3e} of the scale {scale:.4g} (tolerance {tol})")
+    return diff
+
+
+def _state_diffs(name: str, card, host, tol: float) -> dict:
+    out = {}
+    for attr in card._defaults:
+        x, y = getattr(card, attr), getattr(host, attr)
+        if isinstance(x, list):
+            x, y = torch.cat(x), torch.cat(y)
+        if not x.is_floating_point():
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{name} {attr}: card {x.tolist()} vs cpu {y.tolist()}")
+            continue
+        out[attr] = _scale_diff(f"{name} {attr}", x, y, tol)
+    return out
+
+
+def _is_head_state(fake: list) -> dict:
+    """The seeded trunk's state dict on the CPU with the IS head described at
+    ``IS_LOGIT_STD``: made once on the card, then loaded by the card's and the CPU's IS."""
+    import warnings
+
+    from torchmetrics_tpu_torch.models import inception as inc
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-trunk warning
+        trunk = inc.fid_inception_v3_extractor(("2048", "logits_unbiased"), allow_random=True)
+    feats = trunk(fake[0][:8])[0].cpu()
+    state = {k: v.cpu().clone() for k, v in trunk.model.state_dict().items()}
+    centred = feats - feats.mean(dim=0)
+    gain = IS_LOGIT_STD / (centred @ state["fc.weight"].T).std(dim=0).mean()
+    state["fc.weight"] = state["fc.weight"] * gain
+    state["fc.bias"] = -(state["fc.weight"] @ feats.mean(dim=0))
+    return state
+
+
+def _fidm_metrics(is_state: dict, device=None, kid_subsets=None) -> dict:
+    """FID at 2048 and KID (its defaults unless ``kid_subsets = (subsets, size)``) on the
+    seeded random trunk; IS on that trunk's ``logits`` tap with the head ``is_state`` holds."""
+    import warnings
+
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance, InceptionScore, KernelInceptionDistance
+    from torchmetrics_tpu_torch.models import inception as inc
+
+    kid_kwargs = {} if kid_subsets is None else {"subsets": kid_subsets[0], "subset_size": kid_subsets[1]}
+    head = inc.fid_inception_v3_extractor("logits", state_dict=is_state, device=device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-trunk and the feature-buffer warnings
+        return {
+            "fid": FrechetInceptionDistance(2048, allow_random_features=True, device=device),
+            "kid": KernelInceptionDistance(allow_random_features=True, device=device, **kid_kwargs),
+            "is": InceptionScore(head, num_features=1008, device=device),
+        }
+
+
+def _fidm_drive(metrics: dict, real: list, fake: list, flags: tuple) -> None:
+    """Real then fake, update by update: FID and KID on both sides, IS on the fake side."""
+    for r, f in zip(real, fake):
+        metrics["fid"].update(r, flags[0])
+        metrics["kid"].update(r, True)
+        metrics["fid"].update(f, flags[1])
+        metrics["kid"].update(f, False)
+        metrics["is"].update(f)
+
+
+def _fidm_values(metrics: dict, seed: int) -> dict:
+    import numpy as np
+
+    out = {"fid": metrics["fid"].compute()}
+    for k in ("kid", "is"):
+        np.random.seed(seed)  # the host subsets / permutation of both runs
+        out[k] = metrics[k].compute()
+    return out
+
+
+def check_fid_trunk(real: list) -> dict:
+    """The seeded trunk: the same weights on the card and on the CPU; its six taps on two
+    images against the CPU's; TF32 off inside its forward."""
+    from torchmetrics_tpu_torch.models import inception as inc
+
+    taps = inc.TAPS
+    card = inc.fid_inception_v3_extractor(taps, allow_random=True)
+    host = inc.fid_inception_v3_extractor(taps, allow_random=True, device="cpu")
+    for (k, v), w in zip(card.model.state_dict().items(), host.model.state_dict().values()):
+        if not torch.equal(v.cpu(), w):
+            raise AssertionError(f"fid trunk: weight {k} differs between the card and the CPU")
+    seen = []
+    hook = card.model.Conv2d_1a_3x3.conv.register_forward_hook(
+        lambda *_: seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+    )
+    try:
+        got = card(real[0][:2])
+    finally:
+        hook.remove()
+    if seen != [(False, False)]:
+        raise AssertionError(f"fid trunk: TF32 flags (cudnn, matmul) inside the forward were {seen}")
+    want = host(real[0][:2].cpu())
+    diffs = {t: _scale_diff(f"fid trunk tap {t}", g, w, FEATURE_SCALE_TOL) for t, g, w in zip(taps, got, want)}
+    _log(f"  fid trunk: weights equal to the CPU's, TF32 off in the forward; taps against the CPU (max diff / scale) {diffs}")
+    return {"weights_equal": True, "tf32_in_forward": seen[0], "tap_diffs": diffs}
+
+
+def _fidm_sqrtm(fid) -> dict:
+    """The Fréchet distance from the states as read back, with scipy's float64 sqrtm of
+    Σ₁Σ₂ (pytorch-fid's recipe: an offset on the diagonal only if the root is not finite)."""
+    import warnings
+
+    import numpy as np
+    from scipy import linalg
+
+    st = {k: getattr(fid, k).double().cpu().numpy() for k in fid._defaults}
+    n_r, n_f = float(st["real_features_num_samples"]), float(st["fake_features_num_samples"])
+    mu1, mu2 = st["real_features_sum"] / n_r, st["fake_features_sum"] / n_f
+    s1 = (st["real_features_cov_sum"] - n_r * np.outer(mu1, mu1)) / (n_r - 1)
+    s2 = (st["fake_features_cov_sum"] - n_f * np.outer(mu2, mu2)) / (n_f - 1)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # fewer samples than features: a singular product
+        covmean = linalg.sqrtm(s1.dot(s2))
+        if not np.isfinite(covmean).all():
+            offset = np.eye(s1.shape[0]) * 1e-6
+            covmean = linalg.sqrtm((s1 + offset).dot(s2 + offset))
+    seconds = time.perf_counter() - t0
+    value = float(((mu1 - mu2) ** 2).sum() + np.trace(s1) + np.trace(s2) - 2 * np.trace(np.real(covmean)))
+    return {"value": value, "imag_max": float(np.abs(np.imag(covmean)).max()) if np.iscomplexobj(covmean) else 0.0,
+            "host_s": seconds}
+
+
+def run_fid_path(real: list, fake: list) -> dict:
+    """BASELINE #3's FID: FID, KID and IS over the 32 + 32 updates, eagerly and with the
+    engine; the first 2 updates per side against the CPU; the full run against scipy."""
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    on, off = torch.tensor(True).cuda(), torch.tensor(False).cuda()
+    out = {"trunk": check_fid_trunk(real)}
+
+    # the first updates per side: the card against the CPU, states and values
+    c = FIDM_CHECK_UPDATES
+    is_state = _is_head_state(fake)
+    with engine_context(False):
+        card = _fidm_metrics(is_state, kid_subsets=(KID_CHECK_SUBSETS, KID_CHECK_SIZE))
+        _fidm_drive(card, real[:c], fake[:c], (on, off))
+        host = _fidm_metrics(is_state, "cpu", kid_subsets=(KID_CHECK_SUBSETS, KID_CHECK_SIZE))
+        _fidm_drive(host, [r.cpu() for r in real[:c]], [f.cpu() for f in fake[:c]], (True, False))
+        got, want = _fidm_values(card, 11), _fidm_values(host, 11)
+    check = {k: _state_diffs(f"fid path {k}", card[k], host[k], FEATURE_SCALE_TOL) for k in card}
+    fid_rel = abs(got["fid"].item() - want["fid"].item()) / abs(want["fid"].item())
+    kid_abs = max(abs(g.item() - w.item()) for g, w in zip(got["kid"], want["kid"])) / abs(want["kid"][0].item())
+    (is_mean, is_std), (want_mean, want_std) = [[float(x) for x in v] for v in (got["is"], want["is"])]
+    is_log_rel = abs(math.log(is_mean) - math.log(want_mean)) / abs(math.log(want_mean))
+    is_std_rel = abs(is_std - want_std) / (abs(math.log(want_mean)) * want_mean)
+    if fid_rel > FIDM_VALUE_RTOL or kid_abs > KID_TOL or max(is_log_rel, is_std_rel) > IS_LOG_RTOL:
+        raise AssertionError(f"fid path, first {c} updates per side: fid rel {fid_rel:.3e}, kid {kid_abs:.3e} of its"
+                             f" mean, is log rel {is_log_rel:.3e} std {is_std_rel:.3e}; card {got} cpu {want}")
+    out["against_cpu"] = {"updates_per_side": c, "state_diffs": check, "fid_rel": fid_rel, "kid_diff_of_mean": kid_abs,
+                          "is_log_rel": is_log_rel, "is_std_rel": is_std_rel,
+                          "values_card": {k: [float(x) for x in _outputs(v)] for k, v in got.items()}}
+    del card, host
+    gc.collect()
+
+    # the whole run, eagerly and with the engine: KID / IS fall back on their lists
+    runs = {}
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            _zero_launches()
+            metrics = _fidm_metrics(is_state)
+            _fidm_drive(metrics, real, fake, (on, off))
+            runs[mode] = (metrics, _launches())
+    (eager, eager_launches), (engine, engine_launches) = runs["eager"], runs["engine"]
+    if any(eager_launches.values()) or any(engine_launches.values()):
+        raise AssertionError(f"fid path: K1 / K2 launched ({eager_launches}, {engine_launches})")
+    _assert_same_states("fid path fid engine vs eager", engine["fid"], eager["fid"])
+    n = len(real)
+    st = engine["fid"]._engine.stats
+    if st.eager_fallbacks or st.dispatches != 2 * n or st.bucketed_steps:
+        raise AssertionError(f"fid path: the FID engine should replay every full batch in its exact shape: {st.as_dict()}")
+    _check_replays("fid path fid", engine["fid"]._engine)
+    split = {"fid": st.as_dict()}
+    for k, updates in (("kid", 2 * n), ("is", n)):
+        kst = engine[k]._engine.stats
+        split[k] = kst.as_dict()
+        if kst.dispatches or dict(kst.fallback_reasons) != {"list-state": updates}:
+            raise AssertionError(f"fid path: {k} should fall back on its lists every update: {kst.as_dict()}")
+
+    # host syncs per FID update with a tensor flag, eagerly and with the engine
+    syncs = {}
+    for mode, m in (("eager", eager["fid"]), ("engine", engine["fid"])):
+        with engine_context(mode == "engine"):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                m.update(real[0], on)
+                m.update(fake[0], off)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs[mode] = _syncs_per_call(lambda m=m: m.update(real[1], on))
+    if any(syncs.values()):
+        raise AssertionError(f"fid path: host syncs per FID update {syncs}")
+    _assert_same_states("fid path fid engine vs eager after the sync checks", engine["fid"], eager["fid"])
+
+    # the full run's FID against scipy, then one ragged update
+    values = {mode: _fidm_values(r[0], 3) for mode, r in runs.items()}
+    if not torch.equal(values["engine"]["fid"], values["eager"]["fid"]):
+        raise AssertionError(f"fid path: FID engine {values['engine']['fid'].item()} vs eager {values['eager']['fid'].item()}")
+    ref = _fidm_sqrtm(eager["fid"])
+    fid_value = values["eager"]["fid"].item()
+    sqrtm_rel = abs(fid_value - ref["value"]) / abs(ref["value"])
+    if not (math.isfinite(fid_value) and sqrtm_rel <= FIDM_SQRTM_RTOL):
+        raise AssertionError(f"fid path: FID {fid_value} vs scipy sqrtm {ref['value']} (rel {sqrtm_rel:.3e})")
+    for mode, m in (("eager", eager["fid"]), ("engine", engine["fid"])):
+        with engine_context(mode == "engine"):
+            m.update(real[2][:FIDM_RAGGED], on)
+    ragged = _state_diffs("fid path ragged update engine vs eager", engine["fid"], eager["fid"], FIDM_RAGGED_TOL)
+    if engine["fid"]._engine.stats.bucket_pad_rows != FIDM_BATCH - FIDM_RAGGED:
+        raise AssertionError(f"fid path: the ragged update's pad rows {engine['fid']._engine.stats.as_dict()}")
+    out.update({
+        "updates_per_side": n, "batch": FIDM_BATCH, "launches_eager": eager_launches, "launches_engine": engine_launches,
+        "engine_split": split, "host_syncs_per_update": syncs,
+        "values": {k: [float(x) for x in _outputs(v)] for k, v in values["eager"].items()},
+        "sqrtm": {**ref, "rel_diff": sqrtm_rel}, "ragged_state_diffs": ragged,
+    })
+    _log(f"  fid path: {n} + {n} updates of {FIDM_BATCH} x 3 x {FIDM_SIZE} x {FIDM_SIZE}; FID {fid_value:.6g} (scipy sqrtm"
+         f" rel {sqrtm_rel:.2e}), KID {out['values']['kid']}, IS {out['values']['is']}; engine bit-equal to eager,"
+         f" syncs per update {syncs}; first {c} per side against the CPU: fid rel {fid_rel:.2e}")
+    out["times"] = time_fid_path(runs, real, fake)
+    return out
+
+
+def time_fid_path(runs: dict, real: list, fake: list) -> dict:
+    """The trunk's forward alone and its share of an update's device time; FID update µs,
+    eager against engine in turns; FID compute ms and its eigendecompositions; host reads
+    per compute; KID compute ms and its peak memory; IS compute ms."""
+    import warnings
+
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    on = torch.tensor(True).cuda()
+    fid = runs["eager"][0]["fid"]
+    trunk = fid.inception
+    n = len(real)
+    forward_ms = _median_ms(lambda i: trunk(real[i % n]), iters=4, repeats=3, warmup=2)
+    trunk_prof = _device_profile(lambda i: trunk(real[i % n]), iters=2)
+    # the trunk's convolutions and fc (the 2048 tap computes them all) over 67 TFLOP/s
+    flops = _conv_flops(trunk, real[0])
+    out = {"trunk_forward_ms": forward_ms, "trunk_device_us": trunk_prof["device_busy_us"],
+           "trunk_kernels_us": trunk_prof["kernels_us"], "trunk_gflop_per_update": flops / 1e9,
+           "trunk_bound_ms": flops / _F32_RATE * 1e3, "trunk_bound_by": "operations"}
+    runs_t = {"eager": [], "engine": []}
+    for mode in ("eager", "engine", "engine", "eager"):
+        with engine_context(mode == "engine"):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # the random-trunk warning
+                m = FrechetInceptionDistance(2048, allow_random_features=True)
+
+            def step(i, m=m):
+                m.update(real[i % n], on)
+
+            step(0)
+            step(1)
+            runs_t[mode].append(_timed(step, iters=8))
+            del m
+            gc.collect()
+    for mode, rs in runs_t.items():
+        rec = _mean_runs(rs)
+        busy = rec["device_busy_us"]
+        rec["trunk_share"] = None if busy is None or trunk_prof["device_busy_us"] is None else trunk_prof["device_busy_us"] / busy
+        out[f"update_{mode}"] = rec
+    out["update_us_runs"] = {mode: [r["update_us"] for r in rs] for mode, rs in runs_t.items()}
+
+    def compute_once(_=None):
+        fid._computed = None
+        return fid.compute()
+
+    out["fid_compute_ms"] = _host_us_per_call(compute_once, iters=1, repeats=3) / 1e3
+    cov = fid.real_features_cov_sum / float(fid.real_features_num_samples)
+    out["eigh_ms"] = _median_ms(lambda i: torch.linalg.eigh(cov), iters=1, repeats=3, warmup=1)
+    out["eigvalsh_ms"] = _median_ms(lambda i: torch.linalg.eigvalsh(cov), iters=1, repeats=3, warmup=1)
+    out["eigh_share_of_compute"] = (out["eigh_ms"] + out["eigvalsh_ms"]) / out["fid_compute_ms"]
+    # textbook counts: 4/3 n^3 to tridiagonalize, 2 n^3 more to back-transform the
+    # vectors; over the float64 tensor-core peak (NVIDIA's data sheet, SXM)
+    n_feat = cov.shape[0]
+    out["eigh_bound_ms"] = (4 / 3 + 2) * n_feat**3 / _F64_RATE * 1e3
+    out["eigvalsh_bound_ms"] = 4 / 3 * n_feat**3 / _F64_RATE * 1e3
+    out["host_reads_per_fid_compute"] = _syncs_per_call(compute_once)
+
+    import numpy as np
+
+    kid = runs["eager"][0]["kid"]
+    np.random.seed(5)
+    kid._computed = None
+    kid.compute()  # first use: the gather and product workspaces
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kid._computed = None
+    kid.compute()
+    torch.cuda.synchronize()
+    out["kid_compute_ms"] = (time.perf_counter() - t0) * 1e3
+    # the three batched products, 2 x subsets x m x m x d each, over 67 TFLOP/s
+    d = kid.real_features[0].shape[-1]
+    out["kid_products_bound_ms"] = 3 * 2 * kid.subsets * kid.subset_size**2 * d / _F32_RATE * 1e3
+    out["kid_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["kid_peak_over_live_bytes"] = out["kid_peak_bytes"] - base
+    kid._computed = None
+    out["host_reads_per_kid_compute"] = _syncs_per_call(kid.compute)
+    inc = runs["eager"][0]["is"]
+
+    def is_once(_=None):
+        inc._computed = None
+        return inc.compute()
+
+    out["is_compute_ms"] = _host_us_per_call(is_once, iters=1, repeats=3) / 1e3
+    _log(f"  fid times: trunk forward {forward_ms:.2f} ms per {FIDM_BATCH} images (bound {out['trunk_bound_ms']:.2f} ms,"
+         f" {out['trunk_gflop_per_update']:.1f} GFLOP); FID update"
+         f" {out['update_eager']['update_us']:.1f} -> {out['update_engine']['update_us']:.1f} us (eager -> engine),"
+         f" trunk share {out['update_eager']['trunk_share']}; FID compute {out['fid_compute_ms']:.1f} ms (eigh"
+         f" {out['eigh_ms']:.1f} + eigvalsh {out['eigvalsh_ms']:.1f} ms against bounds {out['eigh_bound_ms']:.2f} +"
+         f" {out['eigvalsh_bound_ms']:.2f}, {out['host_reads_per_fid_compute']} host reads);"
+         f" KID compute {out['kid_compute_ms']:.1f} ms (products' bound {out['kid_products_bound_ms']:.1f} ms), peak"
+         f" {out['kid_peak_bytes'] / 2**30:.2f} GiB; IS compute"
+         f" {out['is_compute_ms']:.1f} ms")
+    return out
+
+
+def _conv_flops(fn, x: torch.Tensor) -> int:
+    """Floating-point operations of the convolutions and linear layers in one ``fn(x)``
+    (2 per multiply-add, counted from each layer's output shape by forward hooks)."""
+    flops = []
+
+    def hook(mod, _, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            flops.append(2 * out.numel() * mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1])
+        elif isinstance(mod, torch.nn.Linear):
+            flops.append(2 * out.numel() * mod.in_features)
+
+    model = getattr(fn, "model", fn)  # an extractor holds its trunk; a backbone is one
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            fn(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(flops)
+
+
+def _lpips_pairs(gen: torch.Generator, n: int, b: int, size: int) -> list:
+    """``(img1, img2)`` in [-1, 1] on the card: a smooth reference and a blurred, noisy
+    restoration of it (a super-resolution output against its ground truth)."""
+    out = []
+    for _ in range(n):
+        target = _smooth(gen, (b, 3, size, size), (IMG_COARSE, IMG_COARSE))
+        preds = _blurred_noisy(target, gen, 0.05)
+        out.append(((preds * 2 - 1).cuda(), (target * 2 - 1).cuda()))
+    return out
+
+
+def run_lpips_path(pairs: list) -> dict:
+    """Each backbone: 16 updates eagerly and with the engine, then ``compute``; the first
+    batch's first 4 pairs and a gradient through ``img1`` against the CPU; the engine's
+    split (the range check reads the host: every update falls back, as in the JAX
+    engine); update µs and the backbone's share of the device time."""
+    import warnings
+
+    import copy
+
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.functional.image.lpips import make_lpips_net
+    from torchmetrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity
+    from torchmetrics_tpu_torch.models._common import full_float32
+
+    def make(net, device=None):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return LearnedPerceptualImagePatchSimilarity(net, allow_random_backbone=True, device=device)
+
+    n = len(pairs)
+    out = {}
+    for net in LPIPS_NETS:
+        runs = {}
+        for mode in ("eager", "engine"):
+            with engine_context(mode == "engine"):
+                _zero_launches()
+                m = make(net)
+                for a, b in pairs:
+                    m.update(a, b)
+                runs[mode] = (m, m.compute(), _launches())
+        (eager, value, launches), (engine, engine_value, engine_launches) = runs["eager"], runs["engine"]
+        if any(launches.values()) or any(engine_launches.values()):
+            raise AssertionError(f"lpips {net}: K1 / K2 launched ({launches}, {engine_launches})")
+        st = engine._engine.stats
+        want_split = {"host-read:_local_scalar_dense": 1, "uncompilable-signature": n - 1}
+        if st.dispatches or dict(st.fallback_reasons) != want_split:
+            raise AssertionError(f"lpips {net}: the engine should fall back every update {want_split}: {st.as_dict()}")
+        if not (torch.equal(engine_value, value) and torch.isfinite(value)):
+            raise AssertionError(f"lpips {net}: engine {engine_value.item()} vs eager {value.item()}")
+        a, b = pairs[0][0][:4], pairs[0][1][:4]
+        host = make(net, "cpu")
+        got, want = eager.net(a, b).squeeze(), host.net(a.cpu(), b.cpu()).squeeze()
+        diff = (got.cpu() - want).abs().max().item()
+        if diff > LPIPS_ATOL:
+            raise AssertionError(f"lpips {net}: first 4 pairs card {got.tolist()} vs cpu {want.tolist()}")
+        grads = []
+        host64 = make_lpips_net(copy.deepcopy(host.net.feats_fn).double(), [w.double() for w in host.net.lin_weights])
+        for x, y, fn in ((a[:2], b[:2], eager.net), (a[:2].cpu(), b[:2].cpu(), host.net),
+                         (a[:2].cpu().double(), b[:2].cpu().double(), host64)):
+            x = x.clone().requires_grad_(True)
+            with full_float32():  # the backward at full float32 too, as the forward runs
+                fn(x, y).mean().backward()
+            grads.append(x.grad.detach().double().cpu())
+        card, cpu32, cpu64 = grads
+        l2 = {"card_vs_cpu": ((card - cpu32).norm() / cpu32.norm()).item(),
+              "card_vs_cpu_float64": ((card - cpu64).norm() / cpu64.norm()).item(),
+              "cpu_vs_cpu_float64": ((cpu32 - cpu64).norm() / cpu64.norm()).item(),
+              "card_vs_cpu_max_of_scale": ((card - cpu32).abs().max() / cpu32.abs().max()).item()}
+        if not (torch.isfinite(card).all() and l2["card_vs_cpu"] <= LPIPS_GRAD_L2_TOL):
+            raise AssertionError(f"lpips {net}: gradient against the CPU {l2}")
+        with engine_context(False):
+            syncs = _syncs_per_call(lambda: eager.update(*pairs[1]))  # the range check's one read
+        out[net] = {"value": value.item(), "pairs_abs_diff": diff, "grad_diff": l2, "host_syncs_per_update": syncs,
+                    "engine_split": st.as_dict(), "launches_eager": launches, "launches_engine": engine_launches}
+        del runs, eager, engine, host
+        gc.collect()
+        out[net]["times"] = time_lpips(make(net), pairs)
+        t = out[net]["times"]
+        _log(f"  lpips {net}: {n} updates of {LPIPS_BATCH} pairs, LPIPS {out[net]['value']:.6f}, first 4 pairs within"
+             f" {diff:.2e} of the CPU, gradient {l2['card_vs_cpu']:.2e} (relative L2; the CPU's float32 against float64"
+             f" {l2['cpu_vs_cpu_float64']:.2e}), {syncs} host syncs per update; update {t['eager']['update_us']:.1f} ->"
+             f" {t['engine']['update_us']:.1f} us (eager -> engine), backbone share {t['backbone_share']}")
+    return out
+
+
+def time_lpips(m, pairs: list) -> dict:
+    """One backbone's update, eager and engine in turns (the engine falls back), and the
+    backbone's share of the update's device time (its forward on both images)."""
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.functional.image.lpips import scaling_layer
+
+    from torchmetrics_tpu_torch.models._common import full_float32
+
+    n = len(pairs)
+    runs = {"eager": [], "engine": []}
+    for mode in ("eager", "engine", "engine", "eager"):
+        with engine_context(mode == "engine"):
+            def step(i):
+                m.update(*pairs[i % n])
+
+            step(0)
+            runs[mode].append(_timed(step, iters=8))
+    out = {mode: _mean_runs(rs) for mode, rs in runs.items()}
+    feats = m.net.feats_fn
+
+    def backbone_step(i):
+        with torch.no_grad(), full_float32():  # as the pipeline runs it
+            return feats(scaling_layer(pairs[i % n][0])), feats(scaling_layer(pairs[i % n][1]))
+
+    backbone = _device_profile(backbone_step, iters=4)
+    busy = out["eager"]["device_busy_us"]
+    flops = 2 * _conv_flops(feats, pairs[0][0])
+    out.update({
+        "backbone_device_us": backbone["device_busy_us"],
+        "backbone_share": None if busy is None or backbone["device_busy_us"] is None else backbone["device_busy_us"] / busy,
+        "backbone_gflop_per_update": flops / 1e9, "backbone_bound_ms": flops / _F32_RATE * 1e3,
+    })
+    return out
+
+
+def run_image_models(gen: torch.Generator, smi: str) -> dict:
+    """Phase 19: the ``fid`` path (FID, KID and IS over BASELINE #3's 256 x 256 batches)
+    and the ``lpips`` path (three backbones over super-resolution pairs)."""
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must run at 'highest' precision (no TF32) for the card to agree with the CPU")
+    real, fake = _gan_batches(gen, FIDM_UPDATES, FIDM_BATCH, FIDM_SIZE)
+    out = {"card": smi, "fid": run_fid_path(real, fake)}
+    del real, fake
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lpips"] = run_lpips_path(_lpips_pairs(gen, LPIPS_UPDATES, LPIPS_BATCH, FIDM_SIZE))
+    out["tolerances"] = {
+        "feature_scale": FEATURE_SCALE_TOL, "fid_value_rtol": FIDM_VALUE_RTOL, "fid_sqrtm_rtol": FIDM_SQRTM_RTOL,
+        "kid_of_mean": KID_TOL, "is_log_rel": IS_LOG_RTOL, "ragged_scale": FIDM_RAGGED_TOL, "lpips_atol": LPIPS_ATOL,
+        "lpips_grad_l2": LPIPS_GRAD_L2_TOL,
+    }
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -4889,11 +5473,11 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/18] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/19] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/18] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/19] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -4909,31 +5493,37 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/18] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/19] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/18] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/19] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/18] regression's moments and cat states, retrieval")
+        _log("[16/19] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/18] nominal association and pairwise distances")
+        _log("[17/19] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--image-models-only"]:
+        _log("[19/19] the model half of the image domain: FID, KID, IS and LPIPS")
+        image_models = run_image_models(gen, smi)
+        print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/18] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/19] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -4943,7 +5533,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/18] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/19] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -4951,30 +5541,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/18] kernels against their plain versions")
+        _log("[3/19] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/18] main path")
+        _log("[4/19] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/18] collection path")
+        _log("[5/19] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/18] binary path")
+        _log("[6/19] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/18] multilabel path")
+        _log("[7/19] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/18] task routers")
+        _log("[8/19] task routers")
         run_routers(gen)
 
-        _log("[9/18] sync, two ranks on one card")
+        _log("[9/19] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/18] times")
+        _log("[10/19] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -4987,7 +5577,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/18] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/19] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -5009,7 +5599,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/18] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/19] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -5018,26 +5608,29 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/18] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/19] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/18] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/19] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/18] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/19] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/18] regression's moments and cat states, retrieval")
+    _log("[16/19] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/18] nominal association and pairwise distances")
+    _log("[17/19] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/18] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/19] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
+
+    _log("[19/19] the model half of the image domain: FID, KID, IS and LPIPS")
+    image_models = run_image_models(gen, smi)
 
     for entry in kernels:
         k = entry["name"]
@@ -5064,6 +5657,10 @@ def main() -> int:
             **{f"nominal_{path}_engine": nominal[path]["launches_engine"][k] for path in NOM_PATHS},
             **{f"image_{path}": images[path]["launches_eager"][k] for path in IMAGE_PATHS},
             **{f"image_{path}_engine": images[path]["launches_engine"][k] for path in IMAGE_PATHS},
+            "image_models_fid": image_models["fid"]["launches_eager"][k],
+            "image_models_fid_engine": image_models["fid"]["launches_engine"][k],
+            **{f"image_models_lpips_{net}": image_models["lpips"][net]["launches_eager"][k] for net in LPIPS_NETS},
+            **{f"image_models_lpips_{net}_engine": image_models["lpips"][net]["launches_engine"][k] for net in LPIPS_NETS},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -5074,7 +5671,7 @@ def main() -> int:
 
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
-        "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images,
+        "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
         "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)

@@ -307,8 +307,15 @@ def test_input_errors():
         _raises_like_jax(lambda: getattr(ti, name)(**kwargs, device="cpu"), lambda: getattr(ji, name)(**kwargs))
 
 
+# exported at the root as they are (no deprecated alias), as in the JAX package
+_DIRECT_AT_ROOT = {
+    "PeakSignalNoiseRatioWithBlockedEffect", "FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+}
+
+
 def test_root_aliases_warn_and_domain_imports_do_not():
-    names = [n for n in ti.__all__ if n != "PeakSignalNoiseRatioWithBlockedEffect"]
+    names = [n for n in ti.__all__ if n not in _DIRECT_AT_ROOT]
     assert len(names) == 10 and set(ti.__all__) <= set(ttm.__all__)
     for name in names:
         with pytest.warns(DeprecationWarning, match=f"torchmetrics_tpu_torch.image.{name}"):
@@ -317,14 +324,11 @@ def test_root_aliases_warn_and_domain_imports_do_not():
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             getattr(ti, name)(device="cpu")
-    assert ttm.PeakSignalNoiseRatioWithBlockedEffect is ti.PeakSignalNoiseRatioWithBlockedEffect
-    assert set(ti.__all__) == set(ji.__all__) - {
-        "FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance", "LearnedPerceptualImagePatchSimilarity"
-    }
-    assert set(tF.__all__) == set(jF.__all__) - {"learned_perceptual_image_patch_similarity", "make_lpips_net"}
-    assert {n for n in jtm.__all__ if n in ji.__all__} - set(ttm.__all__) == {
-        "FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance", "LearnedPerceptualImagePatchSimilarity"
-    }
+    for name in _DIRECT_AT_ROOT:
+        assert getattr(ttm, name) is getattr(ti, name)
+    assert set(ti.__all__) == set(ji.__all__)
+    assert set(tF.__all__) == set(jF.__all__)
+    assert {n for n in jtm.__all__ if n in ji.__all__} <= set(ttm.__all__)
 
 
 @pytest.mark.parametrize(

@@ -48,7 +48,13 @@ NOMINAL = ("CramersV", "TschuprowsT", "PearsonsContingencyCoefficient", "TheilsU
 IMAGE = ("ErrorRelativeGlobalDimensionlessSynthesis", "MultiScaleStructuralSimilarityIndexMeasure",
          "PeakSignalNoiseRatio", "PeakSignalNoiseRatioWithBlockedEffect", "RelativeAverageSpectralError",
          "RootMeanSquaredErrorUsingSlidingWindow", "SpectralAngleMapper", "SpectralDistortionIndex",
-         "StructuralSimilarityIndexMeasure", "TotalVariation", "UniversalImageQualityIndex")
+         "StructuralSimilarityIndexMeasure", "TotalVariation", "UniversalImageQualityIndex",
+         "FrechetInceptionDistance", "KernelInceptionDistance", "InceptionScore",
+         "LearnedPerceptualImagePatchSimilarity")
+# the model-backed classes, each with a small callable extractor (no trunk is built)
+IMAGE_ARGS = {n: {"feature": lambda x: x.float().flatten(1), "num_features": 4}
+              for n in ("FrechetInceptionDistance", "KernelInceptionDistance", "InceptionScore")}
+IMAGE_ARGS["LearnedPerceptualImagePatchSimilarity"] = {"net_type": lambda a, b, normalize=False: (a - b).abs().mean((1, 2, 3))}
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -83,7 +89,7 @@ for make in (
     lambda: tm.MinkowskiDistance(p=3),
     *(lambda n=n: getattr(tm, n)(num_classes=3) for n in NOMINAL),
     lambda: tm.FleissKappa(mode="probs"),
-    *(lambda n=n: getattr(tm.image, n)() for n in IMAGE),
+    *(lambda n=n: getattr(tm.image, n)(**IMAGE_ARGS.get(n, {})) for n in IMAGE),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,

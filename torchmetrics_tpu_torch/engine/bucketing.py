@@ -14,7 +14,10 @@ delta ``g(pad_row)``. The step computes
     result   = out - n_pad * pad_unit
 
 with ``n_pad`` a device scalar, so one graph serves every batch size in its bucket,
-the exact fit (``n_pad = 0``) included. Eligibility is explicit: the metric class
+the exact fit (``n_pad = 0``) included. When every input is batched, ``pad_unit`` is a
+constant computed once per signature; a 0-d input (FID's real / fake flag) feeds it, so
+its graph recomputes it at every replay, and an exact fit then takes a graph of its own
+shape, which has no unit to compute. Eligibility is explicit: the metric class
 opts in with ``_engine_row_additive = True`` (the stat-scores family, the confusion
 matrices), stamped on each state at registration (``engine/statespec.py``), AND every
 state folds with ``sum``; anything else captures per exact shape.

@@ -819,6 +819,10 @@ class GraphEngine:
         if n is None or n == 0:
             return None
         bucket = bucketing.next_bucket(n)
+        if bucket == n and any(a.ndim == 0 for a in inputs):
+            # a full bucket has nothing to subtract, and a unit fed by a 0-d input is not
+            # constant: its graph would rerun the update on a pad row at every replay
+            return None
         self.stats.bucketed_steps += 1
         self.stats.bucket_pad_rows += bucket - n
         self.stats.bucket_sizes.add(bucket)

@@ -1,9 +1,9 @@
-"""Functional image metrics, the tensor half (counterpart of ``torchmetrics_tpu/functional/image/__init__.py``;
-the LPIPS functionals come with the model half)."""
+"""Functional image metrics (counterpart of ``torchmetrics_tpu/functional/image/__init__.py``)."""
 
 from torchmetrics_tpu_torch.functional.image.d_lambda import spectral_distortion_index
 from torchmetrics_tpu_torch.functional.image.ergas import error_relative_global_dimensionless_synthesis
 from torchmetrics_tpu_torch.functional.image.gradients import image_gradients
+from torchmetrics_tpu_torch.functional.image.lpips import learned_perceptual_image_patch_similarity, make_lpips_net
 from torchmetrics_tpu_torch.functional.image.psnr import peak_signal_noise_ratio
 from torchmetrics_tpu_torch.functional.image.psnrb import peak_signal_noise_ratio_with_blocked_effect
 from torchmetrics_tpu_torch.functional.image.rase import relative_average_spectral_error
@@ -19,6 +19,8 @@ from torchmetrics_tpu_torch.functional.image.uqi import universal_image_quality_
 __all__ = [
     "error_relative_global_dimensionless_synthesis",
     "image_gradients",
+    "learned_perceptual_image_patch_similarity",
+    "make_lpips_net",
     "multiscale_structural_similarity_index_measure",
     "peak_signal_noise_ratio",
     "peak_signal_noise_ratio_with_blocked_effect",
