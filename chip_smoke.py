@@ -242,6 +242,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and the backbone's share of the device time. No K1 / K2 launch. Every number stands
    beside the card's ``nvidia-smi`` name and power limit (the result's ``card``).
 
+20. the text domain (``BASELINE.json`` config #4, BERTScore / ROUGE on WMT16 en-de pairs),
+   on 512 seeded pairs shaped like newstest2016 en-de (5-80 words, mean ~22, from a seeded
+   4000-word vocabulary; each reference an edit of its prediction; a third of the pairs
+   with two or three sentences) in 8 updates of 64, and 512 seeded SQuAD answers: ``mt``,
+   a collection of BLEU, SacreBLEU (``13a``), chrF, TER, EED and ROUGE (four keys) with
+   one-element reference lists; ``asr``, a collection of WER, CER, MER, WIL and WIP on flat
+   strings; ``squad``. Each eagerly and with the engine (every update falls back:
+   ``non-tensor-input`` or ``list-state``, as in the JAX engine), the engine run equal to
+   the eager one, the first 2 updates against the CPU (counts exactly, float sums
+   relative 1e-6); host µs per member and per collection, host-to-device copies and host
+   syncs per update, host reads per member ``compute``, device operations and idle share,
+   and the collection's fallback cost by part. BERTScore at roberta-large's width (24 x 1024, 16 heads, FFN 4096,
+   vocabulary 50265, 514 positions; a seeded encoder and a word tokenizer written here,
+   injected, every row at ``max_length=512``) over the 512 pairs, ``compute`` with
+   ``idf`` off and on (ms, the encoder's share, peak memory over what was live, host
+   reads), the greedy-cosine ``bmm`` against its float32 bound, the padding's share; each
+   ``compute`` at 8 pairs (one in each update) against a CPU ``BERTScore`` that took the
+   same updates, and the functional's first 2 pairs, against the CPU (absolute 1e-4). Perplexity at GPT-2's shapes: 4
+   updates of (8, 1024, 50257) logits with ~5 % ``ignore_index``, float32 then bfloat16,
+   eagerly and with the engine (which replays, with 0 host syncs), device ms per update
+   against the bytes bound, two rows against the CPU (relative 1e-5). InfoLM's nine
+   measures over injected (512, 50265) distributions, eagerly and with the engine (each
+   ``compute`` against a CPU ``InfoLM`` that took the same updates, and the functional's
+   first 16 pairs, relative 1e-5). The HF route: ``BERTScore`` and ``InfoLM`` with ``model_name_or_path``
+   on a seeded ``BertForMaskedLM`` at bert-base width (12 x 768, vocabulary 30522) and a
+   ``BertTokenizer`` the script saves with ``save_pretrained`` (BERTScore on the 512 pairs,
+   InfoLM on 16), BERTScore's ``compute`` at the same 8 pairs and the functionals' first 2
+   pairs against the CPU; the model the loader caches stays on the CPU and the card runs
+   a copy. No K1 / K2 launch.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -257,7 +287,8 @@ batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 al
 ``--moments-retrieval-only`` runs phases 1-2 and then phase 16 alone;
 ``--nominal-pairwise-only`` runs phases 1-2 and then phase 17 alone;
 ``--image-only`` runs phases 1-2 and then phase 18 alone; ``--image-models-only`` runs
-phases 1-2 and then phase 19 alone.
+phases 1-2 and then phase 19 alone; ``--text-only`` runs phases 1-2 and then phase 20
+alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -2666,17 +2697,7 @@ def time_collection(batches: list) -> dict:
 def _syncs_per_call(fn) -> int:
     """Device -> host syncs in one ``fn()``, as ``set_sync_debug_mode("warn")`` reports
     them (a prototype: it may miss some, so this is a floor)."""
-    import warnings
-
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    return _with_syncs(fn)[1]
 
 
 def time_task_path(members_fn, batches: list) -> dict:
@@ -5460,6 +5481,916 @@ def run_image_models(gen: torch.Generator, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20: the text domain
+
+TEXT_PAIRS, TEXT_UPDATES = 512, 8  # BASELINE #4: newstest2016 en-de sized pairs, 8 updates of 64
+TEXT_BATCH = TEXT_PAIRS // TEXT_UPDATES
+TEXT_VOCAB = 4000  # the seeded word list (Zipf frequencies)
+TEXT_CPU_UPDATES = 2  # the host metrics' prefix held against the CPU
+TEXT_TIMED = 4  # timed updates per member and per collection
+# roberta-large, the reference BERTScore's default backbone
+ROBERTA = {"layers": 24, "hidden": 1024, "heads": 16, "ffn": 4096, "vocab": 50265, "positions": 514}
+BERT_MAX_LENGTH = 512  # BERTScore's default max_length: every row runs at width 512
+BERT_CHUNK = 64  # encoder rows per forward
+BERT_CPU_PAIRS = 2  # the functional's first pairs, scored on the CPU too
+# the modular compute's pairs held against a CPU BERTScore that took the same updates:
+# one in each update, at another offset in each
+BERT_CPU_ROWS = tuple(u * (TEXT_PAIRS // TEXT_UPDATES) + u for u in range(TEXT_UPDATES))
+# GPT-2's published shapes: vocabulary 50257, context 1024
+PPL_BATCH, PPL_CONTEXT, PPL_VOCAB, PPL_UPDATES = 8, 1024, 50257, 4
+PPL_IGNORED = 0.05
+INFOLM_VOCAB, INFOLM_BUCKETS = 50265, 512
+INFOLM_CPU_PAIRS = 16
+INFOLM_MEASURES = (
+    ("kl_divergence", None, None), ("alpha_divergence", 0.5, None), ("beta_divergence", None, 0.5),
+    ("ab_divergence", 0.5, 0.3), ("renyi_divergence", 0.5, None), ("l1_distance", None, None),
+    ("l2_distance", None, None), ("l_infinity_distance", None, None), ("fisher_rao_distance", None, None),
+)
+# the HF route: a seeded BertForMaskedLM at bert-base width, saved by the script
+HF_BERT = {"layers": 12, "hidden": 768, "heads": 12, "ffn": 3072, "vocab": 30522, "positions": 512}
+HF_INFOLM_PAIRS = 16  # InfoLM runs one forward per token position
+HF_CPU_PAIRS = 2
+# tolerances: counts exact; the host metrics' float states and values (float32 sums of
+# host counts) relative 1e-6; perplexity relative 1e-5 (float32 sums over 2048 tokens in
+# another order); BERTScore absolute 1e-4 (24 float32 encoder layers, TF32 off, summed in
+# another order on each side); InfoLM relative 1e-5 (float32 distributions and sums over
+# 50265 tokens; the HF route's masked-LM distributions relative 1e-4)
+TEXT_RTOL = 1e-6
+PPL_CPU_RTOL = 1e-5
+BERT_CPU_ATOL = 1e-4
+INFOLM_CPU_RTOL = 1e-5
+HF_INFOLM_CPU_RTOL = 1e-4
+TEXT_PATHS = ("mt", "asr", "squad")
+
+
+def _wmt_pairs(n: int, seed: int) -> tuple:
+    """``n`` seeded pairs shaped like WMT16 newstest2016 en-de: predictions of 5-80 words
+    (mean ~22) drawn with Zipf frequencies from a seeded vocabulary of 4000 words; each
+    reference an edit of its prediction (~30 % of words substituted, a few inserted and
+    dropped, one clause moved to the end); about a third of the pairs hold two or three
+    ``.``-separated sentences."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words: set = set()
+    while len(words) < TEXT_VOCAB:
+        words.add("".join(rng.choice(letters, rng.integers(2, 11))))
+    vocab = sorted(words)
+    p = 1.0 / np.arange(1, len(vocab) + 1)
+    p /= p.sum()
+
+    def draw(k: int) -> list:
+        return [vocab[i] for i in rng.choice(len(vocab), size=k, p=p)]
+
+    def sentences(ws: list, parts: int) -> str:
+        cuts = sorted(rng.choice(np.arange(1, len(ws)), min(parts - 1, len(ws) - 1), replace=False))
+        chunks = [ws[i:j] for i, j in zip([0, *cuts], [*cuts, len(ws)])]
+        return ". ".join(" ".join(c) for c in chunks) + "."
+
+    preds, targets = [], []
+    for _ in range(n):
+        pred = draw(int(np.clip(np.round(np.exp(rng.normal(3.0, 0.45))), 5, 80)))
+        tgt = [w if rng.random() > 0.3 else draw(1)[0] for w in pred]
+        for _ in range(rng.poisson(0.6)):
+            tgt.insert(rng.integers(len(tgt) + 1), draw(1)[0])
+        for _ in range(rng.poisson(0.6)):
+            if len(tgt) > 3:
+                del tgt[rng.integers(len(tgt))]
+        a, b = sorted(rng.choice(np.arange(1, len(tgt)), 2, replace=False))
+        tgt = tgt[:a] + tgt[b:] + tgt[a:b]
+        if rng.random() < 1 / 3:
+            parts = int(rng.integers(2, 4))
+            preds.append(sentences(pred, parts))
+            targets.append(sentences(tgt, parts))
+        else:
+            preds.append(" ".join(pred))
+            targets.append(" ".join(tgt))
+    return preds, targets, vocab
+
+
+def _squad_pairs(n: int, vocab: list, seed: int) -> tuple:
+    """``n`` seeded SQuAD question / answer dicts: 1-3 gold answers of 1-4 words each; the
+    prediction is the first answer (40 %), empty (10 %) or an overlapping span."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    preds, target = [], []
+    for i in range(n):
+        answers = [" ".join(rng.choice(vocab[:400], rng.integers(1, 5))) for _ in range(rng.integers(1, 4))]
+        u = rng.random()
+        if u < 0.4:
+            pred = answers[0]
+        elif u < 0.5:
+            pred = ""
+        else:
+            pred = " ".join(answers[0].split()[: rng.integers(1, 3)] + list(rng.choice(vocab[:400], rng.integers(0, 3))))
+        preds.append({"prediction_text": pred, "id": f"q{i}"})
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": f"q{i}"})
+    return preds, target
+
+
+def _text_members(path: str, device=None) -> dict:
+    """``mt``: the translation metrics, references as one-element lists (SacreBLEU's update
+    takes references as lists, as the JAX package's does); ``asr``: the WER family on flat
+    strings; ``squad``: SQuAD."""
+    import torchmetrics_tpu_torch.text as tt
+
+    kw = {"device": device}
+    if path == "mt":
+        return {
+            "bleu": tt.BLEUScore(**kw), "sacrebleu": tt.SacreBLEUScore(tokenize="13a", **kw), "chrf": tt.CHRFScore(**kw),
+            "ter": tt.TranslationEditRate(**kw), "eed": tt.ExtendedEditDistance(**kw),
+            "rouge": tt.ROUGEScore(rouge_keys=("rouge1", "rouge2", "rougeL", "rougeLsum"), **kw),
+        }
+    if path == "asr":
+        return {
+            "wer": tt.WordErrorRate(**kw), "cer": tt.CharErrorRate(**kw), "mer": tt.MatchErrorRate(**kw),
+            "wil": tt.WordInfoLost(**kw), "wip": tt.WordInfoPreserved(**kw),
+        }
+    return {"squad": tt.SQuAD(**kw)}
+
+
+def _text_batches(preds: list, targets: list, squad: tuple) -> dict:
+    b = TEXT_BATCH
+    return {
+        "mt": [(preds[i : i + b], [[t] for t in targets[i : i + b]]) for i in range(0, TEXT_PAIRS, b)],
+        "asr": [(preds[i : i + b], targets[i : i + b]) for i in range(0, TEXT_PAIRS, b)],
+        "squad": [(squad[0][i : i + b], squad[1][i : i + b]) for i in range(0, TEXT_PAIRS, b)],
+    }
+
+
+def _text_state_diff(name: str, card, host, rtol: float = TEXT_RTOL) -> float:
+    """Every state of ``card`` against ``host``: strings and whole numbers equal, other
+    floats within ``rtol``; the largest relative difference."""
+    worst = 0.0
+    for attr in host._defaults:
+        x, y = getattr(card, attr), getattr(host, attr)
+        if isinstance(y, list):
+            if y and isinstance(y[0], str):
+                if x != y:
+                    raise AssertionError(f"{name}: string state {attr} differs")
+                continue
+            if len(x) != len(y):
+                raise AssertionError(f"{name}: list state {attr} holds {len(x)} vs {len(y)} entries")
+            x = torch.cat([v.reshape(-1) for v in x]) if x else torch.zeros(0)
+            y = torch.cat([v.reshape(-1) for v in y]) if y else torch.zeros(0)
+        x, y = x.cpu(), y.cpu()
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{name}: state {attr} {x.dtype} {tuple(x.shape)} vs {y.dtype} {tuple(y.shape)}")
+        if not x.is_floating_point() or torch.equal(y, y.round()):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: state {attr} differs: {x.flatten()[:6].tolist()} vs {y.flatten()[:6].tolist()}")
+            continue
+        rel = ((x.double() - y.double()).abs() / y.double().abs().clamp(min=1e-30)).max().item() if y.numel() else 0.0
+        if rel > rtol:
+            raise AssertionError(f"{name}: state {attr} relative difference {rel:.3e} > {rtol}")
+        worst = max(worst, rel)
+    return worst
+
+
+def _values_diff(name: str, got: dict, want: dict, rtol: float) -> float:
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        rel = abs(g - w) / max(abs(w), 1e-30) if (g != w) else 0.0
+        if not (math.isfinite(g) and rel <= rtol):
+            raise AssertionError(f"{name}: {k} {g} vs {w} (relative {rel:.3e} > {rtol})")
+        worst = max(worst, rel)
+    return worst
+
+
+def _with_syncs(fn):
+    """``fn()``'s value and the device -> host syncs in it (``set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            value = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return value, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+class _CpuRows:
+    """The CPU side of a card-against-CPU check of BERTScore at the corpus' size:
+    ``forward(pairs)`` is an encoder that runs ``encode`` on the CPU for the rows
+    ``pairs`` only (each row once, kept by its tokens; ``None``: every row) and gives
+    zero rows for the others. A pair's scores read its own two rows and the idf table,
+    which is counted from the tokens, so the held pairs' scores are those of a CPU metric
+    that ran the encoder over the whole corpus."""
+
+    def __init__(self, encode) -> None:
+        self.encode, self.rows = encode, {}
+
+    def forward(self, pairs=None):
+        def fwd(ids, mask):
+            idx = list(range(ids.shape[0])) if pairs is None else list(pairs)
+            keys = {i: (ids[i].numpy().tobytes(), mask[i].numpy().tobytes()) for i in idx}
+            todo = [i for i in idx if keys[i] not in self.rows]
+            if todo:
+                with torch.no_grad():
+                    emb = self.encode(ids[todo], mask[todo])
+                for i, e in zip(todo, emb):
+                    self.rows[keys[i]] = e
+            first = self.rows[keys[idx[0]]]
+            out = torch.zeros((ids.shape[0],) + tuple(first.shape), dtype=first.dtype)
+            for i in idx:
+                out[i] = self.rows[keys[i]]
+            return out
+
+        return fwd
+
+
+def _score_diff(card: dict, host: dict, pairs) -> float:
+    """The largest absolute difference of precision, recall and F1 at ``pairs``."""
+    sel = list(pairs)
+    return max((card[k][sel].cpu() - host[k][sel]).abs().max().item() for k in ("precision", "recall", "f1"))
+
+
+class _PartTimer:
+    """Host seconds spent in named methods of given objects, by part: each method is
+    shadowed by an instance attribute that times it (``restore`` puts them back)."""
+
+    def __init__(self) -> None:
+        self.seconds: dict = {}
+        self._patched: list = []
+
+    def wrap(self, obj, attr: str, part: str) -> None:
+        fn = getattr(obj, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[part] = self.seconds.get(part, 0.0) + time.perf_counter() - t0
+
+        had = attr in obj.__dict__
+        self._patched.append((obj, attr, obj.__dict__.get(attr), had))
+        obj.__dict__[attr] = timed
+
+    def restore(self) -> None:
+        for obj, attr, old, had in reversed(self._patched):
+            if had:
+                obj.__dict__[attr] = old
+            else:
+                del obj.__dict__[attr]
+        self._patched.clear()
+
+
+def _collection_breakdown(make, batches: list, rounds: int = 2) -> dict:
+    """Where a text collection's update goes, µs per update by part, engine on (the
+    card's default): the fused-step attempt, each owner's update wrapper outside its body
+    (input placement, counters, the engine's refusal), the engine's refusal alone, the
+    update bodies (the host string work), and the views' re-materialization."""
+    from torchmetrics_tpu_torch import MetricCollection
+
+    mc = MetricCollection(make())
+    mc.update(*batches[0])  # the discovery step
+    owners = [mc._modules[g.owner] for g in mc._groups.values()]
+    timer = _PartTimer()
+    timer.wrap(mc, "_fused_step", "fused_step_attempt")
+    timer.wrap(mc, "_materialize_group_views", "views")
+    for m in owners:
+        timer.wrap(m, "update", "owner_update_total")
+        timer.wrap(m, "_engine_step", "engine_refusal")
+        timer.wrap(m, "_raw_update", "update_bodies")
+    n = 0
+    t0 = time.perf_counter()
+    try:
+        for _ in range(rounds):
+            for batch in batches:
+                mc.update(*batch)
+                n += 1
+        torch.cuda.synchronize()
+    finally:
+        timer.restore()
+    total = (time.perf_counter() - t0) / n * 1e6
+    s = {k: v / n * 1e6 for k, v in timer.seconds.items()}
+    wrapper = s.get("owner_update_total", 0.0) - s.get("update_bodies", 0.0) - s.get("engine_refusal", 0.0)
+    parts = {
+        "fused_step_attempt_us": s.get("fused_step_attempt", 0.0),
+        "engine_refusal_us": s.get("engine_refusal", 0.0),
+        "owner_wrapper_rest_us": wrapper,
+        "views_us": s.get("views", 0.0),
+        "update_bodies_us": s.get("update_bodies", 0.0),
+    }
+    parts["collection_rest_us"] = total - sum(parts.values())
+    return {"update_us": total, "owners": len(owners), "members": len(mc), **parts,
+            "overhead_us": total - parts["update_bodies_us"],
+            "fused_engine": None if mc._fused_engine is None else mc._fused_engine.stats.as_dict()}
+
+
+def _engine_reasons(mc) -> dict:
+    """Fallback reasons summed over a collection's member engines and its fused engine."""
+    reasons: dict = {}
+    engines = [m._engine for m in mc._modules.values() if m._engine is not None]
+    if mc._fused_engine is not None:
+        engines.append(mc._fused_engine)
+    for eng in engines:
+        for r, k in eng.stats.fallback_reasons.items():
+            reasons[r] = reasons.get(r, 0) + k
+    return reasons
+
+
+def run_text_host_paths(batches: dict) -> dict:
+    """The host metrics: each path eagerly and with the engine over the 8 updates (the
+    engine run bit-equal to the eager one), its first updates against the CPU, the
+    engine's split, host-to-device copies, host µs by member and for the collection
+    against its members one by one, device operations and idle share, and the collection
+    fallback's cost by part."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    out = {}
+    for path in TEXT_PATHS:
+        data = batches[path]
+        runs = {}
+        for mode in ("eager", "engine"):
+            with engine_context(mode == "engine"):
+                _zero_launches()
+                mc = MetricCollection(_text_members(path))
+                for batch in data:
+                    mc.update(*batch)
+                launches = _launches()
+                runs[mode] = (mc, launches, _flat_text_value_all(mc.compute()))
+        (eager, eager_launches, values), (engine, engine_launches, engine_values) = runs["eager"], runs["engine"]
+        if any(eager_launches.values()) or any(engine_launches.values()):
+            raise AssertionError(f"text {path}: K1 / K2 launched ({eager_launches}, {engine_launches})")
+        for name in eager:
+            _text_state_diff(f"text {path} {name} engine vs eager", engine[name], eager[name], 0.0)
+        if engine_values != values:
+            raise AssertionError(f"text {path}: engine values {engine_values} vs eager {values}")
+        reasons = _engine_reasons(engine)
+        if any(r not in ("non-tensor-input", "list-state") for r in reasons):
+            raise AssertionError(f"text {path}: unexpected engine fallbacks {reasons}")
+
+        # the first updates against the CPU
+        card = MetricCollection(_text_members(path))
+        host = MetricCollection(_text_members(path, "cpu"))
+        for batch in data[:TEXT_CPU_UPDATES]:
+            card.update(*batch)
+            host.update(*batch)
+        state_rel = max(_text_state_diff(f"text {path} {n}", card[n], host[n]) for n in host)
+        value_rel = _values_diff(f"text {path} values", _flat_text_value_all(card.compute()),
+                                 _flat_text_value_all(host.compute()), TEXT_RTOL)
+        # host reads per member compute (a pageable copy back to the card counts too)
+        compute_syncs = {}
+        for name in card:
+            card[name]._computed = None
+            compute_syncs[name] = _with_syncs(card[name].compute)[1]
+
+        # host µs: each member alone, the collection (engine on, the card's default)
+        members_us = {}
+        for name, m in _text_members(path).items():
+            m.update(*data[0])
+            members_us[name] = _host_us_per_call(lambda i, m=m: m.update(*data[i % len(data)]), iters=TEXT_TIMED, repeats=1)
+        mc = MetricCollection(_text_members(path))
+        mc.update(*data[0])
+        step = lambda i, mc=mc: mc.update(*data[i % len(data)])  # noqa: E731
+        collection_us = _host_us_per_call(step, iters=TEXT_TIMED, repeats=1)
+        prof = _device_profile(step, iters=2)
+        busy = prof["device_busy_us"]
+        out[path] = {
+            "updates": len(data), "pairs_per_update": TEXT_BATCH, "launches_eager": eager_launches,
+            "launches_engine": engine_launches, "values": values, "engine_fallbacks": reasons,
+            "against_cpu": {"updates": TEXT_CPU_UPDATES, "state_rel": state_rel, "value_rel": value_rel},
+            "member_update_us": members_us, "members_one_by_one_us": sum(members_us.values()),
+            "collection_update_us": collection_us,
+            "h2d_copies_per_update": _host_to_device_copies(step, iters=2) / 2,
+            "host_syncs_per_compute": compute_syncs,
+            "host_syncs_per_update": _syncs_per_call(lambda: step(1)),
+            "device_busy_us": busy, "device_ops": prof["device_ops"],
+            "device_idle_share": None if busy is None else max(0.0, 1 - busy / collection_us),
+            "kernels_us": prof["kernels_us"],
+            "fallback_breakdown": _collection_breakdown(lambda: _text_members(path), data[:4], rounds=1),
+        }
+        _log(f"  text {path}: {len(data)} updates of {TEXT_BATCH}; collection {collection_us:.0f} µs per update against"
+             f" its members one by one {sum(members_us.values()):.0f}; {out[path]['h2d_copies_per_update']:.0f} host-to-device"
+             f" copies per update; fallbacks {reasons}; CPU prefix state rel {state_rel:.2e}, values {value_rel:.2e}")
+    return out
+
+
+def _flat_text_value_all(values: dict) -> dict:
+    """A collection's flat ``compute`` as Python floats."""
+    return {k: float(v) for k, v in values.items()}
+
+
+# ---- BERTScore at roberta-large's width
+
+
+class _EncoderLayer(torch.nn.Module):
+    """One post-LN transformer layer (RoBERTa's): self-attention, then a GELU FFN."""
+
+    def __init__(self, hidden: int, heads: int, ffn: int) -> None:
+        super().__init__()
+        self.heads = heads
+        self.qkv = torch.nn.Linear(hidden, 3 * hidden)
+        self.out = torch.nn.Linear(hidden, hidden)
+        self.ln1 = torch.nn.LayerNorm(hidden, eps=1e-5)
+        self.fc1 = torch.nn.Linear(hidden, ffn)
+        self.fc2 = torch.nn.Linear(ffn, hidden)
+        self.ln2 = torch.nn.LayerNorm(hidden, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        b, length, h = x.shape
+        q, k, v = self.qkv(x).view(b, length, 3, self.heads, h // self.heads).permute(2, 0, 3, 1, 4)
+        a = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        x = self.ln1(x + self.out(a.transpose(1, 2).reshape(b, length, h)))
+        return self.ln2(x + self.fc2(torch.nn.functional.gelu(self.fc1(x))))
+
+
+class _TextEncoder(torch.nn.Module):
+    """A RoBERTa-shaped encoder: word and position embeddings (positions offset by 2, as
+    RoBERTa's), layer norm, ``layers`` post-LN layers; seeded weights (normal 0.02, as
+    BERT's init; layer norms the identity; biases 0)."""
+
+    def __init__(self, layers: int, hidden: int, heads: int, ffn: int, vocab: int, positions: int) -> None:
+        super().__init__()
+        self.word = torch.nn.Embedding(vocab, hidden)
+        self.pos = torch.nn.Embedding(positions, hidden)
+        self.ln = torch.nn.LayerNorm(hidden, eps=1e-5)
+        self.layers = torch.nn.ModuleList(_EncoderLayer(hidden, heads, ffn) for _ in range(layers))
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith("bias"):
+                    p.zero_()
+                elif ".ln" in name or name.startswith("ln"):
+                    p.fill_(1.0)
+                else:
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        self.eval()
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        outs = []
+        for i in range(0, ids.shape[0], BERT_CHUNK):
+            idc, mc = ids[i : i + BERT_CHUNK], mask[i : i + BERT_CHUNK]
+            pos = torch.arange(2, 2 + idc.shape[1], device=idc.device)
+            x = self.ln(self.word(idc) + self.pos(pos)[None])
+            bias = ((1.0 - mc.to(x.dtype)) * -1e9)[:, None, None, :]
+            for layer in self.layers:
+                x = layer(x, bias)
+            outs.append(x)
+        return torch.cat(outs)
+
+    def flops_per_token(self, length: int) -> int:
+        """Multiply-adds x 2 of the linear layers and the attention products, per token."""
+        h, f = self.ln.normalized_shape[0], self.layers[0].fc1.out_features
+        per_layer = 2 * (4 * h * h + 2 * h * f) + 4 * length * h
+        return per_layer * len(self.layers)
+
+
+def _word_tokenizer(vocab_size: int, max_length: int):
+    """Word-level tokens (a word's id: a hash into [3, vocab)), ``<s>`` = 0 and ``</s>`` = 2
+    around them, zero padding to ``max_length``: every row at width ``max_length``."""
+    import zlib
+
+    def tokenize(sentences: list) -> dict:
+        ids = torch.zeros(len(sentences), max_length, dtype=torch.int64)
+        for i, s in enumerate(sentences):
+            toks = [0] + [zlib.crc32(w.encode()) % (vocab_size - 3) + 3 for w in s.split()][: max_length - 2] + [2]
+            ids[i, : len(toks)] = torch.tensor(toks)
+        return {"input_ids": ids, "attention_mask": (torch.arange(max_length)[None] < torch.tensor(
+            [min(len(s.split()), max_length - 2) + 2 for s in sentences])[:, None]).to(torch.int64)}
+
+    return tokenize
+
+
+def run_bert_score(preds: list, targets: list, hbm_rate: float) -> dict:
+    """BERTScore over the 512 pairs at roberta-large's width through an injected encoder
+    and tokenizer: 8 updates of 64 pairs, then ``compute`` with ``idf=False`` and with
+    ``idf=True``; the greedy-cosine product against its bound; both computes at
+    ``BERT_CPU_ROWS`` against CPU metrics that took the same updates, and the functional's
+    first pairs against the CPU."""
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.functional.text import bert as bert_fn
+    from torchmetrics_tpu_torch.functional.text import bert_score
+    from torchmetrics_tpu_torch.text import BERTScore
+
+    import copy
+
+    cpu_encoder = _TextEncoder(**ROBERTA)
+    encoder = copy.deepcopy(cpu_encoder).cuda()  # the same seeded weights
+    tokenizer = _word_tokenizer(ROBERTA["vocab"], BERT_MAX_LENGTH)
+    enc_events: list = []  # (start, end) CUDA events around each encoder call
+
+    def forward(ids, mask):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            x = encoder(ids, mask)
+        end.record()
+        enc_events.append((start, end))
+        return x
+
+    out: dict = {"encoder": {k: v for k, v in ROBERTA.items()}, "max_length": BERT_MAX_LENGTH}
+    b = TEXT_BATCH
+    runs = {}
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            _zero_launches()
+            metrics = {idf: BERTScore(model=forward, user_tokenizer=tokenizer, idf=idf, max_length=BERT_MAX_LENGTH)
+                       for idf in (False, True)}
+            t0 = time.perf_counter()
+            for i in range(0, TEXT_PAIRS, b):
+                for m in metrics.values():
+                    m.update(preds[i : i + b], targets[i : i + b])
+            torch.cuda.synchronize()
+            runs[mode] = {"metrics": metrics, "update_us": (time.perf_counter() - t0) / (2 * TEXT_UPDATES) * 1e6}
+    engine_metrics = runs["engine"]["metrics"]
+    for idf in (False, True):
+        st = engine_metrics[idf]._engine.stats
+        if st.dispatches or dict(st.fallback_reasons) != {"list-state": TEXT_UPDATES}:
+            raise AssertionError(f"bert_score: the updates should fall back on their lists: {st.as_dict()}")
+        _text_state_diff("bert_score engine vs eager", engine_metrics[idf], runs["eager"]["metrics"][idf], 0.0)
+    computes, values = {}, {}
+    for idf, m in engine_metrics.items():
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        enc_events.clear()
+        t0 = time.perf_counter()
+        value, reads = _with_syncs(m.compute)
+        ms = (time.perf_counter() - t0) * 1e3
+        enc_ms = sum(a.elapsed_time(b) for a, b in enc_events)
+        f1 = value["f1"]
+        if f1.shape != (TEXT_PAIRS,) or not torch.isfinite(f1).all() or not ((f1 > 0) & (f1 <= 1 + 1e-6)).all():
+            raise AssertionError(f"bert_score idf={idf}: f1 {f1.shape} {f1[:4].tolist()}")
+        values[idf] = value
+        computes[f"idf_{idf}"] = {
+            "compute_ms": ms, "encoder_ms": enc_ms, "encoder_share": enc_ms / ms,
+            "peak_mib_over_live": (torch.cuda.max_memory_allocated() - live) / 2**20,
+            "host_reads_per_compute": reads,
+            "f1_mean": f1.mean().item(), "precision_mean": value["precision"].mean().item(),
+        }
+    launches = _launches()
+
+    # the padding: real tokens against the width-512 rows the encoder runs
+    tok = tokenizer(preds + targets)
+    real = int(tok["attention_mask"].sum())
+    rows = TEXT_PAIRS
+    out["padding"] = {
+        "real_tokens": real, "encoder_tokens": 2 * rows * BERT_MAX_LENGTH, "real_share": real / (2 * rows * BERT_MAX_LENGTH),
+    }
+    flops = 2 * rows * BERT_MAX_LENGTH * encoder.flops_per_token(BERT_MAX_LENGTH)
+    out["encoder_flops"] = flops
+    out["encoder_bound_ms"] = flops / 67e12 * 1e3
+
+    # the greedy-cosine product at the compute's shapes, against its float32 bound
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pe = torch.randn(rows, BERT_MAX_LENGTH, ROBERTA["hidden"], device="cuda", generator=gen)
+    te = torch.randn(rows, BERT_MAX_LENGTH, ROBERTA["hidden"], device="cuda", generator=gen)
+    pm = torch.ones(rows, BERT_MAX_LENGTH, device="cuda")
+    from torchmetrics_tpu_torch.models._common import full_float32
+
+    def bmm():
+        with full_float32():
+            return torch.bmm(pe, te.transpose(1, 2))
+
+    bmm_ms = _median_ms(lambda i: bmm(), iters=5, repeats=3)
+    cos_ms = _median_ms(lambda i: bert_fn._greedy_cosine_scores(pe, pm, te, pm, pm, pm), iters=3, repeats=3)
+    bmm_flops = 2 * rows * BERT_MAX_LENGTH * BERT_MAX_LENGTH * ROBERTA["hidden"]
+    out["greedy_cosine"] = {
+        "bmm_ms": bmm_ms, "scores_ms": cos_ms, "flops": bmm_flops, "bound_ms": bmm_flops / 67e12 * 1e3,
+        "bmm_bytes_bound_ms": 4 * (2 * rows * BERT_MAX_LENGTH * ROBERTA["hidden"] + rows * BERT_MAX_LENGTH**2) / hbm_rate * 1e3,
+    }
+    del pe, te, pm
+
+    # the card against the CPU (the same seeded weights): each modular compute at
+    # BERT_CPU_ROWS against a CPU metric that took the same 8 updates (the state
+    # concatenation and the corpus-wide idf included), then the functional's first pairs
+    host_rows = _CpuRows(cpu_encoder)
+    against = {}
+    for idf, value in values.items():
+        host_m = BERTScore(model=host_rows.forward(BERT_CPU_ROWS), user_tokenizer=tokenizer, idf=idf,
+                           max_length=BERT_MAX_LENGTH, device="cpu")
+        for i in range(0, TEXT_PAIRS, b):
+            host_m.update(preds[i : i + b], targets[i : i + b])
+        against[f"modular_idf_{idf}"] = _score_diff(value, host_m.compute(), BERT_CPU_ROWS)
+        del host_m
+    n = BERT_CPU_PAIRS
+    card = bert_score(preds[:n], targets[:n], model=forward, user_tokenizer=tokenizer, idf=True)
+    host = bert_score(preds[:n], targets[:n], model=host_rows.forward(), user_tokenizer=tokenizer, idf=True, device="cpu")
+    against["functional"] = _score_diff(card, host, range(n))
+    diff = max(against.values())
+    if not diff <= BERT_CPU_ATOL:
+        raise AssertionError(f"bert_score: card against CPU {against} > {BERT_CPU_ATOL}")
+    out.update({
+        "pairs": TEXT_PAIRS, "updates": TEXT_UPDATES, "update_us": {k: v["update_us"] for k, v in runs.items()},
+        "computes": computes, "launches": launches,
+        "against_cpu": {"modular_pairs": list(BERT_CPU_ROWS), "functional_pairs": n, "max_abs_diff": against},
+        "engine_split": engine_metrics[False]._engine.stats.as_dict(),
+    })
+    _log(f"  bert_score: {TEXT_PAIRS} pairs at width {BERT_MAX_LENGTH}, {ROBERTA['layers']} x {ROBERTA['hidden']}; compute idf=False"
+         f" {computes['idf_False']['compute_ms']:.0f} ms (encoder {computes['idf_False']['encoder_share']:.3f}),"
+         f" idf=True {computes['idf_True']['compute_ms']:.0f} ms; bmm {bmm_ms:.2f} ms against"
+         f" {out['greedy_cosine']['bound_ms']:.2f}; real tokens {out['padding']['real_share']:.3f}; CPU {diff:.2e}")
+    del encoder, cpu_encoder, runs, engine_metrics, values, host_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- perplexity at GPT-2's shapes
+
+
+def run_perplexity(hbm_rate: float) -> dict:
+    """4 updates of (8, 1024, 50257) logits with ~5 % ``ignore_index``, float32 then
+    bfloat16, eagerly and with the engine (which must replay, with 0 syncs per update);
+    device time per update against the bytes bound; a two-row slice against the CPU."""
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.functional.text import perplexity
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        batches = []
+        for _ in range(PPL_UPDATES):
+            logits = (torch.randn(PPL_BATCH, PPL_CONTEXT, PPL_VOCAB, device="cuda", generator=gen) * 2).to(dtype)
+            target = torch.randint(0, PPL_VOCAB, (PPL_BATCH, PPL_CONTEXT), device="cuda", generator=gen)
+            target = torch.where(torch.rand(target.shape, device="cuda", generator=gen) < PPL_IGNORED, IGNORE, target)
+            batches.append((logits, target))
+        runs = {}
+        for mode in ("eager", "engine"):
+            with engine_context(mode == "engine"):
+                _zero_launches()
+                m = Perplexity(ignore_index=IGNORE)
+                for logits, target in batches:
+                    m.update(logits, target)
+                runs[mode] = (m, _launches())
+        (eager, eager_launches), (engine, engine_launches) = runs["eager"], runs["engine"]
+        st = engine._engine.stats
+        if st.eager_fallbacks or st.dispatches != PPL_UPDATES or st.captures > 1:
+            raise AssertionError(f"perplexity {name}: the engine should replay every update: {st.as_dict()}")
+        _check_replays(f"perplexity {name}", engine._engine)
+        if not (torch.equal(engine.count, eager.count) and torch.equal(engine.total_log_probs, eager.total_log_probs)):
+            raise AssertionError(f"perplexity {name}: engine {engine.total_log_probs.item()} vs eager {eager.total_log_probs.item()}")
+        syncs = {}
+        for mode, m in (("eager", eager), ("engine", engine)):
+            with engine_context(mode == "engine"):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    m.update(*batches[0])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                syncs[mode] = _syncs_per_call(lambda m=m: m.update(*batches[1]))
+        if any(syncs.values()):
+            raise AssertionError(f"perplexity {name}: host syncs per update {syncs}")
+        value = eager.compute().item()
+        # two rows of the first batch, the card against the CPU
+        logits, target = batches[0]
+        card = perplexity(logits[:2], target[:2], ignore_index=IGNORE).item()
+        host = perplexity(logits[:2].cpu(), target[:2].cpu(), ignore_index=IGNORE).item()
+        rel = abs(card - host) / abs(host)
+        if not (math.isfinite(value) and rel <= PPL_CPU_RTOL):
+            raise AssertionError(f"perplexity {name}: {value}; two rows card {card} vs CPU {host} (rel {rel:.3e})")
+        # device time per update: the functional update's ops, CUDA events
+        from torchmetrics_tpu_torch.functional.text.perplexity import _perplexity_update
+
+        update_ms = _median_ms(lambda i: _perplexity_update(logits, target, IGNORE), iters=10, repeats=3)
+        nbytes = logits.numel() * logits.element_size() + target.numel() * target.element_size()
+        prof = _device_profile(lambda i: eager.update(*batches[i % PPL_UPDATES]), iters=4)
+        times = {}
+        for mode, m in (("eager", eager), ("engine", engine), ("engine", engine), ("eager", eager)):
+            with engine_context(mode == "engine"):
+                times.setdefault(mode, []).append(
+                    _host_us_per_call(lambda i, m=m: m.update(*batches[i % PPL_UPDATES]), iters=PPL_UPDATES, repeats=1))
+        out[name] = {
+            "updates": PPL_UPDATES, "shape": [PPL_BATCH, PPL_CONTEXT, PPL_VOCAB], "value": value,
+            "launches_eager": eager_launches, "launches_engine": engine_launches, "engine": st.as_dict(),
+            "host_syncs_per_update": syncs, "against_cpu": {"rows": 2, "card": card, "cpu": host, "rel": rel},
+            "device_ms_per_update": update_ms, "bytes": nbytes, "bound_ms": nbytes / hbm_rate * 1e3,
+            "device_busy_us": prof["device_busy_us"], "device_ops": prof["device_ops"], "kernels_us": prof["kernels_us"],
+            "update_us": {k: sum(v) / len(v) for k, v in times.items()},
+        }
+        _log(f"  perplexity {name}: {PPL_UPDATES} x {PPL_BATCH} x {PPL_CONTEXT} x {PPL_VOCAB}; {value:.6g}; update"
+             f" {update_ms:.3f} ms against {out[name]['bound_ms']:.3f} ms (bytes); engine replays {st.replays}, syncs {syncs}")
+        del batches, runs, eager, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- InfoLM over injected distributions
+
+
+class _BagOfWordsLM:
+    """An injected masked-LM stand-in: a sentence's distribution over ``INFOLM_VOCAB``
+    tokens is the softmax of its words' mean row of a seeded (buckets, vocab) table (each
+    word hashed to a bucket); counted on the host, one copy, a product on ``device``."""
+
+    def __init__(self, device) -> None:
+        gen = torch.Generator().manual_seed(3)
+        self.table = (torch.randn(INFOLM_BUCKETS, INFOLM_VOCAB, generator=gen) * 2).to(device)
+        self.device = torch.device(device)
+
+    def __call__(self, sentences: list) -> torch.Tensor:
+        import zlib
+
+        import numpy as np
+
+        counts = np.zeros((len(sentences), INFOLM_BUCKETS), np.float32)
+        for i, s in enumerate(sentences):
+            for w in s.split():
+                counts[i, zlib.crc32(w.encode()) % INFOLM_BUCKETS] += 1
+        counts /= np.maximum(counts.sum(1, keepdims=True), 1)
+        from torchmetrics_tpu_torch.models._common import full_float32
+
+        with full_float32():
+            logits = torch.from_numpy(counts).to(self.device) @ self.table
+        return torch.softmax(logits, dim=-1)
+
+
+def run_infolm(preds: list, targets: list) -> dict:
+    """The nine information measures over injected (512, 50265) distributions, eagerly and
+    with the engine (every update falls back on its lists; the engine's states equal to
+    the eager ones, its value within ``TEXT_RTOL``), each engine ``compute`` timed and
+    held against a CPU metric that took the same updates; the functional's first 16 pairs
+    against the CPU."""
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.functional.text import infolm
+    from torchmetrics_tpu_torch.text import InfoLM
+
+    model, cpu_model = _BagOfWordsLM("cuda"), _BagOfWordsLM("cpu")
+    out = {}
+    b = TEXT_BATCH
+    n = INFOLM_CPU_PAIRS
+    for measure, alpha, beta in INFOLM_MEASURES:
+        kw = {"information_measure": measure, "alpha": alpha, "beta": beta}
+        runs = {}
+        for mode in ("eager", "engine"):
+            with engine_context(mode == "engine"):
+                _zero_launches()
+                m = InfoLM(model=model, **kw)
+                for i in range(0, TEXT_PAIRS, b):
+                    m.update(preds[i : i + b], targets[i : i + b])
+                launches = _launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                value, reads = _with_syncs(m.compute)
+                runs[mode] = {"metric": m, "launches": launches, "value": value.item(), "reads": reads,
+                              "ms": (time.perf_counter() - t0) * 1e3}
+        m = runs["engine"]["metric"]
+        st = m._engine.stats
+        if st.dispatches or dict(st.fallback_reasons) != {"list-state": TEXT_UPDATES}:
+            raise AssertionError(f"infolm {measure}: the updates should fall back on their lists: {st.as_dict()}")
+        _text_state_diff(f"infolm {measure} engine vs eager", m, runs["eager"]["metric"], 0.0)
+        value, reads, ms = (runs["engine"][k] for k in ("value", "reads", "ms"))
+        eager_value = runs["eager"]["value"]
+        engine_rel = abs(value - eager_value) / max(abs(eager_value), 1e-30)
+        if not engine_rel <= TEXT_RTOL:
+            raise AssertionError(f"infolm {measure}: engine {value} vs eager {eager_value} (rel {engine_rel:.3e})")
+        host_m = InfoLM(model=cpu_model, **kw, device="cpu")
+        for i in range(0, TEXT_PAIRS, b):
+            host_m.update(preds[i : i + b], targets[i : i + b])
+        host_value = host_m.compute().item()
+        modular_rel = abs(value - host_value) / max(abs(host_value), 1e-30)
+        card = infolm(preds[:n], targets[:n], model=model, **kw).item()
+        host = infolm(preds[:n], targets[:n], model=cpu_model, **kw, device="cpu").item()
+        rel = max(modular_rel, abs(card - host) / max(abs(host), 1e-30))
+        if not (math.isfinite(value) and rel <= INFOLM_CPU_RTOL):
+            raise AssertionError(f"infolm {measure}: {value} vs CPU {host_value}; {n} pairs card {card} vs CPU {host}"
+                                 f" (rel {rel:.3e})")
+        out[measure] = {"value": value, "compute_ms": ms, "eager_compute_ms": runs["eager"]["ms"],
+                        "host_syncs_per_compute": reads, "against_cpu_rel": rel, "engine_against_eager_rel": engine_rel,
+                        "launches": runs["engine"]["launches"], "launches_eager": runs["eager"]["launches"]}
+        del runs, m
+    _log(f"  infolm: nine measures over ({TEXT_PAIRS}, {INFOLM_VOCAB}); compute"
+         f" {min(v['compute_ms'] for v in out.values()):.1f}-{max(v['compute_ms'] for v in out.values()):.1f} ms")
+    return out
+
+
+# ---- the HF route
+
+
+def _hf_checkpoint(vocab_words: list, directory: str) -> str:
+    """A seeded ``BertForMaskedLM`` at bert-base width and a ``BertTokenizer`` over a
+    vocabulary file written here, saved with ``save_pretrained`` into ``directory``."""
+    import transformers
+
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    words = specials + vocab_words
+    words += [f"[unused{i}]" for i in range(HF_BERT["vocab"] - len(words))]
+    path = os.path.join(directory, "vocab.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(words))
+    transformers.BertTokenizer(path).save_pretrained(directory)
+    config = transformers.BertConfig(
+        vocab_size=HF_BERT["vocab"], hidden_size=HF_BERT["hidden"], num_hidden_layers=HF_BERT["layers"],
+        num_attention_heads=HF_BERT["heads"], intermediate_size=HF_BERT["ffn"],
+        max_position_embeddings=HF_BERT["positions"],
+    )
+    torch.manual_seed(0)
+    transformers.BertForMaskedLM(config).save_pretrained(directory)
+    return directory
+
+
+def run_hf_route(preds: list, targets: list, vocab: list) -> dict:
+    """``BERTScore(model_name_or_path=dir)`` over the 512 pairs and ``InfoLM(model_name_or_path=dir)``
+    over 16 (one forward per position), on a checkpoint the script writes; the compute at
+    ``BERT_CPU_ROWS`` against a CPU metric that took the same updates, and the
+    functionals' first pairs against the CPU. The model the loader caches stays on the
+    CPU: the card runs its copy."""
+    import transformers
+
+    from torchmetrics_tpu_torch.functional.text import bert_score, infolm
+    from torchmetrics_tpu_torch.text import BERTScore, InfoLM
+    from torchmetrics_tpu_torch.utilities import hf
+
+    out = {"transformers": transformers.__version__, "model": dict(HF_BERT)}
+    with tempfile.TemporaryDirectory() as d:
+        _hf_checkpoint(vocab, d)
+        b = TEXT_BATCH
+        m = BERTScore(model_name_or_path=d, idf=True)
+        for i in range(0, TEXT_PAIRS, b):
+            m.update(preds[i : i + b], targets[i : i + b])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, bert_reads = _with_syncs(m.compute)
+        bert_ms = (time.perf_counter() - t0) * 1e3
+        f1 = value["f1"]
+        if f1.shape != (TEXT_PAIRS,) or not torch.isfinite(f1).all():
+            raise AssertionError(f"hf bert_score: f1 {f1.shape} {f1[:4].tolist()}")
+        # the card against the CPU: the same loader, tokenizer and cached CPU model
+        cpu_model, _ = hf.load_hf_model_and_tokenizer(d)
+        host_rows = _CpuRows(hf.hf_embedding_forward(cpu_model))
+        host_m = BERTScore(model_name_or_path=d, user_forward_fn=host_rows.forward(BERT_CPU_ROWS), idf=True, device="cpu")
+        for i in range(0, TEXT_PAIRS, b):
+            host_m.update(preds[i : i + b], targets[i : i + b])
+        against = {"modular_idf_True": _score_diff(value, host_m.compute(), BERT_CPU_ROWS)}
+        del host_m
+        n = HF_CPU_PAIRS
+        card = bert_score(preds[:n], targets[:n], model_name_or_path=d, idf=True)
+        host = bert_score(preds[:n], targets[:n], model_name_or_path=d, idf=True, device="cpu")
+        against["functional"] = _score_diff(card, host, range(n))
+        bert_diff = max(against.values())
+        if not bert_diff <= BERT_CPU_ATOL:
+            raise AssertionError(f"hf bert_score: card against CPU {against} > {BERT_CPU_ATOL}")
+        placed = {"cached": next(cpu_model.parameters()).device.type,
+                  "card_copy": next(hf.model_on(cpu_model, "cuda").parameters()).device.type}
+        if placed != {"cached": "cpu", "card_copy": "cuda"}:
+            raise AssertionError(f"hf: the shared model was moved: {placed}")
+
+        k = HF_INFOLM_PAIRS
+        il = InfoLM(model_name_or_path=d, idf=False)
+        il.update(preds[:k], targets[:k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info_value, info_reads = _with_syncs(il.compute)
+        info_ms = (time.perf_counter() - t0) * 1e3
+        info_value = info_value.item()
+        info_card = infolm(preds[:n], targets[:n], model_name_or_path=d, idf=False).item()
+        info_host = infolm(preds[:n], targets[:n], model_name_or_path=d, idf=False, device="cpu").item()
+        info_rel = abs(info_card - info_host) / max(abs(info_host), 1e-30)
+        if not (math.isfinite(info_value) and info_rel <= HF_INFOLM_CPU_RTOL):
+            raise AssertionError(f"hf infolm: {info_value}; card {info_card} vs CPU {info_host} (rel {info_rel:.3e})")
+        hf.load_hf_model_and_tokenizer.cache_clear()
+    out.update({
+        "bert_score": {"pairs": TEXT_PAIRS, "compute_ms": bert_ms, "host_syncs_per_compute": bert_reads,
+                       "f1_mean": f1.mean().item(), "model_devices": placed,
+                       "against_cpu": {"modular_pairs": list(BERT_CPU_ROWS), "functional_pairs": n,
+                                       "max_abs_diff": against}},
+        "infolm": {"pairs": k, "compute_ms": info_ms, "host_syncs_per_compute": info_reads, "value": info_value,
+                   "against_cpu": {"pairs": n, "card": info_card, "cpu": info_host, "rel": info_rel}},
+    })
+    _log(f"  hf route (transformers {transformers.__version__}): BERTScore {TEXT_PAIRS} pairs {bert_ms:.0f} ms (CPU"
+         f" {bert_diff:.2e}); InfoLM {k} pairs {info_ms:.0f} ms (CPU rel {info_rel:.2e})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_text(gen: torch.Generator, hbm_rate: float, smi: str) -> dict:
+    """Phase 20: the host metrics, BERTScore at roberta-large's width, perplexity at GPT-2's
+    shapes, InfoLM, and the HF route."""
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must run at 'highest' precision (no TF32) for the card to agree with the CPU")
+    preds, targets, vocab = _wmt_pairs(TEXT_PAIRS, seed=14)
+    squad = _squad_pairs(TEXT_PAIRS, vocab, seed=15)
+    words = [len(p.split()) for p in preds]
+    out = {
+        "card": smi,
+        "corpus": {"pairs": TEXT_PAIRS, "updates": TEXT_UPDATES, "mean_words": sum(words) / len(words),
+                   "min_words": min(words), "max_words": max(words), "multi_sentence": sum("." in p for p in preds)},
+    }
+    out["host"] = run_text_host_paths(_text_batches(preds, targets, squad))
+    out["bert_score"] = run_bert_score(preds, targets, hbm_rate)
+    out["perplexity"] = run_perplexity(hbm_rate)
+    out["infolm"] = run_infolm(preds, targets)
+    out["hf"] = run_hf_route(preds, targets, vocab)
+    out["tolerances"] = {"host_rtol": TEXT_RTOL, "perplexity_cpu_rtol": PPL_CPU_RTOL, "bert_cpu_atol": BERT_CPU_ATOL,
+                         "infolm_cpu_rtol": INFOLM_CPU_RTOL, "hf_infolm_cpu_rtol": HF_INFOLM_CPU_RTOL}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -5473,11 +6404,11 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/19] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/20] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/19] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    _log(f"[2/20] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -5493,37 +6424,43 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/19] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/20] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/19] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/20] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/19] regression's moments and cat states, retrieval")
+        _log("[16/20] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/19] nominal association and pairwise distances")
+        _log("[17/20] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/19] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/20] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--text-only"]:
+        _log("[20/20] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        text = run_text(gen, hbm_rate, smi)
+        print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/19] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/20] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -5533,7 +6470,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/19] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/20] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -5541,30 +6478,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/19] kernels against their plain versions")
+        _log("[3/20] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/19] main path")
+        _log("[4/20] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/19] collection path")
+        _log("[5/20] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/19] binary path")
+        _log("[6/20] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/19] multilabel path")
+        _log("[7/20] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/19] task routers")
+        _log("[8/20] task routers")
         run_routers(gen)
 
-        _log("[9/19] sync, two ranks on one card")
+        _log("[9/20] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/19] times")
+        _log("[10/20] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -5577,7 +6514,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/19] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/20] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -5599,7 +6536,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/19] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/20] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -5608,29 +6545,32 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/19] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/20] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/19] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/20] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/19] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/20] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/19] regression's moments and cat states, retrieval")
+    _log("[16/20] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/19] nominal association and pairwise distances")
+    _log("[17/20] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/19] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/20] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/19] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/20] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
+
+    _log("[20/20] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    text = run_text(gen, hbm_rate, smi)
 
     for entry in kernels:
         k = entry["name"]
@@ -5661,6 +6601,13 @@ def main() -> int:
             "image_models_fid_engine": image_models["fid"]["launches_engine"][k],
             **{f"image_models_lpips_{net}": image_models["lpips"][net]["launches_eager"][k] for net in LPIPS_NETS},
             **{f"image_models_lpips_{net}_engine": image_models["lpips"][net]["launches_engine"][k] for net in LPIPS_NETS},
+            **{f"text_{path}": text["host"][path]["launches_eager"][k] for path in TEXT_PATHS},
+            **{f"text_{path}_engine": text["host"][path]["launches_engine"][k] for path in TEXT_PATHS},
+            "text_bert_score": text["bert_score"]["launches"][k],
+            **{f"text_perplexity_{d}": text["perplexity"][d]["launches_eager"][k] for d in ("float32", "bfloat16")},
+            **{f"text_perplexity_{d}_engine": text["perplexity"][d]["launches_engine"][k] for d in ("float32", "bfloat16")},
+            "text_infolm": sum(v["launches_eager"][k] for v in text["infolm"].values()),
+            "text_infolm_engine": sum(v["launches"][k] for v in text["infolm"].values()),
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -5672,7 +6619,7 @@ def main() -> int:
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
-        "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
+        "text": text, "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)
     if "--out" in sys.argv:

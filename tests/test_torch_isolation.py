@@ -21,6 +21,7 @@ for info in pkgutil.walk_packages(torchmetrics_tpu_torch.__path__, prefix="torch
 leaked = sorted(k for k in sys.modules
                 if k in ("jax", "jaxlib", "torchmetrics_tpu") or k.startswith(("jax.", "jaxlib.", "torchmetrics_tpu.")))
 assert not leaked, leaked
+assert "transformers" not in sys.modules, "a port module imported transformers at import time"
 for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.bucketing", "engine.config"):
     assert "torchmetrics_tpu_torch." + name in sys.modules, name
 print("isolated")
@@ -31,6 +32,7 @@ import torch
 import torchmetrics_tpu_torch as tm
 import torchmetrics_tpu_torch.retrieval
 import torchmetrics_tpu_torch.image
+import torchmetrics_tpu_torch.text
 from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
 routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
@@ -55,6 +57,10 @@ IMAGE = ("ErrorRelativeGlobalDimensionlessSynthesis", "MultiScaleStructuralSimil
 IMAGE_ARGS = {n: {"feature": lambda x: x.float().flatten(1), "num_features": 4}
               for n in ("FrechetInceptionDistance", "KernelInceptionDistance", "InceptionScore")}
 IMAGE_ARGS["LearnedPerceptualImagePatchSimilarity"] = {"net_type": lambda a, b, normalize=False: (a - b).abs().mean((1, 2, 3))}
+TEXT = ("BERTScore", "BLEUScore", "CHRFScore", "CharErrorRate", "ExtendedEditDistance", "InfoLM", "MatchErrorRate",
+        "Perplexity", "ROUGEScore", "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate", "WordInfoLost",
+        "WordInfoPreserved")
+assert sorted(TEXT) == sorted(tm.text.__all__)
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -90,6 +96,7 @@ for make in (
     *(lambda n=n: getattr(tm, n)(num_classes=3) for n in NOMINAL),
     lambda: tm.FleissKappa(mode="probs"),
     *(lambda n=n: getattr(tm.image, n)(**IMAGE_ARGS.get(n, {})) for n in IMAGE),
+    *(lambda n=n: getattr(tm.text, n)() for n in TEXT),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,

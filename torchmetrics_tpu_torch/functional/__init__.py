@@ -13,6 +13,8 @@ from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
+from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = (
     list(_classification_all)
@@ -21,4 +23,5 @@ __all__ = (
     + list(_pairwise_all)
     + list(_regression_all)
     + list(_retrieval_all)
+    + list(_text_all)
 )

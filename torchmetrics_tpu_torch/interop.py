@@ -8,7 +8,9 @@ GPU; ``collection_state_from_jax`` does the same for a ``MetricCollection.state_
 int32, the counters' dtype (JAX's 64-bit mode widens them to int64 when they fold); a
 value that does not fit int32 raises instead of wrapping. Float states keep their
 width here, and the port's ``load_state_dict`` casts each float state to the dtype of
-its registered default: float32, or what ``set_dtype`` chose.
+its registered default: float32, or what ``set_dtype`` chose. A string in a list state
+(the raw sentences of BERTScore and InfoLM, which JAX's ``state_dict`` gives as 0-d
+``<U`` arrays) stays a Python ``str``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,16 @@ import numpy as np
 import torch
 
 _INT32 = np.iinfo(np.int32)
+
+
+def _is_text(value: Any) -> bool:
+    """A string entry: ``str``, numpy ``str_`` or a 0-d ``<U`` array."""
+    return isinstance(value, str) or (isinstance(value, np.ndarray) and value.dtype.kind == "U" and value.ndim == 0)
+
+
+def _entry(value: Any, device: torch.device) -> Union[torch.Tensor, str]:
+    """One element of a list state: a raw sentence stays a Python ``str``."""
+    return str(value) if _is_text(value) else _tensor(value, device)
 
 
 def _tensor(value: Any, device: torch.device) -> torch.Tensor:
@@ -40,7 +52,7 @@ def state_from_jax(
         if isinstance(value, (int, np.integer)) and not isinstance(value, bool):
             out[key] = int(value)
         elif isinstance(value, (list, tuple)):
-            out[key] = [_tensor(v, device) for v in value]
+            out[key] = [_entry(v, device) for v in value]
         else:
             out[key] = _tensor(value, device)
     return out

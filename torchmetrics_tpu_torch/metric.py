@@ -581,8 +581,9 @@ class Metric(torch.nn.Module):
         def _fingerprint(x: Any) -> int:
             dims: List[int] = []
             for el in x if isinstance(x, list) else [x]:
-                dims.append(el.ndim)
-                dims.extend(int(d) for d in el.shape)
+                shape = tuple(getattr(el, "shape", ()))  # a raw string counts as 0-d
+                dims.append(len(shape))
+                dims.extend(int(d) for d in shape)
             return shape_fingerprint(dims)
 
         values = [input_dict[a] for a in list_attrs]
@@ -785,7 +786,7 @@ class Metric(torch.nn.Module):
         for key in self._defaults:
             current_val = getattr(self, key)
             if isinstance(current_val, list):
-                setattr(self, key, [v.to("cpu") for v in current_val])
+                setattr(self, key, [v.to("cpu") if isinstance(v, torch.Tensor) else v for v in current_val])
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         self._raw_compute = compute  # the unwrapped body: what the epoch engine captures
@@ -1067,7 +1068,7 @@ class Metric(torch.nn.Module):
                     current_val = numerics.anchored_value(current_val, residuals[key])
                 destination[prefix + key] = current_val.detach().clone()
             else:
-                destination[prefix + key] = [v.detach().clone() for v in current_val]
+                destination[prefix + key] = [v.detach().clone() if isinstance(v, torch.Tensor) else v for v in current_val]
             wrote_any = True
         if wrote_any:
             destination[prefix + self._UPDATE_COUNT_KEY] = self._update_count
@@ -1085,7 +1086,7 @@ class Metric(torch.nn.Module):
                 continue
             val = state_dict[name]
             if isinstance(val, list):
-                setattr(self, key, [torch.as_tensor(v, device=self._device) for v in val])
+                setattr(self, key, [v if isinstance(v, str) else torch.as_tensor(v, device=self._device) for v in val])
             else:
                 arr = torch.as_tensor(val, device=self._device)
                 default = self._defaults[key]
