@@ -8,7 +8,8 @@ Run from the repository root, with no arguments::
 Phases, in order; any failure raises and the exit code is non-zero:
 
 1. device: require CUDA, print ``nvidia-smi`` name and power limit;
-2. build: compile the kernels in ``torchmetrics_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build: compile the kernels in ``torchmetrics_tpu_torch/csrc`` (nvcc, sm_90a) and the
+   host C++ in ``torchmetrics_tpu_torch/native`` (g++);
 3. kernels: hold each kernel against its plain PyTorch version on the card, on the
    main paths' shapes and on edge shapes (K2 also on peaked, all-equal and
    on-threshold scores and on NaN thresholds; at the binary path's ``(2^20, 1, 200)``
@@ -272,6 +273,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    pairs against the CPU; the model the loader caches stays on the CPU and the card runs
    a copy. No K1 / K2 launch.
 
+21. the detection domain (``BASELINE.json`` config #5, ``MeanAveragePrecision`` on COCO val2017)
+   on 5000 seeded images shaped like COCO val (640 x 480, 80 classes, ~7.3 ground truths
+   per image capped at 63, 41 / 34 / 25 % small / medium / large, 100 post-NMS detections
+   per image): ``coco_list``, ``MeanAveragePrecision()`` at the defaults with class
+   metrics over per-image dicts in updates of 16 (host µs per update; ``compute`` ms, the
+   C++ evaluator's share, device reads per ``compute`` (at most 9), values equal to the
+   same run on the CPU; the C++ evaluator against the numpy route on the first 500
+   images to 1e-12); ``coco_packed``, ``PackedMeanAveragePrecision(80)`` over the same
+   images as widened (16, 128, 6) / (16, 64, 5) batches, eagerly and with the engine
+   (histograms equal both ways and to a CPU run over the first 1024 images; ``map``
+   within 1e-3 of ``coco_list``'s; µs per update, device busy and idle, device
+   operations, replays and captures, 0 host syncs per update); ``segm``, dense 480 x 640
+   masks (64 images, 20 detections each) and RLE dicts of the same masks, equal to each
+   other and to the CPU run; ``iou_family``, IoU / GIoU / DIoU / CIoU over 512 images
+   (within 1e-6 of the CPU run, 3 reads per ``compute``); ``panoptic``, ``PanopticQuality``
+   and ``ModifiedPanopticQuality`` on 8 COCO-panoptic-shaped (480, 640, 2) maps, equal to
+   the CPU run; ``sync2``, the packed-dict and packed routes over 2 gloo ranks of 2500
+   images each, equal to one process over all 5000, and ragged per-image lists raising on
+   both ranks. The C++ builds with ``g++`` at first use. No K1 / K2 launch.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -288,7 +309,7 @@ batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 al
 ``--nominal-pairwise-only`` runs phases 1-2 and then phase 17 alone;
 ``--image-only`` runs phases 1-2 and then phase 18 alone; ``--image-models-only`` runs
 phases 1-2 and then phase 19 alone; ``--text-only`` runs phases 1-2 and then phase 20
-alone.
+alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -297,6 +318,7 @@ first on ``sys.path``, so two checkouts can be compared in turns in one call.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import gc
 import json
@@ -1263,42 +1285,41 @@ def _sync_rank_body(rank: int, out_dir: str) -> dict:
     return result
 
 
-def _sync_rank(rank: int, port: int, out_dir: str) -> None:
-    """One of the two ranks: reports to ``out_dir/rank<r>.json``, then waits for the other."""
+def _gloo_rank(rank: int, port: int, out_dir: str, body, timeout_s: float) -> None:
+    """One of two gloo ranks on the one card: runs ``body(rank, out_dir)``, reports to
+    ``out_dir/rank<r>.json``, then waits for the other rank before leaving the group."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
     dist.init_process_group(
         "gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank,
-        timeout=datetime.timedelta(seconds=SYNC_JOIN_TIMEOUT_S),
+        timeout=datetime.timedelta(seconds=timeout_s),
     )
-    from torchmetrics_tpu_torch.engine import engine_context
-
     try:
-        with engine_context(False):  # the eager path, as in the earlier slices
-            result = {"ok": True, **_sync_rank_body(rank, out_dir), "moments_lists": _sync2_rank_body(rank, out_dir)}
+        result = {"ok": True, **body(rank, out_dir)}
     except Exception as err:  # reported to the parent, which fails the phase
         result = {"ok": False, "error": f"{type(err).__name__}: {err}"}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
-    deadline = time.monotonic() + SYNC_JOIN_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline and not all(os.path.exists(os.path.join(out_dir, f"rank{r}.json")) for r in range(2)):
         time.sleep(0.05)
     dist.destroy_process_group()
 
 
-def run_sync_phase() -> dict:
-    """Two spawned ranks on the one card; fails on a hang (join timeout), an error on
-    either rank, a route other than the packed one, or a value off the merge_state fold."""
+@contextlib.contextmanager
+def _two_ranks(body, timeout_s: float, name: str):
+    """Spawn two ranks running ``body`` and yield ``(results, out_dir)``; fails on a hang
+    (join timeout), a rank that exits without a result, or an error on either rank."""
     with tempfile.TemporaryDirectory() as out_dir:
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_sync_rank, args=(r, port, out_dir)) for r in range(2)]
+        procs = [ctx.Process(target=_gloo_rank, args=(r, port, out_dir, body, timeout_s)) for r in range(2)]
         for proc in procs:
             proc.start()
-        deadline = time.monotonic() + SYNC_JOIN_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         for proc in procs:
             proc.join(max(0.0, deadline - time.monotonic()))
         hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
@@ -1307,17 +1328,31 @@ def run_sync_phase() -> dict:
                 proc.kill()
                 proc.join()
         if hung:
-            raise AssertionError(f"sync phase: ranks {hung} still running after {SYNC_JOIN_TIMEOUT_S} s")
+            raise AssertionError(f"{name}: ranks {hung} still running after {timeout_s} s")
         results = []
         for rank, proc in enumerate(procs):
             path = os.path.join(out_dir, f"rank{rank}.json")
             if proc.exitcode != 0 or not os.path.exists(path):
-                raise AssertionError(f"sync phase: rank {rank} exited with {proc.exitcode} and no result")
+                raise AssertionError(f"{name}: rank {rank} exited with {proc.exitcode} and no result")
             with open(path) as f:
                 results.append(json.load(f))
+            if not results[-1]["ok"]:
+                raise AssertionError(f"{name}: rank {rank}: {results[-1]['error']}")
+        yield results, out_dir
+
+
+def _phase9_rank_body(rank: int, out_dir: str) -> dict:
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    with engine_context(False):  # the eager path, as in the earlier slices
+        return {**_sync_rank_body(rank, out_dir), "moments_lists": _sync2_rank_body(rank, out_dir)}
+
+
+def run_sync_phase() -> dict:
+    """Two spawned ranks on the one card; fails on a hang (join timeout), an error on
+    either rank, a route other than the packed one, or a value off the merge_state fold."""
+    with _two_ranks(_phase9_rank_body, SYNC_JOIN_TIMEOUT_S, "sync phase") as (results, out_dir):
         for rank, res in enumerate(results):
-            if not res["ok"]:
-                raise AssertionError(f"sync phase: rank {rank}: {res['error']}")
             want_collectives = len(res["buffer_keys"]) + (0 if res["rank_invariant"] else 1)
             if (res["packed_syncs"], res["eager_fallbacks"], res["members_synced_alone"]) != (1, 0, 0):
                 raise AssertionError(f"sync phase: rank {rank} did not take the packed route alone: {res}")
@@ -6391,6 +6426,580 @@ def run_text(gen: torch.Generator, hbm_rate: float, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 21: the detection domain
+
+COCO_IMAGES, COCO_CLASSES, COCO_DETS = 5000, 80, 100  # BASELINE #5: COCO val2017, 80 classes, top-100 post-NMS
+COCO_W, COCO_H = 640, 480
+COCO_GT_MEAN, COCO_GT_CAP = 7.3, 63  # ground truths per image: COCO val's mean, and the cap
+COCO_AREA_SHARES = (0.41, 0.34, 0.25)  # small / medium / large ground truths, as in COCO val
+COCO_UPDATE = 16  # images per update
+COCO_NUMPY_IMAGES = 500  # the C++ evaluator against the numpy matcher route
+COCO_PACKED_CPU_IMAGES = 1024  # the packed route's CPU run: its first 64 updates
+MAP_ROUTE_TOL = 1e-12  # the C++ evaluator and the numpy route add the same float64 terms
+MAP_BINS_TOL = 1e-3  # the packed route's 1024 score bins against the host route
+SEGM_IMAGES, SEGM_DETS = 64, 20  # dense 480 x 640 masks at 100 per image over 5000 images would need ~150 GB
+IOU_IMAGES = 512
+IOU_ATOL = 1e-6
+PANOPTIC_MAPS, PANOPTIC_UPDATE = 8, 2
+PANOPTIC_THINGS, PANOPTIC_STUFFS = frozenset(range(80)), frozenset(range(80, 133))  # COCO panoptic: 80 + 53
+DET_PATHS = ("coco_list", "coco_packed", "segm", "iou_family", "panoptic", "sync2")
+DET_SYNC_TIMEOUT_S = 300
+
+
+def _coco_val(seed: int, n: int = COCO_IMAGES) -> dict:
+    """``n`` images shaped like COCO val2017 (numpy, from ``seed``): 640 x 480 frames;
+    ground truths per image drawn to a mean of ~7.3 (a negative binomial, capped at 63)
+    with 41 / 34 / 25 % small / medium / large areas and Zipf-like class frequencies;
+    exactly 100 detections per image, sorted by score as a post-NMS detector emits them:
+    each ground truth found with probability 0.9 at a spread of IoU (90 % with its own
+    label), a lower-scored duplicate for 30 % of them, false positives filling the rest.
+    Boxes are xyxy float32; ground truths pad to 63 slots."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = COCO_GT_CAP
+    p = 2.0 / (2.0 + COCO_GT_MEAN)
+    n_gt = np.minimum(rng.negative_binomial(2, p, n), g)
+    weights = 1.0 / np.arange(1, COCO_CLASSES + 1) ** 0.9
+    weights /= weights.sum()
+
+    def boxes(shape, size_class):
+        lo = np.array([4.0**2, 32.0**2, 96.0**2])[size_class]
+        hi = np.array([32.0**2, 96.0**2, 400.0**2])[size_class]
+        area = np.exp(rng.uniform(np.log(lo), np.log(hi)))
+        ar = np.exp(rng.uniform(np.log(0.5), np.log(2.0), shape))
+        w = np.minimum(np.sqrt(area * ar), COCO_W - 1)
+        h = np.minimum(np.sqrt(area / ar), COCO_H - 1)
+        x = rng.uniform(0, COCO_W - w)
+        y = rng.uniform(0, COCO_H - h)
+        return np.stack([x, y, x + w, y + h], -1)
+
+    def jitter(b, lo, hi):
+        wh = np.concatenate([b[..., 2:] - b[..., :2]] * 2, -1)
+        out = b + rng.normal(size=b.shape) * wh * rng.uniform(lo, hi, b.shape[:-1] + (1,))
+        out[..., 0::2] = np.clip(out[..., 0::2], 0, COCO_W)
+        out[..., 1::2] = np.clip(out[..., 1::2], 0, COCO_H)
+        return out
+
+    size_class = rng.choice(3, (n, g), p=np.asarray(COCO_AREA_SHARES) / sum(COCO_AREA_SHARES))
+    gt = boxes((n, g), size_class)
+    gt_labels = rng.choice(COCO_CLASSES, (n, g), p=weights)
+    valid_gt = np.arange(g)[None, :] < n_gt[:, None]
+    wrong = lambda shape: rng.choice(COCO_CLASSES, shape, p=weights)  # noqa: E731
+    hit_labels = np.where(rng.random((n, g)) < 0.9, gt_labels, wrong((n, g)))
+    dup_labels = np.where(rng.random((n, g)) < 0.9, gt_labels, wrong((n, g)))
+    cand_boxes = np.concatenate(
+        [jitter(gt, 0.01, 0.2), jitter(gt, 0.15, 0.45), boxes((n, COCO_DETS), rng.choice(3, (n, COCO_DETS)))], 1
+    )
+    cand_scores = np.concatenate(
+        [rng.beta(5, 2, (n, g)), rng.beta(2, 3, (n, g)), rng.beta(1, 5, (n, COCO_DETS))], 1
+    )
+    cand_labels = np.concatenate([hit_labels, dup_labels, wrong((n, COCO_DETS))], 1)
+    cand_ok = np.concatenate(
+        [valid_gt & (rng.random((n, g)) < 0.9), valid_gt & (rng.random((n, g)) < 0.3), np.ones((n, COCO_DETS), bool)], 1
+    )
+    keep = np.argsort(~cand_ok, axis=1, kind="stable")[:, :COCO_DETS]  # found, duplicates, then false positives
+    take = lambda a: np.take_along_axis(a, keep if a.ndim == 2 else keep[..., None], axis=1)  # noqa: E731
+    det, score, label = take(cand_boxes), take(cand_scores), take(cand_labels)
+    order = np.argsort(-score, axis=1, kind="stable")
+    det = np.take_along_axis(det, order[..., None], axis=1)
+    score, label = np.take_along_axis(score, order, axis=1), np.take_along_axis(label, order, axis=1)
+    return {
+        "det_boxes": det.astype(np.float32), "det_scores": score.astype(np.float32), "det_labels": label.astype(np.int64),
+        "gt_boxes": np.where(valid_gt[..., None], gt, 0).astype(np.float32),
+        "gt_labels": np.where(valid_gt, gt_labels, -1).astype(np.int64), "gt_counts": n_gt.astype(np.int64),
+        "size_class": size_class[valid_gt],
+    }
+
+
+def _coco_images(data: dict, lo: int, hi: int, device) -> tuple:
+    """Images ``lo:hi`` as the per-image dicts of the list route: views of tensors made
+    once on ``device`` (a detector's outputs, already there)."""
+    t = {k: torch.from_numpy(v).to(device) for k, v in data.items() if k != "size_class"}
+    preds = [{"boxes": t["det_boxes"][i], "scores": t["det_scores"][i], "labels": t["det_labels"][i]} for i in range(lo, hi)]
+    counts = data["gt_counts"]
+    target = [{"boxes": t["gt_boxes"][i, : counts[i]], "labels": t["gt_labels"][i, : counts[i]]} for i in range(lo, hi)]
+    return preds, target
+
+
+def _coco_packed_dicts(data: dict, lo: int, hi: int, device) -> list:
+    """Images ``lo:hi`` as packed-dict batches of ``COCO_UPDATE`` on ``device``, at the
+    detector's widths (100 detection and 63 ground-truth slots)."""
+    out = []
+    for s in range(lo, hi, COCO_UPDATE):
+        e = min(s + COCO_UPDATE, hi)
+        t = lambda k: torch.from_numpy(data[k][s:e]).to(device)  # noqa: E731
+        out.append((
+            {"boxes": t("det_boxes"), "scores": t("det_scores"), "labels": t("det_labels"),
+             "num_boxes": torch.full((e - s,), COCO_DETS, dtype=torch.int64, device=device)},
+            {"boxes": t("gt_boxes"), "labels": t("gt_labels"), "num_boxes": t("gt_counts")},
+        ))
+    return out
+
+
+def _det_values(out: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def _det_equal(name: str, got: dict, want: dict) -> float:
+    """Every value of two compute dicts equal, dtypes included; returns 0.0."""
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: keys {sorted(set(got) ^ set(want))} differ")
+    for k in want:
+        _equal(f"{name} {k}", got[k].detach().cpu(), want[k].detach().cpu())
+    return 0.0
+
+
+def _det_max_diff(got: dict, want: dict) -> float:
+    return max((got[k].detach().cpu().double() - want[k].detach().cpu().double()).abs().max().item() for k in want)
+
+
+def _device_reads(fn):
+    """``fn()``'s value, the ``.cpu()`` copies of card tensors in it, and the host syncs
+    ``set_sync_debug_mode("warn")`` reports."""
+    reads = []
+    real = torch.Tensor.cpu
+
+    def counted(self, *args, **kwargs):
+        if self.is_cuda:
+            reads.append(tuple(self.shape))
+        return real(self, *args, **kwargs)
+
+    torch.Tensor.cpu = counted
+    try:
+        value, syncs = _with_syncs(fn)
+    finally:
+        torch.Tensor.cpu = real
+    return value, len(reads), syncs
+
+
+def _timed_native(fn):
+    """``fn()``'s value and the seconds spent inside ``native.coco_eval_bbox``."""
+    from torchmetrics_tpu_torch import native
+
+    spent = [0.0]
+    real = native.coco_eval_bbox
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    native.coco_eval_bbox = timed
+    try:
+        return fn(), spent[0]
+    finally:
+        native.coco_eval_bbox = real
+
+
+def _coco_route_agreement(data: dict) -> dict:
+    """The first ``COCO_NUMPY_IMAGES`` images through the port's two host evaluators: the
+    C++ epoch call and the numpy route (``_calculate``: numpy IoU and PR curves around the
+    per-(image, class) C++ matcher); the largest difference of their float64 precision
+    and recall tensors."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch import native
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+    m = MeanAveragePrecision(class_metrics=True, device="cpu")
+    m.update(*_coco_images(data, 0, COCO_NUMPY_IMAGES, "cpu"))
+    captured = {}
+    real = native.coco_eval_bbox
+    native.coco_eval_bbox = lambda *a, **k: captured.setdefault("pr", real(*a, **k))
+    try:
+        t0 = time.perf_counter()
+        m._compute_native_bbox()
+        native_s = time.perf_counter() - t0
+    finally:
+        native.coco_eval_bbox = real
+    t0 = time.perf_counter()
+    dets, scores, dl, gts, gl = m._host_lists()
+    classes = m._get_classes(dl, gl)
+    precision, recall = m._calculate(classes, dets, scores, dl, gts, gl)
+    numpy_s = time.perf_counter() - t0
+    diff = max(float(np.abs(captured["pr"][0] - precision).max()), float(np.abs(captured["pr"][1] - recall).max()))
+    if diff > MAP_ROUTE_TOL:
+        raise AssertionError(f"coco_list: the C++ evaluator and the numpy route differ by {diff} over {COCO_NUMPY_IMAGES} images")
+    return {"images": COCO_NUMPY_IMAGES, "max_abs_diff": diff, "native_s": native_s, "numpy_route_s": numpy_s}
+
+
+def run_coco_list(data: dict) -> dict:
+    """``MeanAveragePrecision()`` at the defaults with class metrics over every image, in
+    updates of 16, on the card and on the CPU."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision, mean_ap
+
+    preds, target = _coco_images(data, 0, COCO_IMAGES, "cuda")
+    m = MeanAveragePrecision(class_metrics=True)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, COCO_IMAGES, COCO_UPDATE):
+        m.update(preds[s : s + COCO_UPDATE], target[s : s + COCO_UPDATE])
+    torch.cuda.synchronize()
+    updates = -(-COCO_IMAGES // COCO_UPDATE)
+    update_us = (time.perf_counter() - t0) * 1e6 / updates
+    evals = mean_ap._STATS.map_host_evals
+    t0 = time.perf_counter()
+    (value, native_s), reads, syncs = _device_reads(lambda: _timed_native(m.compute))
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    if reads > 9 or mean_ap._STATS.map_host_evals != evals + 1:
+        raise AssertionError(f"coco_list: {reads} device reads per compute (at most 9), host evals {mean_ap._STATS.map_host_evals - evals}")
+    if value["map"].device.type != m.device.type or not 0.05 < float(value["map"]) < 0.95:
+        raise AssertionError(f"coco_list: map {float(value['map'])} on {value['map'].device}")
+
+    cpu = MeanAveragePrecision(class_metrics=True, device="cpu")
+    cpu_preds, cpu_target = _coco_images(data, 0, COCO_IMAGES, "cpu")
+    for s in range(0, COCO_IMAGES, COCO_UPDATE):
+        cpu.update(cpu_preds[s : s + COCO_UPDATE], cpu_target[s : s + COCO_UPDATE])
+    _det_equal("coco_list card against the CPU", value, cpu.compute())
+    agreement = _coco_route_agreement(data)
+    out = {
+        "images": COCO_IMAGES, "updates": updates, "update_us": update_us, "compute_ms": compute_ms,
+        "native_ms": native_s * 1e3, "native_share": native_s * 1e3 / compute_ms,
+        "device_reads_per_compute": reads, "host_syncs_per_compute": syncs,
+        "values": {k: float(v) for k, v in value.items() if v.ndim == 0},
+        "cpu_max_abs_diff": 0.0, "numpy_route": agreement, "launches": launches,
+        "gt_per_image": float(data["gt_counts"].mean()),
+        "gt_area_shares": [float((data["size_class"] == c).mean()) for c in range(3)],
+    }
+    _log(f"  coco_list: {update_us:.1f} µs per update of 16, compute {compute_ms:.1f} ms (C++ {native_s * 1e3:.1f} ms),"
+         f" {reads} device reads, map {out['values']['map']:.4f}, equal to the CPU run; C++ against numpy route"
+         f" {agreement['max_abs_diff']:.2e} over {COCO_NUMPY_IMAGES} images")
+    return out, _det_values(value)
+
+
+def _hist_states(m) -> tuple:
+    return tuple(getattr(m, a).detach().clone() for a in ("map_tp_hist", "map_fp_hist", "map_n_pos"))
+
+
+def run_coco_packed(data: dict, list_values: dict) -> tuple:
+    """``PackedMeanAveragePrecision(80)`` over the same images in widened ``(16, 128, 6)``
+    / ``(16, 64, 5)`` batches, eagerly and with the engine: histograms equal both ways and
+    to the CPU run over the first 1024 images, ``map`` against ``coco_list``'s."""
+    from torchmetrics_tpu_torch.detection import PackedMeanAveragePrecision
+    from torchmetrics_tpu_torch.detection.ingraph import pack_detections
+
+    batches = [pack_detections(p, t) for p, t in _coco_packed_dicts(data, 0, COCO_IMAGES, "cuda")]
+    if tuple(batches[0][0].shape) != (COCO_UPDATE, 128, 6) or tuple(batches[0][2].shape) != (COCO_UPDATE, 64, 5):
+        raise AssertionError(f"coco_packed: widened to {tuple(batches[0][0].shape)} / {tuple(batches[0][2].shape)}")
+    n_cpu = COCO_PACKED_CPU_IMAGES // COCO_UPDATE
+    runs, prefix, values, launches = {}, {}, {}, {}
+    for mode in ("eager", "engine"):
+        m = PackedMeanAveragePrecision(COCO_CLASSES, class_metrics=True, compiled_update=mode == "engine")
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            m.update(*b)
+            if i + 1 == n_cpu:
+                prefix[mode] = _hist_states(m)
+        torch.cuda.synchronize()
+        runs[mode] = (m, (time.perf_counter() - t0) * 1e6 / len(batches))
+        values[mode] = m.compute()
+        launches[mode] = _launches()
+    eager, engine = runs["eager"][0], runs["engine"][0]
+    st = engine._engine.stats
+    _check_replays("coco_packed", engine._engine)
+    if st.eager_fallbacks or st.dispatches != len(batches):
+        raise AssertionError(f"coco_packed: engine {st.dispatches} dispatches, {st.eager_fallbacks} fallbacks {dict(st.fallback_reasons)}")
+    for a, b, name in zip(_hist_states(eager), _hist_states(engine), ("tp", "fp", "n_pos")):
+        _equal(f"coco_packed {name} engine against eager", b, a)
+    cpu = PackedMeanAveragePrecision(COCO_CLASSES, class_metrics=True, device="cpu")
+    for b in batches[:n_cpu]:
+        cpu.update(*(x.cpu() for x in b))
+    for a, b, name in zip(_hist_states(cpu), prefix["engine"], ("tp", "fp", "n_pos")):
+        _equal(f"coco_packed {name} card against the CPU ({COCO_PACKED_CPU_IMAGES} images)", b.cpu(), a)
+    value = values["engine"]
+    _det_equal("coco_packed engine compute against eager", value, values["eager"])
+    ep = engine._epoch.stats
+    if ep.compute_dispatches != 1 or ep.eager_fallbacks:
+        raise AssertionError(f"coco_packed: compute {ep.as_dict()}")
+    headline = ("map", "map_50", "map_75", "map_small", "map_medium", "map_large", "mar_1", "mar_10", "mar_100")
+    bins_diff = {k: abs(float(value[k]) - float(list_values[k])) for k in headline}
+    if bins_diff["map"] > MAP_BINS_TOL:
+        raise AssertionError(f"coco_packed: map {float(value['map'])} against the list route's {float(list_values['map'])}")
+
+    out = {"batches": len(batches), "widths": [128, 64], "cpu_images": COCO_PACKED_CPU_IMAGES,
+           "engine_run": {"replays": st.replays, "captures": st.captures, "dispatches": st.dispatches,
+                          "bucket_sizes": sorted(st.bucket_sizes), "compute_dispatches": ep.compute_dispatches},
+           "values": {k: float(v) for k, v in value.items() if v.ndim == 0}, "abs_diff_to_list": bins_diff,
+           "run_us_per_update": {mode: runs[mode][1] for mode in runs},
+           "launches_eager": launches["eager"], "launches_engine": launches["engine"]}
+    for mode in ("eager", "engine"):  # the runs' own metrics, warm, go on taking updates
+        t = runs[mode][0]
+        step = lambda i, t=t: t.update(*batches[i % len(batches)])  # noqa: E731
+        wall = _host_us_per_call(step, iters=16)
+        prof = _device_profile(step, iters=4)
+        busy = prof["device_busy_us"]
+        out[mode] = {
+            "update_us": wall, "device_busy_us": busy, "device_ops": prof["device_ops"],
+            "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+            "kernels_us": prof["kernels_us"], "host_syncs_per_update": _syncs_per_call(lambda t=t: t.update(*batches[1])),
+        }
+        if out[mode]["host_syncs_per_update"]:
+            raise AssertionError(f"coco_packed {mode}: {out[mode]['host_syncs_per_update']} host syncs per update")
+    t0 = time.perf_counter()
+    engine._computed = None
+    engine.compute()
+    torch.cuda.synchronize()
+    out["compute_ms"] = (time.perf_counter() - t0) * 1e3
+    _log(f"  coco_packed: eager {out['eager']['update_us']:.1f} µs ({out['eager']['device_ops']} device ops) /"
+         f" engine {out['engine']['update_us']:.1f} µs per update, {st.replays} replays, {st.captures} captures;"
+         f" histograms equal eager / engine / CPU; map {out['values']['map']:.6f} against the list route's"
+         f" {float(list_values['map']):.6f} ({bins_diff['map']:.2e})")
+    return out, _det_values(value)
+
+
+def _ellipse_masks(boxes: torch.Tensor) -> torch.Tensor:
+    """(n, 480, 640) bool masks: the ellipse inscribed in each xyxy box."""
+    yy = torch.arange(COCO_H, device=boxes.device, dtype=torch.float32)[None, :, None] + 0.5
+    xx = torch.arange(COCO_W, device=boxes.device, dtype=torch.float32)[None, None, :] + 0.5
+    c = (boxes[:, :2] + boxes[:, 2:]) / 2
+    r = ((boxes[:, 2:] - boxes[:, :2]) / 2).clamp(min=0.5)
+    return ((xx - c[:, None, None, 0]) / r[:, None, None, 0]) ** 2 + ((yy - c[:, None, None, 1]) / r[:, None, None, 1]) ** 2 <= 1
+
+
+def run_segm(data: dict) -> dict:
+    """``iou_type="segm"`` on dense 480 x 640 masks (the first 64 images, their 20 best
+    detections) and on RLE dicts of the same masks: equal to each other and to the CPU run."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+    from torchmetrics_tpu_torch.native import rle_encode
+
+    preds, target = _coco_images(data, 0, SEGM_IMAGES, "cuda")
+    dense_p = [{"masks": _ellipse_masks(p["boxes"][:SEGM_DETS]), "scores": p["scores"][:SEGM_DETS],
+                "labels": p["labels"][:SEGM_DETS]} for p in preds]
+    dense_t = [{"masks": _ellipse_masks(t["boxes"]), "labels": t["labels"]} for t in target]
+    host = [d["masks"].cpu().numpy() for d in (*dense_p, *dense_t)]
+    t0 = time.perf_counter()
+    rles = [[rle_encode(m) for m in masks] for masks in host]
+    encode_s = time.perf_counter() - t0
+    rle_p = [{**d, "masks": r} for d, r in zip(dense_p, rles[:SEGM_IMAGES])]
+    rle_t = [{**d, "masks": r} for d, r in zip(dense_t, rles[SEGM_IMAGES:])]
+    cpu_p = [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in d.items()} for d in dense_p]
+    cpu_t = [{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in d.items()} for d in dense_t]
+    out, values = {"images": SEGM_IMAGES, "detections_per_image": SEGM_DETS, "rle_encode_s": encode_s,
+                   "mask_bytes": sum(m.nbytes for m in host)}, {}
+    for name, (p, t, device) in {"dense": (dense_p, dense_t, None), "rle": (rle_p, rle_t, None),
+                                 "cpu": (cpu_p, cpu_t, "cpu")}.items():
+        m = MeanAveragePrecision(iou_type="segm", class_metrics=True, device=device)
+        _zero_launches()
+        for s in range(0, SEGM_IMAGES, COCO_UPDATE):
+            m.update(p[s : s + COCO_UPDATE], t[s : s + COCO_UPDATE])
+        t0 = time.perf_counter()
+        (values[name], reads, _) = _device_reads(m.compute)
+        out[name] = {"compute_ms": (time.perf_counter() - t0) * 1e3, "device_reads": reads, "launches": _launches()}
+    out["launches"] = {k: out["dense"]["launches"][k] + out["rle"]["launches"][k] for k in out["dense"]["launches"]}
+    _det_equal("segm dense against RLE", values["dense"], values["rle"])
+    _det_equal("segm card against the CPU", values["dense"], values["cpu"])
+    out["map"] = float(values["dense"]["map"])
+    if not 0.05 < out["map"] < 0.95:
+        raise AssertionError(f"segm: map {out['map']}")
+    _log(f"  segm: {SEGM_IMAGES} images x {SEGM_DETS} masks of 480 x 640, dense {out['dense']['compute_ms']:.0f} ms"
+         f" ({out['dense']['device_reads']} reads) / RLE {out['rle']['compute_ms']:.0f} ms compute, equal to each other"
+         f" and to the CPU run (map {out['map']:.4f})")
+    return out
+
+
+def run_iou_family(data: dict) -> dict:
+    """IoU, GIoU, DIoU and CIoU over 512 images in updates of 16, on the card and the CPU."""
+    from torchmetrics_tpu_torch import detection
+
+    preds, target = _coco_images(data, 0, IOU_IMAGES, "cuda")
+    cpu_preds, cpu_target = _coco_images(data, 0, IOU_IMAGES, "cpu")
+    out = {"images": IOU_IMAGES}
+    for name in ("IntersectionOverUnion", "GeneralizedIntersectionOverUnion", "DistanceIntersectionOverUnion",
+                 "CompleteIntersectionOverUnion"):
+        card, cpu = getattr(detection, name)(), getattr(detection, name)(device="cpu")
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, IOU_IMAGES, COCO_UPDATE):
+            card.update(preds[s : s + COCO_UPDATE], target[s : s + COCO_UPDATE])
+        torch.cuda.synchronize()
+        update_us = (time.perf_counter() - t0) * 1e6 / (IOU_IMAGES // COCO_UPDATE)
+        value, reads, _ = _device_reads(card.compute)
+        launches = _launches()
+        for s in range(0, IOU_IMAGES, COCO_UPDATE):
+            cpu.update(cpu_preds[s : s + COCO_UPDATE], cpu_target[s : s + COCO_UPDATE])
+        want = cpu.compute()
+        diff = _det_max_diff(value, want)
+        if reads != 3 or diff > IOU_ATOL or set(value) != set(want):
+            raise AssertionError(f"iou_family {name}: {reads} reads per compute, {diff} from the CPU run")
+        out[name] = {"update_us": update_us, "device_reads_per_compute": reads, "cpu_max_abs_diff": diff,
+                     "value": float(next(iter(value.values()))), "launches": launches}
+    short = {"IntersectionOverUnion": "IoU", "GeneralizedIntersectionOverUnion": "GIoU",
+             "DistanceIntersectionOverUnion": "DIoU", "CompleteIntersectionOverUnion": "CIoU"}
+    _log("  iou_family: " + ", ".join(f"{short[k]} {v['value']:.4f}"
+                                       f" ({v['update_us']:.0f} µs per update, {v['cpu_max_abs_diff']:.1e})"
+                                       for k, v in out.items() if isinstance(v, dict)))
+    metrics = [v for v in out.values() if isinstance(v, dict)]
+    out["launches"] = {k: sum(v["launches"][k] for v in metrics) for k in metrics[0]["launches"]}
+    return out
+
+
+def _panoptic_maps(seed: int) -> tuple:
+    """``PANOPTIC_MAPS`` COCO-panoptic-shaped (480, 640, 2) maps of (category, instance):
+    stuff bands (53 stuff categories), 6-15 thing instances (80 categories) as ellipses, an
+    unlabeled (void) patch; the prediction shifts the instances by a few pixels, relabels
+    10 %, drops 10 % and adds a false one."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:COCO_H, :COCO_W]
+    target = np.zeros((PANOPTIC_MAPS, COCO_H, COCO_W, 2), np.int64)
+    preds = np.zeros_like(target)
+    for i in range(PANOPTIC_MAPS):
+        cuts = np.sort(rng.integers(0, COCO_H, rng.integers(2, 5)))
+        band = np.searchsorted(cuts, yy[:, 0], side="right")
+        stuff = rng.integers(80, 133, len(cuts) + 1)
+        target[i, ..., 0] = stuff[band][:, None]
+        preds[i] = target[i]
+        k = int(rng.integers(6, 16))
+        for inst in range(1, k + 2):
+            cx, cy = rng.uniform(0, COCO_W), rng.uniform(0, COCO_H)
+            rx, ry = rng.uniform(8, 120), rng.uniform(8, 100)
+            cat = int(rng.integers(0, 80))
+            dx, dy = rng.normal(0, 3, 2)
+            shape_t = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1
+            shape_p = ((xx - cx - dx) / rx) ** 2 + ((yy - cy - dy) / ry) ** 2 <= 1
+            if inst <= k:
+                target[i][shape_t] = (cat, inst)
+            if inst <= k and rng.random() < 0.1:
+                continue  # a missed instance
+            p_cat = int(rng.integers(0, 80)) if rng.random() < 0.1 else cat
+            preds[i][shape_p] = (p_cat, inst)
+        y0, x0 = int(rng.integers(0, COCO_H - 40)), int(rng.integers(0, COCO_W - 40))
+        target[i, y0 : y0 + 40, x0 : x0 + 40] = (255, 0)  # unlabeled pixels
+    return preds, target
+
+
+def run_panoptic() -> dict:
+    """``PanopticQuality`` and ``ModifiedPanopticQuality`` on 8 maps in updates of 2, on the
+    card and on the CPU."""
+    from torchmetrics_tpu_torch.detection import ModifiedPanopticQuality, PanopticQuality
+
+    preds, target = _panoptic_maps(21)
+    card_p, card_t = torch.from_numpy(preds).cuda(), torch.from_numpy(target).cuda()
+    out = {"maps": PANOPTIC_MAPS, "shape": list(preds.shape[1:])}
+    for cls in (PanopticQuality, ModifiedPanopticQuality):
+        card = cls(set(PANOPTIC_THINGS), set(PANOPTIC_STUFFS))
+        cpu = cls(set(PANOPTIC_THINGS), set(PANOPTIC_STUFFS), device="cpu")
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(0, PANOPTIC_MAPS, PANOPTIC_UPDATE):
+            card.update(card_p[s : s + PANOPTIC_UPDATE], card_t[s : s + PANOPTIC_UPDATE])
+        torch.cuda.synchronize()
+        update_us = (time.perf_counter() - t0) * 1e6 / (PANOPTIC_MAPS // PANOPTIC_UPDATE)
+        value = card.compute()
+        launches = _launches()
+        for s in range(0, PANOPTIC_MAPS, PANOPTIC_UPDATE):
+            cpu.update(torch.from_numpy(preds[s : s + PANOPTIC_UPDATE]), torch.from_numpy(target[s : s + PANOPTIC_UPDATE]))
+        for attr in ("iou_sum", "true_positives", "false_positives", "false_negatives"):
+            _equal(f"panoptic {cls.__name__} {attr}", getattr(card, attr).cpu(), getattr(cpu, attr))
+        _equal(f"panoptic {cls.__name__} value", value.cpu(), cpu.compute())
+        out[cls.__name__] = {"update_us": update_us, "value": float(value), "launches": launches,
+                             "true_positives": int(card.true_positives.sum()), "false_positives": int(card.false_positives.sum())}
+    out["launches"] = {k: sum(out[c.__name__]["launches"][k] for c in (PanopticQuality, ModifiedPanopticQuality))
+                       for k in launches}
+    _log(f"  panoptic: PQ {out['PanopticQuality']['value']:.4f} ({out['PanopticQuality']['update_us'] / 1e3:.1f} ms"
+         f" per update of 2), modified {out['ModifiedPanopticQuality']['value']:.4f}, equal to the CPU run")
+    return out
+
+
+def _det_sync_rank_body(rank: int, out_dir: str) -> dict:
+    """Rank ``rank``'s half of the images through the packed-dict and packed routes, each
+    computed across the two ranks; then ragged per-image lists, which must raise."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision, PackedMeanAveragePrecision
+    from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
+
+    data = _coco_val(15)
+    half = COCO_IMAGES // 2
+    batches = _coco_packed_dicts(data, rank * half, (rank + 1) * half, "cuda")
+    _zero_launches()
+    packed_dict = MeanAveragePrecision(class_metrics=True)
+    packed = PackedMeanAveragePrecision(COCO_CLASSES, class_metrics=True)
+    for p, t in batches:
+        packed_dict.update(p, t)
+        packed.update_batch(p, t)
+    values = {"packed_dict": _det_values(packed_dict.compute()), "packed": _det_values(packed.compute())}
+    torch.save(values, os.path.join(out_dir, f"rank{rank}_det.pt"))
+    res = {"batches": len(batches), "packed_dict_syncs": packed_dict._epoch.stats.packed_syncs,
+           "packed_syncs": packed._epoch.stats.packed_syncs}
+    preds, target = _coco_images(data, 0, 3 + rank, "cuda")
+    ragged = MeanAveragePrecision()
+    ragged.update(preds, target)
+    try:
+        ragged.compute()
+    except TorchMetricsUserError as err:
+        res["ragged_error"] = str(err)[:120]
+    else:
+        raise AssertionError(f"rank {rank}: ragged per-image lists ({3 + rank} images) did not raise")
+    res["launches"] = _launches()
+    return res
+
+
+def run_detection_sync(data: dict, packed_values: dict) -> dict:
+    """Two spawned ranks on the one card, 2500 images each: the packed-dict route equal to
+    one process over all 5000 (in the order the sync interleaves the batches), the packed
+    route equal to ``coco_packed``'s single-process run, ragged lists raising on both."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+    t0 = time.perf_counter()
+    with _two_ranks(_det_sync_rank_body, DET_SYNC_TIMEOUT_S, "detection sync") as (results, out_dir):
+        saved = [torch.load(os.path.join(out_dir, f"rank{r}_det.pt")) for r in range(2)]
+    ranks_s = time.perf_counter() - t0
+    half = COCO_IMAGES // 2
+    per_rank = [_coco_packed_dicts(data, r * half, (r + 1) * half, "cuda") for r in range(2)]
+    one = MeanAveragePrecision(class_metrics=True)
+    for pair in zip(*per_rank):  # element-major: rank 0's batch k, then rank 1's
+        for p, t in pair:
+            one.update(p, t)
+    want = _det_values(one.compute())
+    for rank, res in enumerate(results):
+        if (res["packed_dict_syncs"], res["packed_syncs"]) != (1, 1):
+            raise AssertionError(f"detection sync: rank {rank} off the packed sync route: {res}")
+        _det_equal(f"detection sync rank {rank} packed-dict against one process", saved[rank]["packed_dict"], want)
+        _det_equal(f"detection sync rank {rank} packed against one process", saved[rank]["packed"], packed_values)
+    out = {"ranks": 2, "backend": "gloo (CUDA tensors, one card)", "images_per_rank": half,
+           "batches_per_rank": results[0]["batches"], "ranks_s": ranks_s,
+           "ragged_error": results[0]["ragged_error"], "map": float(want["map"]),
+           "launches": {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}}
+    _log(f"  sync2: 2 ranks x {half} images, packed-dict and packed routes equal to one process;"
+         f" ragged per-image lists raised on both ranks ({ranks_s:.1f} s)")
+    return out
+
+
+def run_detection(smi: str, native_build_s: float) -> dict:
+    """Phase 21: the detection domain at COCO val's width (``native_build_s``: phase 2's
+    g++ build of the host C++ it runs)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = _coco_val(15)
+    out = {"card": smi, "data_s": time.perf_counter() - t0,
+           "data": {"images": COCO_IMAGES, "classes": COCO_CLASSES, "detections_per_image": COCO_DETS,
+                    "gt_per_image": float(data["gt_counts"].mean()), "gt_max": int(data["gt_counts"].max())}}
+    out["native_build_s"] = native_build_s
+    out["coco_list"], list_values = run_coco_list(data)
+    out["coco_packed"], packed_values = run_coco_packed(data, list_values)
+    out["segm"] = run_segm(data)
+    out["iou_family"] = run_iou_family(data)
+    out["panoptic"] = run_panoptic()
+    out["sync2"] = run_detection_sync(data, packed_values)
+    # each path counted its own run (sync2: both ranks'); the detection domain runs no K1 / K2
+    counts = {**{p: out[p]["launches"] for p in DET_PATHS if p != "coco_packed"},
+              "coco_packed": out["coco_packed"]["launches_eager"], "coco_packed_engine": out["coco_packed"]["launches_engine"]}
+    if any(n for c in counts.values() for n in c.values()):
+        raise AssertionError(f"detection: K1 / K2 launched {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"  phase 21: {out['phase_s']:.1f} s (and the g++ build in phase 2: {native_build_s:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -6404,11 +7013,18 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/20] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/21] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+
+    from torchmetrics_tpu_torch.native import rle_mask
 
     t0 = time.perf_counter()
     _build.library()
-    _log(f"[2/20] build: {time.perf_counter() - t0:.1f} s -> {_build.library_path().name}")
+    nvcc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rle_mask.library()
+    native_build_s = time.perf_counter() - t0
+    _log(f"[2/21] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
+         f" -> {rle_mask.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
     if sys.argv[1:] == ["--binned-update-only"]:
@@ -6424,43 +7040,49 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/20] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/21] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/20] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/21] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/20] regression's moments and cat states, retrieval")
+        _log("[16/21] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/20] nominal association and pairwise distances")
+        _log("[17/21] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/20] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/21] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--text-only"]:
-        _log("[20/20] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        _log("[20/21] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
         text = run_text(gen, hbm_rate, smi)
         print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--detection-only"]:
+        _log("[21/21] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+        detection = run_detection(smi, native_build_s)
+        print(json.dumps({"detection": detection, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/20] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/21] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -6470,7 +7092,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/20] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/21] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -6478,30 +7100,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/20] kernels against their plain versions")
+        _log("[3/21] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/20] main path")
+        _log("[4/21] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/20] collection path")
+        _log("[5/21] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/20] binary path")
+        _log("[6/21] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/20] multilabel path")
+        _log("[7/21] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/20] task routers")
+        _log("[8/21] task routers")
         run_routers(gen)
 
-        _log("[9/20] sync, two ranks on one card")
+        _log("[9/21] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/20] times")
+        _log("[10/21] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -6514,7 +7136,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/20] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/21] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -6536,7 +7158,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/20] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/21] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -6545,32 +7167,35 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/20] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/21] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/20] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/21] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/20] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/21] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/20] regression's moments and cat states, retrieval")
+    _log("[16/21] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/20] nominal association and pairwise distances")
+    _log("[17/21] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/20] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/21] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/20] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/21] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
 
-    _log("[20/20] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    _log("[20/21] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
     text = run_text(gen, hbm_rate, smi)
+
+    _log("[21/21] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+    detection = run_detection(smi, native_build_s)
 
     for entry in kernels:
         k = entry["name"]
@@ -6608,6 +7233,9 @@ def main() -> int:
             **{f"text_perplexity_{d}_engine": text["perplexity"][d]["launches_engine"][k] for d in ("float32", "bfloat16")},
             "text_infolm": sum(v["launches_eager"][k] for v in text["infolm"].values()),
             "text_infolm_engine": sum(v["launches"][k] for v in text["infolm"].values()),
+            **{f"detection_{path}": detection[path]["launches"][k] for path in DET_PATHS if path != "coco_packed"},
+            "detection_coco_packed": detection["coco_packed"]["launches_eager"][k],
+            "detection_coco_packed_engine": detection["coco_packed"]["launches_engine"][k],
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -6619,7 +7247,7 @@ def main() -> int:
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
-        "text": text, "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
+        "text": text, "detection": detection, "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)
     if "--out" in sys.argv:

@@ -22,7 +22,13 @@ leaked = sorted(k for k in sys.modules
                 if k in ("jax", "jaxlib", "torchmetrics_tpu") or k.startswith(("jax.", "jaxlib.", "torchmetrics_tpu.")))
 assert not leaked, leaked
 assert "transformers" not in sys.modules, "a port module imported transformers at import time"
-for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.bucketing", "engine.config"):
+# the native copy builds at first use, never on import, and only from the port's own sources
+from torchmetrics_tpu_torch.native import rle_mask
+assert rle_mask._LIB is None, "importing the port built or loaded the native library"
+assert all(str(s).startswith(str(rle_mask._HERE)) for s in rle_mask.SOURCES), rle_mask.SOURCES
+assert rle_mask.BUILD_DIR.name == "_build" and rle_mask.BUILD_DIR.parent.name == "torchmetrics_tpu_torch"
+for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.bucketing", "engine.config",
+             "native.rle_mask", "detection.mean_ap", "detection.ingraph", "functional.detection._panoptic_common"):
     assert "torchmetrics_tpu_torch." + name in sys.modules, name
 print("isolated")
 """
@@ -33,6 +39,7 @@ import torchmetrics_tpu_torch as tm
 import torchmetrics_tpu_torch.retrieval
 import torchmetrics_tpu_torch.image
 import torchmetrics_tpu_torch.text
+import torchmetrics_tpu_torch.detection
 from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
 routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
@@ -61,6 +68,9 @@ TEXT = ("BERTScore", "BLEUScore", "CHRFScore", "CharErrorRate", "ExtendedEditDis
         "Perplexity", "ROUGEScore", "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate", "WordInfoLost",
         "WordInfoPreserved")
 assert sorted(TEXT) == sorted(tm.text.__all__)
+DETECTION = {n: {} for n in tm.detection.__all__}
+DETECTION["PackedMeanAveragePrecision"] = {"num_classes": 3}
+DETECTION["PanopticQuality"] = DETECTION["ModifiedPanopticQuality"] = {"things": {0}, "stuffs": {1}}
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -97,6 +107,7 @@ for make in (
     lambda: tm.FleissKappa(mode="probs"),
     *(lambda n=n: getattr(tm.image, n)(**IMAGE_ARGS.get(n, {})) for n in IMAGE),
     *(lambda n=n: getattr(tm.text, n)() for n in TEXT),
+    *(lambda n=n: getattr(tm.detection, n)(**DETECTION[n]) for n in DETECTION),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,

@@ -56,6 +56,8 @@ _COUNTER_FIELDS = (
     "compute_traces",  # compute graphs built (each: one guarded run, plus one capture on the card)
     "compute_dispatches",  # computes served by a built graph (fused sync-and-compute included)
     "compute_cache_hits",  # compute dispatches served without a new build
+    # --- heavy-workload host paths (detection/mean_ap.py) ---
+    "map_host_evals",  # mAP computes evaluated by the host matcher (list, RLE and packed-dict routes)
 )
 
 

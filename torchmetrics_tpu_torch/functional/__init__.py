@@ -3,6 +3,8 @@
 
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.detection import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
@@ -18,6 +20,7 @@ from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = (
     list(_classification_all)
+    + list(_detection_all)
     + list(_image_all)
     + list(_nominal_all)
     + list(_pairwise_all)

@@ -68,9 +68,17 @@ def _lcs_table(pred_tokens: Sequence[str], target_tokens: Sequence[str]) -> np.n
 
 
 def _lcs(pred_tokens: Sequence[str], target_tokens: Sequence[str]) -> int:
-    """Length of the longest common subsequence, from the numpy table (the JAX
-    package's own path when its native library is absent; the same integer)."""
-    return int(_lcs_table(pred_tokens, target_tokens)[-1, -1])
+    """Length of the longest common subsequence, by the native two-row DP
+    (``native/match.cpp:lcs_len``) over local int ids, as the JAX package computes it.
+    ROUGE-L needs only the length; ROUGE-Lsum backtracks and keeps ``_lcs_table``."""
+    if not pred_tokens or not target_tokens:
+        return 0
+    from torchmetrics_tpu_torch.native.rle_mask import lcs_len
+
+    ids: dict = {}
+    a = np.fromiter((ids.setdefault(t, len(ids)) for t in pred_tokens), np.int64, len(pred_tokens))
+    b = np.fromiter((ids.setdefault(t, len(ids)) for t in target_tokens), np.int64, len(target_tokens))
+    return lcs_len(a, b)
 
 
 def _backtracked_lcs(
