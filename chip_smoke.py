@@ -293,6 +293,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    images each, equal to one process over all 5000, and ragged per-image lists raising on
    both ranks. The C++ builds with ``g++`` at first use. No K1 / K2 launch.
 
+22. the audio and multimodal domains: ``dns``, a ``MetricCollection`` of SNR, SI-SNR and
+   SI-SDR over 16 clips of 160,000 samples (10 s at 16 kHz, the DNS Challenge test
+   clips); ``sdr``, ``SignalDistortionRatio(filter_length=512)`` over 16 x 32,000 (4 s at
+   8 kHz, WSJ0-2mix's ``min``); ``pit2`` / ``pit3`` / ``pit4``, speaker-wise
+   ``PermutationInvariantTraining`` of SI-SDR over 8 x S x 32,000 (S = 2 and 3 search the
+   permutations on the card, S = 4 runs the Hungarian solver on the host); ``pit_sdr``,
+   permutation-wise PIT of SDR over 4 x 2 x 32,000; ``csisnr``,
+   ``ComplexScaleInvariantSignalNoiseRatio`` over 16 x 257 x 251 complex64 spectra. Each
+   runs 16 updates eagerly and with the engine, then ``compute``, held against the same
+   port run on the CPU (relative 1e-5; PIT's best permutations equal update by update),
+   the engine against eager bit for bit, and the engine split against
+   ``AUDIO_REPLAYING`` / ``AUDIO_FALLBACK_REASONS``; host µs per update, device busy,
+   operations, idle share, the largest device items and host syncs per update
+   (``AUDIO_SYNCS``: 0, and 1 on ``pit4``, the Hungarian read; SDR's printed). ``clip``,
+   ``CLIPScore`` on a seeded checkpoint at openai/clip-vit-large-patch14's widths written
+   with ``save_pretrained``: 8 updates of 64 (3 x 480 x 640 uint8 image, 8-16 word
+   caption) pairs, eagerly and with the engine; the processor's host ms and the towers'
+   device ms per update beside their float32 bound; the towers asserted on the card; the
+   first 4 pairs within 1e-3 of the CPU. No K1 / K2 launch.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -309,7 +329,8 @@ batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 al
 ``--nominal-pairwise-only`` runs phases 1-2 and then phase 17 alone;
 ``--image-only`` runs phases 1-2 and then phase 18 alone; ``--image-models-only`` runs
 phases 1-2 and then phase 19 alone; ``--text-only`` runs phases 1-2 and then phase 20
-alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone.
+alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone; ``--audio-only``
+runs phases 1-2 and then phase 22 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -7000,6 +7021,416 @@ def run_detection(smi: str, native_build_s: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 22: audio and multimodal
+
+AUDIO_PATHS = ("dns", "sdr", "pit2", "pit3", "pit4", "pit_sdr", "csisnr", "clip")
+#: phase 22 under the engine on the card: the paths whose updates replay as captured
+#: graphs, and the first fallback reason of each other path. The SDR solve's reason
+#: holds where MAGMA is in PyTorch's build and cuSOLVER was not chosen
+#: (``functional/audio/sdr.py``); elsewhere its paths replay.
+AUDIO_REPLAYING = ("dns", "csisnr", "pit2", "pit3")
+AUDIO_FALLBACK_REASONS = {
+    "sdr": "uncapturable:linalg_solve_ex(magma)",
+    "pit_sdr": "uncapturable:linalg_solve_ex(magma)",
+    "pit4": "host-read:linear_sum_assignment",
+    "clip": "non-tensor-input",
+}
+#: host syncs per eager update each path must show; SDR's are printed, not held
+AUDIO_SYNCS = {"dns": 0, "csisnr": 0, "pit2": 0, "pit3": 0, "pit4": 1}
+AUDIO_UPDATES = 16
+DNS_SHAPE = (16, 160_000)  # 10 s at 16 kHz: the DNS Challenge test clips
+DNS_DC = 0.5  # the spread of the clips' DC offsets, against unit-variance speech
+WSJ_SAMPLES = 32_000  # 4 s at 8 kHz: WSJ0-2mix's "min" setting
+SDR_SHAPE = (16, WSJ_SAMPLES)
+SDR_FILTER = 512
+PIT_BATCH, PIT_SDR_BATCH = 8, 4
+PIT_SPEAKERS = {"pit2": 2, "pit3": 3, "pit4": 4, "pit_sdr": 2}
+CSISNR_SHAPE = (16, 257, 251)  # the STFT of 4 s at 16 kHz, n_fft 512, hop 256
+AUDIO_RTOL = 1e-5  # the card against the CPU: float32 sums in another order; SDR in float64
+CLIP_UPDATES, CLIP_BATCH, CLIP_IMAGE = 8, 64, (3, 480, 640)  # COCO val2017's common image size
+CLIP_WORDS = (8, 16)  # words per caption
+CLIP_CPU_PAIRS = 4
+CLIP_ATOL = 1e-3  # on the 0-100 scale
+# openai/clip-vit-large-patch14's published widths
+CLIP_VISION = {"hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16, "intermediate_size": 4096,
+               "image_size": 224, "patch_size": 14}
+CLIP_TEXT = {"vocab_size": 49408, "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+             "intermediate_size": 3072, "max_position_embeddings": 77}
+CLIP_PROJECTION = 768
+FP32_PEAK = 67e12  # the card's float32 rate outside the tensor cores (NVIDIA's data sheet, SXM, 700 W)
+
+
+def _dns_members(device=None) -> dict:
+    """The ``dns`` path's collection: SNR, SI-SNR and SI-SDR."""
+    from torchmetrics_tpu_torch.audio import (
+        ScaleInvariantSignalDistortionRatio,
+        ScaleInvariantSignalNoiseRatio,
+        SignalNoiseRatio,
+    )
+
+    return {"snr": SignalNoiseRatio(device=device), "si_snr": ScaleInvariantSignalNoiseRatio(device=device),
+            "si_sdr": ScaleInvariantSignalDistortionRatio(device=device)}
+
+
+def _audio_metric(path: str, device=None):
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.audio import (
+        ComplexScaleInvariantSignalNoiseRatio,
+        PermutationInvariantTraining,
+        SignalDistortionRatio,
+    )
+    from torchmetrics_tpu_torch.functional.audio import (
+        scale_invariant_signal_distortion_ratio,
+        signal_distortion_ratio,
+    )
+
+    if path == "dns":
+        return MetricCollection(_dns_members(device))
+    if path == "sdr":
+        return SignalDistortionRatio(filter_length=SDR_FILTER, device=device)
+    if path == "csisnr":
+        return ComplexScaleInvariantSignalNoiseRatio(device=device)
+    if path == "pit_sdr":
+        return PermutationInvariantTraining(signal_distortion_ratio, "permutation-wise", device=device)
+    return PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, "speaker-wise", "max", device=device)
+
+
+def _audio_batches(path: str, n: int = AUDIO_UPDATES) -> list:
+    """``n`` seeded ``(preds, target)`` batches on the card: a target and a noised copy
+    (PIT: the copy's speakers shuffled per sample)."""
+    gen = torch.Generator(device="cuda").manual_seed(22_000 + AUDIO_PATHS.index(path))
+    randn = lambda shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+
+    def pair(shape: tuple, dc: float = 0.0) -> tuple:
+        target = randn(shape) + dc * randn((*shape[:-1], 1))
+        return target + 0.3 * randn(shape), target
+
+    if path == "dns":
+        # each clip with a DC offset: on zero-mean clips SI-SNR's first sums equal
+        # SI-SDR's, and the collection's discovery merges the two into one group
+        return [pair(DNS_SHAPE, dc=DNS_DC) for _ in range(n)]
+    if path == "sdr":
+        return [pair(SDR_SHAPE) for _ in range(n)]
+    if path == "csisnr":
+        return [tuple(torch.view_as_complex(x) for x in pair((*CSISNR_SHAPE, 2))) for _ in range(n)]
+    b, spk = (PIT_SDR_BATCH if path == "pit_sdr" else PIT_BATCH), PIT_SPEAKERS[path]
+    out = []
+    for _ in range(n):
+        target = randn((b, spk, WSJ_SAMPLES))
+        order = torch.argsort(torch.rand((b, spk), generator=gen, device="cuda"), dim=1)
+        out.append((target.gather(1, order[:, :, None].expand_as(target)) + 0.5 * randn(target.shape), target))
+    return out
+
+
+def _audio_engines(m) -> list:
+    from torchmetrics_tpu_torch import MetricCollection
+
+    if isinstance(m, MetricCollection):
+        return _engines_of(m)
+    return [] if m._engine is None else [("", m._engine)]
+
+
+def _audio_engine_fallbacks(m) -> int:
+    """Eager fallbacks over a metric's (or a collection's) update engines."""
+    return sum(e.stats.eager_fallbacks for _, e in _audio_engines(m))
+
+
+def _audio_engine_record(m) -> dict:
+    reasons: dict = {}
+    for _, e in _audio_engines(m):
+        for r, k in e.stats.fallback_reasons.items():
+            reasons[r] = reasons.get(r, 0) + k
+    engines = [e for _, e in _audio_engines(m)]
+    return {"dispatches": sum(e.stats.dispatches for e in engines), "replays": sum(e.stats.replays for e in engines),
+            "captures": sum(e.stats.captures for e in engines), "fallbacks": _audio_engine_fallbacks(m),
+            "fallback_reasons": reasons}
+
+
+def _audio_values(value) -> dict:
+    return dict(value) if isinstance(value, dict) else {"": value}
+
+
+def _check_audio_engine(path: str, m, n: int, solve_capturable: bool) -> dict:
+    """The engine split of one path against ``AUDIO_REPLAYING`` / ``AUDIO_FALLBACK_REASONS``."""
+    rec = _audio_engine_record(m)
+    replaying = path in AUDIO_REPLAYING or (path in ("sdr", "pit_sdr") and solve_capturable)
+    if replaying:
+        for name, e in _audio_engines(m):
+            _check_replays(f"{path} {name}", e)
+        # a collection's first update is its discovery step, run eagerly
+        if rec["fallbacks"] or rec["replays"] != rec["dispatches"] - rec["captures"] or rec["dispatches"] < n - (path == "dns"):
+            raise AssertionError(f"{path}: expected to replay, engine {rec}")
+    else:
+        reason = AUDIO_FALLBACK_REASONS[path]
+        want = {reason: n} if path == "clip" else {reason: 1, "uncompilable-signature": n - 1}
+        if rec["fallback_reasons"] != want or rec["dispatches"]:
+            raise AssertionError(f"{path}: expected to fall back as {want}, engine {rec}")
+    rec["replaying"] = replaying
+    return rec
+
+
+def run_audio_path(path: str, hbm_rate: float) -> dict:
+    """One phase 22 audio path: 16 updates eagerly and with the engine, then ``compute``;
+    each held against the same port run on the CPU, the engine against eager bit for
+    bit, PIT's best permutations against the CPU's update by update; host µs per
+    update, device busy, operations and idle share, the largest device items and host
+    syncs per update, both ways."""
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.functional.audio import permutation_invariant_training
+    from torchmetrics_tpu_torch.functional.audio.sdr import _solve_capturable
+
+    batches = _audio_batches(path)
+    runs, values, launches, first = {}, {}, {}, {"eager": [], "engine": []}
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            m = _audio_metric(path)
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, b in enumerate(batches):
+                m.update(*b)
+                if i < 3:  # the first updates: warm-ups, discovery, the capture
+                    torch.cuda.synchronize()
+                    first[mode].append((time.perf_counter() - t0) * 1e3 - sum(first[mode]))
+            torch.cuda.synchronize()
+            runs[mode] = (m, (time.perf_counter() - t0) * 1e6 / len(batches))
+            values[mode] = _audio_values(m.compute())
+            launches[mode] = _launches()
+    with engine_context(False):
+        cpu = _audio_metric(path, "cpu")
+        for b in batches:
+            cpu.update(*(x.cpu() for x in b))
+        cpu_values = _audio_values(cpu.compute())
+    rel = {}
+    for k, want in cpu_values.items():
+        _equal(f"{path} {k} engine against eager", values["engine"][k], values["eager"][k])
+        got = values["eager"][k].cpu()
+        rel[k] = float(((got - want).abs() / want.abs()).max())
+        if not torch.isfinite(got).all() or rel[k] > AUDIO_RTOL:
+            raise AssertionError(f"{path} {k}: {float(got)} on the card, {float(want)} on the CPU")
+    out = {"updates": len(batches), "input_shapes": [list(x.shape) for x in batches[0]],
+           "values": {k: float(v) for k, v in values["eager"].items()}, "rel_diff_to_cpu": rel,
+           "launches_eager": launches["eager"], "launches_engine": launches["engine"],
+           "engine_run": _check_audio_engine(path, runs["engine"][0], len(batches), _solve_capturable(torch.device("cuda"))),
+           "run_us_per_update": {mode: runs[mode][1] for mode in runs}, "first_updates_ms": first}
+    if path == "dns":
+        owners = sorted(g.owner for g in runs["eager"][0]._groups.values())
+        if owners != sorted(_dns_members("cpu")):
+            raise AssertionError(f"dns: the collection's groups are owned by {owners}")
+    if path.startswith("pit"):
+        m = runs["eager"][0]
+        perm_rel = 0.0
+        for i, b in enumerate(batches):
+            card = permutation_invariant_training(*b, m.metric_func, m.mode, m.eval_func)
+            host = permutation_invariant_training(*(x.cpu() for x in b), m.metric_func, m.mode, m.eval_func)
+            _equal(f"{path} best permutation, update {i}", card[1].cpu(), host[1])
+            perm_rel = max(perm_rel, float(((card[0].cpu() - host[0]).abs() / host[0].abs()).max()))
+        if perm_rel > AUDIO_RTOL:
+            raise AssertionError(f"{path}: best values {perm_rel} apart, card against CPU")
+        out["best_value_rel_diff_to_cpu"] = perm_rel
+    nbytes = sum(x.nbytes for x in batches[0])
+    for mode in ("eager", "engine"):
+        with engine_context(mode == "engine"):
+            t = runs[mode][0]
+            step = lambda i, t=t: t.update(*batches[i % len(batches)])  # noqa: E731
+            wall = _host_us_per_call(step, iters=8, repeats=3)
+            prof = _device_profile(step, iters=4)
+            busy = prof["device_busy_us"]
+            syncs = _syncs_per_call(lambda t=t: t.update(*batches[1]))
+        out[mode] = {
+            "update_us": wall, "device_busy_us": busy, "device_ops": prof["device_ops"],
+            "device_idle_share": None if busy is None else max(0.0, 1 - busy / wall),
+            "kernels_us": prof["kernels_us"], "host_syncs_per_update": syncs,
+            "bytes_bound_us": nbytes / hbm_rate * 1e6,
+        }
+    want_syncs = AUDIO_SYNCS.get(path)
+    if want_syncs is not None and out["eager"]["host_syncs_per_update"] != want_syncs:
+        raise AssertionError(f"{path}: {out['eager']['host_syncs_per_update']} host syncs per eager update, not {want_syncs}")
+    if out["engine_run"]["replaying"] and out["engine"]["host_syncs_per_update"]:
+        raise AssertionError(f"{path}: {out['engine']['host_syncs_per_update']} host syncs per replayed update")
+    er = out["engine_run"]
+    _log(f"  {path}: eager {out['eager']['update_us']:.1f} µs ({out['eager']['device_ops']} device ops,"
+         f" {out['eager']['host_syncs_per_update']} syncs) / engine {out['engine']['update_us']:.1f} µs per update;"
+         f" {er['replays']} replays, fallbacks {er['fallback_reasons']}; {out['values']} (CPU {max(rel.values()):.1e})")
+    return out
+
+
+def _clip_words() -> list:
+    """The caption vocabulary: 600 three-letter words, onset + vowel + coda, from three
+    disjoint letter sets, so BPE merges each word whole (onset + vowel, then the coda)."""
+    return [a + b + c for a in "bcdfghjklm" for b in "aeiouy" for c in "npqrstvwxz"]
+
+
+def _clip_checkpoint(directory: str) -> str:
+    """A seeded ``CLIPModel`` at openai/clip-vit-large-patch14's widths, a ``CLIPTokenizer``
+    over ``_clip_words`` and a ``CLIPImageProcessor`` at its 224 defaults, saved with
+    ``save_pretrained`` into ``directory``."""
+    import string
+
+    import transformers
+
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for ch in string.ascii_lowercase:
+        vocab[ch], vocab[ch + "</w>"] = len(vocab), len(vocab) + 1
+    merges = ["#version: 0.2"]
+    for w in _clip_words():
+        if w[:2] not in vocab:
+            vocab[w[:2]] = len(vocab)
+            merges.append(f"{w[0]} {w[1]}")
+    for w in _clip_words():
+        vocab[w + "</w>"] = len(vocab)
+        merges.append(f"{w[:2]} {w[2]}</w>")
+    with open(os.path.join(directory, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(directory, "merges.txt"), "w") as f:
+        f.write("\n".join(merges) + "\n")
+    transformers.CLIPTokenizer(os.path.join(directory, "vocab.json"), os.path.join(directory, "merges.txt")).save_pretrained(directory)
+    transformers.CLIPImageProcessor().save_pretrained(directory)
+    config = transformers.CLIPConfig(
+        text_config={**CLIP_TEXT, "projection_dim": CLIP_PROJECTION, "bos_token_id": 0, "eos_token_id": 1, "pad_token_id": 1},
+        vision_config={**CLIP_VISION, "projection_dim": CLIP_PROJECTION},
+        projection_dim=CLIP_PROJECTION,
+    )
+    torch.manual_seed(0)
+    transformers.CLIPModel(config).save_pretrained(directory)
+    return directory
+
+
+def _clip_captions(gen: torch.Generator) -> list:
+    words = _clip_words()
+    out = []
+    for _ in range(CLIP_UPDATES):
+        lengths = torch.randint(CLIP_WORDS[0], CLIP_WORDS[1] + 1, (CLIP_BATCH,), generator=gen).tolist()
+        out.append([" ".join(words[j] for j in torch.randint(0, len(words), (k,), generator=gen).tolist()) for k in lengths])
+    return out
+
+
+def run_clip() -> dict:
+    """``CLIPScore(model_name_or_path=<dir>)`` on a seeded ViT-L/14 checkpoint the script
+    writes: 8 updates of 64 (3 x 480 x 640 uint8 image, 8-16 word caption) pairs, eagerly
+    and with the engine (which falls back: captions are strings); the processor's host
+    ms and the towers' device ms per update beside the towers' float32 bound; the card's
+    scores on the first 4 pairs against the CPU's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import (
+        _clip_score_update,
+        _get_model_and_processor,
+        _host_images,
+    )
+    from torchmetrics_tpu_torch.models._common import full_float32
+    from torchmetrics_tpu_torch.multimodal import CLIPScore
+    from torchmetrics_tpu_torch.utilities.hf import model_on
+
+    out: dict = {}
+    gen = torch.Generator(device="cuda").manual_seed(22_100)
+    images = [torch.randint(0, 256, (CLIP_BATCH, *CLIP_IMAGE), generator=gen, device="cuda", dtype=torch.uint8)
+              for _ in range(CLIP_UPDATES)]
+    captions = _clip_captions(torch.Generator().manual_seed(22_101))
+    with tempfile.TemporaryDirectory() as directory:
+        t0 = time.perf_counter()
+        _clip_checkpoint(directory)
+        out["checkpoint_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _get_model_and_processor(directory)
+        out["load_s"] = time.perf_counter() - t0
+        runs, values, launches = {}, {}, {}
+        for mode in ("eager", "engine"):
+            with engine_context(mode == "engine"):
+                m = CLIPScore(model_name_or_path=directory)
+                _zero_launches()
+                each = []
+                for img, cap in zip(images, captions):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m.update(img, cap)
+                    torch.cuda.synchronize()
+                    each.append((time.perf_counter() - t0) * 1e3)
+                # the first update copies the towers to the card (``model_on``)
+                runs[mode] = (m, statistics.median(each[1:]), each)
+                values[mode] = m.compute()
+                launches[mode] = _launches()
+        m = runs["eager"][0]
+        towers = model_on(m.model, m.device)
+        if next(towers.parameters()).device.type != "cuda" or next(m.model.parameters()).device.type != "cpu":
+            raise AssertionError("clip: the towers that ran are not on the card, or the cached model moved")
+        _equal("clip engine against eager", values["engine"], values["eager"])
+        value = float(values["eager"])
+        if not math.isfinite(value) or not 0.0 <= value <= 100.0:
+            raise AssertionError(f"clip: CLIPScore {value}")
+        out.update({"value": value, "mean_score_unclamped": float(m.score / m.n_samples), "update_ms": {mode: runs[mode][1] for mode in runs},
+                    "each_update_ms": {mode: runs[mode][2] for mode in runs},
+                    "launches_eager": launches["eager"], "launches_engine": launches["engine"],
+                    "engine_run": _check_audio_engine("clip", runs["engine"][0], CLIP_UPDATES, False),
+                    "towers_device": str(next(towers.parameters()).device)})
+
+        # the split of an update: the processor on the host, the towers on the card
+        proc_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            processed = m.processor(text=captions[0], images=_host_images(list(images[0])), return_tensors="pt",
+                                    padding=True)
+            proc_ms.append((time.perf_counter() - t0) * 1e3)
+        pv, ids, mask = (processed[k].cuda() for k in ("pixel_values", "input_ids", "attention_mask"))
+
+        def run_towers(_i=0):
+            with torch.no_grad(), full_float32():
+                towers.visual_projection(towers.vision_model(pixel_values=pv).pooler_output)
+                towers.text_projection(towers.text_model(input_ids=ids, attention_mask=mask).pooler_output)
+
+        towers_ms = _median_ms(run_towers, iters=2, repeats=3, warmup=1)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            run_towers()
+        flops = counter.get_total_flops()
+        step = lambda i: m.update(images[i % CLIP_UPDATES], captions[i % CLIP_UPDATES])  # noqa: E731
+        prof = _device_profile(step, iters=1)
+        wall_ms = runs["eager"][1]
+        busy = prof["device_busy_us"]
+        out.update({
+            "processor_host_ms": statistics.median(proc_ms), "towers_device_ms": towers_ms,
+            "towers_flops": flops, "towers_fp32_bound_ms": flops / FP32_PEAK * 1e3,
+            "towers_share_of_bound": flops / FP32_PEAK * 1e3 / towers_ms,
+            "device_busy_ms": None if busy is None else busy / 1e3, "device_ops": prof["device_ops"],
+            "device_idle_share": None if busy is None else max(0.0, 1 - busy / 1e3 / wall_ms),
+            "kernels_us": prof["kernels_us"], "tokens": list(ids.shape),
+            "host_syncs_per_update": _syncs_per_call(lambda: m.update(images[1], captions[1])),
+        })
+
+        card, _ = _clip_score_update(images[0][:CLIP_CPU_PAIRS], captions[0][:CLIP_CPU_PAIRS], m.model, m.processor,
+                                     None, "cuda")
+        host, _ = _clip_score_update(images[0][:CLIP_CPU_PAIRS].cpu(), captions[0][:CLIP_CPU_PAIRS], m.model,
+                                     m.processor, None, "cpu")
+        out["cpu_pairs_abs_diff"] = float((card.cpu() - host).abs().max())
+        if out["cpu_pairs_abs_diff"] > CLIP_ATOL:
+            raise AssertionError(f"clip: scores {card.tolist()} on the card, {host.tolist()} on the CPU")
+        _get_model_and_processor.cache_clear()
+    _log(f"  clip: {out['update_ms']['eager']:.0f} ms per update ({out['processor_host_ms']:.0f} ms processor on the"
+         f" host, {towers_ms:.0f} ms towers on the card against a {out['towers_fp32_bound_ms']:.0f} ms float32 bound);"
+         f" CLIPScore {value:.4f}, first {CLIP_CPU_PAIRS} pairs {out['cpu_pairs_abs_diff']:.1e} from the CPU")
+    return out
+
+
+def run_audio(smi: str, hbm_rate: float) -> dict:
+    """Phase 22: the audio and multimodal domains."""
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    for path in AUDIO_PATHS:
+        t0 = time.perf_counter()
+        out[path] = run_clip() if path == "clip" else run_audio_path(path, hbm_rate)
+        out[path]["path_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    # each path counted its own runs; the audio and multimodal domains run no K1 / K2
+    counts = {f"{p}_{mode}": out[p][f"launches_{mode}"] for p in AUDIO_PATHS for mode in ("eager", "engine")}
+    if any(n for c in counts.values() for n in c.values()):
+        raise AssertionError(f"audio: K1 / K2 launched {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"  phase 22: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -7013,7 +7444,7 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/21] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/22] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     from torchmetrics_tpu_torch.native import rle_mask
 
@@ -7023,7 +7454,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rle_mask.library()
     native_build_s = time.perf_counter() - t0
-    _log(f"[2/21] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
+    _log(f"[2/22] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
          f" -> {rle_mask.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
@@ -7040,49 +7471,55 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/21] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/22] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/21] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/22] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/21] regression's moments and cat states, retrieval")
+        _log("[16/22] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/21] nominal association and pairwise distances")
+        _log("[17/22] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/21] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/22] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--text-only"]:
-        _log("[20/21] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        _log("[20/22] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
         text = run_text(gen, hbm_rate, smi)
         print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--audio-only"]:
+        _log("[22/22] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+        audio = run_audio(smi, hbm_rate)
+        print(json.dumps({"audio": audio, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--detection-only"]:
-        _log("[21/21] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+        _log("[21/22] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
         detection = run_detection(smi, native_build_s)
         print(json.dumps({"detection": detection, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/21] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/22] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -7092,7 +7529,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/21] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/22] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -7100,30 +7537,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/21] kernels against their plain versions")
+        _log("[3/22] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/21] main path")
+        _log("[4/22] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/21] collection path")
+        _log("[5/22] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/21] binary path")
+        _log("[6/22] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/21] multilabel path")
+        _log("[7/22] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/21] task routers")
+        _log("[8/22] task routers")
         run_routers(gen)
 
-        _log("[9/21] sync, two ranks on one card")
+        _log("[9/22] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/21] times")
+        _log("[10/22] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -7136,7 +7573,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/21] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/22] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -7158,7 +7595,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/21] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/22] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -7167,35 +7604,38 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/21] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/22] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/21] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/22] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/21] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/22] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/21] regression's moments and cat states, retrieval")
+    _log("[16/22] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/21] nominal association and pairwise distances")
+    _log("[17/22] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/21] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/22] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/21] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/22] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
 
-    _log("[20/21] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    _log("[20/22] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
     text = run_text(gen, hbm_rate, smi)
 
-    _log("[21/21] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+    _log("[21/22] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
     detection = run_detection(smi, native_build_s)
+
+    _log("[22/22] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+    audio = run_audio(smi, hbm_rate)
 
     for entry in kernels:
         k = entry["name"]
@@ -7236,6 +7676,8 @@ def main() -> int:
             **{f"detection_{path}": detection[path]["launches"][k] for path in DET_PATHS if path != "coco_packed"},
             "detection_coco_packed": detection["coco_packed"]["launches_eager"][k],
             "detection_coco_packed_engine": detection["coco_packed"]["launches_engine"][k],
+            **{f"audio_{path}": audio[path]["launches_eager"][k] for path in AUDIO_PATHS},
+            **{f"audio_{path}_engine": audio[path]["launches_engine"][k] for path in AUDIO_PATHS},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -7247,7 +7689,7 @@ def main() -> int:
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
-        "text": text, "detection": detection, "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
+        "text": text, "detection": detection, "audio": audio, "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)
     if "--out" in sys.argv:

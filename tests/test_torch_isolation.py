@@ -28,7 +28,9 @@ assert rle_mask._LIB is None, "importing the port built or loaded the native lib
 assert all(str(s).startswith(str(rle_mask._HERE)) for s in rle_mask.SOURCES), rle_mask.SOURCES
 assert rle_mask.BUILD_DIR.name == "_build" and rle_mask.BUILD_DIR.parent.name == "torchmetrics_tpu_torch"
 for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.bucketing", "engine.config",
-             "native.rle_mask", "detection.mean_ap", "detection.ingraph", "functional.detection._panoptic_common"):
+             "native.rle_mask", "detection.mean_ap", "detection.ingraph", "functional.detection._panoptic_common",
+             "audio.pit", "audio.pesq", "audio.stoi", "functional.audio.sdr", "functional.audio.pesq",
+             "functional.audio.stoi", "multimodal.clip_score", "functional.multimodal.clip_score"):
     assert "torchmetrics_tpu_torch." + name in sys.modules, name
 print("isolated")
 """
@@ -40,6 +42,8 @@ import torchmetrics_tpu_torch.retrieval
 import torchmetrics_tpu_torch.image
 import torchmetrics_tpu_torch.text
 import torchmetrics_tpu_torch.detection
+import torchmetrics_tpu_torch.audio
+import torchmetrics_tpu_torch.multimodal
 from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC, MulticlassConfusionMatrix
 assert not torch.cuda.is_available()
 routers = ("StatScores", "Accuracy", "Precision", "Recall", "FBetaScore", "F1Score", "ConfusionMatrix",
@@ -71,6 +75,13 @@ assert sorted(TEXT) == sorted(tm.text.__all__)
 DETECTION = {n: {} for n in tm.detection.__all__}
 DETECTION["PackedMeanAveragePrecision"] = {"num_classes": 3}
 DETECTION["PanopticQuality"] = DETECTION["ModifiedPanopticQuality"] = {"things": {0}, "stuffs": {1}}
+AUDIO = {n: {} for n in tm.audio.__all__}
+AUDIO["PermutationInvariantTraining"] = {"metric_func": tm.functional.signal_noise_ratio}
+assert sorted(AUDIO) == sorted(("ComplexScaleInvariantSignalNoiseRatio", "PermutationInvariantTraining",
+                                "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
+                                "SignalDistortionRatio", "SignalNoiseRatio"))
+# the towers of CLIPScore are injected: no checkpoint is loaded
+CLIP = {"embed_fn": lambda images, text: (torch.ones(len(images), 2), torch.ones(len(text), 2))}
 AGGREGATORS = ("SumMetric", "MeanMetric", "MaxMetric", "MinMetric", "CatMetric", "RunningMean", "RunningSum")
 WRAPPERS = (  # each builds its base metric with the given keyword arguments
     lambda **kw: tm.Running(tm.SumMetric(**kw), window=2),
@@ -108,6 +119,8 @@ for make in (
     *(lambda n=n: getattr(tm.image, n)(**IMAGE_ARGS.get(n, {})) for n in IMAGE),
     *(lambda n=n: getattr(tm.text, n)() for n in TEXT),
     *(lambda n=n: getattr(tm.detection, n)(**DETECTION[n]) for n in DETECTION),
+    *(lambda n=n: getattr(tm.audio, n)(**AUDIO[n]) for n in AUDIO),
+    lambda: tm.multimodal.CLIPScore(**CLIP),
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,
@@ -123,6 +136,17 @@ assert MulticlassAccuracy(num_classes=5, device="cpu").device.type == "cpu"
 cpu_metrics = [getattr(tm, n)(device="cpu") for n in AGGREGATORS]
 cpu_metrics += [w(device="cpu") for w in WRAPPERS]
 cpu_metrics += [tm.SumMetric(device="cpu") + 1, 1 - tm.MaxMetric(device="cpu")]
+for n in AUDIO:
+    assert getattr(tm.audio, n)(**AUDIO[n], device="cpu").device.type == "cpu", n
+clip = tm.multimodal.CLIPScore(**CLIP, device="cpu")
+clip.update(torch.zeros(2, 3, 4, 4), ["a", "b"])
+assert clip.compute().device.type == "cpu"
+try:
+    tm.functional.clip_score(torch.zeros(3, 4, 4), "a", **CLIP)
+except RuntimeError as err:
+    assert "device='cpu'" in str(err), err
+else:
+    raise AssertionError("clip_score without `device` must not fall back to the CPU")
 for m in cpu_metrics:
     assert m.device.type == "cpu", m
     if isinstance(m, tm.MultitaskWrapper):

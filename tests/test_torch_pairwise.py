@@ -177,24 +177,17 @@ def test_import_flags_and_version():
     assert ttm.functional is tF
 
 
-# what the port still lacks: audio, multimodal and serve
-ROOT_MISSING = {
-    "CLIPScore", "CardinalitySketch", "ComplexScaleInvariantSignalNoiseRatio", "DecayedMetric", "HeavyHitters",
-    "MetricsSidecar", "PermutationInvariantTraining", "ScaleInvariantSignalDistortionRatio",
-    "ScaleInvariantSignalNoiseRatio", "SignalDistortionRatio", "SignalNoiseRatio", "TenantSlices", "WindowedMetric",
-}
-FUNCTIONAL_MISSING = {
-    "clip_score", "complex_scale_invariant_signal_noise_ratio", "permutation_invariant_training", "pit_permutate",
-    "scale_invariant_signal_distortion_ratio", "scale_invariant_signal_noise_ratio", "signal_distortion_ratio",
-    "signal_noise_ratio",
-}
+# what the port still lacks: serve's names
+ROOT_MISSING = {"CardinalitySketch", "DecayedMetric", "HeavyHitters", "MetricsSidecar", "TenantSlices", "WindowedMetric"}
+FUNCTIONAL_MISSING: set = set()
 
 
 def test_names_still_missing():
-    """The port's root lacks 13 of the JAX root's names and its functional package 8 of
-    the JAX functional names; every name the port exports resolves."""
-    assert set(jtm.__all__) - set(ttm.__all__) == ROOT_MISSING and len(ROOT_MISSING) == 13
-    assert set(jF.__all__) - set(tF.__all__) == FUNCTIONAL_MISSING and len(FUNCTIONAL_MISSING) == 8
+    """The port's root lacks only the 6 names of the JAX root's serving layer, and its
+    functional package has every JAX functional name; every name the port exports
+    resolves."""
+    assert set(jtm.__all__) - set(ttm.__all__) == ROOT_MISSING and len(ROOT_MISSING) == 6
+    assert set(jF.__all__) - set(tF.__all__) == FUNCTIONAL_MISSING and len(FUNCTIONAL_MISSING) == 0
     for pkg in (ttm, tF):
         for name in pkg.__all__:
             assert getattr(pkg, name) is not None, name
