@@ -313,6 +313,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    device ms per update beside their float32 bound; the towers asserted on the card; the
    first 4 pairs within 1e-3 of the CPU. No K1 / K2 launch.
 
+23. fault-tolerant sync and elastic snapshots (``parallel/resilience.py``, ``faults.py``,
+   ``elastic.py``, the degraded re-plan in ``engine/epoch.py``), after K1 and K2 against
+   their plain versions as in phase 3. Part A, two gloo ranks on the one card: each
+   runs config #2's collection (phase 5's members, eagerly) over 16 updates of its own
+   8192 x 10 scores (K1 and K2 once per update), then ``compute`` from the same local
+   states with no policy (phase 9's collectives, the ``merge_state`` fold), under a
+   policy with no fault (deadline 2000 ms, retries 2, backoff 1 ms, ``verify_payload``:
+   bit-equal values, its ms and host reads beside the no-policy ones, in turns), with
+   ``CorruptPayload(rank=1)`` and ``CollectiveTimeout`` (one retry each, bit-equal),
+   ``RankDrop(rank=1)`` (one degraded fold on both ranks, a ``sync.degraded`` event
+   naming ``(0,)``, values bit-equal to rank 0's states computed alone) and the same with
+   ``degraded=False`` (``RankUnreachableError`` on both ranks, the local states back);
+   then a pair of its own where rank 1 sleeps three times a 500 ms deadline: rank 0
+   escapes with an in-flight ``CollectiveTimeoutError`` within the deadline plus 500 ms,
+   not retried, and both ranks leave without tearing the group down. Part B, on the
+   card with the engine: two copies each of ``MulticlassAccuracy(1000)`` and the config #2
+   collection over 8 of phase 4's and phase 5's batches each, saved as 2-rank shards
+   (and a set half way), restored into worlds of 1 and 3 and folded with ``merge_state``
+   against the 2-rank fold (counts exactly, floats relative 1e-6); a flipped byte raises
+   ``SnapshotIntegrityError`` and ``last_good`` restores the half-way set; shard bytes,
+   save and restore ms. Part C: a spawned child updates accuracy on the card under a
+   ``ContinuousSnapshotter`` (every 4 updates) and gets SIGTERM after 10 updates;
+   ``restore_latest`` on the card plus the remaining batches equals the uninterrupted run,
+   again with ``scan_steps=8``; the signal-time flush ms. It prints a
+   ``resilience_summary`` line with the card's ``nvidia-smi`` name and power limit.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -330,7 +356,8 @@ batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 al
 ``--image-only`` runs phases 1-2 and then phase 18 alone; ``--image-models-only`` runs
 phases 1-2 and then phase 19 alone; ``--text-only`` runs phases 1-2 and then phase 20
 alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone; ``--audio-only``
-runs phases 1-2 and then phase 22 alone.
+runs phases 1-2 and then phase 22 alone; ``--resilience-only`` runs phases 1-2 and then
+phase 23 alone, on batches made for it.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -1306,9 +1333,11 @@ def _sync_rank_body(rank: int, out_dir: str) -> dict:
     return result
 
 
-def _gloo_rank(rank: int, port: int, out_dir: str, body, timeout_s: float) -> None:
+def _gloo_rank(rank: int, port: int, out_dir: str, body, timeout_s: float, abandon: bool = False) -> None:
     """One of two gloo ranks on the one card: runs ``body(rank, out_dir)``, reports to
-    ``out_dir/rank<r>.json``, then waits for the other rank before leaving the group."""
+    ``out_dir/rank<r>.json``, then waits for the other rank before leaving the group.
+    With ``abandon`` the rank exits without tearing the group down: a collective that a
+    deadline escaped may still be pending in it, and the exit closes its sockets."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -1325,11 +1354,14 @@ def _gloo_rank(rank: int, port: int, out_dir: str, body, timeout_s: float) -> No
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline and not all(os.path.exists(os.path.join(out_dir, f"rank{r}.json")) for r in range(2)):
         time.sleep(0.05)
+    if abandon:
+        sys.stdout.flush()
+        os._exit(0)
     dist.destroy_process_group()
 
 
 @contextlib.contextmanager
-def _two_ranks(body, timeout_s: float, name: str):
+def _two_ranks(body, timeout_s: float, name: str, abandon: bool = False):
     """Spawn two ranks running ``body`` and yield ``(results, out_dir)``; fails on a hang
     (join timeout), a rank that exits without a result, or an error on either rank."""
     with tempfile.TemporaryDirectory() as out_dir:
@@ -1337,7 +1369,7 @@ def _two_ranks(body, timeout_s: float, name: str):
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_gloo_rank, args=(r, port, out_dir, body, timeout_s)) for r in range(2)]
+        procs = [ctx.Process(target=_gloo_rank, args=(r, port, out_dir, body, timeout_s, abandon)) for r in range(2)]
         for proc in procs:
             proc.start()
         deadline = time.monotonic() + timeout_s
@@ -7431,6 +7463,513 @@ def run_audio(smi: str, hbm_rate: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 23: fault-tolerant sync and elastic snapshots
+
+RES_UPDATES = N_BATCHES  # per rank: config #2's 16 updates of 8192 x 10 scores
+RES_POLICY = {"deadline_ms": 2000.0, "retries": 2, "backoff_ms": 1.0, "verify_payload": True}
+RES_TIMED = 5  # compute timings per arm, in turns
+RES_DEADLINE_MS = 500.0  # the genuine deadline: rank 1 sleeps three times it
+RES_DEADLINE_SLACK_MS = 500.0
+RES_JOIN_TIMEOUT_S = 300
+RES_ELASTIC_UPDATES = 8  # per copy: phase 4's and phase 5's batches, 8 each
+RES_FLOAT_RTOL = 1e-6
+PREEMPT_BATCHES, PREEMPT_SIGNAL_AFTER, PREEMPT_EVERY = 24, 10, 4
+PREEMPT_TIMEOUT_S = 300
+
+
+def _res_batches(rank: int) -> list:
+    """Rank ``rank``'s 16 batches of config #2's CIFAR-10-width scores, on the card."""
+    gen = torch.Generator().manual_seed(2300 + rank)
+    return [
+        (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+        for _ in range(RES_UPDATES)
+    ]
+
+
+def _res_compute(mc, policy=None, faults=()) -> dict:
+    """One 2-rank ``compute`` of ``mc`` from its local states under ``policy`` and the
+    planted ``faults``, from zeroed counters: its values or typed error, ms, counters,
+    fault events, and whether the local states came back."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.diag import diag_context
+    from torchmetrics_tpu_torch.engine.stats import reset_engine_stats
+    from torchmetrics_tpu_torch.parallel import SyncFaultError, fault_context, resilience_context
+
+    before = mc.state_dict()
+    for m in mc.values(copy_state=False):
+        m._computed = None
+    reset_engine_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    out: dict = {}
+    with contextlib.ExitStack() as stack:
+        if policy is not None:
+            stack.enter_context(resilience_context(**policy))
+        stack.enter_context(fault_context(*faults))
+        rec = stack.enter_context(diag_context())
+        t0 = time.perf_counter()
+        try:
+            out["values"] = mc.compute()
+        except SyncFaultError as err:
+            out["error"] = {"class": type(err).__name__, "rank": err.rank, "attempts": err.attempts, "retryable": err.retryable}
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+    st = mc._epoch_sync.stats if mc._epoch_sync is not None else None
+    out["stats"] = {k: getattr(st, k) if st else 0 for k in ("packed_syncs", "sync_collectives", "sync_retries", "sync_degraded_folds")}
+    out["events"] = [[e.kind, list(e.data["survivors"]) if "survivors" in e.data else e.data.get("rank")]
+                     for e in rec.snapshot() if e.kind.startswith("sync.")]
+    out["local_back"] = _same_state_dict(before, mc.state_dict())
+    return out
+
+
+def _res_rank_body(rank: int, out_dir: str) -> dict:
+    """Part A on one gloo rank: config #2's collection over its own 16 updates (K1 and
+    K2 once each per update, eagerly), then ``compute`` under the six scenarios from the
+    same local states, and the two arms of a policy's cost in turns."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
+    from torchmetrics_tpu_torch.parallel import CollectiveTimeout, CorruptPayload, RankDrop
+    from torchmetrics_tpu_torch.parallel.packing import PackedSyncPlan
+
+    with engine_context(False):
+        batches = _res_batches(rank)
+        torch.cuda.synchronize()
+        mc = MetricCollection(_collection_members())
+        stat_counts.LAUNCHES = multi_threshold.LAUNCHES = 0
+        for p, t in batches:
+            mc.update(p, t)
+        torch.cuda.synchronize()
+        launches = {"stat_counts": stat_counts.LAUNCHES, "multi_threshold": multi_threshold.LAUNCHES}
+        mc.persistent(True)
+        local = mc.state_dict()
+        plan = PackedSyncPlan([(g.owner, mc._modules[g.owner]) for g in mc._groups.values()], 2)
+        meta = plan.metadata_local()
+        plan.finalize(None if meta is None else np.stack([meta, meta]))
+
+        scenarios = {
+            "no_policy": (None, ()),
+            "policy": (RES_POLICY, ()),
+            "corrupt": (RES_POLICY, (CorruptPayload(rank=1, times=1),)),
+            "timeout": (RES_POLICY, (CollectiveTimeout(times=1),)),
+            "rank_drop": (RES_POLICY, (RankDrop(rank=1),)),
+            "rank_drop_strict": ({**RES_POLICY, "degraded": False}, (RankDrop(rank=1),)),
+        }
+        results, values = {}, {}
+        for name, (policy, faults) in scenarios.items():
+            res = _res_compute(mc, policy, faults)
+            values[name] = res.pop("values", None)
+            results[name] = res
+        # host reads of a compute without and with the policy (its crc reads)
+        reads = {}
+        for name in ("no_policy", "policy"):
+            policy = scenarios[name][0]
+            reads[name] = _with_syncs(lambda: _res_compute(mc, policy))[1]
+        times = {"no_policy": [], "policy": []}
+        for _ in range(RES_TIMED):
+            for name in ("no_policy", "policy"):
+                times[name].append(_res_compute(mc, scenarios[name][0])["ms"])
+        torch.cuda.synchronize()
+    torch.save({"local": local, "values": values}, os.path.join(out_dir, f"res{rank}.pt"))
+    return {
+        "launches": launches, "scenarios": results, "host_reads": reads,
+        "compute_ms": {k: statistics.median(v) for k, v in times.items()},
+        "buffer_keys": plan.buffer_keys(), "rank_invariant": plan.rank_invariant,
+    }
+
+
+def _res_deadline_body(rank: int, out_dir: str) -> dict:
+    """The genuine deadline: rank 1 sleeps three times the deadline before its
+    ``compute``, so rank 0's first collective waits on a live rank that is late."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.parallel import CollectiveTimeoutError, resilience_context
+
+    with engine_context(False):
+        mc = MetricCollection(_collection_members())
+        for p, t in _res_batches(rank)[:2]:
+            mc.update(p, t)
+        torch.cuda.synchronize()
+        if rank == 1:
+            time.sleep(3 * RES_DEADLINE_MS / 1e3)
+        out: dict = {}
+        t0 = time.perf_counter()
+        try:
+            with resilience_context(deadline_ms=RES_DEADLINE_MS, retries=2, backoff_ms=1.0):
+                mc.compute()
+            out["completed"] = True
+        except CollectiveTimeoutError as err:
+            out["error"] = {"in_flight": err.in_flight, "retryable": err.retryable, "attempts": err.attempts, "label": err.label}
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def run_resilience_2rank() -> dict:
+    """Part A: the six scenarios on two gloo ranks, then the genuine deadline in a pair
+    of its own; fails on a hang, a scenario off its contract, or a value off its fold."""
+    with _two_ranks(_res_rank_body, RES_JOIN_TIMEOUT_S, "resilience") as (results, out_dir):
+        saved = [torch.load(os.path.join(out_dir, f"res{r}.pt")) for r in range(2)]
+    want_retries = {"corrupt": 1, "timeout": 1}
+    for rank, res in enumerate(results):
+        if res["launches"] != {"stat_counts": RES_UPDATES, "multi_threshold": RES_UPDATES}:
+            raise AssertionError(f"resilience rank {rank}: launches {res['launches']}, expected {RES_UPDATES} of each")
+        want_collectives = len(res["buffer_keys"]) + (0 if res["rank_invariant"] else 1)
+        for name, sc in res["scenarios"].items():
+            st = sc["stats"]
+            degraded = 1 if name == "rank_drop" else 0
+            if (st["sync_retries"], st["sync_degraded_folds"]) != (want_retries.get(name, 0), degraded):
+                raise AssertionError(f"resilience rank {rank} {name}: retries / degraded folds {st}")
+            if not sc["local_back"]:
+                raise AssertionError(f"resilience rank {rank} {name}: the local states did not come back")
+            if name == "rank_drop_strict":
+                if sc.get("error", {}).get("class") != "RankUnreachableError" or sc["error"]["rank"] != 1:
+                    raise AssertionError(f"resilience rank {rank}: degraded=False gave {sc}")
+                continue
+            if "error" in sc:
+                raise AssertionError(f"resilience rank {rank} {name}: {sc['error']}")
+            if name in ("no_policy", "policy") and st["sync_collectives"] != want_collectives:
+                raise AssertionError(f"resilience rank {rank} {name}: {st['sync_collectives']} collectives, expected {want_collectives}")
+        if ["sync.degraded", [0]] not in res["scenarios"]["rank_drop"]["events"]:
+            raise AssertionError(f"resilience rank {rank}: no sync.degraded event naming the survivors (0,)")
+
+    # scenario 1 against the merge_state fold of the two ranks' states, on the card
+    others = _collection_members()
+    for name, folded in _collection_members().items():
+        folded.load_state_dict(saved[0]["local"], prefix=f"{name}.")
+        others[name].load_state_dict(saved[1]["local"], prefix=f"{name}.")
+        folded.merge_state(others[name])
+        want = folded.compute()
+        alone = _collection_members()[name]
+        alone.load_state_dict(saved[0]["local"], prefix=f"{name}.")
+        want_degraded = alone.compute()
+        for rank in range(2):
+            vals = saved[rank]["values"]
+            if want.dtype == torch.int32:
+                _equal(f"resilience {name} rank {rank}", vals["no_policy"][name], want)
+            else:
+                _assert_close(f"resilience {name} rank {rank}", vals["no_policy"][name], want, AUROC_ATOL if "auroc" in name else ACC_ATOL)
+            for sc in ("policy", "corrupt", "timeout"):
+                _bit_equal(f"resilience {name} rank {rank} {sc}", vals[sc][name], vals["no_policy"][name])
+            _bit_equal(f"resilience {name} rank {rank} rank_drop", vals["rank_drop"][name], want_degraded)
+
+    with _two_ranks(_res_deadline_body, RES_JOIN_TIMEOUT_S, "resilience deadline", abandon=True) as (late, _):
+        pass
+    err = late[0].get("error")
+    if not err or not err["in_flight"] or err["retryable"] or err["attempts"] != 1:
+        raise AssertionError(f"resilience deadline: rank 0 gave {late[0]}")
+    if late[0]["ms"] > RES_DEADLINE_MS + RES_DEADLINE_SLACK_MS:
+        raise AssertionError(f"resilience deadline: rank 0 escaped after {late[0]['ms']:.1f} ms")
+    summary = {
+        "ranks": 2, "backend": "gloo (CUDA tensors, one card)", "updates_per_rank": RES_UPDATES,
+        "buffer_keys": results[0]["buffer_keys"],
+        "launches": {k: sum(r["launches"][k] for r in results) for k in ("stat_counts", "multi_threshold")},
+        "scenarios": {name: [{"ms": r["scenarios"][name]["ms"], **r["scenarios"][name]["stats"],
+                              **({"error": r["scenarios"][name]["error"]} if "error" in r["scenarios"][name] else {})}
+                             for r in results] for name in results[0]["scenarios"]},
+        "compute_ms": [r["compute_ms"] for r in results],
+        "host_reads": [r["host_reads"] for r in results],
+        "deadline": {"deadline_ms": RES_DEADLINE_MS, "rank0": late[0], "rank1": late[1]},
+    }
+    _log(f"  2 ranks: six scenarios held; compute {summary['compute_ms']} ms (median of {RES_TIMED}, no policy / policy),"
+         f" host reads {summary['host_reads']}; the genuine deadline escaped on rank 0 after {late[0]['ms']:.1f} ms"
+         f" (rank 1: {late[1]})")
+    return summary
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _res_assert_states(name: str, got, want) -> None:
+    """Counts exactly, floats to relative 1e-6, every state on the card."""
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, int):
+            if g != w:
+                raise AssertionError(f"{name}: {key} {g} vs {w}")
+            continue
+        gl, wl = (g, w) if isinstance(w, list) else ([g], [w])
+        if len(gl) != len(wl):
+            raise AssertionError(f"{name}: {key} holds {len(gl)} pieces, the fold {len(wl)}")
+        for a, b in zip(gl, wl):
+            if not _on_card(a) or a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{name}: {key} {a.dtype}{tuple(a.shape)} on {a.device} vs {b.dtype}{tuple(b.shape)}")
+            if b.is_floating_point():
+                if not torch.allclose(a, b, rtol=RES_FLOAT_RTOL, atol=0):
+                    raise AssertionError(f"{name}: {key} off the fold by {float((a - b).abs().max())}")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{name}: {key} differs from the fold")
+
+
+def _fold_states(state_dicts: list, members: dict) -> dict:
+    """The ``merge_state`` fold of per-rank state dicts, member by member on the card
+    (``members``: key prefix -> a factory of that member; ``""`` for a lone metric)."""
+    out = {}
+    for prefix, make in members.items():
+        head = make()
+        head.persistent(True)
+        head.load_state_dict(state_dicts[0], prefix=prefix)
+        for sd in state_dicts[1:]:
+            other = make()
+            other.load_state_dict(sd, prefix=prefix)
+            head.merge_state(other)
+        out.update(head.state_dict(prefix=prefix))
+    return out
+
+
+def run_resilience_elastic(acc_batches: list, cifar_batches: list) -> dict:
+    """Part B: two copies each of ``MulticlassAccuracy(1000)`` and config #2's
+    collection stand for two ranks (8 batches each, with the engine), saved as shards
+    and restored into worlds of 1 and 3 on the card; a flipped byte and ``last_good``."""
+    import shutil
+
+    from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy
+    from torchmetrics_tpu_torch.diag import diag_context
+    from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
+    from torchmetrics_tpu_torch.parallel import SnapshotIntegrityError, restore_resharded, save_state_shard
+    from torchmetrics_tpu_torch.parallel.elastic import shard_path
+
+    makers = {
+        "accuracy": lambda: MulticlassAccuracy(ACC_CLASSES, validate_args=False),
+        "collection": lambda: MetricCollection(_collection_members(validate_args=False)),
+    }
+    members = {
+        "accuracy": {"": makers["accuracy"]},
+        "collection": {f"{n}.": (lambda n=n: _collection_members(validate_args=False)[n]) for n in _collection_members()},
+    }
+    feeds = {"accuracy": acc_batches, "collection": cifar_batches}
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as root:
+        for kind, make in makers.items():
+            copies = [make() for _ in range(2)]
+            for c in copies:
+                c.persistent(True)
+            prev, latest = os.path.join(root, kind, "prev"), os.path.join(root, kind, "latest")
+            os.makedirs(prev)
+            os.makedirs(latest)
+            stat_counts.LAUNCHES = multi_threshold.LAUNCHES = 0
+            for step in range(RES_ELASTIC_UPDATES):
+                if step == RES_ELASTIC_UPDATES // 2:
+                    # the previous complete set, half way, and its fold
+                    want_prev = _fold_states([c.state_dict() for c in copies], members[kind])
+                    for rank, c in enumerate(copies):
+                        save_state_shard(c, shard_path(os.path.join(prev, "ck"), rank, 2), rank=rank, world_size=2)
+                for rank, c in enumerate(copies):
+                    c.update(*feeds[kind][RES_ELASTIC_UPDATES * rank + step])
+            torch.cuda.synchronize()
+            launches = {"stat_counts": stat_counts.LAUNCHES, "multi_threshold": multi_threshold.LAUNCHES}
+            want = _fold_states([c.state_dict() for c in copies], members[kind])
+            save_ms = []
+            for rank, c in enumerate(copies):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save_state_shard(c, shard_path(os.path.join(latest, "ck"), rank, 2), rank=rank, world_size=2)
+                save_ms.append((time.perf_counter() - t0) * 1e3)
+            shard_bytes = [os.path.getsize(shard_path(os.path.join(latest, "ck"), r, 2)) for r in range(2)]
+            restore_ms = {}
+            for world in (1, 3):
+                restored, times = [], []
+                for rank in range(world):
+                    m = make()
+                    m.persistent(True)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    restore_resharded(m, latest, rank=rank, world_size=world)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    restored.append(m)
+                got = _fold_states([m.state_dict() for m in restored], members[kind])
+                _res_assert_states(f"elastic {kind} 2->{world}", got, want)
+                restore_ms[str(world)] = times
+            # a flipped byte in one shard: integrity error on every rank, then last_good
+            bad = os.path.join(root, kind, "bad")
+            shutil.copytree(latest, bad)
+            victim = shard_path(os.path.join(bad, "ck"), 1, 2)
+            with open(victim, "r+b") as fh:
+                data = bytearray(fh.read())
+                data[len(data) // 2] ^= 0xFF
+                fh.seek(0)
+                fh.write(data)
+            for rank in range(2):
+                try:
+                    restore_resharded(make(), bad, rank=rank, world_size=2)
+                except SnapshotIntegrityError:
+                    pass
+                else:
+                    raise AssertionError(f"elastic {kind}: a flipped byte restored without an integrity error")
+            fallback = make()
+            fallback.persistent(True)
+            with diag_context() as rec:
+                restore_resharded(fallback, bad, rank=0, world_size=1, last_good=prev)
+            if rec.count("snapshot.fallback") != 1:
+                raise AssertionError(f"elastic {kind}: no snapshot.fallback event")
+            _res_assert_states(f"elastic {kind} last_good", _fold_states([fallback.state_dict()], members[kind]), want_prev)
+            out[kind] = {"launches": launches, "shard_bytes": shard_bytes, "save_ms": save_ms, "restore_ms": restore_ms}
+    _log("  elastic: " + "; ".join(
+        f"{k} shards {v['shard_bytes']} B, save {[round(x, 2) for x in v['save_ms']]} ms, restore 2->1"
+        f" {[round(x, 2) for x in v['restore_ms']['1']]} / 2->3 {[round(x, 2) for x in v['restore_ms']['3']]} ms,"
+        f" launches {v['launches']}" for k, v in out.items()))
+    return out
+
+
+def _preempt_batches() -> list:
+    gen = torch.Generator().manual_seed(2400)
+    return [
+        (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen))
+        for _ in range(PREEMPT_BATCHES)
+    ]
+
+
+def _preempt_child(out_dir: str, scan_steps: int) -> None:
+    """Accuracy updates on the card under a ``ContinuousSnapshotter`` (every 4 updates)
+    until SIGTERM; a chained handler, run after the snapshotter's flush, writes each
+    completed sequence's fingerprint and update count, the flush ms and the launches."""
+    import signal
+
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.ops import multi_threshold, stat_counts
+    from torchmetrics_tpu_torch.parallel import ContinuousSnapshotter, SnapshotPolicy, state_fingerprint
+
+    torch.cuda.set_device(0)
+    batches = [(p.cuda(), t.cuda()) for p, t in _preempt_batches()]
+    m = MulticlassAccuracy(ACC_CLASSES, validate_args=False, scan_steps=scan_steps or None)
+    snap = ContinuousSnapshotter(m, out_dir, policy=SnapshotPolicy(every_updates=PREEMPT_EVERY))
+    seqs: dict = {}
+    flush_ms: list = []
+    real_flush = snap.flush
+
+    def timed_flush(reason: str = "manual") -> str:
+        t0 = time.perf_counter()
+        path = real_flush(reason)
+        if reason.startswith("signal"):
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+        return path
+
+    snap.flush = timed_flush
+
+    def note() -> None:
+        if snap.seq and str(snap.seq) not in seqs:
+            seqs[str(snap.seq)] = [state_fingerprint(m), m.update_count]
+
+    def report(signum, frame) -> None:
+        note()
+        with open(os.path.join(out_dir, "child.json"), "w") as f:
+            json.dump({"seqs": seqs, "flush_ms": flush_ms, "launches": {
+                "stat_counts": stat_counts.LAUNCHES, "multi_threshold": multi_threshold.LAUNCHES}}, f)
+        signal.signal(signum, signal.SIG_DFL)
+        signal.raise_signal(signum)
+
+    signal.signal(signal.SIGTERM, report)
+    snap.install_signal_handlers(signals=(signal.SIGTERM,))
+    stat_counts.LAUNCHES = multi_threshold.LAUNCHES = 0
+    for i, (p, t) in enumerate(batches):
+        m.update(p, t)
+        snap.note_update()
+        note()
+        with open(os.path.join(out_dir, "progress"), "w") as f:
+            f.write(str(i + 1))
+        time.sleep(0.02)
+    while True:
+        time.sleep(1.0)
+
+
+def run_resilience_preempt() -> dict:
+    """Part C: SIGTERM a child after about 10 updates; ``restore_latest`` on the card,
+    the remaining batches, and the uninterrupted run must agree; again with
+    ``scan_steps=8`` (the flush drains the queue)."""
+    import signal
+
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.parallel import restore_latest, state_fingerprint
+    from torchmetrics_tpu_torch.parallel.elastic import list_snapshots
+
+    batches = [(p.cuda(), t.cuda()) for p, t in _preempt_batches()]
+    whole = MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+    for p, t in batches:
+        whole.update(p, t)
+    want = whole.compute()
+    out: dict = {}
+    ctx = multiprocessing.get_context("spawn")
+    for scan in (0, 8):
+        with tempfile.TemporaryDirectory() as d:
+            proc = ctx.Process(target=_preempt_child, args=(d, scan))
+            proc.start()
+            progress = os.path.join(d, "progress")
+            deadline = time.monotonic() + PREEMPT_TIMEOUT_S
+            try:
+                while time.monotonic() < deadline and proc.is_alive():
+                    try:
+                        with open(progress) as f:
+                            done = int(f.read() or 0)
+                    except (OSError, ValueError):
+                        done = 0
+                    if done >= PREEMPT_SIGNAL_AFTER:
+                        break
+                    time.sleep(0.01)
+                else:
+                    raise AssertionError(f"preempt scan={scan}: the child reached no {PREEMPT_SIGNAL_AFTER} updates")
+                proc.terminate()  # SIGTERM
+                proc.join(PREEMPT_TIMEOUT_S)
+            finally:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+            if proc.exitcode != -signal.SIGTERM:
+                raise AssertionError(f"preempt scan={scan}: the child exited with {proc.exitcode}")
+            with open(os.path.join(d, "child.json")) as f:
+                child = json.load(f)
+            fresh = MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+            seq = restore_latest(fresh, d)
+            if seq != list_snapshots(d)[-1][0]:
+                raise AssertionError(f"preempt scan={scan}: restored sequence {seq} is not the newest")
+            fp, count = child["seqs"][str(seq)]
+            if state_fingerprint(fresh) != fp or fresh.update_count != count or not _on_card(fresh.tp):
+                raise AssertionError(f"preempt scan={scan}: sequence {seq} restored off the child's state at {count} updates")
+            for p, t in batches[count:]:
+                fresh.update(p, t)
+            for attr in whole._defaults:
+                if not torch.equal(getattr(fresh, attr), getattr(whole, attr)):
+                    raise AssertionError(f"preempt scan={scan}: {attr} differs from the uninterrupted run")
+            _bit_equal(f"preempt scan={scan}", fresh.compute(), want)
+            out[f"scan{scan}"] = {"restored_seq": seq, "restored_updates": count, "flush_ms": child["flush_ms"],
+                                  "signal_flushed": bool(child["flush_ms"]), "launches": child["launches"]}
+    _log("  preempt: " + "; ".join(f"{k}: seq {v['restored_seq']} at {v['restored_updates']} updates, flush"
+                                   f" {v['flush_ms']} ms, launches {v['launches']}" for k, v in out.items()))
+    return out
+
+
+def run_resilience(acc_batches: list, cifar_batches: list, gen: torch.Generator, smi: str) -> dict:
+    """Phase 23: K1 and K2 against their plain versions, then parts A-C."""
+    t_phase = time.perf_counter()
+    errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
+    out = {"card": smi, "kernel_errors": errors}
+    out["sync_2rank"] = run_resilience_2rank()
+    out["elastic"] = run_resilience_elastic(acc_batches, cifar_batches)
+    out["preempt"] = run_resilience_preempt()
+    out["launches"] = {
+        "eager": out["sync_2rank"]["launches"],
+        "engine": {k: sum(v["launches"][k] for v in out["elastic"].values()) for k in ("stat_counts", "multi_threshold")},
+        "preempt_engine": {k: sum(v["launches"][k] for v in out["preempt"].values()) for k in ("stat_counts", "multi_threshold")},
+    }
+    for side, counts in out["launches"].items():
+        # accuracy's path (the preemption children) runs K1 alone
+        needed = ("stat_counts",) if side == "preempt_engine" else tuple(counts)
+        if not all(counts[k] for k in needed):
+            raise AssertionError(f"phase 23 {side}: a kernel of the path was not launched: {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"  phase 23: {out['phase_s']:.1f} s on {smi}; launches {out['launches']}")
+    print(json.dumps({"resilience_summary": {
+        "card": smi, "compute_ms": out["sync_2rank"]["compute_ms"], "host_reads": out["sync_2rank"]["host_reads"],
+        "deadline_ms": out["sync_2rank"]["deadline"]["rank0"]["ms"],
+        "elastic": {k: {kk: v[kk] for kk in ("shard_bytes", "save_ms", "restore_ms")} for k, v in out["elastic"].items()},
+        "flush_ms": {k: v["flush_ms"] for k, v in out["preempt"].items()}, "launches": out["launches"],
+    }}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -7444,7 +7983,7 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/22] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/23] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     from torchmetrics_tpu_torch.native import rle_mask
 
@@ -7454,7 +7993,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rle_mask.library()
     native_build_s = time.perf_counter() - t0
-    _log(f"[2/22] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
+    _log(f"[2/23] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
          f" -> {rle_mask.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
@@ -7471,57 +8010,71 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/22] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/23] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/22] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/23] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/22] regression's moments and cat states, retrieval")
+        _log("[16/23] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/22] nominal association and pairwise distances")
+        _log("[17/23] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/22] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/23] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--text-only"]:
-        _log("[20/22] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        _log("[20/23] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
         text = run_text(gen, hbm_rate, smi)
         print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--audio-only"]:
-        _log("[22/22] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+        _log("[22/23] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
         audio = run_audio(smi, hbm_rate)
         print(json.dumps({"audio": audio, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--detection-only"]:
-        _log("[21/22] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+        _log("[21/23] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
         detection = run_detection(smi, native_build_s)
         print(json.dumps({"detection": detection, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/22] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/23] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--resilience-only"]:
+        acc_batches = [
+            (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        cifar_batches = [
+            (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        _log("[23/23] fault-tolerant sync and elastic snapshots")
+        resilience = run_resilience(acc_batches, cifar_batches, gen, smi)
+        print(json.dumps({"resilience": resilience}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -7529,7 +8082,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/22] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/23] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -7537,30 +8090,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/22] kernels against their plain versions")
+        _log("[3/23] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/22] main path")
+        _log("[4/23] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/22] collection path")
+        _log("[5/23] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/22] binary path")
+        _log("[6/23] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/22] multilabel path")
+        _log("[7/23] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/22] task routers")
+        _log("[8/23] task routers")
         run_routers(gen)
 
-        _log("[9/22] sync, two ranks on one card")
+        _log("[9/23] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/22] times")
+        _log("[10/23] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -7573,7 +8126,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/22] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/23] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -7595,7 +8148,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/22] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/23] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -7604,38 +8157,41 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/22] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/23] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/22] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/23] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/22] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/23] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/22] regression's moments and cat states, retrieval")
+    _log("[16/23] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/22] nominal association and pairwise distances")
+    _log("[17/23] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/22] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/23] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/22] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/23] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
 
-    _log("[20/22] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    _log("[20/23] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
     text = run_text(gen, hbm_rate, smi)
 
-    _log("[21/22] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+    _log("[21/23] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
     detection = run_detection(smi, native_build_s)
 
-    _log("[22/22] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+    _log("[22/23] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
     audio = run_audio(smi, hbm_rate)
+
+    _log("[23/23] fault-tolerant sync and elastic snapshots")
+    resilience = run_resilience(acc_batches, collection_batches, gen, smi)
 
     for entry in kernels:
         k = entry["name"]
@@ -7678,6 +8234,9 @@ def main() -> int:
             "detection_coco_packed_engine": detection["coco_packed"]["launches_engine"][k],
             **{f"audio_{path}": audio[path]["launches_eager"][k] for path in AUDIO_PATHS},
             **{f"audio_{path}_engine": audio[path]["launches_engine"][k] for path in AUDIO_PATHS},
+            "resilience_2rank": resilience["launches"]["eager"][k],
+            "resilience_elastic_engine": resilience["launches"]["engine"][k],
+            "resilience_preempt_engine": resilience["launches"]["preempt_engine"][k],
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -7689,7 +8248,8 @@ def main() -> int:
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
-        "text": text, "detection": detection, "audio": audio, "sync_2rank": sync, "profiler_windows": PROFILE_WINDOWS, "card": smi,
+        "text": text, "detection": detection, "audio": audio, "resilience": resilience, "sync_2rank": sync,
+        "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)
     if "--out" in sys.argv:

@@ -30,7 +30,8 @@ assert rle_mask.BUILD_DIR.name == "_build" and rle_mask.BUILD_DIR.parent.name ==
 for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.bucketing", "engine.config",
              "native.rle_mask", "detection.mean_ap", "detection.ingraph", "functional.detection._panoptic_common",
              "audio.pit", "audio.pesq", "audio.stoi", "functional.audio.sdr", "functional.audio.pesq",
-             "functional.audio.stoi", "multimodal.clip_score", "functional.multimodal.clip_score"):
+             "functional.audio.stoi", "multimodal.clip_score", "functional.multimodal.clip_score",
+             "diag.trace", "parallel.faults", "parallel.resilience", "parallel.elastic"):
     assert "torchmetrics_tpu_torch." + name in sys.modules, name
 print("isolated")
 """

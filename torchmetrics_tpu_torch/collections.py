@@ -166,6 +166,10 @@ class MetricCollection:
     """
 
     _groups: Dict[int, _ComputeGroup]
+    # > 0 while a step or a drain is changing member states (the fused step bumps the
+    # owners' counts outside their update wrappers): parallel/elastic.py's signal-time
+    # snapshot stands on the last flush then
+    _mutation_depth = 0
 
     def __init__(
         self,
@@ -213,6 +217,13 @@ class MetricCollection:
         Members already merged by signature do not run: the owner's state replaces
         theirs once discovery ends.
         """
+        self._mutation_depth += 1
+        try:
+            self._update(args, kwargs)
+        finally:
+            self._mutation_depth -= 1
+
+    def _update(self, args: tuple, kwargs: dict) -> None:
         if self._groups_checked:
             owners = [(group.owner, self._modules[group.owner]) for group in self._groups.values()]
             prechecked = txn.quarantine_error()
@@ -307,9 +318,13 @@ class MetricCollection:
     def _drain_scan(self, reason: str) -> int:
         """Drain the fused queue and every member's own queue before member states are
         read, then re-anchor the views."""
-        drained = flush_metrics(list(self._modules.values()), reason)
-        if drained:
-            self._anchor_views_after_scan()
+        self._mutation_depth += 1
+        try:
+            drained = flush_metrics(list(self._modules.values()), reason)
+            if drained:
+                self._anchor_views_after_scan()
+        finally:
+            self._mutation_depth -= 1
         return drained
 
     # ------------------------------------------------------------------ group discovery

@@ -25,13 +25,23 @@ takes the eager path.
   (not captured: a gloo collective cannot be), then one graph for the fold and the
   compute over static copies of the gathered buffers.
 
-Counters: ``compute_traces``, ``compute_dispatches``, ``compute_cache_hits``. The riders
-ride the packed plan (``parallel/packing.py``): a compensated state's residual folds by
-two-sum, the quarantine counter sums.
+- **Fault tolerance**: every collective of the exchange is bounded
+  (``parallel/resilience.py``). A classified fault that names its culprit (a dead or
+  late rank) re-plans the exchange over the surviving ranks (``_degraded_replan``), one
+  culprit per pass, unless ``TORCHMETRICS_TPU_DEGRADED=0``; the fold of a degraded plan
+  is cached under its own signature (``members`` is part of it) and counted in
+  ``sync_degraded_folds`` when it completes, beside a ``sync.degraded`` event. Retries
+  spent inside the bounded collectives add to ``sync_retries``. A fault with no
+  culprit (an in-flight deadline escape) propagates as its typed error.
 
-Left out against the JAX engine: the resilience layer (bounded collectives, degraded
-re-plans), the in-graph mesh exchange, the sentinel's value checks and the sampled
-drift audit, ``persist``, and the diagnostics (events, histograms, lineage).
+Counters: ``compute_traces``, ``compute_dispatches``, ``compute_cache_hits``,
+``sync_retries``, ``sync_degraded_folds``. The riders ride the packed plan
+(``parallel/packing.py``): a compensated state's residual folds by two-sum, the
+quarantine counter sums.
+
+Left out against the JAX engine: the in-graph mesh exchange, the sentinel's value
+checks and the sampled drift audit, ``persist``, and the diagnostics other than the
+flight recorder's sync events (histograms, lineage, the straggler timeline).
 """
 
 from __future__ import annotations
@@ -39,7 +49,6 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
 from torchmetrics_tpu_torch.engine.compiled import (
     _FALLBACK,
@@ -50,17 +59,64 @@ from torchmetrics_tpu_torch.engine.compiled import (
     holds_nested_metrics,
     state_signature,
 )
+from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine.stats import EngineStats
 from torchmetrics_tpu_torch.utilities.data import apply_to_collection
+from torchmetrics_tpu_torch.parallel import resilience as _resilience
+from torchmetrics_tpu_torch.parallel import sync as _sync
 from torchmetrics_tpu_torch.parallel.packing import PackedSyncPlan, PackingError, all_gather_backbone
-from torchmetrics_tpu_torch.parallel.sync import distributed_available
 
 
-def _world_size() -> int:
-    return dist.get_world_size() if distributed_available() else 1
+def _degraded_replan(
+    plan: PackedSyncPlan, stats: EngineStats, exc: _resilience.SyncFaultError
+) -> PackedSyncPlan:
+    """A plan over the surviving ranks after a classified fault, or ``exc`` re-raised.
+
+    The culprit is the rank the fault names, else a straggler hint (consumed once; the
+    port sets none until ``diag/timeline.py`` is ported). No culprit, degraded folds
+    forbidden, a culprit outside the members or no survivor left: the typed error
+    propagates.
+    """
+    policy = _resilience.current_policy()
+    culprit = exc.rank if exc.rank is not None else _resilience.consume_straggler_hint()
+    if not policy.degraded or culprit is None or culprit not in plan.members or len(plan.members) < 2:
+        raise exc
+    survivors = tuple(m for m in plan.members if m != culprit)
+    _diag.record(
+        "sync.degraded", stats.owner,
+        rank=int(culprit), error=type(exc).__name__, label=exc.label,
+        survivors=survivors, attempts=exc.attempts,
+    )
+    # lineage's coverage stamp of the survivors goes here once diag/lineage.py is ported
+    replanned = PackedSyncPlan(plan._metrics, plan.world_size, survivors)
+    replanned.degraded = True
+    replanned.excluded_ranks = plan.excluded_ranks + (int(culprit),)
+    return replanned
 
 
-def _exchange(plan: PackedSyncPlan, stats: EngineStats) -> Dict[str, torch.Tensor]:
+def _exchange(plan: PackedSyncPlan, stats: EngineStats) -> Tuple[Dict[str, torch.Tensor], PackedSyncPlan]:
+    """Run the bounded exchange; returns ``(gathered, live plan)``, the plan the caller
+    folds and caches against (a degraded re-plan when a fault excluded a rank).
+
+    Each pass excludes at most one culprit, so the loop ends within the world size. A
+    degraded fold is counted when its exchange completes; retries spent inside the
+    bounded collectives add to ``stats.sync_retries``.
+    """
+    retries_before = _resilience.total_retries()
+    try:
+        while True:
+            try:
+                gathered = _exchange_once(plan, stats)
+                if plan.degraded:
+                    stats.sync_degraded_folds += 1
+                return gathered, plan
+            except _resilience.SyncFaultError as exc:
+                plan = _degraded_replan(plan, stats, exc)
+    finally:
+        stats.sync_retries += _resilience.total_retries() - retries_before
+
+
+def _exchange_once(plan: PackedSyncPlan, stats: EngineStats) -> Dict[str, torch.Tensor]:
     """Run the metadata exchange (when the plan needs one) and one ``all_gather`` per
     buffer; returns ``{buffer_key: (world, n) tensor}``.
 
@@ -74,14 +130,14 @@ def _exchange(plan: PackedSyncPlan, stats: EngineStats) -> Dict[str, torch.Tenso
         plan.finalize(meta[None, :])
     else:
         local = torch.as_tensor(meta, device=plan.device)
-        plan.finalize(all_gather_backbone(local).cpu().numpy())
+        plan.finalize(all_gather_backbone(local, label="meta", members=plan.members).cpu().numpy())
         stats.sync_collectives += 1
     gathered: Dict[str, torch.Tensor] = {}
     for key, buf in sorted(plan.pack().items()):  # the same collective order on every rank
         if plan.world_size == 1:
             gathered[key] = buf[None]
             continue
-        gathered[key] = all_gather_backbone(buf)
+        gathered[key] = all_gather_backbone(buf, label=key, members=plan.members)
         stats.sync_collectives += 1
     return gathered
 
@@ -123,11 +179,12 @@ def _packed_sync(
     """Sync every owner's states in one exchange; False (counted) when the layout
     cannot be packed and the caller must sync eagerly."""
     try:
-        plan = PackedSyncPlan(list(owners), _world_size())
+        plan = PackedSyncPlan(list(owners), _sync.world_size())
     except PackingError as exc:
         stats.fallback(f"sync:{exc}")
         return False
-    folded = _run_fold(plan, _exchange(plan, stats), cache)
+    gathered, plan = _exchange(plan, stats)
+    folded = _run_fold(plan, gathered, cache)
     for name, metric in owners:
         _write_synced(metric, folded.get(name, {}), plan, name)
     stats.packed_syncs += 1
@@ -315,11 +372,11 @@ class EpochEngine:
         m = self._metric
         st = self.stats
         try:
-            plan = PackedSyncPlan([("", m)], _world_size())
+            plan = PackedSyncPlan([("", m)], _sync.world_size())
         except PackingError as exc:
             st.fallback(f"sync:{exc}")
             return None
-        gathered = _exchange(plan, st)
+        gathered, plan = _exchange(plan, st)
         key = ("fused", plan.signature())
         call = self._fused_cache.get(key)
         if call is _FALLBACK or not self._compute_ok:

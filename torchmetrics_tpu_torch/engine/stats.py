@@ -53,6 +53,8 @@ _COUNTER_FIELDS = (
     # --- packed sync (engine/epoch.py) ---
     "packed_syncs",  # packed syncs completed
     "sync_collectives",  # collectives issued by packed syncs (metadata gather + one per buffer)
+    "sync_retries",  # bounded-collective retries spent inside packed exchanges
+    "sync_degraded_folds",  # packed syncs folded over a degraded (survivor) membership
     "compute_traces",  # compute graphs built (each: one guarded run, plus one capture on the card)
     "compute_dispatches",  # computes served by a built graph (fused sync-and-compute included)
     "compute_cache_hits",  # compute dispatches served without a new build
@@ -126,6 +128,12 @@ def engine_report(reset: bool = False) -> Dict[str, Any]:
 
 
 def reset_engine_stats() -> None:
-    """Zero every live engine's counters."""
+    """Zero every live engine's counters, the fault-tolerance counters
+    (``parallel/resilience.py``) and the active flight recorder, in lockstep."""
+    from torchmetrics_tpu_torch.diag.trace import clear_recorder
+    from torchmetrics_tpu_torch.parallel.resilience import reset_resilience
+
     for st in list(_REGISTRY):
         st.reset()
+    reset_resilience()
+    clear_recorder()

@@ -202,6 +202,9 @@ class Metric(torch.nn.Module):
         self._forward_cache = None
         self._update_count = 0
         self._forward_depth = 0  # > 0 inside forward: its updates bypass the scan queue
+        # > 0 while forward, an update or a scan drain is changing the states: a
+        # snapshot taken by a signal handler then (parallel/elastic.py) would be torn
+        self._mutation_depth = 0
         self._in_batch_value = False  # forward's batch compute: no quarantine read
         self._to_sync = self.sync_on_compute
         self._should_unsync = True
@@ -278,6 +281,9 @@ class Metric(torch.nn.Module):
         # updates bypass the queue
         self._drain_scan("observation:forward")
         self._forward_depth += 1
+        # forward folds its batch state outside the update wrapper: the whole call
+        # is one mutation
+        self._mutation_depth += 1
         try:
             # quarantine takes the full-state path: its global update gets the
             # device select, where the reduce path's count-weighted mean fold would
@@ -287,6 +293,7 @@ class Metric(torch.nn.Module):
             else:
                 self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
         finally:
+            self._mutation_depth -= 1
             self._forward_depth -= 1
         return self._forward_cache
 
@@ -710,12 +717,18 @@ class Metric(torch.nn.Module):
                 # raises before any mutation (unless the collection step admitted
                 # this very batch already: one host read per step, not two)
                 txn.admission_check_or_raise(self, args, kwargs)
-            self._computed = None
-            self._update_count += 1
-            if not self._engine_step(args, kwargs):
-                self._run_eager_update(args, kwargs)
-            if self.compute_on_cpu:
-                self._move_list_states_to_cpu()
+            # the count bump, the step (a graph replay or the eager body) and the
+            # list moves are one mutation for a signal-time snapshot
+            self._mutation_depth += 1
+            try:
+                self._computed = None
+                self._update_count += 1
+                if not self._engine_step(args, kwargs):
+                    self._run_eager_update(args, kwargs)
+                if self.compute_on_cpu:
+                    self._move_list_states_to_cpu()
+            finally:
+                self._mutation_depth -= 1
 
         return wrapped_func
 
@@ -769,11 +782,15 @@ class Metric(torch.nn.Module):
         """Drain any scan queue holding this metric's pending steps. Every state
         observation comes here first; a compute-group view also drains its owner's
         queue (``_scan_peer``, stamped when the views are materialized)."""
-        drained = flush_metric(self, reason)
-        peer_ref = self.__dict__.get("_scan_peer")
-        peer = peer_ref() if peer_ref is not None else None
-        if peer is not None:
-            drained += flush_metric(peer, reason)
+        self._mutation_depth += 1  # a drain binds and replays the queued steps' states
+        try:
+            drained = flush_metric(self, reason)
+            peer_ref = self.__dict__.get("_scan_peer")
+            peer = peer_ref() if peer_ref is not None else None
+            if peer is not None:
+                drained += flush_metric(peer, reason)
+        finally:
+            self._mutation_depth -= 1
         return drained
 
     def _epoch_enabled(self) -> bool:
@@ -958,6 +975,7 @@ class Metric(torch.nn.Module):
         state.setdefault("scan_steps", None)
         state.setdefault("async_dispatch", None)
         state.setdefault("_forward_depth", 0)
+        state.setdefault("_mutation_depth", 0)
         state.setdefault("_in_batch_value", False)
         state.setdefault("_engine", None)
         state.setdefault("_row_additive", {})

@@ -34,9 +34,17 @@ ranks' (value, residual) pairs through two-sum, re-anchors, and returns the resi
 under ``numerics.SYNC_RES_PREFIX + attr``; the quarantine counter (``engine/txn.py``)
 sums in the reduce buffer.
 
-Left out against the JAX plan: the divergence audit, the cross-rank timeline, the
-degraded re-plan, sharded-state skips, the in-graph mesh exchange and sub-world
-process groups (those take the eager path).
+A plan carries its live membership (``members``, every rank by default). The degraded
+re-plan in ``engine/epoch.py`` builds a plan over the surviving ranks and marks it
+``degraded`` with its ``excluded_ranks``: every rank of the world still takes part in
+the one full-world ``all_gather`` per buffer (no sub-group is formed: on a live world
+that would cost a collective and a barrier of its own), and the fold reads the member
+rows alone. ``members`` is part of ``signature()``, so a degraded fold is never served
+from the full world's cache entry.
+
+Left out against the JAX plan: the divergence audit, the cross-rank timeline,
+sharded-state skips, the in-graph mesh exchange and sub-world process groups (those
+take the eager path).
 """
 
 from __future__ import annotations
@@ -46,7 +54,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from torchmetrics_tpu_torch.engine.statespec import state_fold
 from torchmetrics_tpu_torch.utilities.data import (
@@ -83,14 +90,23 @@ def shape_fingerprint(dims: Sequence[int]) -> int:
     return zlib.crc32(np.asarray(list(dims), dtype=np.int64).tobytes()) & 0x7FFFFFFF
 
 
-def all_gather_backbone(x: torch.Tensor) -> torch.Tensor:
+def all_gather_backbone(x: torch.Tensor, label: str = "", members: Optional[Sequence[int]] = None) -> torch.Tensor:
     """One ``torch.distributed.all_gather`` of ``x`` over the default group, on ``x``'s
     own device: ``(world, *x.shape)``. Every rank passes a tensor of the same shape and
-    dtype (the plan guarantees it)."""
+    dtype (the plan guarantees it).
+
+    The collective rides ``parallel/resilience.bounded_collective`` under ``label``
+    (the plan's buffer key, or ``"meta"``) with the plan's live ``members``, which the
+    fault harness and ``verify_payload`` consult; each call is a ``collective`` event.
+    """
+    from torchmetrics_tpu_torch.diag import trace as _diag
+    from torchmetrics_tpu_torch.parallel import sync as _sync
+    from torchmetrics_tpu_torch.parallel.resilience import bounded_collective
+
     x = x.contiguous()
-    out = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, x)
-    return torch.stack(out)
+    _diag.record("collective", "", label=label, bytes=int(x.nbytes))
+    rows = bounded_collective(lambda t: _sync.raw_all_gather(t), label=label, payload=x, members=members)
+    return rows if isinstance(rows, torch.Tensor) else torch.stack(rows)
 
 
 class PackingError(Exception):
@@ -128,7 +144,7 @@ class PackedSyncPlan:
 
     Usage (``engine/epoch.py`` drives it)::
 
-        plan = PackedSyncPlan([(name, metric), ...], world_size)
+        plan = PackedSyncPlan([(name, metric), ...], world_size)   # members: every rank
         meta = plan.metadata_local()            # None when rank-invariant
         plan.finalize(world_meta)               # world_meta None when meta was
         local = plan.pack()                     # {buffer_key: flat tensor}
@@ -136,10 +152,19 @@ class PackedSyncPlan:
         states = plan.make_fold()(gathered)     # {owner: {attr: synced value}}
     """
 
-    def __init__(self, metrics: Sequence[Tuple[str, Any]], world_size: int) -> None:
+    def __init__(
+        self, metrics: Sequence[Tuple[str, Any]], world_size: int, members: Optional[Sequence[int]] = None
+    ) -> None:
         if world_size < 1:
             raise PackingError("world size < 1")
         self.world_size = int(world_size)
+        self.members: Tuple[int, ...] = (
+            tuple(range(self.world_size)) if members is None else tuple(int(i) for i in members)
+        )
+        # set by the degraded re-plan (engine/epoch.py): a fold over fewer ranks than
+        # the world is never silent (EngineStats.sync_degraded_folds, sync.degraded)
+        self.degraded = False
+        self.excluded_ranks: Tuple[int, ...] = ()
         self._metrics = list(metrics)
         self._finalized = False
         self._group_sizes: Dict[str, int] = {}
@@ -289,8 +314,8 @@ class PackedSyncPlan:
                             f"Cannot sync state `{s.attr}`: processes hold mismatched trailing shapes for the"
                             f" cat-reduced state (shape fingerprints {prints.tolist()})."
                         )
-                    s.world_dim0 = tuple(int(c) for c in counts)
-                    s.pad_to = int(counts.max())
+                    s.world_dim0 = tuple(int(counts[i]) for i in self.members)
+                    s.pad_to = int(counts.max())  # non-members pack the collective too
                 elif s.kind == "none-list":
                     if counts.max() != counts.min():
                         raise TorchMetricsUserError(_RAGGED_LIST_ERROR.format(attr=s.attr, counts=counts.tolist()))
@@ -354,9 +379,10 @@ class PackedSyncPlan:
     # ------------------------------------------------------------------ fold
 
     def signature(self) -> Tuple:
-        """Cache key of the fold: the full static layout and the world size."""
+        """Cache key of the fold: the full static layout, the world size and the members."""
         return (
             self.world_size,
+            self.members,
             tuple(sorted(self._group_sizes.items())),
             tuple(
                 (
@@ -380,8 +406,17 @@ class PackedSyncPlan:
 
         specs = list(self.specs)
         empty = list(self.empty_lists)
-        world = self.world_size
+        members = list(self.members)
+        world = len(members)
         residual_of = {(s.owner, s.attr): s for s in specs if s.kind == "comp-res"}
+
+        def rows(buf: torch.Tensor, s: _Spec) -> torch.Tensor:
+            """The member rows of ``s``'s segment: a degraded plan slices the
+            survivors' rows (slices, so a captured fold needs no index upload)."""
+            seg = buf[:, s.offset : s.offset + s.size]
+            if members == list(range(buf.shape[0])):
+                return seg
+            return torch.cat([seg[r : r + 1] for r in members])
 
         def fold(gathered: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
             out: Dict[str, Dict[str, Any]] = {}
@@ -393,8 +428,8 @@ class PackedSyncPlan:
                     # each rank's residual feeds back into its increment, the exact fold
                     # error carries forward, and the pair is re-anchored
                     rs = residual_of[(s.owner, s.attr)]
-                    values = gathered[s.group][:, s.offset : s.offset + s.size].reshape((world,) + s.shape)
-                    residuals = gathered[rs.group][:, rs.offset : rs.offset + rs.size].reshape((world,) + s.shape)
+                    values = rows(gathered[s.group], s).reshape((world,) + s.shape)
+                    residuals = rows(gathered[rs.group], rs).reshape((world,) + s.shape)
                     total, res = values[0], residuals[0]
                     for r in range(1, world):
                         total, res = numerics.two_sum(total, values[r] + residuals[r] + res)
@@ -413,7 +448,7 @@ class PackedSyncPlan:
                 if s.kind == "none-list" and not s.elem_shapes:
                     dest[s.attr] = []
                     continue
-                seg = gathered[s.group][:, s.offset : s.offset + s.size]
+                seg = rows(gathered[s.group], s)
                 if s.kind in _STACKED_FOLDS:
                     dest[s.attr] = _STACKED_FOLDS[s.kind](seg.reshape((world,) + s.shape))
                 elif s.kind == "none-array":

@@ -14,7 +14,7 @@ Works for a ``Metric`` and for a ``MetricCollection``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, List
 
 import numpy as np
 import torch
@@ -65,13 +65,12 @@ def save_metric_state(metric: Any, path: str) -> None:
     state, so persistence is forced on while the states are read and each flag is
     put back afterwards.
     """
-    saved_flags = [dict(m._persistent) for m in _metrics_of(metric)]
+    saved_flags = _snapshot_persistence(metric)
     try:
         metric.persistent(True)
         flat = _to_saveable(metric.state_dict())
     finally:
-        for m, saved in zip(_metrics_of(metric), saved_flags):
-            m._persistent.update(saved)
+        _restore_persistence(metric, saved_flags)
     np.savez(_npz_path(path), **flat)
 
 
@@ -94,3 +93,13 @@ def _metrics_of(metric: Any) -> Iterable[Any]:
     if isinstance(metric, MetricCollection):
         return list(metric.values(copy_state=False))
     return [metric]
+
+
+def _snapshot_persistence(metric: Any) -> List[Dict[str, bool]]:
+    """Every leaf metric's ``persistent`` flags, for ``_restore_persistence``."""
+    return [dict(m._persistent) for m in _metrics_of(metric)]
+
+
+def _restore_persistence(metric: Any, flags: List[Dict[str, bool]]) -> None:
+    for m, saved in zip(_metrics_of(metric), flags):
+        m._persistent.update(saved)
