@@ -339,6 +339,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    again with ``scan_steps=8``; the signal-time flush ms. It prints a
    ``resilience_summary`` line with the card's ``nvidia-smi`` name and power limit.
 
+24. the diagnostics plane (``torchmetrics_tpu_torch/diag/``), after K1 and K2 against their
+   plain versions as in phase 3. Guarded: ``MulticlassAccuracy(1000)`` on phase 4's
+   batches and config #2's members that the engine runs (all but the binned AUROC, whose
+   [0, 1] range check reads the host on every update in both packages) on phase 5's, a
+   cold build and 16 warm updates each under ``transfer_guard("strict")`` (both layers:
+   ``torch.cuda.set_sync_debug_mode("error")`` and the Python hooks) with the recorder, the
+   sentinel and ``profile_context(every_n=4)`` on: 0 readbacks, the sentinel 0, 4 probes per
+   16 warm updates, values bit-equal to the same run with the diagnostics off; ``compute``
+   under the log guard with its readbacks counted by layer; ``device_us`` / ``device_event_us``
+   p50 / p99 beside the profiler's device time per update, K1 / K2 launches, the cost
+   ledger's entries; the binned AUROC's readbacks under the log guard; then host µs per
+   update with every knob off, each alone (recorder, sentinel, profile, guard, lineage) and
+   all on, medians of 11 rounds of 64 updates in turns. Planted, on the card and equal to the CPU run: a
+   NaN row under quarantine (``input_poisoned``, states equal to the run without the
+   batch), a NaN into a float sum (``nan``, sticky), a compensated sum absorbing its
+   increments (``precision_loss``), an int32 count past 2^30 (``overflow_suspect``). Two
+   gloo ranks with config #2's collection and the profile on: a NaN on rank 1 alone read on
+   both after the OR fold, a divergent rank-invariant state flagged on both, rank 1 late by
+   20 ms (``DelayRank``) named the straggler on both, then rank 1 late past a 500 ms
+   deadline: rank 0 escapes in flight and degrades with rank 1 as the culprit, its
+   coverage members ``(0,)``; both ranks' events merged into one Perfetto trace. It prints a
+   ``diag_summary`` line with the card's ``nvidia-smi`` name and power limit.
+
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
 
@@ -357,7 +380,8 @@ batches made for it; ``--engine-tier-only`` runs phases 1-2 and then phase 14 al
 phases 1-2 and then phase 19 alone; ``--text-only`` runs phases 1-2 and then phase 20
 alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone; ``--audio-only``
 runs phases 1-2 and then phase 22 alone; ``--resilience-only`` runs phases 1-2 and then
-phase 23 alone, on batches made for it.
+phase 23 alone, on batches made for it; ``--diag-only`` runs phases 1-2 and then phase 24
+alone, on batches made for it.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -7970,6 +7994,444 @@ def run_resilience(acc_batches: list, cifar_batches: list, gen: torch.Generator,
     return out
 
 
+# ---------------------------------------------------------------- phase 24: the diagnostics plane
+
+DIAG_WARM = N_BATCHES  # warm engine updates per owner under the guard (the builds come first)
+DIAG_EVERY_N = 4  # profile_context(every_n): 4 probes per 16 warm updates
+DIAG_ROUNDS = 11  # the overhead arms, in turns; medians
+DIAG_PASSES = 4  # passes over the 16 batches per round: 64 updates
+DIAG_ARMS = ("off", "recorder", "sentinel", "profile", "guard", "lineage", "all")
+DIAG_STRAGGLER_MS = 20.0  # rank 1 enters the second packed sync this late
+DIAG_STRAGGLER_US = 10_000.0  # the threshold that delay must cross
+DIAG_DEADLINE_MS = 500.0  # the genuine deadline: rank 1 is late by three times it
+DIAG_JOIN_TIMEOUT_S = 300
+
+
+def _diag_float_sum(device=None):
+    """A float-sum metric whose state takes a NaN as it comes (the aggregators' NaN
+    strategies replace or drop it before the state)."""
+    from torchmetrics_tpu_torch.metric import Metric
+
+    class DiagFloatSum(Metric):
+        full_state_update = False
+
+        def __init__(self) -> None:
+            super().__init__(device=device)
+            self.add_state("total", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+
+        def update(self, x: torch.Tensor) -> None:
+            self.total = self.total + x.sum()
+
+        def compute(self) -> torch.Tensor:
+            return self.total
+
+    return DiagFloatSum()
+
+
+def _diag_engine_members(device=None) -> dict:
+    """Config #2's members the engine runs: the binned AUROC's update reads the host (its
+    [0, 1] range check, in both packages), so it cannot run under a strict guard."""
+    members = _collection_members(device=device, validate_args=False)
+    members.pop("auroc")
+    return members
+
+
+@contextlib.contextmanager
+def _diag_arm(arm: str, rec=None):
+    """The diagnostics knobs of one overhead arm: each alone, all, or none (lineage is on
+    by default, so ``off`` turns it off)."""
+    from torchmetrics_tpu_torch.diag import diag_context, lineage_context, profile_context, sentinel_context, transfer_guard
+
+    on = (lambda knob: arm in (knob, "all"))
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(lineage_context(on("lineage")))
+        stack.enter_context(sentinel_context(on("sentinel")))
+        if on("recorder"):
+            stack.enter_context(diag_context(recorder=rec))
+        if on("profile"):
+            stack.enter_context(profile_context(every_n=DIAG_EVERY_N))
+        if on("guard"):
+            stack.enter_context(transfer_guard("strict"))
+        yield
+
+
+def _diag_overhead(make, batches: list) -> dict:
+    """Host µs per ``update`` (to a device sync) under each arm, one metric per arm (the
+    sentinel changes the step's signature), warmed, then DIAG_ROUNDS rounds in turns of
+    DIAG_PASSES passes over the batches."""
+    from torchmetrics_tpu_torch.diag import FlightRecorder
+
+    recs = {arm: FlightRecorder(1 << 16) for arm in DIAG_ARMS}
+    metrics = {arm: make() for arm in DIAG_ARMS}  # built outside the guard (a default's copy in syncs)
+    for arm in DIAG_ARMS:
+        with _diag_arm(arm, recs[arm]):
+            for p, t in batches[:3]:
+                metrics[arm].update(p, t)
+    torch.cuda.synchronize()
+    times = {arm: [] for arm in DIAG_ARMS}
+    for _ in range(DIAG_ROUNDS):
+        for arm in DIAG_ARMS:
+            m = metrics[arm]
+            with _diag_arm(arm, recs[arm]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for p, t in batches * DIAG_PASSES:
+                    m.update(p, t)
+                torch.cuda.synchronize()
+                times[arm].append((time.perf_counter() - t0) / (len(batches) * DIAG_PASSES) * 1e6)
+    med = {arm: statistics.median(v) for arm, v in times.items()}
+    return {"update_us": med, "over_off_us": {arm: med[arm] - med["off"] for arm in DIAG_ARMS}, "runs_us": times}
+
+
+def _diag_owner_rows(rows: list, owner: str) -> dict:
+    return {f"{r['kind']}:{r['series']}": {k: r[k] for k in ("count", "p50", "p90", "p99")} for r in rows if r["owner"] == owner}
+
+
+def run_diag_guarded(acc_batches: list, cifar_batches: list) -> dict:
+    """Config #1 and config #2's engine members under the strict guard with the recorder,
+    the sentinel and a profile on: every build and 16 warm updates, then ``compute``, each
+    bit-equal to the same run with the diagnostics off; the binned AUROC alone under the
+    log guard, its readbacks counted; then the overhead of each knob."""
+    from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC
+    from torchmetrics_tpu_torch.diag import (
+        diag_context,
+        histograms_snapshot,
+        ledger_snapshot,
+        profile_context,
+        profile_snapshot,
+        read_sentinel,
+        sentinel_context,
+        transfer_guard,
+    )
+    from torchmetrics_tpu_torch.engine.stats import reset_engine_stats
+
+    paths = {
+        # make, and the update sequence: a cold build, then 16 warm (the collection's
+        # groups are settled by their signatures when it is built: its first step fuses)
+        "accuracy": (lambda: MulticlassAccuracy(ACC_CLASSES, validate_args=False), [acc_batches[0]] + acc_batches),
+        "collection": (lambda: MetricCollection(_diag_engine_members()), [cifar_batches[0]] + cifar_batches),
+    }
+    out = {}
+    for name, (make, seq) in paths.items():
+        reset_engine_stats()
+        m = make()
+        _zero_launches()
+        with sentinel_context(True), diag_context(capacity=1 << 14) as rec, profile_context(every_n=DIAG_EVERY_N):
+            with transfer_guard("strict"):
+                for p, t in seq:
+                    m.update(p, t)
+                torch.cuda.synchronize()
+            events = dict(rec.counts)
+            # the epoch boundary under the log guard: a compute's own host reads are counted
+            with transfer_guard("log"):
+                start = rec._seq
+                value = m.compute()
+                members = list(m.items(keep_base=True, copy_state=False)) if isinstance(m, MetricCollection) else [(name, m)]
+                flags = {k: read_sentinel(o)["flags"] for k, o in members}
+                torch.cuda.synchronize()
+            compute_reads: dict = {}
+            for e in rec.snapshot():
+                if e.seq > start and e.kind == "transfer.host":
+                    key = f"{e.data['layer']}:{e.data['op']}"
+                    compute_reads[key] = compute_reads.get(key, 0) + 1
+        launches = _launches()
+        if events.get("transfer.host", 0) or events.get("transfer.blocked", 0):
+            raise AssertionError(f"diag_guarded {name}: readbacks in the updates {events}")
+        if name == "accuracy" and compute_reads:
+            raise AssertionError(f"diag_guarded accuracy: readbacks in compute {compute_reads}")
+        if any(flags.values()):
+            raise AssertionError(f"diag_guarded {name}: the sentinel reads {flags}")
+        # the engine whose dispatches the probes count: the metric's, or the collection's fused step
+        site = f"{m._fused_engine.stats.owner}:fused" if isinstance(m, MetricCollection) else f"{m._engine.stats.owner}:update"
+        sites = profile_snapshot()["per_site"]
+        probe_site = sites.get(site, {})
+        hists = _diag_owner_rows(histograms_snapshot(), site.rsplit(":", 1)[0])
+        ledger = ledger_snapshot()["executables"]
+        if probe_site.get("warm_dispatches") != DIAG_WARM or probe_site.get("probes") != DIAG_WARM // DIAG_EVERY_N:
+            raise AssertionError(f"diag_guarded {name}: probes {sites}, expected {DIAG_WARM // DIAG_EVERY_N} per {DIAG_WARM} warm at {site}")
+        # the same sequence with every diagnostic off: bit-equal values
+        plain = make()
+        for p, t in seq:
+            plain.update(p, t)
+        want = plain.compute()
+        for key, got in (value.items() if isinstance(value, dict) else [(name, value)]):
+            w = want[key] if isinstance(want, dict) else want
+            if not torch.equal(got, w):
+                raise AssertionError(f"diag_guarded {name} {key}: {got} differs from the run without diagnostics")
+        prof = _device_profile(lambda i, m=plain, seq=seq: m.update(*seq[i % len(seq)]), iters=8)
+        out[name] = {
+            "updates": len(seq), "launches": launches, "events": {k: events[k] for k in sorted(events)},
+            "compute_readbacks": compute_reads,
+            "sentinel": flags, "probes": probe_site, "histograms": hists,
+            "device_busy_us_per_update": prof["device_busy_us"],
+            "ledger": [{k: r[k] for k in ("owner", "kind", "compile_ms", "capture_ms", "pool_bytes", "static_input_bytes",
+                                          "state_bytes", "flops")} for r in ledger],
+        }
+        _log(f"  {name}: {len(seq)} updates under the strict guard, 0 readbacks; compute's readbacks {compute_reads}; sentinel 0;"
+             f" probes {probe_site.get('probes')} / {probe_site.get('warm_dispatches')} warm;"
+             f" device_us {hists.get('update:device_us', hists.get('fused:device_us'))};"
+             f" profiler {prof['device_busy_us']} µs per update; launches {launches}; ledger {len(ledger)} entries")
+    # the binned AUROC alone: its range check reads the host once per update, on both layers
+    reset_engine_stats()
+    auroc = MulticlassAUROC(CIFAR_CLASSES, thresholds=N_THRESH, validate_args=False)
+    _zero_launches()
+
+    def reads_of(events) -> dict:
+        counts: dict = {}
+        for e in events:
+            if e.kind == "transfer.host":
+                key = f"{e.data['layer']}:{e.data['op']}"
+                counts[key] = counts.get(key, 0) + 1
+        return counts
+
+    # two log scopes: the native layer's warnings are recorded when its scope ends
+    with diag_context() as rec:
+        with transfer_guard("log"):
+            for p, t in cifar_batches:
+                auroc.update(p, t)
+            torch.cuda.synchronize()
+        start = rec._seq
+        with transfer_guard("log"):
+            auroc.compute()
+            torch.cuda.synchronize()
+    reads = reads_of(e for e in rec.snapshot() if e.seq <= start)
+    compute_reads = reads_of(e for e in rec.snapshot() if e.seq > start)
+    out["auroc_log"] = {"launches": _launches(), "update_readbacks": reads, "compute_readbacks": compute_reads,
+                        "updates": len(cifar_batches)}
+    if reads.get("python:Tensor.__bool__", 0) < len(cifar_batches):
+        raise AssertionError(f"diag auroc: readbacks {reads}, expected the range check on every update")
+    _log(f"  auroc (binned, T={N_THRESH}) under the log guard: updates {reads} over {len(cifar_batches)}, compute {compute_reads}")
+    # the plane's overhead, per knob, on the card
+    out["overhead"] = {
+        "accuracy": _diag_overhead(lambda: MulticlassAccuracy(ACC_CLASSES, validate_args=False), acc_batches),
+        "collection": _diag_overhead(lambda: MetricCollection(_diag_engine_members()), cifar_batches),
+    }
+    for name, o in out["overhead"].items():
+        _log(f"  {name} update µs by arm (median of {DIAG_ROUNDS}, in turns): "
+             + ", ".join(f"{a} {o['update_us'][a]:.1f}" for a in DIAG_ARMS))
+    return out
+
+
+def _diag_planted(device) -> dict:
+    """The planted cases on ``device``: each case's sentinel bitmask (and the quarantined
+    run's states against the run without the poisoned batch)."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy, SumMetric
+    from torchmetrics_tpu_torch.diag import read_sentinel, sentinel_context
+    from torchmetrics_tpu_torch.engine import compensated_context, engine_context, quarantine_context
+
+    gen = torch.Generator().manual_seed(2400)
+    logits = [torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen) for _ in range(4)]
+    labels = [torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen) for _ in range(4)]
+    poisoned = [x.clone() for x in logits]
+    poisoned[2][7, 3] = float("nan")
+    losses = [torch.rand(ACC_BATCH, generator=gen) for _ in range(4)]
+    losses[1][100] = float("nan")
+    dev = lambda x: x.to(device)  # noqa: E731
+    out = {}
+    with engine_context(True), sentinel_context(True):
+        with quarantine_context(True):
+            q = MulticlassAccuracy(ACC_CLASSES, validate_args=False, device=device)
+            for p, t in zip(poisoned, labels):
+                q.update(dev(p), dev(t))
+            out["input_poisoned"] = read_sentinel(q)["flags"]
+        clean = MulticlassAccuracy(ACC_CLASSES, validate_args=False, device=device)
+        for i, (p, t) in enumerate(zip(logits, labels)):
+            if i != 2:
+                clean.update(dev(p), dev(t))
+        out["quarantine_states_clean"] = all(torch.equal(getattr(q, k), getattr(clean, k)) for k in q._defaults)
+        s = _diag_float_sum(device)
+        for x in losses:
+            s.update(dev(x))
+        out["nan"] = read_sentinel(s)["flags"]
+        with compensated_context(True):
+            c = SumMetric(nan_strategy=0.0, device=device)
+            c.update(dev(torch.full((ACC_BATCH,), 2.0**12)))  # 2^25: the float32 ulp is 4
+            for _ in range(3):
+                c.update(dev(torch.full((ACC_BATCH,), 2.0**-14)))  # +0.5 each: absorbed
+            out["precision_loss"] = read_sentinel(c)["flags"]
+        o = MulticlassAccuracy(ACC_CLASSES, validate_args=False, device=device)
+        o.update(dev(logits[0]), dev(labels[0]))
+        o.tp = torch.full_like(o.tp, 2**30 + 1)  # an int32 count past half its range
+        o.update(dev(logits[1]), dev(labels[1]))
+        out["overflow_suspect"] = read_sentinel(o)["flags"]
+    return out
+
+
+def run_diag_planted() -> dict:
+    """The planted cases on the card and on the CPU: equal bitmasks, each with its bit."""
+    from torchmetrics_tpu_torch.diag import SENTINEL_BITS
+
+    _zero_launches()
+    card = _diag_planted("cuda")
+    launches = _launches()
+    host = _diag_planted("cpu")
+    for case, bits in card.items():
+        if bits != host[case]:
+            raise AssertionError(f"diag_planted {case}: card {bits} != CPU {host[case]}")
+        if case in SENTINEL_BITS and not bits & SENTINEL_BITS[case]:
+            raise AssertionError(f"diag_planted {case}: the bit is not set ({bits:#x})")
+    if not card["quarantine_states_clean"]:
+        raise AssertionError("diag_planted: the quarantined batch moved a state")
+    _log(f"  planted: {card} (the CPU run equal); launches {launches}")
+    return {"card": card, "cpu": host, "launches": launches}
+
+
+def _diag_rank_body(rank: int, out_dir: str) -> dict:
+    """One gloo rank: config #2's collection with the engine, the profile on, then five
+    packed syncs: calibration, a NaN on rank 1 alone, a divergent rank-invariant state,
+    rank 1 late by DIAG_STRAGGLER_MS (the straggler), rank 1 late past the deadline (the
+    escape that degrades onto the straggler). Every event goes to one recorder, exported
+    on the host's monotonic clock for the merged timeline."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.diag import (
+        FlightRecorder,
+        audit_context,
+        diag_context,
+        profile_context,
+        provenance_of,
+        read_sentinel,
+        sentinel_context,
+        set_straggler_threshold_us,
+    )
+    from torchmetrics_tpu_torch.parallel import DelayRank, fault_context, resilience_context
+
+    mc = MetricCollection(_collection_members(validate_args=False))
+    _zero_launches()
+    for p, t in _res_batches(rank):
+        mc.update(p, t)
+    launches = _launches()
+    rec = FlightRecorder(1 << 15)
+    out: dict = {"launches": launches}
+
+    def compute(faults=(), policy=None, late_s=0.0):
+        for m in mc.values(copy_state=False):
+            m._computed = None
+        dist.barrier()
+        torch.cuda.synchronize()
+        time.sleep(late_s)
+        start = rec._seq
+        with fault_context(*faults), (resilience_context(**policy) if policy else contextlib.nullcontext()):
+            try:
+                mc.compute()
+                err = None
+            except Exception as exc:  # reported: the deadline's late rank expects its own escape
+                err = type(exc).__name__
+        torch.cuda.synchronize()
+        return [e for e in rec.snapshot() if e.seq > start], err
+
+    set_straggler_threshold_us(DIAG_STRAGGLER_US)
+    with diag_context(recorder=rec), profile_context(every_n=DIAG_EVERY_N), sentinel_context(True):
+        events, _ = compute()
+        out["calibrate_metadata_gathers"] = sum(1 for e in events if e.kind == "collective" and e.data["label"] == "meta")
+        s = _diag_float_sum()
+        s.update(torch.tensor([float("nan")], device="cuda") if rank == 1 else torch.ones(1, device="cuda"))
+        s.compute()
+        out["sentinel_bits"] = read_sentinel(s)["bits"]
+        with audit_context(True):
+            mc["acc"]._rank_invariant_states = frozenset({"tp"})
+            events, _ = compute()
+            mc["acc"]._rank_invariant_states = frozenset()
+        out["audit"] = [[e.data["attr"], e.data["flag"]] for e in events if e.kind == "sync.audit"]
+        faults = (DelayRank(rank=1, delay_ms=DIAG_STRAGGLER_MS, label="meta"),) if rank == 1 else ()
+        events, _ = compute(faults)
+        out["straggler"] = [{"rank": e.data["rank"], "skew_us": e.data["skew_us"]} for e in events if e.kind == "sync.straggler"]
+        t0 = time.perf_counter()
+        events, err = compute(policy={"deadline_ms": DIAG_DEADLINE_MS, "retries": 0},
+                              late_s=3 * DIAG_DEADLINE_MS / 1e3 if rank == 1 else 0.0)
+        out["deadline"] = {
+            "error": err, "ms": (time.perf_counter() - t0) * 1e3,
+            "degraded": [list(e.data["survivors"]) for e in events if e.kind == "sync.degraded"],
+            "coverage": [[e.data["members"], e.data["excluded"]] for e in events if e.kind == "lineage.coverage"],
+        }
+        prov = provenance_of(mc._epoch_sync.stats.owner) if mc._epoch_sync is not None else None
+        out["deadline"]["provenance"] = None if prov is None else prov.coverage
+    with open(os.path.join(out_dir, f"diag_events{rank}.json"), "w") as f:
+        json.dump([{"seq": e.seq, "ts_us": (rec.t0 + e.ts) * 1e6, "kind": e.kind, "owner": e.owner,
+                    **{k: (v if isinstance(v, (int, float, bool, str)) else str(v)) for k, v in e.data.items()}}
+                   for e in rec.snapshot()], f)
+    return out
+
+
+def run_diag_2rank() -> dict:
+    """Two gloo ranks on the card: the straggler named on both, the deadline escape that
+    degrades with it as the culprit (coverage: members ``(0,)``, 1 excluded), the NaN of
+    rank 1 on both after the OR fold, the audit on both, and the merged timeline."""
+    from torchmetrics_tpu_torch.diag import merge_timelines
+
+    with _two_ranks(_diag_rank_body, DIAG_JOIN_TIMEOUT_S, "diag 2-rank", abandon=True) as (results, out_dir):
+        streams = []
+        for rank in range(2):
+            with open(os.path.join(out_dir, f"diag_events{rank}.json")) as f:
+                streams.append({"rank": rank, "events": json.load(f)})
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "timeline.json")
+            trace = merge_timelines(streams, path=path)
+            timeline = {"events": len(trace["traceEvents"]), "bytes": os.path.getsize(path)}
+    for rank, r in enumerate(results):
+        if r["calibrate_metadata_gathers"] != 1:
+            raise AssertionError(f"diag 2-rank rank {rank}: {r['calibrate_metadata_gathers']} metadata gathers with the timeline on")
+        if r["sentinel_bits"] != ["nan"]:
+            raise AssertionError(f"diag 2-rank rank {rank}: sentinel {r['sentinel_bits']} after the OR fold")
+        if ["tp", "rank-invariant-divergence"] not in r["audit"]:
+            raise AssertionError(f"diag 2-rank rank {rank}: audit {r['audit']}")
+        if [s["rank"] for s in r["straggler"]] != [1] or r["straggler"][0]["skew_us"] <= DIAG_STRAGGLER_US:
+            raise AssertionError(f"diag 2-rank rank {rank}: straggler {r['straggler']}")
+        if not all(r["launches"].values()):
+            raise AssertionError(f"diag 2-rank rank {rank}: a kernel of the path was not launched: {r['launches']}")
+    dl = results[0]["deadline"]
+    if dl["error"] is not None or dl["degraded"] != [[0]] or ["0", "1:sync-fault"] not in dl["coverage"]:
+        raise AssertionError(f"diag 2-rank: rank 0's deadline escape {dl}")
+    if (dl["provenance"] or {}).get("members") != ["0"]:
+        raise AssertionError(f"diag 2-rank: provenance coverage {dl['provenance']}")
+    launches = {k: sum(r["launches"][k] for r in results) for k in ("stat_counts", "multi_threshold")}
+    _log(f"  2 ranks: straggler rank {results[0]['straggler'][0]['rank']} skew {results[0]['straggler'][0]['skew_us']} /"
+         f" {results[1]['straggler'][0]['skew_us']} µs; deadline escape {dl['ms']:.1f} ms -> degraded {dl['degraded']},"
+         f" coverage {dl['provenance']}; rank 1: {results[1]['deadline']['error']}; sentinel {results[0]['sentinel_bits']} /"
+         f" {results[1]['sentinel_bits']}; audit {results[0]['audit']}; timeline {timeline}")
+    return {"ranks": results, "timeline": timeline, "launches": launches}
+
+
+def run_diag(acc_batches: list, cifar_batches: list, gen: torch.Generator, smi: str) -> dict:
+    """Phase 24: K1 and K2 against their plain versions, then the guarded paths, the
+    planted cases and the two ranks."""
+    t_phase = time.perf_counter()
+    errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
+    out = {"card": smi, "kernel_errors": errors}
+    out["guarded"] = run_diag_guarded(acc_batches, cifar_batches)
+    out["planted"] = run_diag_planted()
+    out["two_rank"] = run_diag_2rank()
+    out["launches"] = {
+        "guarded_accuracy": out["guarded"]["accuracy"]["launches"],
+        "guarded_collection": out["guarded"]["collection"]["launches"],
+        "auroc_log": out["guarded"]["auroc_log"]["launches"],
+        "planted": out["planted"]["launches"],
+        "two_rank": out["two_rank"]["launches"],
+    }
+    needed = {"guarded_accuracy": ("stat_counts",), "guarded_collection": ("stat_counts",),
+              "auroc_log": ("multi_threshold",), "planted": ("stat_counts",), "two_rank": ("stat_counts", "multi_threshold")}
+    for side, counts in out["launches"].items():
+        if not all(counts[k] for k in needed[side]):
+            raise AssertionError(f"phase 24 {side}: a kernel of the path was not launched: {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"  phase 24: {out['phase_s']:.1f} s on {smi}; launches {out['launches']}")
+    print(json.dumps({"diag_summary": {
+        "card": smi,
+        "overhead_us": {k: v["update_us"] for k, v in out["guarded"]["overhead"].items()},
+        "device_us": {k: out["guarded"][k]["histograms"] for k in ("accuracy", "collection")},
+        "device_busy_us_per_update": {k: out["guarded"][k]["device_busy_us_per_update"] for k in ("accuracy", "collection")},
+        "probes": {k: out["guarded"][k]["probes"] for k in ("accuracy", "collection")},
+        "auroc_readbacks": {k: out["guarded"]["auroc_log"][k] for k in ("update_readbacks", "compute_readbacks")},
+        "compute_readbacks": {k: out["guarded"][k]["compute_readbacks"] for k in ("accuracy", "collection")},
+        "planted": out["planted"]["card"], "two_rank": {
+            "straggler": [r["straggler"] for r in out["two_rank"]["ranks"]],
+            "deadline": out["two_rank"]["ranks"][0]["deadline"], "timeline": out["two_rank"]["timeline"]},
+        "launches": out["launches"], "phase_s": out["phase_s"],
+    }}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -7983,7 +8445,7 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/23] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/24] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     from torchmetrics_tpu_torch.native import rle_mask
 
@@ -7993,7 +8455,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rle_mask.library()
     native_build_s = time.perf_counter() - t0
-    _log(f"[2/23] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
+    _log(f"[2/24] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
          f" -> {rle_mask.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
@@ -8010,55 +8472,55 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/23] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/24] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/23] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/24] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/23] regression's moments and cat states, retrieval")
+        _log("[16/24] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/23] nominal association and pairwise distances")
+        _log("[17/24] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/23] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/24] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--text-only"]:
-        _log("[20/23] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        _log("[20/24] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
         text = run_text(gen, hbm_rate, smi)
         print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--audio-only"]:
-        _log("[22/23] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+        _log("[22/24] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
         audio = run_audio(smi, hbm_rate)
         print(json.dumps({"audio": audio, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--detection-only"]:
-        _log("[21/23] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+        _log("[21/24] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
         detection = run_detection(smi, native_build_s)
         print(json.dumps({"detection": detection, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/23] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/24] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -8072,9 +8534,23 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[23/23] fault-tolerant sync and elastic snapshots")
+        _log("[23/24] fault-tolerant sync and elastic snapshots")
         resilience = run_resilience(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"resilience": resilience}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--diag-only"]:
+        acc_batches = [
+            (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        cifar_batches = [
+            (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        _log("[24/24] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+        diag = run_diag(acc_batches, cifar_batches, gen, smi)
+        print(json.dumps({"diag": diag, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -8082,7 +8558,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/23] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/24] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -8090,30 +8566,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/23] kernels against their plain versions")
+        _log("[3/24] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/23] main path")
+        _log("[4/24] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/23] collection path")
+        _log("[5/24] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/23] binary path")
+        _log("[6/24] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/23] multilabel path")
+        _log("[7/24] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/23] task routers")
+        _log("[8/24] task routers")
         run_routers(gen)
 
-        _log("[9/23] sync, two ranks on one card")
+        _log("[9/24] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/23] times")
+        _log("[10/24] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -8126,7 +8602,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/23] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/24] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -8148,7 +8624,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/23] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/24] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -8157,41 +8633,44 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/23] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/24] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/23] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/24] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/23] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/24] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/23] regression's moments and cat states, retrieval")
+    _log("[16/24] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/23] nominal association and pairwise distances")
+    _log("[17/24] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/23] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/24] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/23] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/24] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
 
-    _log("[20/23] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    _log("[20/24] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
     text = run_text(gen, hbm_rate, smi)
 
-    _log("[21/23] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+    _log("[21/24] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
     detection = run_detection(smi, native_build_s)
 
-    _log("[22/23] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+    _log("[22/24] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
     audio = run_audio(smi, hbm_rate)
 
-    _log("[23/23] fault-tolerant sync and elastic snapshots")
+    _log("[23/24] fault-tolerant sync and elastic snapshots")
     resilience = run_resilience(acc_batches, collection_batches, gen, smi)
+
+    _log("[24/24] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+    diag = run_diag(acc_batches, collection_batches, gen, smi)
 
     for entry in kernels:
         k = entry["name"]
@@ -8237,6 +8716,7 @@ def main() -> int:
             "resilience_2rank": resilience["launches"]["eager"][k],
             "resilience_elastic_engine": resilience["launches"]["engine"][k],
             "resilience_preempt_engine": resilience["launches"]["preempt_engine"][k],
+            **{f"diag_{path}": diag["launches"][path][k] for path in diag["launches"]},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -8248,7 +8728,7 @@ def main() -> int:
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
-        "text": text, "detection": detection, "audio": audio, "resilience": resilience, "sync_2rank": sync,
+        "text": text, "detection": detection, "audio": audio, "resilience": resilience, "diag": diag, "sync_2rank": sync,
         "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)

@@ -39,9 +39,13 @@ form a compute group:
 ``fused_dispatch=False`` turns the fused step and the packed compute sync off, as the
 engine being off does in the JAX package.
 
-Left out against the JAX package: the sentinel and the sampled drift audit
-(``diag/``), ``persist``, the resilience layer (bounded collectives, degraded re-plans),
-``snapshot_compute`` (``serve/``) and the instrumentation (events, histograms).
+With a recorder or a profile observing, a settled ``update`` records a
+``collection.step`` event (``dispatch_us``, ``owners``, ``fused``) and feeds the
+``collection`` ``dispatch_us`` histogram; the one-time group discovery reads the states
+inside ``transfer_allowed("group-discovery")``. The members' sentinels, quarantine
+counters and compensation residuals ride the fused step and the packed sync.
+
+Left out against the JAX package: ``persist`` and ``snapshot_compute`` (``serve/``).
 """
 
 from __future__ import annotations
@@ -49,10 +53,14 @@ from __future__ import annotations
 import weakref
 from collections import OrderedDict
 from copy import deepcopy
+from time import perf_counter
 from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from torchmetrics_tpu_torch.diag import hist as _hist
+from torchmetrics_tpu_torch.diag import profile as _profile
+from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import txn
 from torchmetrics_tpu_torch.engine.async_dispatch import coerce_inflight, resolve_async
 from torchmetrics_tpu_torch.engine.config import engine_enabled
@@ -124,15 +132,19 @@ def _state_fingerprint(metric: Metric) -> Optional[tuple]:
 
 def _states_equal(metric1: Metric, metric2: Metric) -> bool:
     """Value equality of two structurally identical metrics' states (reads them on the
-    host: it runs once, at the first step's discovery)."""
-    for key in metric1._defaults:
-        state1 = getattr(metric1, key)
-        state2 = getattr(metric2, key)
-        if isinstance(state1, list):
-            if not all(allclose(s1, s2) for s1, s2 in zip(state1, state2)):
+    host, inside the sanctioned ``group-discovery`` boundary: it runs once, at the first
+    step's discovery)."""
+    from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+    with transfer_allowed("group-discovery"):
+        for key in metric1._defaults:
+            state1 = getattr(metric1, key)
+            state2 = getattr(metric2, key)
+            if isinstance(state1, list):
+                if not all(allclose(s1, s2) for s1, s2 in zip(state1, state2)):
+                    return False
+            elif not allclose(state1, state2):
                 return False
-        elif not allclose(state1, state2):
-            return False
     return True
 
 
@@ -225,6 +237,9 @@ class MetricCollection:
 
     def _update(self, args: tuple, kwargs: dict) -> None:
         if self._groups_checked:
+            rec = _diag.active_recorder()
+            measuring = rec is not None or _profile.active_profile() is not None
+            t_step = perf_counter() if measuring else 0.0
             owners = [(group.owner, self._modules[group.owner]) for group in self._groups.values()]
             prechecked = txn.quarantine_error()
             if prechecked:
@@ -244,6 +259,11 @@ class MetricCollection:
                         # an owner queueing on its own engine re-anchors the views
                         # when its queue drains, wherever the drain fires
                         sq.on_drain = self._anchor_views_after_scan
+            if measuring:
+                step_us = round((perf_counter() - t_step) * 1e6, 3)
+                _hist.observe(type(self).__name__, "collection", "dispatch_us", step_us)
+                if rec is not None:
+                    rec.record("collection.step", type(self).__name__, dispatch_us=step_us, owners=len(owners), fused=len(handled))
             if scan_active:
                 # a queued step changes no buffer binding: each drain re-anchors
                 if self._state_is_copy:

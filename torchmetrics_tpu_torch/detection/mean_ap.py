@@ -13,6 +13,10 @@ device. ``compute`` is an epoch-end evaluation with COCOeval semantics on the ho
   ``native/rle.cpp``) and the greedy matcher ``native/match.cpp:coco_match`` per
   (image, class) pair.
 
+Every compute is an epoch-end readback sanctioned as ``transfer_allowed("map-host-matcher")``,
+so a strict transfer guard around an eval loop stays clean, and is counted as a
+heavy-workload host fallback (``map_host_evals`` and a ``heavy.fallback`` event).
+
 The packed-dict route (``update`` with dicts of padded ``(B, M, ...)`` tensors) keeps
 one buffer per update. Its in-graph sibling, which evaluates on the card, is
 :class:`~torchmetrics_tpu_torch.detection.ingraph.PackedMeanAveragePrecision`.
@@ -350,19 +354,24 @@ class MeanAveragePrecision(Metric):
 
     def compute(self) -> Dict[str, torch.Tensor]:
         """COCOeval over the buffered epoch, on the host (counted as ``map_host_evals``)."""
-        # the C++ evaluator's interpolation cursor assumes ascending rec_thresholds (the
-        # COCO default); anything else takes the per-threshold searchsorted of _calculate
-        if self.iou_type == "bbox" and bool(np.all(np.diff(np.asarray(self.rec_thresholds)) >= 0)):
-            out = self._compute_native_bbox()
-        else:
-            dets, det_scores, det_labels, gts, gt_labels = self._host_lists()
-            self._unpack_into(self._host_packed(), dets, det_scores, det_labels, gts, gt_labels)
-            classes = self._get_classes(det_labels, gt_labels)
-            precisions, recalls = self._calculate(classes, dets, det_scores, det_labels, gts, gt_labels)
-            out = self._finalize(precisions, recalls, classes)
+        from torchmetrics_tpu_torch.diag import trace
+        from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+        with transfer_allowed("map-host-matcher"):
+            # the C++ evaluator's interpolation cursor assumes ascending rec_thresholds (the
+            # COCO default); anything else takes the per-threshold searchsorted of _calculate
+            if self.iou_type == "bbox" and bool(np.all(np.diff(np.asarray(self.rec_thresholds)) >= 0)):
+                out = self._compute_native_bbox()
+            else:
+                dets, det_scores, det_labels, gts, gt_labels = self._host_lists()
+                self._unpack_into(self._host_packed(), dets, det_scores, det_labels, gts, gt_labels)
+                classes = self._get_classes(det_labels, gt_labels)
+                precisions, recalls = self._calculate(classes, dets, det_scores, det_labels, gts, gt_labels)
+                out = self._finalize(precisions, recalls, classes)
         # counted once the evaluation ran: the epoch engine's guarded graph attempt at a
         # synced compute stops at the first device read and never gets here
         _STATS.map_host_evals += 1
+        trace.record("heavy.fallback", type(self).__name__, label="map-host-matcher", reason="host-route")
         return out
 
     def _compute_native_bbox(self) -> Dict[str, torch.Tensor]:

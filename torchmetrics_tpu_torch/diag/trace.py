@@ -1,9 +1,14 @@
 """Flight recorder: a contextvar-scoped ring buffer of structured events.
 
 Counterpart of ``torchmetrics_tpu/diag/trace.py``, copied (the module imports neither
-JAX nor numpy), with the same names and environment variable; the JAX package's
-closed list of event kinds comes with the subsystems that record them. In the port the
-fault-tolerance layer records these kinds through it:
+JAX nor numpy), with the same names and environment variable; every kind the port
+records is one of the JAX ``EVENT_KINDS`` (the tests hold them to that list). The
+engines record ``update.*`` (trace / retrace / dispatch / probe / eager / quarantine /
+ladder), ``fused.*``, ``update.scan*`` and ``scan.flush``, ``async.*``,
+``collection.step``, ``compute.*``, ``sync.exchange`` / ``eager`` / ``noop`` /
+``audit`` / ``straggler``, ``numerics.*``, ``lineage.*``, ``fallback``,
+``transfer.host`` / ``transfer.blocked`` and ``heavy.fallback``. The fault-tolerance
+layer records:
 
 =====================  ========================================================
 ``sync.retry``         a bounded collective retried after a retryable fault
@@ -28,9 +33,9 @@ disables). ``record`` costs one ``ContextVar.get`` plus one environment read whe
 recording is off; events land in a ``deque(maxlen=capacity)`` whose per-kind counts
 stay exact when old events drop.
 
-``attribute_retrace`` names the cause of a re-compile by diffing signature
-fingerprints; the port's engines do not call it yet (the rest of ``diag/`` is still to
-port), and it is copied so the name set matches.
+``attribute_retrace`` names the cause of a rebuild by diffing signature fingerprints
+(``engine/compiled.signature_fingerprint``); a cause other than ``initial`` is counted in
+``EngineStats.retrace_causes``.
 """
 
 from __future__ import annotations

@@ -30,11 +30,17 @@ Enablement (invalid values raise): ``Metric(async_dispatch=)`` /
 ``0``/``off``/unset = off, an int in [2, 16] = the bound). It layers on the scan tier:
 with no scan queue active the knob is never read.
 
-Left out against the JAX module: the epoch-sync overlap notes, events and histograms.
+- **Diagnostics.** The worker runs each drain in a copy of the submitter's context
+  (as the JAX worker does), so the recorder, the profile scope and the transfer guard's
+  Python layer cover it; the scan queue records ``async.enqueue`` / ``async.drain`` /
+  ``async.join`` and the ``enqueue_us`` / ``depth`` histograms.
+
+Left out against the JAX module: the epoch-sync overlap notes (``async.sync.overlap``).
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import threading
 from collections import deque
@@ -165,6 +171,9 @@ class _AsyncExecutor:
         self._thread: Optional[threading.Thread] = None  # guarded-by: _cv
 
     def submit(self, work: Any) -> None:
+        # the worker runs the drain in the submitter's context: its recorder, profile
+        # scope and transfer-guard mode reach the background half of the drain
+        work.context = contextvars.copy_context()
         with self._cv:
             # (re)started lazily: a forked child inherits the module, not the thread
             if self._thread is None or not self._thread.is_alive():
@@ -180,7 +189,7 @@ class _AsyncExecutor:
                     self._cv.wait()
                 work = self._items.popleft()
             try:
-                work.queue.worker_execute(work)
+                work.context.run(work.queue.worker_execute, work)
             finally:
                 work.done.set()
 

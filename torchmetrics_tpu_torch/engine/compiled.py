@@ -52,11 +52,23 @@ is the one-metric case, ``engine/fusion.py``'s ``FusedUpdate`` a collection's ow
   (``member_update`` then ``write_step``) and held by the one-step graphs and by each
   step of a scan graph (``engine/scan.py``): the update, the pad-subtract identity, the
   compensated two-sum (``engine/numerics.py``), the quarantine transaction
-  (``engine/txn.py``). The riders' tensors (the quarantine counter, the residuals)
-  join the step's state under reserved keys (``statespec.RIDER_KEYS``, exempt from
-  pad-subtract) and get static buffers like the states. A step with riders computes
-  each candidate in full before it writes a buffer, so the transaction selects
-  against the intact pre-step values.
+  (``engine/txn.py``), the health sentinel's fold (``diag/sentinel.py``: over the
+  final, post-transaction states, with ``input_poisoned`` and ``precision_loss``). The
+  riders' tensors (the sentinel bitmask, the quarantine counter, the residuals) join
+  the step's state under reserved keys (``statespec.RIDER_KEYS``, exempt from
+  pad-subtract) and get static buffers like the states, written in place by a replay. A
+  step with riders computes each candidate in full before it writes a buffer, so the
+  transaction selects against the intact pre-step values.
+- **Diagnostics.** With a flight recorder or a profile active (``diag/``), a step
+  records ``<kind>.trace`` / ``<kind>.retrace`` (the cause attributed by
+  ``attribute_retrace`` over ``signature_fingerprint`` and counted in
+  ``retrace_causes``) and ``<kind>.dispatch`` (``kind`` is ``update`` or ``fused``),
+  and feeds the ``dispatch_us`` histogram. Every replay runs in the
+  ``tm:<owner>:<kind>:<signature>`` scope (``diag/profile.dispatch_scope``). Under a
+  profile every Nth warm step is a completion probe (``completion_probe``: CUDA events
+  around the replay, a sanctioned wait; ``<kind>.probe``, ``device_us``,
+  ``device_event_us``), followed by the drift audit of the compensated members. Each
+  build lands in the cost ledger (``diag/costs.py``).
 - **The fallback ladder.** A classified failure while building a signature (an
   out-of-memory error allocating its static inputs, in its warm-up or in its capture,
   which ends cleanly and releases the graph's memory) retries the batch as
@@ -68,11 +80,9 @@ holding inner metrics, a side effect on a non-state attribute, a host read) fall
 to the eager path and is counted in ``EngineStats``.
 
 Left out against the JAX engine: the donation switch (a graph always writes its
-buffers in place), the sentinel rider and the sampled drift audit (``diag/sentinel.py``,
-``diag/profile.py``, ``diag/hist.py`` are not ported), ``persist`` (the executable
-cache and its prewarm manifest) and the ``diag`` / ``profile`` instrumentation; the
-resilience layer belongs to the sync (``engine/epoch.py``) and is not ported either. ``state_invalidated`` has no counterpart: no step
-consumes a buffer here, and a first step writes no state until the guard has passed.
+buffers in place) and ``persist`` (the executable cache and its prewarm manifest).
+``state_invalidated`` has no counterpart: no step consumes a buffer here, and a first
+step writes no state until the guard has passed.
 """
 
 from __future__ import annotations
@@ -80,12 +90,18 @@ from __future__ import annotations
 import gc
 import threading
 from contextlib import contextmanager, nullcontext
+from time import perf_counter
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from torchmetrics_tpu_torch import ops
+from torchmetrics_tpu_torch.diag import costs as _costs
+from torchmetrics_tpu_torch.diag import hist as _hist
+from torchmetrics_tpu_torch.diag import profile as _profile
+from torchmetrics_tpu_torch.diag import sentinel as _sentinel
+from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import bucketing, config
 from torchmetrics_tpu_torch.engine.stats import EngineStats
 from torchmetrics_tpu_torch.utilities.data import apply_to_collection
@@ -122,6 +138,93 @@ _COPIES = frozenset({"aten::_to_copy", "aten::copy_"})
 
 class _Ineligible(Exception):
     """Raised while building a signature to demote it to eager, with a recorded reason."""
+
+
+# ------------------------------------------------------------------ diagnostics
+
+
+def annotation_scope(owner: str, kind: str, key: Any) -> str:
+    """The ``tm:<owner>:<kind>:<signature>`` name a replay is attributed to (the same
+    signature digest as the cost ledger's entry), computed once per build."""
+    return f"tm:{owner}:{kind}:{_costs.key_digest(key)}"
+
+
+def signature_fingerprint(key: Tuple) -> Dict[str, Any]:
+    """The aspects of a step signature a rebuild can be blamed on (argument layout and
+    state names, dtypes, shapes, bucket, device), for ``diag.trace.attribute_retrace``."""
+    bucket, n_args, kw_names, state_sig, in_sig = key
+    names, dtypes, shapes, devices = [], [], [], set()
+    for member, sig in state_sig:
+        for k, shape, dtype, device in sig:
+            names.append((member, k))
+            shapes.append(shape)
+            dtypes.append(str(dtype))
+            devices.add(str(device))
+    devices.update(str(d) for _, _, d in in_sig)
+    return {
+        "treedef": ((n_args, kw_names), tuple(names)),
+        "dtype": (tuple(dtypes), tuple(str(d) for _, d, _ in in_sig)),
+        "shape": (tuple(shapes), tuple(s for s, _, _ in in_sig)),
+        "bucket": bucket,
+        "device": tuple(sorted(devices)),
+    }
+
+
+def note_build(stats: EngineStats, kind: str, fingerprints: Dict[Tuple, Any], key: Tuple, fp: Dict[str, Any], **data: Any) -> str:
+    """Attribute a new build against the engine's earlier ones: its cause (counted in
+    ``retrace_causes`` past the first) and a ``<kind>.trace`` / ``<kind>.retrace``
+    event."""
+    cause = _diag.attribute_retrace(fp, list(fingerprints.values()))
+    fingerprints[key] = fp
+    if cause != "initial":
+        stats.retrace_causes[cause] += 1
+    _diag.record(f"{kind}.trace" if cause == "initial" else f"{kind}.retrace", stats.owner, cause=cause, **data)
+    return cause
+
+
+def probe_events(device: torch.device) -> Optional[Tuple[Any, Any]]:
+    """A (start, end) pair of timing events for a sampled replay on a CUDA device."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def completion_probe(
+    owner: str, kind: str, stats: EngineStats, t_dispatch: float, events: Optional[Tuple[Any, Any]]
+) -> Tuple[float, Optional[float]]:
+    """The sampled completion probe of one replay: wait on its end event inside
+    ``transfer_allowed("profile-probe")``. Returns ``(device_us, device_event_us)``:
+    dispatch start to results ready on the host clock (the JAX meaning), and the events'
+    elapsed time (None on the CPU, where nothing runs asynchronously). The probe's
+    overhead (``note_probe``) is the wait alone."""
+    from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+    t_block = perf_counter()
+    event_us = None
+    with transfer_allowed("profile-probe"):
+        if events is not None:
+            events[1].synchronize()
+            event_us = round(events[0].elapsed_time(events[1]) * 1e3, 3)
+    t_done = perf_counter()
+    device_us = round((t_done - t_dispatch) * 1e6, 3)
+    stats.profile_probes += 1
+    _profile.note_probe(owner, kind, round((t_done - t_block) * 1e6, 3))
+    _hist.observe(owner, kind, "device_us", device_us)
+    if event_us is not None:
+        _hist.observe(owner, kind, "device_event_us", event_us)
+    return device_us, event_us
+
+
+@contextmanager
+def timed_replay(scope: str, device: torch.device, events: Optional[Tuple[Any, Any]]):
+    """The attribution scope around one replay, with the probe's events recorded on the
+    current stream when the replay is sampled."""
+    with _profile.dispatch_scope(scope, device):
+        if events is not None:
+            events[0].record()
+        yield
+        if events is not None:
+            events[1].record()
 
 
 def _refusal(func: Any, args: tuple, kwargs: dict) -> Optional[str]:
@@ -485,6 +588,15 @@ def capture(body, pool: Any, device: torch.device) -> Tuple[Any, Dict[str, int]]
     return graph, held
 
 
+def measured_capture(body, pool: Any, device: torch.device) -> Tuple[Tuple[Any, Dict[str, int]], float, int]:
+    """``capture`` with the cost ledger's figures: ``((graph, launches), capture ms, the
+    growth of the CUDA allocator's reserved bytes around it)``."""
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = perf_counter()
+    captured = capture(body, pool, device)
+    return captured, (perf_counter() - t0) * 1e3, max(0, torch.cuda.memory_reserved(device) - reserved)
+
+
 def structural_refusal(metric: Any) -> Optional[str]:
     """Why ``metric`` can never run as a graph (no state, a list state, inner
     metrics), or None."""
@@ -503,11 +615,14 @@ def structural_refusal(metric: Any) -> Optional[str]:
 
 def gather_riders(metric: Any) -> Dict[str, torch.Tensor]:
     """The rider tensors that join ``metric``'s step state under the active policy: the
-    quarantine counter (``engine/txn.py``) and the compensation residuals
-    (``engine/numerics.py``), each under its reserved key. Created at first use."""
+    health sentinel (``diag/sentinel.py``), the quarantine counter (``engine/txn.py``)
+    and the compensation residuals (``engine/numerics.py``), each under its reserved
+    key. Created at first use."""
     from torchmetrics_tpu_torch.engine import numerics, txn
 
     riders: Dict[str, torch.Tensor] = {}
+    if _sentinel.sentinel_enabled():
+        riders[_sentinel.STATE_KEY] = _sentinel.ensure_flags(metric)
     if txn.quarantine_enabled():
         riders[txn.STATE_KEY] = txn.ensure_count(metric)
     if numerics.compensation_active(metric):
@@ -534,6 +649,8 @@ def bind_buffers(metric: Any, state: Dict[str, Any], buffers: Dict[str, torch.Te
             continue
         if k == txn.STATE_KEY:
             metric.__dict__[txn.ATTR] = buf
+        elif k == _sentinel.STATE_KEY:
+            metric.__dict__[_sentinel.ATTR] = buf
         elif k.startswith(numerics.STATE_KEY):
             if residuals is None:
                 residuals = dict(metric.__dict__.get(numerics.ATTR) or {})
@@ -547,9 +664,10 @@ def bind_buffers(metric: Any, state: Dict[str, Any], buffers: Dict[str, torch.Te
 class MemberPlan:
     """One metric's part of a built signature: its static state buffers (riders
     included), its constant pad-row unit (None when a 0-d input feeds it or the step is
-    not bucketed), and its riders: the compensated states and the admission check."""
+    not bucketed), and its riders: the compensated states, the admission check and the
+    sentinel fold."""
 
-    __slots__ = ("name", "metric", "buffers", "unit", "comp_names", "comp", "admission")
+    __slots__ = ("name", "metric", "buffers", "unit", "comp_names", "comp", "admission", "sentinel")
 
     def __init__(self, name: str, metric: Any, buffers: Dict[str, torch.Tensor], inputs: Sequence[torch.Tensor]) -> None:
         from torchmetrics_tpu_torch.engine import numerics, txn
@@ -561,10 +679,11 @@ class MemberPlan:
         self.comp_names = tuple(k for k in numerics.comp_state_names(metric) if numerics.residual_key(k) in buffers)
         self.comp = numerics.build_compensation(self.comp_names) if self.comp_names else None
         self.admission = txn.build_admission(metric, inputs) if txn.STATE_KEY in buffers else None
+        self.sentinel = _sentinel.STATE_KEY in buffers
 
     @property
     def riders(self) -> bool:
-        return self.comp is not None or self.admission is not None
+        return self.comp is not None or self.admission is not None or self.sentinel
 
 
 def member_update(
@@ -605,7 +724,9 @@ def write_step(
     buffers: Optional[Dict[str, torch.Tensor]] = None,
 ) -> None:
     """Finish one member's step into its buffers (or into ``buffers``), in JAX ``make_step_body``'s order:
-    pad-subtract, then the compensated two-sum, then the quarantine transaction; a scan
+    pad-subtract, then the compensated two-sum, then the quarantine transaction, then the
+    sentinel's fold over the final states (``input_poisoned`` where the batch was
+    quarantined, ``precision_loss`` where an admitted contribution was absorbed); a scan
     step (``valid`` given) then keeps the carry where the step is a pad step.
 
     ``state`` holds the pre-step values (the buffers themselves after a signature's
@@ -619,12 +740,23 @@ def write_step(
             pad_subtract_into(out, unit, n_pad, buffers)
             return
         cand = {k: torch.addcmul(v, unit[k], n_pad, value=-1) if unit is not None else v for k, v in out.items()}
+        absorbed = poisoned = None
         if plan.comp is not None:
-            cand = plan.comp(state, cand)
+            cand, absorbed = plan.comp(state, cand)
         if plan.admission is not None:
             from torchmetrics_tpu_torch.engine import txn
 
-            cand = txn.transact(state, cand, plan.admission(flat))
+            poisoned = plan.admission(flat)
+            cand = txn.transact(state, cand, poisoned)
+        if plan.sentinel:
+            m = plan.metric
+            flags = _sentinel.update_flags(state[_sentinel.STATE_KEY], {k: cand[k] for k in m._defaults}, m)
+            if absorbed is not None:
+                lost = absorbed & ~poisoned if poisoned is not None else absorbed
+                flags = flags | lost.to(torch.int32) * _sentinel.FLAG_PRECISION_LOSS
+            if poisoned is not None:
+                flags = flags | poisoned.to(torch.int32) * _sentinel.FLAG_INPUT_POISONED
+            cand[_sentinel.STATE_KEY] = flags
         for k, buf in buffers.items():
             if valid is not None:
                 torch.where(valid, cand[k], buf, out=buf)  # one operation: the select writes the buffer
@@ -652,7 +784,7 @@ class _Entry:
     """One built signature: its static inputs, its members' plans and, on the card,
     its graph and the kernel launches the graph holds."""
 
-    __slots__ = ("inputs", "plans", "n_args", "kw_names", "graph", "launches")
+    __slots__ = ("inputs", "plans", "n_args", "kw_names", "graph", "launches", "scope", "step_bytes")
 
     def __init__(self, inputs: StaticInputs, plans: List[MemberPlan], n_args: int, kw_names: Tuple[str, ...]) -> None:
         self.inputs = inputs
@@ -661,6 +793,11 @@ class _Entry:
         self.kw_names = kw_names
         self.graph: Any = None
         self.launches: Dict[str, int] = {}
+        self.scope = ""  # the tm:<owner>:<kind>:<signature> attribution scope
+        # bytes a step reads: its static inputs and every member's state buffers
+        self.step_bytes = sum(b.nbytes for b in inputs.buffers) + sum(
+            b.nbytes for p in plans for b in p.buffers.values()
+        )
 
     @property
     def members(self) -> List[Tuple[str, Any]]:
@@ -692,9 +829,12 @@ class GraphEngine:
     """
 
     min_members = 1
+    #: the event and histogram kind of a step (``update.*``; ``fused.*`` for a collection)
+    kind = "update"
 
     def __init__(self, owner: str) -> None:
         self._cache: Dict[Tuple, Any] = {}
+        self._fingerprints: Dict[Tuple, Dict[str, Any]] = {}  # built keys, for retrace attribution
         self._buffers: Dict[Tuple, Dict[str, torch.Tensor]] = {}  # (member, state signature) -> static buffers
         self._pool: Any = None  # this engine's CUDA graph memory pool, made at the first capture
         self._bucket_ok: Dict[str, bool] = {}  # per member, frozen on first sight
@@ -728,6 +868,11 @@ class GraphEngine:
             st.fallback("uncompilable-signature")
             return None
         first = entry is None
+        rec = _diag.active_recorder()
+        profiling = _profile.active_profile() is not None
+        measuring = rec is not None or profiling
+        t_dispatch = perf_counter() if measuring else 0.0
+        device_us = event_us = None
         if first:
             try:
                 entry = self._build(key, members, states, inputs)
@@ -752,14 +897,22 @@ class GraphEngine:
                 shield_state(plan.metric, plan.buffers, st)
                 copy_into_buffers(states[plan.name], plan.buffers, st)
             entry.inputs.fill(inputs, st)
-            if entry.graph is not None:
-                entry.graph.replay()
-                ops.add_launches(entry.launches)
-                st.replays += 1
-            elif members[0][1].device.type == "cuda":
-                raise RuntimeError("a CUDA engine step has no captured graph")
-            else:
-                entry.run()
+            device = members[0][1].device
+            probing = profiling and _profile.probe_due(st.owner, self.kind)
+            events = probe_events(device) if probing else None
+            if measuring:
+                t_dispatch = perf_counter()
+            with timed_replay(entry.scope, device, events):
+                if entry.graph is not None:
+                    entry.graph.replay()
+                    ops.add_launches(entry.launches)
+                    st.replays += 1
+                elif device.type == "cuda":
+                    raise RuntimeError("a CUDA engine step has no captured graph")
+                else:
+                    entry.run()
+            if probing:
+                device_us, event_us = completion_probe(st.owner, self.kind, st, t_dispatch, events)
         st.traces += first
         st.cache_hits += not first
         st.dispatches += 1
@@ -767,6 +920,30 @@ class GraphEngine:
         for plan in entry.plans:
             bind_buffers(plan.metric, states[plan.name], plan.buffers)
         self._count_riders(entry.plans, 1)
+        if first:
+            note_build(
+                st, self.kind, self._fingerprints, key, signature_fingerprint(key),
+                bucket=bucket, members=len(entry.plans),
+            )
+        if measuring:
+            dispatch_us = round((perf_counter() - t_dispatch) * 1e6, 3)
+            _hist.observe(st.owner, self.kind, "dispatch_us", dispatch_us)
+            if rec is not None:
+                rec.record(
+                    f"{self.kind}.dispatch", st.owner, dispatch_us=dispatch_us, bucketed=bucket is not None,
+                    pad_rows=entry.inputs.bucket - entry.inputs.rows if bucket is not None else 0,
+                    bytes=entry.step_bytes, members=len(entry.plans), cached=not first,
+                )
+                if device_us is not None:
+                    probe = {"device_event_us": event_us} if event_us is not None else {}
+                    rec.record(f"{self.kind}.probe", st.owner, dispatch_us=dispatch_us, device_us=device_us, **probe)
+        if profiling and not first:
+            from torchmetrics_tpu_torch.engine import numerics
+
+            for plan in entry.plans:
+                if plan.comp is not None:
+                    # the sampled drift audit, each member on its own cadence
+                    numerics.maybe_drift_probe(plan.metric, st, owner=f"{st.owner}:{plan.name}" if plan.name else None)
         return entry.members
 
     def _eligible_inputs(self, members: List[Tuple[str, Any]], inputs: List[Any]) -> Optional[Tuple]:
@@ -899,6 +1076,7 @@ class GraphEngine:
 
         st = self.stats
         bucket, n_args, kw_names = key[:3]
+        t_build = perf_counter()
         try:
             static = StaticInputs(inputs, bucket)
         except Exception as exc:  # noqa: BLE001 -- classified below
@@ -919,12 +1097,14 @@ class GraphEngine:
                 for k, buf in plan.buffers.items():
                     buf.copy_(results[plan.name][k])
         entry = _Entry(static, plans, n_args, kw_names)
+        entry.scope = annotation_scope(st.owner, self.kind, key)
         device = members[0][1].device
+        capture_ms = pool_bytes = None
         if device.type == "cuda":
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             try:
-                entry.graph, entry.launches = capture(entry.run, self._pool, device)
+                (entry.graph, entry.launches), capture_ms, pool_bytes = measured_capture(entry.run, self._pool, device)
             except Exception as exc:  # noqa: BLE001 -- classified below; the step's result is written
                 self._pool = None
                 if txn.classify_dispatch_error(exc) is None:
@@ -934,6 +1114,11 @@ class GraphEngine:
                     bind_buffers(plan.metric, states[plan.name], plan.buffers)
                 raise _BuildFailed(_Applied(exc)) from exc
             st.captures += 1
+        _costs.record_build(
+            st.owner, self.kind, _costs.key_digest(key), (perf_counter() - t_build) * 1e3,
+            inputs=static.buffers, states=[b for plan in plans for b in plan.buffers.values()],
+            capture_ms=capture_ms, pool_bytes=pool_bytes,
+        )
         self._cache[key] = entry
         return entry
 
@@ -1031,9 +1216,21 @@ class CompiledUpdate(GraphEngine):
         st = self.stats
         m = self._metric
         if txn.quarantine_enabled():
-            if bool(txn.build_admission(m, flat)(flat)):
+            from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+            poisoned = txn.build_admission(m, flat)(flat)
+            with transfer_allowed("quarantine-check"):
+                bad = bool(poisoned)
+            if bad:
                 m.__dict__[txn.ATTR] = txn.ensure_count(m) + 1
+                if _sentinel.sentinel_enabled():
+                    m.__dict__[_sentinel.ATTR] = _sentinel.ensure_flags(m) | _sentinel.FLAG_INPUT_POISONED
+                _diag.record(
+                    "update.ladder", st.owner, from_bucket=bucket, to_bucket=half, error=classified, rows=n, quarantined=True
+                )
                 return True
+        # the event narrates the attempted walk; the counter counts a step-down that applied
+        _diag.record("update.ladder", st.owner, from_bucket=bucket, to_bucket=half, error=classified, rows=n)
 
         def chunk(lo: int, hi: int) -> Tuple[Tuple[Any, ...], Dict[str, Any]]:
             sliced = [a[lo:hi] if getattr(a, "ndim", 0) >= 1 and a.shape[0] == n else a for a in flat]

@@ -12,13 +12,14 @@ excluded and reported back to the caller, which updates them eagerly; one bad me
 never un-fuses the rest. Shape bucketing applies when every eligible member supports
 the pad-subtract identity (``engine/bucketing.py``).
 
-Each member carries its own riders (``engine/compiled.py``: the quarantine transaction
-and the compensated two-sum, the JAX ``build_fused_riders``) inside the one graph.
+Each member carries its own riders (``engine/compiled.py``: the sentinel fold, the
+quarantine transaction and the compensated two-sum, the JAX ``build_fused_riders``)
+inside the one graph. A step records the ``fused.*`` events and histograms
+(``GraphEngine.kind``), and a guard refusal a ``fused.exclude`` event.
 ``scan_step`` queues the step on the engine's ``FusedScan`` (``engine/scan.py``); a
 drain calls ``on_scan_drain`` (the collection re-anchors its views).
 
-Left out against the JAX engine: the sentinel rider, ``persist`` and the ``diag`` /
-``profile`` instrumentation.
+Left out against the JAX engine: ``persist``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class FusedUpdate(GraphEngine):
     """One captured graph updating several metrics' states per step."""
 
     min_members = 2
+    kind = "fused"
 
     def __init__(self, metrics: Sequence[Tuple[str, Any]]) -> None:
         self.metrics: List[Tuple[str, Any]] = list(metrics)
@@ -89,7 +91,10 @@ class FusedUpdate(GraphEngine):
         return self._scan.push(args, kwargs, k, async_inflight)
 
     def _count_refusals(self, refused: List[Tuple[str, str]], demoted: bool) -> None:
+        from torchmetrics_tpu_torch.diag import trace
+
         for name, reason in refused:
             self.stats.fallback_reasons[f"member:{name}:{reason}"] += 1
+            trace.record("fused.exclude", self.stats.owner, member=name, reason=reason)
         if demoted:
             self.stats.fallback("too-few-traceable-members")

@@ -25,9 +25,15 @@ the ranks' pairs the same way.
 ``count_dtype`` is int64: the card has 64-bit integers without a flag, so the
 quarantine counter never wraps. ``py_count`` keeps host counts Python ints.
 
-Left out against the JAX module: the ``precision_loss`` sentinel bit and the sampled
-drift audit (``maybe_drift_probe``, ``drift_rtol``), which need ``diag/sentinel.py``,
-``diag/profile.py`` and ``diag/hist.py``.
+With the sentinel on (``diag/sentinel.py``), a step whose nonzero contribution failed
+to move its accumulator (``fl(acc + inc) == acc``) sets the sticky ``precision_loss``
+bit, on the compiled and the eager path alike (masked by the quarantine admission, so a
+rolled-back batch cannot stick it). With profiling on (``diag/profile.py``), every Nth
+warm dispatch of a compensated metric reads its (value, residual) pair at
+``transfer_allowed("drift-probe")`` (``maybe_drift_probe``): the worst relative drift of
+the naive value from the float64 reference feeds the ``drift_ppb`` histogram and, past
+``drift_rtol`` (``TORCHMETRICS_TPU_DRIFT_RTOL``, default 1e-5), a ``numerics.drift``
+event and ``EngineStats.drift_flags``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 __all__ = [
     "ATTR",
     "COMPENSATED_ENV_VAR",
+    "DRIFT_RTOL_ENV_VAR",
     "STATE_KEY",
     "SYNC_RES_PREFIX",
     "anchored_value",
@@ -53,17 +60,26 @@ __all__ = [
     "compensated_enabled",
     "compensation_active",
     "count_dtype",
+    "drift_rtol",
     "eager_update",
     "ensure_residuals",
+    "maybe_drift_probe",
     "py_count",
     "reanchor",
     "residual_key",
     "set_compensated",
+    "set_drift_rtol",
     "set_residual",
     "two_sum",
 ]
 
 COMPENSATED_ENV_VAR = "TORCHMETRICS_TPU_COMPENSATED"
+DRIFT_RTOL_ENV_VAR = "TORCHMETRICS_TPU_DRIFT_RTOL"
+
+#: default relative-drift threshold of the sampled audit: healthy compensation keeps the
+#: residual sub-ulp, so measured drift stays below ~2**-24; the default fires only on
+#: pathological states (a corrupt restore, injected state)
+DEFAULT_DRIFT_RTOL = 1e-5
 
 #: the rider key prefix of a residual inside a compiled step's state dict
 STATE_KEY = COMPENSATION_KEY
@@ -73,6 +89,7 @@ ATTR = "_comp_residuals"
 SYNC_RES_PREFIX = "__comp_res__::"
 
 _enabled_override: Optional[bool] = None
+_rtol_override: Optional[float] = None
 
 
 # ------------------------------------------------------------------ policy
@@ -112,6 +129,26 @@ def compensated_context(enabled: bool = True) -> Generator[None, None, None]:
         yield
     finally:
         _enabled_override = prev
+
+
+def drift_rtol() -> float:
+    """The relative-drift threshold past which the sampled audit flags; an unparseable
+    env value raises."""
+    if _rtol_override is not None:
+        return _rtol_override
+    raw = os.environ.get(DRIFT_RTOL_ENV_VAR, "").strip()
+    if raw:
+        try:
+            return float(raw)
+        except ValueError:
+            raise TorchMetricsUserError(f"{DRIFT_RTOL_ENV_VAR} must be a float (got {raw!r})") from None
+    return DEFAULT_DRIFT_RTOL
+
+
+def set_drift_rtol(value: Optional[float]) -> None:
+    """Override the drift threshold; ``None`` restores env/default."""
+    global _rtol_override
+    _rtol_override = None if value is None else float(value)
 
 
 # ------------------------------------------------------------------ widening
@@ -197,22 +234,27 @@ def set_residual(metric: Any, attr: str, value: torch.Tensor) -> None:
 # ------------------------------------------------------------------ the step transform
 
 
-def build_compensation(names: Sequence[str]) -> Callable[[Dict[str, Any], Dict[str, Any]], Dict[str, Any]]:
-    """The step's ``(old, result) -> result`` recomposition.
+def build_compensation(names: Sequence[str]) -> Callable[[Dict[str, Any], Dict[str, Any]], Tuple[Dict[str, Any], torch.Tensor]]:
+    """The step's ``(old, result) -> (result, absorbed)`` recomposition.
 
     ``result``'s compensated entries hold the pure batch contribution (the update
     body ran on zeroed copies of those states; pad rows are already subtracted from
     it). Each folds ``contribution + residual`` into the old value by ``two_sum`` and
-    carries the exact error as the new residual under ``residual_key``.
+    carries the exact error as the new residual under ``residual_key``. ``absorbed`` is
+    a 0-d bool: some nonzero contribution failed to move its accumulator (the
+    sentinel's ``precision_loss`` bit).
     """
     names = tuple(names)
 
-    def comp(old: Dict[str, Any], result: Dict[str, Any]) -> Dict[str, Any]:
+    def comp(old: Dict[str, Any], result: Dict[str, Any]) -> Tuple[Dict[str, Any], torch.Tensor]:
         out = dict(result)
+        absorbed = None
         for k in names:
             rk = residual_key(k)
             out[k], out[rk] = two_sum(old[k], result[k] + old[rk])
-        return out
+            lost = ((result[k] != 0) & (out[k] == old[k])).any()
+            absorbed = lost if absorbed is None else absorbed | lost
+        return out, absorbed
 
     return comp
 
@@ -235,11 +277,21 @@ def eager_update(metric: Any, run_update: Callable[[], None]) -> None:
             setattr(metric, k, v)
         raise
     new_res = dict(residual)
+    absorbed = None
     for k in names:
-        s, err = two_sum(old[k], getattr(metric, k) + residual[k])
+        b = getattr(metric, k)  # the pure batch contribution
+        s, err = two_sum(old[k], b + residual[k])
         setattr(metric, k, s)
         new_res[k] = err
+        lost = ((b != 0) & (s == old[k])).any()
+        absorbed = lost if absorbed is None else absorbed | lost
     metric.__dict__[ATTR] = new_res
+    if absorbed is not None:
+        from torchmetrics_tpu_torch.diag import sentinel
+
+        if sentinel.sentinel_enabled():
+            flags = sentinel.ensure_flags(metric)
+            metric.__dict__[sentinel.ATTR] = flags | absorbed.to(torch.int32) * sentinel.FLAG_PRECISION_LOSS
     _stats_for(metric).compensated_steps += 1
 
 
@@ -274,4 +326,48 @@ def reanchor(metric: Any) -> bool:
         new_res[k] = rem
     metric.__dict__[ATTR] = new_res
     _stats_for(metric).reanchors += 1
+    from torchmetrics_tpu_torch.diag import trace
+
+    trace.record("numerics.reanchor", type(metric).__name__, states=len(new_res))
     return True
+
+
+# ------------------------------------------------------------------ drift audit
+
+
+def maybe_drift_probe(metric: Any, stats: Any, owner: Optional[str] = None) -> Optional[float]:
+    """The sampled precision-drift audit: every Nth warm dispatch under an active
+    profile (``diag/profile.probe_due``), the (value, residual) pair is read inside
+    ``transfer_allowed("drift-probe")`` and folded into a float64 reference on the host;
+    the worst relative drift of the naive value goes to the ``drift_ppb`` histogram (in
+    parts per billion), and past ``drift_rtol`` to a ``numerics.drift`` event and
+    ``stats.drift_flags``. Unsampled steps are untouched. ``owner`` keeps each fused
+    member on its own cadence."""
+    res = metric.__dict__.get(ATTR)
+    if not res:
+        return None
+    from torchmetrics_tpu_torch.diag import hist, profile, trace
+    from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+    owner = owner or stats.owner
+    if not profile.probe_due(owner, "drift"):
+        return None
+    import numpy as np
+
+    worst = 0.0
+    with transfer_allowed("drift-probe"):
+        for k, r in res.items():
+            value = getattr(metric, k).detach().to("cpu", torch.float64).numpy()
+            reference = value + r.detach().to("cpu", torch.float64).numpy()
+            denom = np.maximum(np.abs(reference), np.finfo(np.float64).tiny)
+            rel = float(np.max(np.abs(reference - value) / denom)) if value.size else 0.0
+            if np.isnan(rel):
+                rel = float("inf")  # a NaN in (value, residual) is infinite drift
+            worst = max(worst, rel)
+    stats.drift_probes += 1
+    hist.observe(owner, "update", "drift_ppb", worst * 1e9)
+    rtol = drift_rtol()
+    if worst > rtol:
+        stats.drift_flags += 1
+        trace.record("numerics.drift", owner, rel=round(worst, 12), rtol=rtol)
+    return worst

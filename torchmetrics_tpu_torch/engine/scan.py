@@ -42,8 +42,16 @@ Enablement (invalid values raise): ``Metric(scan_steps=K)`` /
 / ``set_scan_steps``, then ``TORCHMETRICS_TPU_SCAN=K``. The queue rides the engine: it
 is consulted only where the engine is on.
 
-Left out against the JAX module: events, lineage spans, histograms, the
-``persist`` manifest and the sentinel rider.
+- **Diagnostics.** The sentinel rides each step of a scan graph with the other riders
+  (``compiled.write_step``). A drain records ``update.scan`` (and, per new ``kb`` graph,
+  ``update.scan.trace`` / ``retrace``; under a profile every Nth warm drain is an
+  ``update.scan.probe``), a swap or discard ``scan.flush``, the async tier
+  ``async.enqueue`` / ``async.drain`` / ``async.join`` with the ``enqueue_us`` and
+  ``depth`` histograms; the lineage watermarks (``diag/lineage.py``) count enqueued,
+  folded, replayed and discarded steps, and a swap's causal span rides its drain's
+  events. Each ``kb`` graph lands in the cost ledger (kind ``scan``).
+
+Left out against the JAX module: the ``persist`` manifest.
 """
 
 from __future__ import annotations
@@ -59,18 +67,29 @@ from typing import Any, Deque, Dict, Generator, List, Optional, Sequence, Set, T
 import torch
 
 from torchmetrics_tpu_torch import ops
+from torchmetrics_tpu_torch.diag import costs as _costs
+from torchmetrics_tpu_torch.diag import hist as _hist
+from torchmetrics_tpu_torch.diag import lineage as _lineage
+from torchmetrics_tpu_torch.diag import profile as _profile
+from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import bucketing
 from torchmetrics_tpu_torch.engine.compiled import (
     _FALLBACK,
     _BuildFailed,
     MemberPlan,
+    annotation_scope,
     bind_buffers,
-    capture,
+    completion_probe,
     copy_into_buffers,
+    measured_capture,
+    note_build,
+    probe_events,
     run_members,
     shield_state,
+    signature_fingerprint,
     state_signature,
     step_state,
+    timed_replay,
 )
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
@@ -290,9 +309,10 @@ class _Plan:
     """One queued signature: its members' plans (their static state buffers shared with
     the one-step engine) and its rings."""
 
-    __slots__ = ("plans", "n_args", "kw_names", "bucket", "slots", "rings")
+    __slots__ = ("plans", "n_args", "kw_names", "bucket", "slots", "rings", "qkey")
 
     def __init__(self, plans: List[MemberPlan], n_args: int, kw_names: Tuple[str, ...], bucket: Optional[int], slots: int) -> None:
+        self.qkey: Tuple = ()
         self.plans = plans
         self.n_args = n_args
         self.kw_names = kw_names
@@ -318,7 +338,7 @@ class _DrainWork:
 
     __slots__ = (
         "queue", "plan", "ring", "rows", "reason", "done", "replay", "first_wait_t",
-        "fill_event", "done_event", "device",
+        "fill_event", "done_event", "device", "lineage", "context",
     )
 
     def __init__(self, queue: "_ScanQueue", plan: _Plan, ring: _Ring, rows: List[int], reason: str) -> None:
@@ -333,6 +353,8 @@ class _DrainWork:
         self.fill_event: Any = None  # recorded on the caller's stream after the buffer's copies
         self.done_event: Any = None  # recorded on the side stream after the replay
         self.device = ring.inputs[0].device
+        self.lineage: Optional[int] = None  # the causal span the swap took from the queue
+        self.context: Any = None  # the submitter's context, which the worker runs in
 
     @property
     def steps(self) -> int:
@@ -367,6 +389,7 @@ class _ScanQueue:
         self._plan: Optional[_Plan] = None  # guarded-by: _lock
         self._ring: Optional[_Ring] = None  # the ring the pending buffer fills  # guarded-by: _lock
         self._fast: Optional[Tuple] = None  # (raw key, qkey) of the last push
+        self._fingerprints: Dict[Tuple, Dict[str, Any]] = {}  # built (qkey, kb) graphs
         self._lock = threading.RLock()
         self._drain_mutex = threading.Lock()
         #: called after a drain changed the members' bindings (a collection whose group
@@ -412,6 +435,10 @@ class _ScanQueue:
         if self.on_drain is not None:
             self.on_drain()
 
+    def _lineage_owners(self, plan: Optional[_Plan]) -> List[str]:
+        """The owners whose watermarks a step of ``plan`` moves."""
+        return [self.stats.owner]
+
     # -- queue core ------------------------------------------------------
 
     @property
@@ -433,6 +460,8 @@ class _ScanQueue:
             self.join_async("async-disabled")
         if async_inflight and not self._pending:
             self._free_ring_for_next_buffer(async_inflight)
+        measuring = async_inflight and (_diag.active_recorder() is not None or _profile.active_profile() is not None)
+        t0 = perf_counter() if measuring else 0.0
         with self._lock:
             self._async_limit = async_inflight or None
             result = self._push_locked(args, kwargs, k)
@@ -449,6 +478,9 @@ class _ScanQueue:
             # a flush point inside the enqueue before an eager step: the swapped
             # buffer must land before the caller's eager step applies
             self.join_async("enqueue-ineligible")
+        if measuring:
+            # the caller's whole cost of an enqueue, submits and backpressure included
+            _hist.observe(self.stats.owner, "async", "enqueue_us", round((perf_counter() - t0) * 1e6, 3))
         return result
 
     def _free_ring_for_next_buffer(self, limit: int) -> None:
@@ -556,6 +588,7 @@ class _ScanQueue:
             self._plans[qkey] = _FALLBACK
             return _FALLBACK
         plan = _Plan(plans, n_args, kw_names, bucket, slots)
+        plan.qkey = qkey
         plan.rings.append(ring)
         self._plans[qkey] = plan
         return plan
@@ -583,7 +616,8 @@ class _ScanQueue:
         first (the reset wipes them); handed-back steps are dropped too."""
         self.join_async(reason, collect=False)
         with self._lock:
-            n = len(self._pending) + sum(w.steps for w in self._failed)
+            drops = [(self._plan, len(self._pending))] + [(w.plan, w.steps) for w in self._failed]
+            n = sum(steps for _, steps in drops)
             self._failed.clear()
             self._poisoned = False
             if not n:
@@ -591,6 +625,11 @@ class _ScanQueue:
             self._pending = []
         self.stats.scan_flushes += 1
         self.stats.scan_flush_reasons[reason] += 1
+        for plan, steps in drops:
+            for owner in self._lineage_owners(plan) if steps else ():
+                # the dropped steps will never fold: they stop counting as staleness
+                _lineage.note_discarded(owner, steps)
+        _diag.record("scan.flush", self.stats.owner, reason=reason, steps=n, discarded=True)
         return n
 
     def drain(self, reason: str) -> int:
@@ -649,10 +688,15 @@ class _ScanQueue:
         if not rows:
             return None
         self._pending = []
-        self.stats.scan_flushes += 1
-        self.stats.scan_flush_reasons[reason] += 1
+        st = self.stats
+        st.scan_flushes += 1
+        st.scan_flush_reasons[reason] += 1
         work = _DrainWork(self, self._plan, self._ring, rows, reason)
         self._ring.last_work = work
+        # the open causal span leaves with the buffer and links its drain's events
+        work.lineage = _lineage.take_span(st.owner)
+        span = {} if work.lineage is None else {"lineage": work.lineage}
+        _diag.record("scan.flush", st.owner, reason=reason, steps=len(rows), **span)
         return work
 
     def _bind(self, work: _DrainWork) -> None:
@@ -686,6 +730,14 @@ class _ScanQueue:
         kb = k_bucket(n)
         st = self.stats
         eng = self._engine
+        rec = _diag.active_recorder()
+        profiling = _profile.active_profile() is not None
+        measuring = rec is not None or profiling
+        gkey = (plan.qkey, kb)
+        scope = annotation_scope(st.owner, "scan", gkey)
+        t_dispatch = perf_counter() if measuring else 0.0
+        probing = False
+        events = None
         try:
             if work.device.type == "cuda":
                 entry = ring.graphs.get(kb)
@@ -693,25 +745,41 @@ class _ScanQueue:
                 if first:
                     if eng._pool is None:
                         eng._pool = torch.cuda.graph_pool_handle()
+                    t_build = perf_counter()
                     try:
-                        entry = ring.graphs[kb] = capture(lambda: plan.body(ring, kb), eng._pool, work.device)
+                        entry, capture_ms, pool_bytes = measured_capture(lambda: plan.body(ring, kb), eng._pool, work.device)
+                        ring.graphs[kb] = entry
                     except BaseException:
                         eng._pool = None  # a failed capture may leave its pool recording
                         raise
+                    _costs.record_build(
+                        st.owner, "scan", _costs.key_digest(gkey), (perf_counter() - t_build) * 1e3,
+                        inputs=ring.inputs, states=[b for p in plan.plans for b in p.buffers.values()],
+                        capture_ms=capture_ms, pool_bytes=pool_bytes,
+                    )
+                else:
+                    probing = profiling and _profile.probe_due(st.owner, "scan")
+                    events = probe_events(work.device) if probing else None
                 graph, launches = entry
+                if measuring:
+                    t_dispatch = perf_counter()
                 if on_worker:
                     from torchmetrics_tpu_torch.engine import async_dispatch
 
                     side = async_dispatch.side_stream(work.device)
                     with torch.cuda.device(work.device), torch.cuda.stream(side):
                         side.wait_event(work.fill_event)
-                        graph.replay()
+                        with timed_replay(scope, work.device, events):
+                            graph.replay()
                         work.done_event = torch.cuda.Event()
                         work.done_event.record(side)
                 else:
-                    graph.replay()
+                    with timed_replay(scope, work.device, events):
+                        graph.replay()
             else:
                 first = kb not in ring.built
+                probing = profiling and not first and _profile.probe_due(st.owner, "scan")
+                t_build = perf_counter()
                 if on_worker:
                     with self._lock:  # the eager body swaps the metrics' states
                         plan.body(ring, kb)
@@ -719,6 +787,11 @@ class _ScanQueue:
                     plan.body(ring, kb)
                 ring.built.add(kb)
                 launches = None
+                if first:
+                    _costs.record_build(
+                        st.owner, "scan", _costs.key_digest(gkey), (perf_counter() - t_build) * 1e3,
+                        inputs=ring.inputs, states=[b for p in plan.plans for b in p.buffers.values()],
+                    )
         except Exception as exc:  # noqa: BLE001 -- the steps are intact in their slots: replay them
             from torchmetrics_tpu_torch.engine import txn
 
@@ -727,6 +800,9 @@ class _ScanQueue:
             classified = txn.classify_dispatch_error(exc)
             st.fallback(f"scan-dispatch-{classified}" if classified else f"scan-failed:{type(exc).__name__}")
             return False
+        device_us = event_us = None
+        if probing:
+            device_us, event_us = completion_probe(st.owner, "scan", st, t_dispatch, events)
         with self._lock:
             if launches is not None:
                 ops.add_launches(launches)
@@ -742,14 +818,41 @@ class _ScanQueue:
             eng._count_riders(plan.plans, n)
             if work.done_event is not None:
                 self._last_done_event = work.done_event
+        for owner in self._lineage_owners(plan):
+            _lineage.note_folded(owner, n)
+        if first and gkey not in self._fingerprints:  # a second ring's graph is no rebuild
+            fp = signature_fingerprint((plan.bucket, plan.n_args, plan.kw_names, plan.qkey[-1], plan.qkey[2]))
+            fp["bucket"] = (plan.bucket, kb)
+            note_build(st, "update.scan", self._fingerprints, gkey, fp, k_bucket=kb)
+        if measuring:
+            dispatch_us = round((perf_counter() - t_dispatch) * 1e6, 3)
+            _hist.observe(st.owner, "scan", "dispatch_us", dispatch_us)
+            span = {} if work.lineage is None else {"lineage": work.lineage}
+            _diag.record(
+                "update.scan", st.owner, dispatch_us=dispatch_us, steps=n, k_bucket=kb, pad_steps=kb - n,
+                cached=not first, reason=work.reason, **span,
+            )
+            if device_us is not None:
+                probe = {"device_event_us": event_us} if event_us is not None else {}
+                _diag.record("update.scan.probe", st.owner, dispatch_us=dispatch_us, device_us=device_us, **probe)
+        if profiling and not first:
+            from torchmetrics_tpu_torch.engine import numerics
+
+            for p in plan.plans:
+                if p.comp is not None:
+                    numerics.maybe_drift_probe(p.metric, st, owner=f"{st.owner}:{p.name}" if p.name else None)
         return True
 
     def _replay(self, work: _DrainWork) -> None:
-        """The one-step-at-a-time fallback, in order, from the slots: never lost."""
+        """The one-step-at-a-time fallback, in order, from the slots: never lost. The
+        replayed steps fold, and the record flags them as ``replayed``."""
         plan = work.plan
         for t, rows in enumerate(work.rows):
             flat = work.ring.step_inputs(t, rows, plan.bucket)
             self._replay_step(plan, tuple(flat[: plan.n_args]), dict(zip(plan.kw_names, flat[plan.n_args :])))
+        for owner in self._lineage_owners(plan):
+            _lineage.note_folded(owner, work.steps)
+            _lineage.note_excluded(owner, "replayed", work.steps)
 
     # -- async tier (engine/async_dispatch.py) ---------------------------
 
@@ -809,6 +912,14 @@ class _ScanQueue:
             oldest.done.wait()
         with self._lock:
             st.async_submits += 1
+            depth = len(self._inflight)
+        rec = _diag.active_recorder()
+        if rec is not None or _profile.active_profile() is not None:
+            # how far the caller runs ahead of the drains (the backpressure ceiling at most)
+            _hist.observe(st.owner, "async", "depth", float(depth))
+            if rec is not None:
+                span = {} if work.lineage is None else {"lineage": work.lineage}
+                rec.record("async.enqueue", st.owner, steps=work.steps, depth=depth, reason=work.reason, **span)
         async_dispatch.submit(work)
 
     def _join_until(self, work: _DrainWork) -> None:
@@ -864,6 +975,11 @@ class _ScanQueue:
             st.async_dispatches += 1
             st.async_overlap_us += int(overlap_us)
             self._post_pending = True
+        span = {} if work.lineage is None else {"lineage": work.lineage}
+        _diag.record(
+            "async.drain", st.owner, dispatch_us=round((end - t0) * 1e6, 3), overlap_us=round(overlap_us, 3),
+            steps=work.steps, reason=work.reason, **span,
+        )
 
     def join_async(self, reason: str, collect: bool = True) -> int:
         """Wait out this queue's background drains (the JOIN, on the observer's thread):
@@ -873,6 +989,7 @@ class _ScanQueue:
         settled = 0
         waited = False
         t0 = 0.0
+        last_span: Optional[int] = None
         while True:
             with self._lock:
                 while self._inflight and self._inflight[0].done.is_set():
@@ -887,11 +1004,16 @@ class _ScanQueue:
             work.done.wait()
             if not work.replay:
                 settled += work.steps
+                if work.lineage is not None:
+                    last_span = work.lineage
         st = self.stats
         if waited:
+            wait_us = (perf_counter() - t0) * 1e6
             with self._lock:
                 st.async_joins += 1
-                st.async_join_wait_us += int((perf_counter() - t0) * 1e6)
+                st.async_join_wait_us += int(wait_us)
+            span = {} if last_span is None else {"lineage": last_span}
+            _diag.record("async.join", st.owner, reason=reason, steps=settled, wait_us=round(wait_us, 3), **span)
         self._wait_stream()
         if collect:
             settled += self._collect_failed()
@@ -945,6 +1067,7 @@ class MetricScan(_ScanQueue):
         return [("", m)]
 
     def _on_enqueued(self, plan: _Plan) -> bool:
+        _lineage.note_enqueued(self.stats.owner)
         return True  # the metric's update wrapper did the bookkeeping
 
     def _refused(self) -> bool:
@@ -984,7 +1107,14 @@ class FusedScan(_ScanQueue):
         for p in plan.plans:
             p.metric._computed = None
             p.metric._update_count += 1
+            # per member (observation sites key by type name); the span lives on the queue
+            _lineage.note_enqueued(type(p.metric).__name__, span=False)
+        _lineage.open_span(self.stats.owner)
         return plan.names
+
+    def _lineage_owners(self, plan: Optional[_Plan]) -> List[str]:
+        members = plan.plans if plan is not None else []
+        return [type(p.metric).__name__ for p in members]
 
     def _refused(self) -> Optional[Set[str]]:
         return None

@@ -19,13 +19,14 @@ Two things the collection and the packed sync read:
   the engine's shape buckets read it through ``row_additive``. ``state_additive`` reads
   the scalar aggregators' ``_engine_state_additive`` (``new = old + g(batch)``), which
   the compensated accumulation (``engine/numerics.py``) needs.
-- **rider keys**: the reserved state keys under which the quarantine counter and the
-  compensation residuals ride a compiled step (``RIDER_KEYS``). The pad-subtract
-  identity never reaches them: the update body returns the registered states alone,
-  and the riders fold after it (``engine/compiled.py``'s ``write_step``).
+- **rider keys**: the reserved state keys under which the health sentinel
+  (``diag/sentinel.py``), the quarantine counter and the compensation residuals ride a
+  compiled step (``RIDER_KEYS``). The pad-subtract identity never reaches them: the
+  update body returns the registered states alone, and the riders fold after it
+  (``engine/compiled.py``'s ``write_step``).
 
 The JAX package's ``StateSpec`` registry, its roles and its shard rules have no
-counterpart yet, nor has the sentinel's rider key (``diag/sentinel.py`` is not ported).
+counterpart yet.
 """
 
 from __future__ import annotations
@@ -41,11 +42,12 @@ CSE_ENV_VAR = "TORCHMETRICS_TPU_CSE"
 
 #: the reserved keys the riders take in a compiled step's state dict. A compensated
 #: state ``x`` rides its residual as ``COMPENSATION_KEY + x``.
+SENTINEL_KEY = "__sentinel__"
 QUARANTINE_KEY = "__quarantine__"
 COMPENSATION_KEY = "__compensation__"
 
 #: the riders' own keys (a residual key starts with ``COMPENSATION_KEY``)
-RIDER_KEYS = frozenset({QUARANTINE_KEY, COMPENSATION_KEY})
+RIDER_KEYS = frozenset({SENTINEL_KEY, QUARANTINE_KEY, COMPENSATION_KEY})
 
 _FOLD_BY_FN = {
     dim_zero_sum: "sum",

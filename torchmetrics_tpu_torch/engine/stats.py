@@ -7,7 +7,9 @@ engine gets one too (``engine/txn.py``). All live instances
 register in a module-level weak set, so ``engine_report`` can aggregate a
 process-wide view without keeping dead metrics alive. The counters are the evidence
 that an update took a captured graph ("0 captures after warm-up", "one replay per
-fused step") or that a sync took the packed route.
+fused step") or that a sync took the packed route. Every fallback is also a ``fallback``
+event of the flight recorder (``diag/trace.py``), and a build past a signature's first is
+counted by its attributed cause in ``retrace_causes``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import weakref
 from collections import Counter
 from typing import Any, Dict
+
+from torchmetrics_tpu_torch.diag import trace as _diag
 
 _REGISTRY: "weakref.WeakSet[EngineStats]" = weakref.WeakSet()
 
@@ -50,28 +54,44 @@ _COUNTER_FIELDS = (
     # --- numerics layer (engine/numerics.py): compensated accumulation ---
     "compensated_steps",  # updates whose accumulate rode the two-sum
     "reanchors",  # epoch-boundary (value, residual) folds into a clean anchor
+    "drift_probes",  # sampled drift-audit reads at the sanctioned boundary
+    "drift_flags",  # probes whose relative drift exceeded TORCHMETRICS_TPU_DRIFT_RTOL
     # --- packed sync (engine/epoch.py) ---
     "packed_syncs",  # packed syncs completed
     "sync_collectives",  # collectives issued by packed syncs (metadata gather + one per buffer)
+    "sync_metadata_gathers",  # metadata exchanges issued (0 for a rank-invariant plan without the timeline)
+    "sync_bytes_moved",  # bytes through packed-sync buffer collectives (gathered view)
+    "sync_divergence_flags",  # rank-divergent rank-invariant states flagged by the audit
+    "sync_straggler_flags",  # packed syncs whose arrival skew exceeded the straggler threshold
     "sync_retries",  # bounded-collective retries spent inside packed exchanges
     "sync_degraded_folds",  # packed syncs folded over a degraded (survivor) membership
     "compute_traces",  # compute graphs built (each: one guarded run, plus one capture on the card)
     "compute_dispatches",  # computes served by a built graph (fused sync-and-compute included)
     "compute_cache_hits",  # compute dispatches served without a new build
+    # --- profiling layer (diag/profile.py): sampled completion probes ---
+    "profile_probes",  # warm dispatches followed by a sanctioned wait on their end event
     # --- heavy-workload host paths (detection/mean_ap.py) ---
     "map_host_evals",  # mAP computes evaluated by the host matcher (list, RLE and packed-dict routes)
+    # --- value provenance & freshness plane (diag/lineage.py) ---
+    "lineage_records",  # ValueProvenance records built at observation sites
+    "lineage_spans",  # causal spans opened at enqueue (one per drain generation)
+    "lineage_coverage_folds",  # coverage attestations stamped at fold sites
 )
 
 
 class EngineStats:
     """Mutable counter block for one engine instance (see ``_COUNTER_FIELDS``)."""
 
-    __slots__ = ("owner", "fallback_reasons", "scan_flush_reasons", "bucket_sizes", "__weakref__", *_COUNTER_FIELDS)
+    __slots__ = (
+        "owner", "fallback_reasons", "scan_flush_reasons", "retrace_causes", "bucket_sizes", "__weakref__",
+        *_COUNTER_FIELDS,
+    )
 
     def __init__(self, owner: str = "") -> None:
         self.owner = owner
         self.fallback_reasons: Counter = Counter()
         self.scan_flush_reasons: Counter = Counter()
+        self.retrace_causes: Counter = Counter()  # attributed causes of builds past a signature's first
         self.bucket_sizes: set = set()
         for f in _COUNTER_FIELDS:
             setattr(self, f, 0)
@@ -81,12 +101,14 @@ class EngineStats:
         """Count one step or sync that took the eager path, by reason."""
         self.eager_fallbacks += 1
         self.fallback_reasons[reason] += 1
+        _diag.record("fallback", self.owner, reason=reason)
 
     def reset(self) -> None:
         for f in _COUNTER_FIELDS:
             setattr(self, f, 0)
         self.fallback_reasons.clear()
         self.scan_flush_reasons.clear()
+        self.retrace_causes.clear()
         self.bucket_sizes.clear()
 
     def as_dict(self) -> Dict[str, Any]:
@@ -97,6 +119,8 @@ class EngineStats:
             out["fallback_reasons"] = {k: self.fallback_reasons[k] for k in sorted(self.fallback_reasons)}
         if self.scan_flush_reasons:
             out["scan_flush_reasons"] = {k: self.scan_flush_reasons[k] for k in sorted(self.scan_flush_reasons)}
+        if self.retrace_causes:
+            out["retrace_causes"] = {k: self.retrace_causes[k] for k in sorted(self.retrace_causes)}
         return out
 
     def __repr__(self) -> str:
@@ -110,6 +134,7 @@ def engine_report(reset: bool = False) -> Dict[str, Any]:
     every engine's counters after reading."""
     total: Dict[str, Any] = {f: 0 for f in _COUNTER_FIELDS}
     reasons: Counter = Counter()
+    causes: Counter = Counter()
     buckets: set = set()
     engines = 0
     for st in list(_REGISTRY):
@@ -117,23 +142,46 @@ def engine_report(reset: bool = False) -> Dict[str, Any]:
         for f in _COUNTER_FIELDS:
             total[f] += getattr(st, f)
         reasons.update(st.fallback_reasons)
+        causes.update(st.retrace_causes)
         buckets |= st.bucket_sizes
     total["engines"] = engines
     total["bucket_count"] = len(buckets)
     if reasons:
         total["fallback_reasons"] = {k: reasons[k] for k in sorted(reasons)}
+    if causes:
+        total["retrace_causes"] = {k: causes[k] for k in sorted(causes)}
     if reset:
         reset_engine_stats()
     return total
 
 
-def reset_engine_stats() -> None:
-    """Zero every live engine's counters, the fault-tolerance counters
-    (``parallel/resilience.py``) and the active flight recorder, in lockstep."""
-    from torchmetrics_tpu_torch.diag.trace import clear_recorder
-    from torchmetrics_tpu_torch.parallel.resilience import reset_resilience
-
+def reset_engine_counters() -> None:
+    """Zero every live engine's counters, leaving any recorder untouched (for a caller
+    that manages its own ``FlightRecorder``, as ``diag_report(rec, reset=True)`` does)."""
     for st in list(_REGISTRY):
         st.reset()
+
+
+def reset_engine_stats() -> None:
+    """Zero every live engine's counters, the fault-tolerance counters
+    (``parallel/resilience.py``), the active flight recorder, the cost ledger, the
+    sentinels, the quarantine counters, the histograms, the probe accounting and the
+    lineage watermarks, in lockstep: a surface reset alone would attribute the previous
+    run's events, costs, flags or tails to the next."""
+    from torchmetrics_tpu_torch.diag.costs import reset_ledger
+    from torchmetrics_tpu_torch.diag.hist import reset_histograms
+    from torchmetrics_tpu_torch.diag.lineage import reset_lineage
+    from torchmetrics_tpu_torch.diag.profile import reset_profile
+    from torchmetrics_tpu_torch.diag.sentinel import reset_sentinels
+    from torchmetrics_tpu_torch.engine.txn import reset_quarantine
+    from torchmetrics_tpu_torch.parallel.resilience import reset_resilience
+
+    reset_engine_counters()
+    _diag.clear_recorder()
+    reset_ledger()
+    reset_sentinels()
+    reset_quarantine()
+    reset_histograms()
+    reset_profile()
     reset_resilience()
-    clear_recorder()
+    reset_lineage()

@@ -33,8 +33,12 @@ Modes (``TORCHMETRICS_TPU_QUARANTINE`` / ``quarantine_context``, override first)
 Enable the same mode on every rank: the counter rides the packed sync's reduce
 buffer (``parallel/packing.py``) and sums across ranks.
 
-Left out against the JAX module: the sentinel's ``input_poisoned`` bit, events and
-lineage records.
+With the sentinel on (``diag/sentinel.py``) a quarantined batch sets the sticky
+``input_poisoned`` bit, in the graphs (``engine/compiled.write_step``) and on the eager
+path alike. Every host read of the admission flag or the counter runs inside
+``transfer_allowed`` (``quarantine-check``, ``quarantine-read``); a read that surfaces
+growth records an ``update.quarantine`` event and counts the batches as ``quarantined``
+exclusions of the lineage watermark (``diag/lineage.py``).
 """
 
 from __future__ import annotations
@@ -240,8 +244,15 @@ def _flat_inputs(args: Sequence[Any], kwargs: Dict[str, Any]) -> List[Any]:
 def admission_check_or_raise(metric: Any, args: Sequence[Any], kwargs: Dict[str, Any]) -> None:
     """``error`` mode: the admission check on the host before any state mutation (one
     device sync, asked for), on the compiled and the eager route alike."""
+    from torchmetrics_tpu_torch.diag import trace
+    from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
     inputs = _flat_inputs(args, kwargs)
-    if bool(build_admission(metric, inputs)(inputs)):
+    poisoned = build_admission(metric, inputs)(inputs)
+    with transfer_allowed("quarantine-check"):
+        bad = bool(poisoned)
+    if bad:
+        trace.record("update.quarantine", type(metric).__name__, mode="error")
         raise QuarantinedBatchError(
             f"batch failed admission for {type(metric).__name__}: a float input is"
             " non-finite or an integer label is out of [0, num_classes)."
@@ -278,6 +289,9 @@ def eager_update(metric: Any, run_update: Callable[[], None], args: Sequence[Any
         and n.dtype == o.dtype
         for k, o in old.items()
     )
+    from torchmetrics_tpu_torch.diag import sentinel, trace
+    from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
     count = ensure_count(metric)
     if selectable:
         for k, o in old.items():
@@ -288,8 +302,13 @@ def eager_update(metric: Any, run_update: Callable[[], None], args: Sequence[Any
                 k: torch.where(poisoned, old_res.get(k, torch.zeros_like(v)), v) for k, v in new_res.items()
             }
         metric.__dict__[ATTR] = count + poisoned.to(count.dtype)
+        if sentinel.sentinel_enabled():
+            flags = sentinel.ensure_flags(metric)
+            metric.__dict__[sentinel.ATTR] = flags | poisoned.to(torch.int32) * sentinel.FLAG_INPUT_POISONED
         return
-    if bool(poisoned):
+    with transfer_allowed("quarantine-check"):
+        bad = bool(poisoned)
+    if bad:
         for k, o in old.items():
             setattr(metric, k, o)
         if had_res:
@@ -297,6 +316,9 @@ def eager_update(metric: Any, run_update: Callable[[], None], args: Sequence[Any
         else:
             metric.__dict__.pop(numerics.ATTR, None)
         metric.__dict__[ATTR] = count + 1
+        if sentinel.sentinel_enabled():
+            metric.__dict__[sentinel.ATTR] = sentinel.ensure_flags(metric) | sentinel.FLAG_INPUT_POISONED
+        trace.record("update.quarantine", type(metric).__name__, count=1, path="eager")
 
 
 def eager_apply(metric: Any, args: Sequence[Any], kwargs: Dict[str, Any]) -> None:
@@ -402,10 +424,17 @@ def read_quarantine(metric: Any) -> Dict[str, Any]:
     val = metric.__dict__.get(ATTR)
     if val is None:
         return {"owner": type(metric).__name__, "count": 0}
-    total = int(val)
+    from torchmetrics_tpu_torch.diag import lineage, trace
+    from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+    with transfer_allowed("quarantine-read"):
+        total = int(val)
     reported = int(metric.__dict__.get("_quarantine_reported", 0))
     if total > reported:
         _stats_for(metric).quarantined_batches += total - reported
+        trace.record("update.quarantine", type(metric).__name__, count=total - reported, total=total)
+        # the value an observer reads does not cover the skipped batches
+        lineage.note_excluded(type(metric).__name__, "quarantined", total - reported)
     if total != reported:
         metric.__dict__["_quarantine_reported"] = total
     return {"owner": type(metric).__name__, "count": total}
@@ -416,7 +445,10 @@ def mark_reported(metric: Any) -> None:
     after a read inside the sync window, which already surfaced the world total)."""
     val = metric.__dict__.get(ATTR)
     if val is not None:
-        metric.__dict__["_quarantine_reported"] = int(val)
+        from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+        with transfer_allowed("quarantine-read"):
+            metric.__dict__["_quarantine_reported"] = int(val)
 
 
 def quarantine_report() -> List[Dict[str, Any]]:

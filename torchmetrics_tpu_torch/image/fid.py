@@ -154,7 +154,10 @@ class FrechetInceptionDistance(ExtractorFollowsDevice, Metric):
         CUDA ``torch.linalg.eigh`` reads its solver's status on the host inside the
         operation, which a captured graph cannot hold (the engine's guard sees only the
         operation), so the epoch engine never captures it."""
-        n_real, n_fake = torch.stack([self.real_features_num_samples, self.fake_features_num_samples]).tolist()
+        from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+        with transfer_allowed("fid-sample-guard"):
+            n_real, n_fake = torch.stack([self.real_features_num_samples, self.fake_features_num_samples]).tolist()
         if n_real < 2 or n_fake < 2:
             raise RuntimeError("More than one sample is required for both the real and fake distributed to compute FID")
         return compute(*args, **kwargs)

@@ -41,9 +41,16 @@ counter and re-anchors the compensated sums. With the engine on, ``compute`` run
 cached graph per state signature (``engine/epoch.py``), and across processes as the
 packed exchange plus one graph for the fold and the compute.
 
-Left out against the JAX package: the sentinel and the drift audit (``diag/``),
-``persist``, the resilience layer (bounded collectives, degraded re-plans),
-``state_specs`` (the ``StateSpec`` registry) and ``snapshot_compute`` (``serve/``).
+The diagnostics (``diag/``) ride along: an eager update records ``update.eager`` (and
+feeds the ``eager`` ``dispatch_us`` histogram) while a recorder or a profile observes,
+an eager per-tensor sync records ``sync.eager``, ``reset`` zeroes the health sentinel in
+place (``diag/sentinel.py``; a replay may hold it as a static buffer), and a
+``compute`` through the epoch engine attaches its ``ValueProvenance`` as
+``_provenance`` (``diag/lineage.py``). ``_rank_invariant_states`` names the states the
+divergence audit expects equal on every rank.
+
+Left out against the JAX package: ``persist``, ``state_specs`` (the ``StateSpec``
+registry) and ``snapshot_compute`` (``serve/``).
 """
 
 from __future__ import annotations
@@ -52,12 +59,17 @@ import functools
 import inspect
 from contextlib import contextmanager
 from copy import deepcopy
+from time import perf_counter
 from typing import Any, Callable, Dict, Generator, List, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from torchmetrics_tpu_torch.diag import hist as _hist
+from torchmetrics_tpu_torch.diag import profile as _profile
+from torchmetrics_tpu_torch.diag import sentinel as _sentinel
+from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import numerics, txn
 from torchmetrics_tpu_torch.engine.async_dispatch import coerce_inflight, resolve_async
 from torchmetrics_tpu_torch.engine.compiled import CompiledUpdate, detach_from_static, is_static
@@ -137,6 +149,10 @@ class Metric(torch.nn.Module):
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
     plot_legend_name: Optional[str] = None
+    #: state names whose values must be identical on every rank: the divergence audit
+    #: (``diag.audit_context`` / ``TORCHMETRICS_TPU_AUDIT=1``) fingerprints them in the
+    #: packed sync's metadata exchange and flags cross-rank divergence
+    _rank_invariant_states: frozenset = frozenset()
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
         super().__init__()
@@ -662,6 +678,7 @@ class Metric(torch.nn.Module):
             dist_sync_fn = gather_all_tensors
         else:
             self._epoch_engine().stats.fallback("sync:custom-dist-sync-fn")
+        _diag.record("sync.eager", type(self).__name__)
         self._cache = self._copy_state_refs()
         self._sync_dist(dist_sync_fn, process_group=process_group)
         self._is_synced = True
@@ -724,7 +741,17 @@ class Metric(torch.nn.Module):
                 self._computed = None
                 self._update_count += 1
                 if not self._engine_step(args, kwargs):
-                    self._run_eager_update(args, kwargs)
+                    rec = _diag.active_recorder()
+                    if rec is None and _profile.active_profile() is None:
+                        self._run_eager_update(args, kwargs)
+                    else:
+                        # eager steps sit in the same timeline and histograms as replays
+                        t0 = perf_counter()
+                        self._run_eager_update(args, kwargs)
+                        dispatch_us = round((perf_counter() - t0) * 1e6, 3)
+                        _hist.observe(type(self).__name__, "eager", "dispatch_us", dispatch_us)
+                        if rec is not None:
+                            rec.record("update.eager", type(self).__name__, dispatch_us=dispatch_us)
                 if self.compute_on_cpu:
                     self._move_list_states_to_cpu()
             finally:
@@ -947,6 +974,11 @@ class Metric(torch.nn.Module):
             self.__dict__["_quarantine_reported"] = 0
         if self.__dict__.get(numerics.ATTR):
             self.__dict__[numerics.ATTR] = {k: torch.zeros_like(v) for k, v in self.__dict__[numerics.ATTR].items()}
+        flags = self.__dict__.get(_sentinel.ATTR)
+        if flags is not None:
+            # sticky across updates and syncs, restarted by a reset: in place, since the
+            # bitmask may be an engine's static buffer that later replays read
+            flags.zero_()
 
     def state_footprint(self) -> Dict[str, Any]:
         """Bytes held by this metric's states, riders and engine buffers (``diag/costs.py``)."""
@@ -1056,6 +1088,8 @@ class Metric(torch.nn.Module):
             self.__dict__[txn.ATTR] = fn(self.__dict__[txn.ATTR])
         if self.__dict__.get(numerics.ATTR):
             self.__dict__[numerics.ATTR] = {k: fn(v) for k, v in self.__dict__[numerics.ATTR].items()}
+        if self.__dict__.get(_sentinel.ATTR) is not None:
+            self.__dict__[_sentinel.ATTR] = fn(self.__dict__[_sentinel.ATTR])
 
     # ------------------------------------------------------------------ persistence
 

@@ -34,6 +34,23 @@ ranks' (value, residual) pairs through two-sum, re-anchors, and returns the resi
 under ``numerics.SYNC_RES_PREFIX + attr``; the quarantine counter (``engine/txn.py``)
 sums in the reduce buffer.
 
+The health sentinel (``diag/sentinel.py``) rides the plan too, as its own ``sentinel``
+spec in the int32 gather buffer, folded by bitwise OR over the member rows (no
+``torch.distributed`` reduce op computes it on a gather-then-fold plan, and the fold
+stays capturable).
+
+Two riders extend the int32 metadata row, each a function of its knob alone (enable it
+on every rank): the divergence audit (``diag/sentinel.audit_context``) appends a
+``(value fingerprint, element count)`` pair per fixed-shape state, read inside
+``transfer_allowed("sync-audit")``, and ``finalize`` flags a rank-invariant state whose
+fingerprints differ (``rank-invariant-divergence``) or float sums identical on every
+rank (``duplicate-suspect``) in ``audit_results``; with profiling on
+(``diag/profile.py``), the timeline triple ``[layout version, previous barrier exit,
+arrival]`` (``diag/timeline.py``) goes last, the version is checked on every rank and
+``timeline_result`` names the straggler. With the timeline on, the metadata gather runs
+even for a rank-invariant plan, as in the JAX package. The arrival stamp is refreshed as
+the rank enters the gather (``stamp_arrival_into``), after any planted delay.
+
 A plan carries its live membership (``members``, every rank by default). The degraded
 re-plan in ``engine/epoch.py`` builds a plan over the surviving ranks and marks it
 ``degraded`` with its ``excluded_ranks``: every rank of the world still takes part in
@@ -42,13 +59,13 @@ that would cost a collective and a barrier of its own), and the fold reads the m
 rows alone. ``members`` is part of ``signature()``, so a degraded fold is never served
 from the full world's cache entry.
 
-Left out against the JAX plan: the divergence audit, the cross-rank timeline,
-sharded-state skips, the in-graph mesh exchange and sub-world process groups (those
-take the eager path).
+Left out against the JAX plan: sharded-state skips, the in-graph mesh exchange and
+sub-world process groups (those take the eager path).
 """
 
 from __future__ import annotations
 
+import functools
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -65,7 +82,7 @@ from torchmetrics_tpu_torch.utilities.data import (
 )
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
-__all__ = ["PackedSyncPlan", "PackingError", "all_gather_backbone", "shape_fingerprint"]
+__all__ = ["PackedSyncPlan", "PackingError", "all_gather_backbone", "shape_fingerprint", "stamp_arrival_into"]
 
 # each metadata entry is [count, shape fingerprint]
 _META_INTS_PER_ENTRY = 2
@@ -90,22 +107,44 @@ def shape_fingerprint(dims: Sequence[int]) -> int:
     return zlib.crc32(np.asarray(list(dims), dtype=np.int64).tobytes()) & 0x7FFFFFFF
 
 
-def all_gather_backbone(x: torch.Tensor, label: str = "", members: Optional[Sequence[int]] = None) -> torch.Tensor:
+def stamp_arrival_into(meta: torch.Tensor) -> None:
+    """Write this rank's arrival stamp (``diag/timeline``'s masked epoch clock) into the
+    last slot of its metadata row, in place: the instant the rank enters the gather."""
+    from torchmetrics_tpu_torch.diag import profile as _profile
+    from torchmetrics_tpu_torch.diag.timeline import _MASK
+
+    meta[-1].fill_(_profile.epoch_now_us() & _MASK)
+
+
+def all_gather_backbone(
+    x: torch.Tensor,
+    label: str = "",
+    members: Optional[Sequence[int]] = None,
+    on_enter: Optional[Callable[[torch.Tensor], None]] = None,
+) -> torch.Tensor:
     """One ``torch.distributed.all_gather`` of ``x`` over the default group, on ``x``'s
     own device: ``(world, *x.shape)``. Every rank passes a tensor of the same shape and
     dtype (the plan guarantees it).
 
     The collective rides ``parallel/resilience.bounded_collective`` under ``label``
     (the plan's buffer key, or ``"meta"``) with the plan's live ``members``, which the
-    fault harness and ``verify_payload`` consult; each call is a ``collective`` event.
+    fault harness and ``verify_payload`` consult, inside the sanctioned
+    ``transfer_allowed("collective:<label>")`` boundary; each call is a ``collective``
+    event. ``on_enter(x)`` runs as the rank enters the collective (the timeline's
+    arrival stamp).
     """
     from torchmetrics_tpu_torch.diag import trace as _diag
+    from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
     from torchmetrics_tpu_torch.parallel import sync as _sync
     from torchmetrics_tpu_torch.parallel.resilience import bounded_collective
 
     x = x.contiguous()
     _diag.record("collective", "", label=label, bytes=int(x.nbytes))
-    rows = bounded_collective(lambda t: _sync.raw_all_gather(t), label=label, payload=x, members=members)
+    with transfer_allowed("collective:" + label):
+        rows = bounded_collective(
+            lambda t: _sync.raw_all_gather(t), label=label, payload=x, members=members,
+            on_enter=None if on_enter is None else (lambda: on_enter(x)),
+        )
     return rows if isinstance(rows, torch.Tensor) else torch.stack(rows)
 
 
@@ -119,6 +158,7 @@ class _Spec:
     __slots__ = (
         "owner", "attr", "kind", "fold_fn", "dtype", "shape", "elem_shapes",
         "group", "offset", "size", "world_dim0", "pad_to", "needs_meta", "was_list", "packed_value",
+        "rank_invariant",
     )
 
     def __init__(self, owner: str, attr: str, kind: str, dtype: str, fold_fn: Optional[Callable] = None):
@@ -137,6 +177,7 @@ class _Spec:
         self.needs_meta = False
         self.was_list = False
         self.packed_value: Optional[torch.Tensor] = None  # cat lists: concatenated once at build
+        self.rank_invariant = False  # audit: the values must match on every rank
 
 
 class PackedSyncPlan:
@@ -165,6 +206,19 @@ class PackedSyncPlan:
         # the world is never silent (EngineStats.sync_degraded_folds, sync.degraded)
         self.degraded = False
         self.excluded_ranks: Tuple[int, ...] = ()
+        # set by the degraded re-plan after an in-flight escape left the group out of
+        # step: the exchange issues no collective and folds this rank's own rows
+        self.local_only = False
+        # the divergence audit and the timeline (diag/): frozen at build, a function of
+        # the knobs and the world size alone, so every rank lays out the same row
+        from torchmetrics_tpu_torch.diag import profile as _profile
+        from torchmetrics_tpu_torch.diag import sentinel as _sentinel
+
+        self.audit = _sentinel.audit_enabled() and self.world_size > 1
+        self.audit_results: List[Dict[str, Any]] = []
+        self._audit_nonzero: List[bool] = []  # the local any() per audited spec
+        self.timeline = _profile.timeline_enabled() and self.world_size > 1
+        self.timeline_result: Optional[Dict[str, Any]] = None
         self._metrics = list(metrics)
         self._finalized = False
         self._group_sizes: Dict[str, int] = {}
@@ -176,9 +230,11 @@ class PackedSyncPlan:
     # ------------------------------------------------------------------ build
 
     def _build(self) -> None:
+        from torchmetrics_tpu_torch.diag import sentinel
         from torchmetrics_tpu_torch.engine import numerics, txn
 
         for owner, metric in self._metrics:
+            rank_invariant = getattr(metric, "_rank_invariant_states", ()) or ()
             comp_names = numerics.comp_state_names(metric) if numerics.compensated_enabled() else ()
             if comp_names:
                 numerics.ensure_residuals(metric)
@@ -195,6 +251,7 @@ class PackedSyncPlan:
                     raise PackingError(f"state {attr!r} is not a tensor")
                 kind = {"none": "none-array"}.get(fold, fold)
                 spec = _Spec(owner, attr, kind, _dtype_name(val.dtype), fold_fn)
+                spec.rank_invariant = attr in rank_invariant
                 spec.shape = tuple(int(d) for d in val.shape)
                 spec.size = int(np.prod(spec.shape, dtype=np.int64)) if spec.shape else 1
                 if kind == "cat":
@@ -215,6 +272,13 @@ class PackedSyncPlan:
                     res = _Spec(owner, attr, "comp-res", spec.dtype)
                     res.shape, res.size, res.group = spec.shape, spec.size, spec.group
                     self.specs.append(res)
+            if sentinel.sentinel_enabled():
+                # the bitmask folds by OR: a flag raised on any rank survives the sync
+                flags = sentinel.ensure_flags(metric)
+                spec = _Spec(owner, sentinel.ATTR, "sentinel", _dtype_name(flags.dtype))
+                spec.shape, spec.size = tuple(flags.shape), 1
+                spec.group = "gather:" + spec.dtype
+                self.specs.append(spec)
             if txn.quarantine_enabled():
                 count = txn.ensure_count(metric)
                 spec = _Spec(owner, txn.ATTR, "sum", _dtype_name(count.dtype))
@@ -282,9 +346,38 @@ class PackedSyncPlan:
                 entries += [len(s.elem_shapes), shape_fingerprint(dims)]
             else:  # static-shape verification entry
                 entries += [s.size, shape_fingerprint(s.shape)]
+        if self.audit:
+            from torchmetrics_tpu_torch.diag.sentinel import value_fingerprint
+            from torchmetrics_tpu_torch.diag.transfer_guard import transfer_allowed
+
+            by_owner = dict(self._metrics)
+            self._audit_nonzero = []
+            with transfer_allowed("sync-audit"):
+                for s in self._audit_specs():
+                    crc, count, nonzero = value_fingerprint(getattr(by_owner[s.owner], s.attr))
+                    self._audit_nonzero.append(nonzero)
+                    entries += [crc, count]
+        if self.timeline:
+            from torchmetrics_tpu_torch.diag.timeline import timeline_entries
+
+            # [layout version, previous barrier exit, arrival], last
+            entries += timeline_entries()
         if not entries:
             return None
         return np.asarray(entries, dtype=np.int32)
+
+    #: spec kinds the divergence audit fingerprints (fixed-shape array states; cat and
+    #: list states are ragged by design and the sentinel is already ORed)
+    _AUDITABLE = ("sum", "mean", "max", "min", "none-array", "custom")
+
+    def _audit_specs(self) -> List[_Spec]:
+        return [s for s in self.specs if s.kind in self._AUDITABLE]
+
+    @staticmethod
+    def _local_rank() -> int:
+        import torch.distributed as dist
+
+        return int(dist.get_rank()) if dist.is_available() and dist.is_initialized() else 0
 
     def finalize(self, world_meta: Optional[np.ndarray]) -> None:
         """Validate the exchanged metadata and freeze buffer offsets.
@@ -332,6 +425,10 @@ class PackedSyncPlan:
                         f" {counts.tolist()}, fingerprints {prints.tolist()}); non-cat reductions require"
                         " identical state shapes on every rank."
                     )
+            if self.audit:
+                idx = self._finalize_audit(world_meta, idx)
+            if self.timeline:
+                self._finalize_timeline(world_meta, idx)
         # pad ragged cat segments to the world's largest and freeze offsets
         offsets: Dict[str, int] = {}
         for s in self.specs:
@@ -344,6 +441,58 @@ class PackedSyncPlan:
             offsets[s.group] = s.offset + s.size
         self._group_sizes = dict(offsets)
         self._finalized = True
+
+    def _finalize_audit(self, world_meta: np.ndarray, idx: int) -> int:
+        """Compare every fixed-shape state's value fingerprint across ranks before the
+        fold hides the per-rank view. Divergence is normal for accumulating states and is
+        flagged only for those declared rank-invariant; identical nonzero float sums on
+        every rank are the opposite smell (each rank saw the same stream, the fold will
+        double-count), reported as ``duplicate-suspect``. Integer counts are exempt:
+        balanced sharding gives equal counts legitimately."""
+        self.audit_results = []
+        for i, s in enumerate(self._audit_specs()):
+            fps = world_meta[:, idx]
+            sizes = world_meta[:, idx + 1]
+            idx += _META_INTS_PER_ENTRY
+            divergent = bool(fps.max() != fps.min() or sizes.max() != sizes.min())
+            local_nonzero = i < len(self._audit_nonzero) and self._audit_nonzero[i]
+            if divergent and s.rank_invariant:
+                flag = "rank-invariant-divergence"
+            elif not divergent and local_nonzero and s.kind in ("sum", "mean") and s.dtype.startswith(("float", "bfloat")):
+                flag = "duplicate-suspect"
+            else:
+                flag = ""
+            self.audit_results.append(
+                {"owner": s.owner, "attr": s.attr, "kind": s.kind, "divergent": divergent, "flag": flag}
+            )
+        return idx
+
+    def _finalize_timeline(self, world_meta: np.ndarray, idx: int) -> None:
+        """Check the timeline layout version on every rank (asymmetric profiling would
+        mis-parse the row: it fails loud everywhere) and resolve the arrivals."""
+        from torchmetrics_tpu_torch.diag import timeline
+
+        versions = world_meta[:, idx]
+        if int(versions.max()) != int(versions.min()) or int(versions.max()) != timeline.LAYOUT_VERSION:
+            raise TorchMetricsUserError(
+                f"Cannot sync: processes disagree on the packed-sync timeline layout (versions"
+                f" {versions.tolist()}, expected {timeline.LAYOUT_VERSION}). Profiling"
+                " (TORCHMETRICS_TPU_PROFILE / profile_context) extends the metadata layout and must"
+                " be enabled on every rank or none."
+            )
+        self.timeline_result = timeline.resolve_arrivals(world_meta[:, idx + 1], world_meta[:, idx + 2], self._local_rank())
+
+    def coverage(self) -> Dict[str, Any]:
+        """What a value folded through this plan covers: the members, the ranks a
+        degraded re-plan excluded (reason ``sync-fault``) and whether the fold covered
+        the full world (the lineage coverage stamp's shape)."""
+        return {
+            "members": [str(r) for r in self.members],
+            "world_size": self.world_size,
+            "degraded": self.degraded,
+            "excluded": [{"id": str(r), "reason": "sync-fault"} for r in self.excluded_ranks],
+            "complete": not self.degraded and len(self.members) == self.world_size,
+        }
 
     # ------------------------------------------------------------------ pack
 
@@ -449,6 +598,10 @@ class PackedSyncPlan:
                     dest[s.attr] = []
                     continue
                 seg = rows(gathered[s.group], s)
+                if s.kind == "sentinel":
+                    # per-bit max is bitwise OR: a flag raised on any rank survives
+                    dest[s.attr] = functools.reduce(torch.bitwise_or, [seg[r] for r in range(world)]).reshape(s.shape)
+                    continue
                 if s.kind in _STACKED_FOLDS:
                     dest[s.attr] = _STACKED_FOLDS[s.kind](seg.reshape((world,) + s.shape))
                 elif s.kind == "none-array":

@@ -12,10 +12,11 @@ through ``bounded_collective`` under a policy:
   thread is a daemon: a collective cannot be cancelled, only escaped. Such an error is
   never retried, since the abandoned call may still complete and a second one would
   desequence this rank's collective stream against its peers; the process group is
-  out of step after it, and the caller's recovery is a restart (or, in the JAX
-  package with profiling on, a degraded re-plan on the straggler hint, which the port
-  has no source of yet: ``diag/timeline.py`` is not ported, so an in-flight timeout
-  surfaces as the typed error and no culprit is invented). The worker runs under the
+  out of step after it. The error names no culprit; with profiling on, the packed
+  sync's timeline (``diag/timeline.py``) names the last straggler (``note_straggler``),
+  and the degraded re-plan in ``engine/epoch.py`` excludes that rank and folds this
+  rank's own rows without another collective on the out-of-step group. With no hint
+  the typed error propagates and no culprit is invented. The worker runs under the
   caller's CUDA device and current stream, so the gather stays ordered after the work
   that produced its input. No deadline: no thread.
 - **Bounded retry** (``TORCHMETRICS_TPU_SYNC_RETRIES``, ``TORCHMETRICS_TPU_SYNC_BACKOFF_MS``):
@@ -199,8 +200,8 @@ def resilience_context(
 # total_retries() around an exchange into EngineStats.sync_retries
 _COUNTS: Dict[str, int] = {}
 
-#: the last straggler rank a timeline named (a timeout that does not know its culprit
-#: falls back to it); nothing in the port sets it until diag/timeline.py is ported
+#: the last straggler rank the packed-sync timeline named (diag/timeline.py): a timeout
+#: that does not know its culprit falls back to it, once
 _last_straggler: Optional[int] = None
 
 
@@ -338,7 +339,7 @@ def _call_with_deadline(call: Callable[[], Any], deadline_ms: float, label: str,
             " retried: re-entering could desequence the collective stream"
             " if the abandoned call later completes",
             label=label,
-            rank=None,  # no culprit is known: the port has no straggler timeline
+            rank=None,  # culprit attribution is the degraded re-plan's job (the straggler hint)
             attempts=attempts,
         )
         err.retryable = False
@@ -375,6 +376,7 @@ def bounded_collective(
     label: str = "",
     payload: Any = None,
     members: Optional[Sequence[int]] = None,
+    on_enter: Optional[Callable[[], None]] = None,
 ) -> Any:
     """Run one collective under the active policy: ``call(payload)`` gathers ``payload``
     from every rank and returns a ``(world, ...)`` tensor or a list of per-rank tensors.
@@ -382,23 +384,29 @@ def bounded_collective(
     ``members`` is the plan's live membership: rank-scoped faults consult it, and
     ``verify_payload`` checks the members' rows. The JAX ``call`` takes no argument;
     here it takes the tensor to gather, so that ``verify_payload`` can gather the
-    payload framed with its crc32. Raises a ``SyncFaultError`` when the policy's bounds
-    are spent.
+    payload framed with its crc32. ``on_enter()`` runs as each attempt enters the
+    collective, after the planted pre-collective faults (a delayed rank has slept by
+    then) and before the payload is framed. Raises a ``SyncFaultError`` when the
+    policy's bounds are spent.
     """
     from torchmetrics_tpu_torch.parallel import faults as _faults
 
     policy = current_policy()
     verify = policy.verify_payload and isinstance(payload, torch.Tensor)
     if policy.deadline_ms is None and not verify and not _faults.active_faults():
+        if on_enter is not None:
+            on_enter()
         return call(payload)
-    sent = _frame(payload) if verify else payload
     attempt = 0
     while True:
         attempts = attempt + 1
         try:
             _faults.apply_before(label, members, policy.deadline_ms, attempts)
+            if on_enter is not None:
+                on_enter()
+            sent = _frame(payload) if verify else payload
             if policy.deadline_ms is not None:
-                out = _call_with_deadline(lambda: call(sent), policy.deadline_ms, label, attempts)
+                out = _call_with_deadline(lambda sent=sent: call(sent), policy.deadline_ms, label, attempts)
             else:
                 out = call(sent)
             out = _faults.apply_after(label, members, out)
