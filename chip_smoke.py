@@ -360,7 +360,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    20 ms (``DelayRank``) named the straggler on both, then rank 1 late past a 500 ms
    deadline: rank 0 escapes in flight and degrades with rank 1 as the culprit, its
    coverage members ``(0,)``; both ranks' events merged into one Perfetto trace. It prints a
-   ``diag_summary`` line with the card's ``nvidia-smi`` name and power limit.
+   ``diag_summary`` line with the card's ``nvidia-smi`` name and power limit;
+25. the serving plane (``serve/``, ``diag/slo.py``, ``diag/telemetry.py``), the engine on:
+   K1 and K2 against their plain versions; config #1 in a ``WindowedMetric`` (8 x 4
+   buckets, 48 updates) under the strict guard (0 readbacks, one capture, 48 K1
+   launches), its ``compute`` against a fresh metric over the covered updates and its
+   states against the CPU, its update µs against the bare metric's; config #2's binned
+   AUROC in the same window under the log guard (its range check's readbacks, K2's
+   launches); ``TenantSlices`` over config #1 (capacity 4096, 6000 updates of 512 x 1000
+   from 5000 tenants: one capture, the global and 32 sampled tenants exact, an untracked
+   tenant ``None``) and the sum sweep over 10^4 tenants; HLL, heavy hitters and KLL at
+   serving sizes against their error bounds and the CPU; a scrape thread reading
+   ``snapshot_compute`` and the sidecar's endpoints while the window updates; four pods'
+   envelopes folded (against ``merge_state``, byte-stable, one pod stale: degraded); two
+   sidecars' telemetry merged by ``FleetTelemetry`` with a planted degraded pull; two
+   gloo ranks syncing the sketches. It prints a ``serve_summary`` line with the card's
+   ``nvidia-smi`` name and power limit.
 
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
@@ -381,7 +396,8 @@ phases 1-2 and then phase 19 alone; ``--text-only`` runs phases 1-2 and then pha
 alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone; ``--audio-only``
 runs phases 1-2 and then phase 22 alone; ``--resilience-only`` runs phases 1-2 and then
 phase 23 alone, on batches made for it; ``--diag-only`` runs phases 1-2 and then phase 24
-alone, on batches made for it.
+alone, on batches made for it; ``--serve-only`` runs phases 1-2 and then phase 25 alone,
+on batches made for it.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -402,6 +418,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -8432,6 +8449,786 @@ def run_diag(acc_batches: list, cifar_batches: list, gen: torch.Generator, smi: 
     return out
 
 
+# ---------------------------------------------------------------- phase 25: the serving plane
+
+SERVE_BUCKETS, SERVE_BUCKET_SIZE = 8, 4  # a 32-update trailing window at 4-update granularity
+SERVE_UPDATES = 48  # the ring turns over
+SERVE_TIMED = 16  # updates per timing arm and round
+SERVE_ROUNDS = 5  # timing rounds, the arms in turns; medians
+TENANT_UPDATES, TENANT_DISTINCT, TENANT_BATCH = 6000, 5000, 512
+TENANT_CAPACITY, TENANT_POOL, TENANT_SAMPLE = 4096, 16, 32
+SWEEP_TENANTS, SWEEP_CAPACITY = 10_000, 16384
+SKETCH_UPDATES = 16
+HLL_P, HLL_BATCH, HLL_DISTINCT, HLL_TOL = 14, 1 << 16, 10**6, 0.03
+HH_K, HH_DEPTH, HH_WIDTH, HH_BATCH, HH_ZIPF, HH_TOP = 32, 4, 2048, 1 << 20, 1.1, 10
+KLL_K, KLL_BATCH, KLL_CPU_UPDATES = 256, 1 << 16, 2
+SNAP_UPDATES = 256  # the windowed loop a scrape thread reads while it runs
+SNAP_CHECKED = 6  # watermarks held against a fresh run over their covered updates
+SNAP_READS, SNAP_MAX_UPDATES = 12, 8192  # reads the scrape thread must make while the loop runs
+FED_PODS, FED_UPDATES, FED_STREAM, FED_KLL = 4, 4, 1 << 16, 1 << 12  # KLL: 16 runs per update
+SERVE_2RANK_UPDATES, SERVE_2RANK_IDS, SERVE_2RANK_KLL = 4, 24, 1 << 12  # per rank; the hh ids fit the top-k
+SERVE_JOIN_TIMEOUT_S = 300
+
+
+def _serve_reads(rec, kinds=("transfer.host", "transfer.blocked")) -> dict:
+    """The recorder's readback events by ``kind:layer:op``."""
+    counts: dict = {}
+    for e in rec.snapshot():
+        if e.kind in kinds:
+            key = f"{e.kind}:{e.data.get('layer')}:{e.data.get('op')}"
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def _serve_window(base, **kwargs):
+    from torchmetrics_tpu_torch.serve import WindowedMetric
+
+    return WindowedMetric(base, buckets=SERVE_BUCKETS, bucket_size=SERVE_BUCKET_SIZE, **kwargs)
+
+
+def _covered(count: int) -> list:
+    """The 0-based updates the ring covers after ``count`` updates."""
+    last = (count - 1) // SERVE_BUCKET_SIZE
+    return list(range(max(0, last - SERVE_BUCKETS + 1) * SERVE_BUCKET_SIZE, count))
+
+
+def _serve_update_us(arms: dict, batches: list) -> dict:
+    """Host µs per ``update`` (to a device sync) of each arm's metric, warmed, then
+    SERVE_ROUNDS rounds with the arms in turns; medians and the runs."""
+    for m in arms.values():
+        for b in batches[:2]:
+            m.update(*b)
+    torch.cuda.synchronize()
+    runs: dict = {name: [] for name in arms}
+    for _ in range(SERVE_ROUNDS):
+        for name, m in arms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(SERVE_TIMED):
+                m.update(*batches[i % len(batches)])
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t0) * 1e6 / SERVE_TIMED)
+    return {"update_us": {k: statistics.median(v) for k, v in runs.items()}, "runs_us": runs}
+
+
+def run_serve_windowed(acc_batches: list) -> dict:
+    """Config #1 in a trailing window over 48 updates (the ring turns over), under the
+    strict guard with the recorder on: 0 readbacks, one capture, no fallback, one K1
+    launch per update, replays included; ``compute`` against a fresh metric over exactly
+    the covered updates, every state against the port's CPU run; then the update µs
+    against the bare metric's, eagerly and with the engine, in turns."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.diag import diag_context, transfer_guard
+    from torchmetrics_tpu_torch.engine import engine_context
+
+    stream = [acc_batches[u % len(acc_batches)] for u in range(SERVE_UPDATES)]
+    m = _serve_window(MulticlassAccuracy(ACC_CLASSES, validate_args=False))
+    _zero_launches()
+    with engine_context(True), diag_context(capacity=1 << 14) as rec, transfer_guard("strict"):
+        for p, t in stream:
+            m.update(p, t)
+        torch.cuda.synchronize()
+    launches = _launches()
+    reads = _serve_reads(rec)
+    st = m._engine.stats
+    engine = {"traces": st.traces, "captures": st.captures, "replays": st.replays, "eager_fallbacks": st.eager_fallbacks}
+    if reads:
+        raise AssertionError(f"serve windowed: readbacks under the strict guard {reads}")
+    if (st.captures, st.eager_fallbacks) != (1, 0) or launches["stat_counts"] != SERVE_UPDATES:
+        raise AssertionError(f"serve windowed: engine {engine}, launches {launches}")
+    value = m.compute()
+    fresh = MulticlassAccuracy(ACC_CLASSES, validate_args=False, compiled_update=False)
+    for u in _covered(SERVE_UPDATES):
+        fresh.update(*stream[u])
+    for key in fresh._defaults:
+        if not torch.equal(getattr(m, "win_" + key).sum(0), getattr(fresh, key)):
+            raise AssertionError(f"serve windowed: the folded ring's {key} differs from the covered updates'")
+    _assert_close("serve windowed compute", value, fresh.compute(), ACC_ATOL)
+    cpu = _serve_window(MulticlassAccuracy(ACC_CLASSES, validate_args=False, device="cpu"))
+    cpu_batches = [(p.cpu(), t.cpu()) for p, t in acc_batches]
+    for u in range(SERVE_UPDATES):
+        cpu.update(*cpu_batches[u % len(cpu_batches)])
+    _assert_states_equal("serve windowed", m, cpu)
+    _assert_close("serve windowed against the CPU", value, cpu.compute(), ACC_ATOL)
+    times = _serve_update_us(
+        {
+            "bare_eager": MulticlassAccuracy(ACC_CLASSES, validate_args=False, compiled_update=False),
+            "bare_engine": MulticlassAccuracy(ACC_CLASSES, validate_args=False, compiled_update=True),
+            "window_eager": _serve_window(MulticlassAccuracy(ACC_CLASSES, validate_args=False), compiled_update=False),
+            "window_engine": _serve_window(MulticlassAccuracy(ACC_CLASSES, validate_args=False), compiled_update=True),
+        },
+        acc_batches,
+    )
+    _log(f"  windowed accuracy: {SERVE_UPDATES} updates, 0 readbacks, engine {engine}, launches {launches};"
+         f" compute {float(value):.6f} over updates {_covered(SERVE_UPDATES)[0]}-{SERVE_UPDATES - 1};"
+         " update µs " + ", ".join(f"{k} {v:.1f}" for k, v in times["update_us"].items()))
+    return {"updates": SERVE_UPDATES, "launches": launches, "engine": engine, "readbacks": reads,
+            "value": float(value), "times": times}
+
+
+def run_serve_windowed_auroc(cifar_batches: list) -> dict:
+    """Config #2's binned AUROC in the same window, under the log guard: its [0, 1] range
+    check reads the host on every update (in both packages), so the engine falls back
+    and each update launches K2 eagerly; the readbacks and launches are recorded."""
+    from torchmetrics_tpu_torch import MulticlassAUROC
+    from torchmetrics_tpu_torch.diag import diag_context, transfer_guard
+
+    stream = [cifar_batches[u % len(cifar_batches)] for u in range(SERVE_UPDATES)]
+    m = _serve_window(MulticlassAUROC(CIFAR_CLASSES, thresholds=N_THRESH, validate_args=False))
+    _zero_launches()
+    with diag_context(capacity=1 << 14) as rec:
+        with transfer_guard("log"):
+            for p, t in stream:
+                m.update(p, t)
+            torch.cuda.synchronize()
+    launches = _launches()
+    reads = _serve_reads(rec, ("transfer.host",))
+    blocked = _serve_reads(rec, ("transfer.blocked",))
+    st = m._engine.stats
+    if blocked or reads.get("transfer.host:python:Tensor.__bool__", 0) < SERVE_UPDATES:
+        raise AssertionError(f"serve windowed auroc: readbacks {reads}, blocked {blocked}")
+    if launches["multi_threshold"] < SERVE_UPDATES:
+        raise AssertionError(f"serve windowed auroc: K2 launched {launches['multi_threshold']} times over {SERVE_UPDATES} updates")
+    value = m.compute()
+    fresh = MulticlassAUROC(CIFAR_CLASSES, thresholds=N_THRESH, validate_args=False, compiled_update=False)
+    for u in _covered(SERVE_UPDATES):
+        fresh.update(*stream[u])
+    _assert_close("serve windowed auroc compute", value, fresh.compute(), AUROC_ATOL)
+    cpu = _serve_window(MulticlassAUROC(CIFAR_CLASSES, thresholds=N_THRESH, validate_args=False, device="cpu"))
+    for p, t in stream:
+        cpu.update(p.cpu(), t.cpu())
+    _assert_states_equal("serve windowed auroc", m, cpu)
+    _log(f"  windowed auroc (T={N_THRESH}): {SERVE_UPDATES} updates under the log guard, readbacks {reads};"
+         f" fallbacks {dict(st.fallback_reasons)}; launches {launches}; compute {float(value):.6f}")
+    return {"updates": SERVE_UPDATES, "launches": launches, "readbacks": reads,
+            "fallback_reasons": dict(st.fallback_reasons), "value": float(value)}
+
+
+def _tenant_stream(seed: int = 25) -> tuple:
+    """6000 updates from 5000 distinct 40-bit tenant ids (each once, then 1000 repeats,
+    shuffled), each update a seeded pick from the pool of batches."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = np.unique(rng.integers(0, 1 << 40, 2 * TENANT_DISTINCT))[:TENANT_DISTINCT]
+    ids = rng.permutation(ids)
+    order = np.concatenate([ids, rng.choice(ids, TENANT_UPDATES - TENANT_DISTINCT)])
+    rng.shuffle(order)
+    return order, rng.integers(0, TENANT_POOL, TENANT_UPDATES)
+
+
+def run_serve_tenants(gen: torch.Generator) -> dict:
+    """``TenantSlices`` over config #1 (macro accuracy over 1000 classes, capacity 4096)
+    for 6000 updates of 512 x 1000 logits from 5000 distinct tenants, so the table
+    spills: under the strict guard, one capture for every tenant, one K1 launch per
+    update; the global state and a seeded sample of 32 tracked tenants exact against
+    the CPU's counts, an untracked tenant ``None``. Then the sum sweep (capacity 16384,
+    10^4 tenants) timed."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch import MulticlassAccuracy, SumMetric
+    from torchmetrics_tpu_torch.diag import diag_context, transfer_guard
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.serve import TenantSlices
+    from torchmetrics_tpu_torch.serve.snapshot import read_host
+    from torchmetrics_tpu_torch.serve.window import run_base_compute
+
+    pool_cpu = [
+        (torch.randn(TENANT_BATCH, ACC_CLASSES, generator=gen), torch.randint(0, ACC_CLASSES, (TENANT_BATCH,), generator=gen))
+        for _ in range(TENANT_POOL)
+    ]
+    pool = [(p.cuda(), t.cuda()) for p, t in pool_cpu]
+    order, picks = _tenant_stream()
+    ids = torch.as_tensor(order, device="cuda")
+    make = lambda device=None: MulticlassAccuracy(ACC_CLASSES, average="macro", validate_args=False, device=device)  # noqa: E731
+    t = TenantSlices(make(), capacity=TENANT_CAPACITY)
+    torch.cuda.synchronize()
+    _zero_launches()
+    with engine_context(True), diag_context(capacity=1 << 14) as rec, transfer_guard("strict"):
+        t0 = time.perf_counter()
+        for u in range(TENANT_UPDATES):
+            t.update(ids[u], *pool[picks[u]])
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    launches = _launches()
+    reads = _serve_reads(rec)
+    st = t._engine.stats
+    engine = {"traces": st.traces, "captures": st.captures, "replays": st.replays, "eager_fallbacks": st.eager_fallbacks}
+    if reads:
+        raise AssertionError(f"serve tenants: readbacks under the strict guard {reads}")
+    if (st.traces, st.captures, st.eager_fallbacks) != (1, 1, 0) or launches["stat_counts"] != TENANT_UPDATES:
+        raise AssertionError(f"serve tenants: engine {engine}, launches {launches}")
+    footprint = t.state_footprint()
+    # the CPU's counts: each pool batch's contribution, weighted by how often it came
+    contrib = []
+    for p, tg in pool_cpu:
+        c = make("cpu")
+        c.update(p, tg)
+        contrib.append({k: getattr(c, k).to(torch.int64) for k in c._defaults})
+    keys = tuple(contrib[0])
+    uses = np.bincount(picks, minlength=TENANT_POOL)
+    want_global = {k: sum(int(uses[b]) * contrib[b][k] for b in range(TENANT_POOL)) for k in keys}
+    for k in keys:
+        if not torch.equal(getattr(t, "seg_" + k).sum(0).cpu().to(torch.int64), want_global[k]):
+            raise AssertionError(f"serve tenants: the global {k} differs from the CPU's counts")
+    template_cpu = make("cpu")
+    _assert_close("serve tenants global compute", t.compute(),
+                  run_base_compute(template_cpu, {k: v.to(torch.int32) for k, v in want_global.items()}), ACC_ATOL)
+    tenant_count, spilled = t.tenant_count(), t.spilled_count()
+    rng = np.random.default_rng(26)
+    distinct = np.unique(order)
+    table = read_host(t, ("tenant_ids",))["tenant_ids"]
+    tracked = [int(i) for i in distinct if t._host_slot(int(i), table) is not None]
+    untracked = [int(i) for i in distinct if t._host_slot(int(i), table) is None]
+    if len(tracked) != tenant_count or not untracked or spilled == 0:
+        raise AssertionError(f"serve tenants: {len(tracked)} tracked of {tenant_count}, {len(untracked)} untracked, {spilled} spilled")
+    for tid in rng.choice(tracked, TENANT_SAMPLE, replace=False):
+        tid = int(tid)
+        mask = order == tid
+        want = {k: sum(int(n) * contrib[b][k] for b, n in enumerate(np.bincount(picks[mask], minlength=TENANT_POOL))) for k in keys}
+        rows = read_host(t, tuple("seg_" + k for k in keys), index=t._host_slot(tid, table))
+        for k in keys:
+            if not np.array_equal(rows["seg_" + k].astype(np.int64), want[k].numpy()):
+                raise AssertionError(f"serve tenants: tenant {tid}'s {k} differs from the CPU's counts")
+        _assert_close(f"serve tenant {tid}", t.tenant_value(tid),
+                      run_base_compute(template_cpu, {k: v.to(torch.int32) for k, v in want.items()}), ACC_ATOL)
+        if t.tenant_updates(tid) != int(mask.sum()):
+            raise AssertionError(f"serve tenants: tenant {tid} counted {t.tenant_updates(tid)} updates, sent {int(mask.sum())}")
+    if any(t.tenant_value(int(i)) is not None for i in untracked[:TENANT_SAMPLE]):
+        raise AssertionError("serve tenants: an untracked tenant gave a value")
+    report = t.spill_report()
+    del t
+    gc.collect()
+    # the sum sweep: one tenant per update, 10^4 of them, one graph
+    sweep = TenantSlices(SumMetric(nan_strategy=0.0), capacity=SWEEP_CAPACITY)
+    sweep_ids = torch.arange(SWEEP_TENANTS, device="cuda")
+    sweep_vals = (sweep_ids + 1).to(torch.float32)
+    with engine_context(True), diag_context(capacity=1 << 12) as srec, transfer_guard("strict"):
+        t0 = time.perf_counter()
+        for tid in range(SWEEP_TENANTS):
+            sweep.update(sweep_ids[tid], sweep_vals[tid])
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+    sw = sweep._engine.stats
+    want_total = SWEEP_TENANTS * (SWEEP_TENANTS + 1) / 2
+    if _serve_reads(srec) or (sw.traces, sw.eager_fallbacks) != (1, 0):
+        raise AssertionError(f"serve sweep: readbacks {_serve_reads(srec)}, traces {sw.traces}, fallbacks {sw.eager_fallbacks}")
+    if abs(float(sweep.compute()) - want_total) > 1e-5 * want_total:  # float32 sums over 16385 slots
+        raise AssertionError(f"serve sweep: global {float(sweep.compute())}, expected {want_total}")
+    spot = {tid: sweep.tenant_value(tid) for tid in (0, 1234, 5678, 9999)}
+    if any(v is not None and float(v) != tid + 1 for tid, v in spot.items()):
+        raise AssertionError(f"serve sweep: spot values {spot}")
+    out = {
+        "updates": TENANT_UPDATES, "distinct": TENANT_DISTINCT, "launches": launches, "engine": engine,
+        "state_bytes": footprint["total_bytes"], "tenant_count": tenant_count, "spilled_count": spilled,
+        "untracked": len(untracked), "spill_heavy_hitters": len(report["heavy_hitters"]),
+        "loop_s": loop_s, "update_us": loop_s * 1e6 / TENANT_UPDATES,
+        "sweep": {"tenants": SWEEP_TENANTS, "update_us": sweep_s * 1e6 / SWEEP_TENANTS, "traces": sw.traces,
+                  "tracked": sweep.tenant_count(), "spilled": sweep.spilled_count(),
+                  "state_bytes": sweep.state_footprint()["total_bytes"]},
+    }
+    _log(f"  tenants: {TENANT_UPDATES} updates from {TENANT_DISTINCT} tenants, 0 readbacks, engine {engine},"
+         f" launches {launches}; {footprint['total_bytes'] / 1e6:.1f} MB of state; {tenant_count} tracked,"
+         f" {spilled} spilled updates; {out['update_us']:.1f} µs per update; sweep {out['sweep']}")
+    return out
+
+
+def _sketch_streams(seed: int = 27) -> dict:
+    """Host streams: 16 x 2^16 ids holding exactly 10^6 distinct 62-bit ids, 16 x 2^20
+    Zipf(1.1) ids, 16 x 2^16 log-normal latencies (ms)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    distinct = rng.permutation(np.unique(rng.integers(0, 1 << 62, HLL_DISTINCT + 1000)))[:HLL_DISTINCT]
+    hll = np.concatenate([distinct, rng.choice(distinct, SKETCH_UPDATES * HLL_BATCH - HLL_DISTINCT)])
+    rng.shuffle(hll)
+    return {
+        "hll": hll.reshape(SKETCH_UPDATES, HLL_BATCH),
+        "hh": rng.zipf(HH_ZIPF, (SKETCH_UPDATES, HH_BATCH)).astype(np.int64),
+        "kll": rng.lognormal(mean=3.0, sigma=1.0, size=(SKETCH_UPDATES, KLL_BATCH)).astype(np.float32),
+    }
+
+
+def _sketch_timing(eager, engine, batches: list, eager_updates: int, profile_eager: bool) -> dict:
+    """µs per update of an eager metric (after one warm-up update where
+    ``eager_updates > 1``: the first call loads the kernels) and of an already built
+    engine metric's replays, and the device operations of one update (both routes
+    run the same operations; ``profile_eager`` profiles the eager one too)."""
+    if eager_updates > 1:
+        eager.update(batches[-1])
+    torch.cuda.synchronize()
+    out = {}
+    for name, m, n in (("eager", eager, eager_updates), ("replayed", engine, len(batches))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            m.update(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        out[f"{name}_us"] = (time.perf_counter() - t0) * 1e6 / n
+        if name == "replayed" or profile_eager:
+            out[f"{name}_device_ops"] = _device_profile(lambda i, m=m: m.update(batches[i % len(batches)]), iters=1)["device_ops"]
+    return out
+
+
+def run_serve_sketches() -> dict:
+    """HLL (p=14) over 10^6 distinct ids (±3 %), HeavyHitters over Zipf(1.1) ids (the
+    true top 10 among its 32), KLL (k=256) over log-normal latencies (p50 and p99 within
+    the proven rank bound), with the engine; registers, grid, top-k pair and compactors
+    bit-equal to the port's CPU run (KLL's after its first 4 updates)."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.serve import CardinalitySketch, HeavyHitters, KLLSketch
+
+    streams = _sketch_streams()
+    makers = {
+        "hll": lambda device=None, **kw: CardinalitySketch(p=HLL_P, device=device, **kw),
+        "hh": lambda device=None, **kw: HeavyHitters(k=HH_K, depth=HH_DEPTH, width=HH_WIDTH, device=device, **kw),
+        "kll": lambda device=None, **kw: KLLSketch(k=KLL_K, device=device, **kw),
+    }
+    out = {}
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        host = streams[name]
+        batches = [torch.as_tensor(host[u], device="cuda") for u in range(SKETCH_UPDATES)]
+        m = make()
+        cpu = make("cpu")
+        cpu_updates = KLL_CPU_UPDATES if name == "kll" else SKETCH_UPDATES
+        held = None
+        with engine_context(True):
+            for u, b in enumerate(batches):
+                m.update(b)
+                if u + 1 == cpu_updates:
+                    held = {k: getattr(m, k).clone() for k in m._defaults}
+        torch.cuda.synchronize()
+        st = m._engine.stats
+        for u in range(cpu_updates):
+            cpu.update(torch.as_tensor(host[u]))
+        for k in m._defaults:
+            if not torch.equal(held[k].cpu(), getattr(cpu, k)):
+                raise AssertionError(f"serve sketch {name}: state {k} differs from the CPU run after {cpu_updates} updates")
+        if (st.traces, st.eager_fallbacks) != (1, 0):
+            raise AssertionError(f"serve sketch {name}: traces {st.traces}, fallbacks {dict(st.fallback_reasons)}")
+        row = {"updates": SKETCH_UPDATES, "captures": st.captures, "replays": st.replays}
+        if name == "hll":
+            est = float(m.compute())
+            row.update(estimate=est, truth=HLL_DISTINCT, rel_err=abs(est - HLL_DISTINCT) / HLL_DISTINCT)
+            if row["rel_err"] > HLL_TOL:
+                raise AssertionError(f"serve hll: estimate {est} of {HLL_DISTINCT} distinct ids")
+        elif name == "hh":
+            ids, counts = (x.cpu().numpy() for x in m.compute())
+            values, freq = np.unique(host, return_counts=True)
+            top = values[np.argsort(-freq, kind="stable")[:HH_TOP]]
+            missing = sorted(set(top.tolist()) - set(ids.tolist()))
+            row.update(true_top=top.tolist(), found=ids[:HH_TOP].tolist(), counts=counts[:HH_TOP].tolist())
+            if missing:
+                raise AssertionError(f"serve heavy hitters: the true top {HH_TOP} ids {missing} are not among the {HH_K}")
+        else:
+            sorted_all = np.sort(host.reshape(-1))
+            n = sorted_all.size
+            bound = m.rank_error_bound(n)
+            est = m.compute().cpu().numpy()
+            row["quantiles"] = {}
+            for q, e in zip(m.qs, est):
+                rank = int(np.searchsorted(sorted_all, e, side="right"))
+                target = math.ceil(q * n)
+                row["quantiles"][str(q)] = {"estimate": float(e), "exact": float(sorted_all[target - 1]), "rank_error": rank - target}
+                if abs(rank - target) > bound:
+                    raise AssertionError(f"serve kll: q={q} estimate {e} at rank {rank}, exact rank {target}, bound {bound}")
+            row["rank_error_bound"] = bound
+        t_check = time.perf_counter() - t0
+        # KLL: one eager update (~156k launches), and one profiler window (a window of
+        # that many events takes ~40 s to read)
+        row.update(_sketch_timing(make(compiled_update=False), m, batches, 1 if name == "kll" else 4, name != "kll"))
+        row["check_s"], row["total_s"] = t_check, time.perf_counter() - t0
+        out[name] = row
+        _log(f"  sketch {name}: {row}")
+    return out
+
+
+def run_serve_snapshot_sidecar(acc_batches: list) -> dict:
+    """A scrape thread reads ``snapshot_compute()`` and the sidecar's endpoints while the
+    windowed loop runs under the strict guard: the loop reads nothing back, updates land
+    between a snapshot and its read, every frozen value equals a fresh run over the
+    updates its watermark covers, the live value moves on. Then two sidecars' telemetry
+    merged by a ``FleetTelemetry`` and its SLOs, with a planted degraded pull."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.diag import diag_context, hist, slo_context, transfer_guard
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.parallel import RankDrop, fault_context
+    from torchmetrics_tpu_torch.serve import FleetTelemetry, MetricsSidecar, snapshot_compute, take_snapshot
+    from torchmetrics_tpu_torch.serve import stats as serve_stats
+
+    stream = lambda u: acc_batches[u % len(acc_batches)]  # noqa: E731
+    m = _serve_window(MulticlassAccuracy(ACC_CLASSES, validate_args=False))
+    with engine_context(True):
+        m.update(*stream(0))  # the build, before the scraper starts
+    torch.cuda.synchronize()
+
+    def get(port: int, path: str) -> tuple:
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+                status, ctype, body = resp.status, resp.headers.get("Content-Type"), resp.read()
+        except urllib.error.HTTPError as err:
+            status, ctype, body = err.code, err.headers.get("Content-Type"), err.read()
+        return status, ctype, body, (time.perf_counter() - t0) * 1e3
+
+    paths = ("/metrics", "/healthz", "/slo", "/state", "/telemetry.bin")
+    side = torch.cuda.Stream()
+    serve_stats.reset_serve_stats()
+    snaps: list = []
+    scrapes: list = []
+    errors: list = []
+    started, done = threading.Event(), threading.Event()
+    hist.reset_histograms()
+    with MetricsSidecar(port=0, state_target={"window": m}) as sidecar:
+
+        def scraper() -> None:
+            try:
+                i = 0
+                while not done.is_set() or i < 4:
+                    # a snapshot, one sidecar scrape, then the value read: the loop
+                    # keeps updating between the snapshot and its read
+                    snap = take_snapshot(m)
+                    path = paths[i % len(paths)]
+                    status, ctype, body, ms = get(sidecar.port, path)
+                    scrapes.append({"path": path, "status": status, "type": ctype, "bytes": len(body), "ms": ms,
+                                    "tm_tpu_serve": b"tm_tpu_serve_" in body})
+                    value = snapshot_compute(m, snap)
+                    snaps.append((snap.update_count, value, m.update_count))
+                    started.set()
+                    i += 1
+            except BaseException as err:  # noqa: BLE001 -- reported to the loop thread
+                errors.append(f"{type(err).__name__}: {err}")
+                started.set()
+
+        thread = threading.Thread(target=scraper, name="serve-scraper", daemon=True)
+        thread.start()
+        if not started.wait(120):
+            raise AssertionError("serve snapshot: the scrape thread never took a snapshot")
+        with engine_context(True), diag_context(capacity=1 << 14) as rec, transfer_guard("strict"):
+            # back to back, in two halves: the first on the default stream, the second on
+            # a side stream (a snapshot's copy must follow the stream that wrote last; the
+            # switch waits, as a loop's own writes must). Each half runs SNAP_UPDATES / 2
+            # updates at least, and on until the scrape thread has read SNAP_READS / 2
+            # times during it
+            u = 1
+            for half, on in enumerate((None, side)):
+                torch.cuda.synchronize()
+                first_read, half_end, switch = len(snaps), (half + 1) * SNAP_UPDATES // 2, u
+                with torch.cuda.stream(on):
+                    while u <= half_end or (len(snaps) - first_read < SNAP_READS // 2 and u < (half + 1) * SNAP_MAX_UPDATES // 2):
+                        m.update(*stream(u))
+                        u += 1
+            torch.cuda.synchronize()
+        done.set()
+        loop_updates = u
+        thread.join(300)
+        if thread.is_alive() or errors:
+            raise AssertionError(f"serve snapshot: scrape thread alive {thread.is_alive()}, errors {errors}")
+        server_hist = {r["series"]: r for r in hist.histograms_snapshot() if r["owner"] == "sidecar"}
+    served = serve_stats.serve_state()
+    reads = _serve_reads(rec)
+    if reads:
+        raise AssertionError(f"serve snapshot: readbacks in the loop {reads}")
+    between = [after - w for w, _, after in snaps]
+    if max(between) <= 0:
+        raise AssertionError(f"serve snapshot: no update landed between a snapshot and its read ({len(snaps)} snapshots)")
+    watermarks = sorted({w for w, _, _ in snaps})
+    # the side stream wrote every update from `switch` on
+    if not (watermarks[0] < switch <= watermarks[-1]):
+        raise AssertionError(f"serve snapshot: no snapshot in each half of the loop (watermarks {watermarks}, switch {switch})")
+    # every watermark taken while the loop ran on the side stream, and a spread of the rest
+    early = [w for w in watermarks if w < switch]
+    checked = sorted({early[i] for i in np.linspace(0, len(early) - 1, min(SNAP_CHECKED, len(early))).astype(int)}
+                     | {w for w in watermarks if w >= switch})
+    for w in checked:
+        value = next(v for ww, v, _ in snaps if ww == w)
+        fresh = MulticlassAccuracy(ACC_CLASSES, validate_args=False, compiled_update=False)
+        for u in _covered(w):
+            fresh.update(*stream(u))
+        _assert_close(f"serve snapshot at watermark {w}", value, fresh.compute(), ACC_ATOL)
+    live = float(m.compute())
+    if live == float(snaps[0][1]):
+        raise AssertionError("serve snapshot: the live value never moved from the first snapshot's")
+    bad = [s for s in scrapes if s["status"] != 200]
+    metrics_ok = [s for s in scrapes if s["path"] == "/metrics"]
+    if bad or not metrics_ok or not all(s["type"] == "text/plain; version=0.0.4" and s["tm_tpu_serve"] for s in metrics_ok):
+        raise AssertionError(f"serve sidecar: scrapes {bad or metrics_ok}")
+    client_ms = np.asarray([s["ms"] for s in scrapes])
+    out = {
+        "loop_updates": loop_updates, "snapshots": len(snaps), "updates_between_max": max(between),
+        "updates_between_mean": float(np.mean(between)), "watermarks_checked": checked,
+        "side_stream_from": switch, "side_stream_snapshots": sum(w >= switch for w, _, _ in snaps), "readbacks": reads,
+        "snapshot_retries": served["snapshot_retries"], "snapshots_counted": served["snapshots"],
+        "scrapes": len(scrapes), "scrapes_by_path": {p: sum(s["path"] == p for s in scrapes) for p in paths},
+        "scrape_client_ms": {"p50": float(np.percentile(client_ms, 50)), "p99": float(np.percentile(client_ms, 99))},
+        "scrape_server_us": {k: server_hist["scrape_us"][k] for k in ("count", "p50", "p99")} if "scrape_us" in server_hist else None,
+    }
+    # the fleet: two pods' telemetry envelopes merged, the SLOs evaluated on the merge
+    with MetricsSidecar(port=0) as a, MetricsSidecar(port=0) as b:
+        fleet = FleetTelemetry({"a": f"http://127.0.0.1:{a.port}/telemetry.bin", "b": f"http://127.0.0.1:{b.port}/telemetry.bin"})
+        with MetricsSidecar(port=0, fleet_target=fleet) as fs, slo_context(100.0, 10.0):
+            first = fleet.pull_round()
+            status, _, body, _ = get(fs.port, "/fleet/slo")
+            before = next(r for r in json.loads(body) if r["id"] == "fleet-degraded-pulls")
+            with fault_context(RankDrop(1, label="fleet-pull*")):
+                planted = fleet.pull_round()
+            status2, _, body2, _ = get(fs.port, "/fleet/slo")
+            after = next(r for r in json.loads(body2) if r["id"] == "fleet-degraded-pulls")
+            status3, ctype3, body3, _ = get(fs.port, "/fleet/metrics")
+    if first != {"a": True, "b": True} or planted.get("b") is not False or (status, status2) != (200, 200):
+        raise AssertionError(f"serve fleet: pulls {first} then {planted}, status {status} {status2}")
+    if before["breaching"] or not (after["breaching"] and after["blocking"]) or status3 != 200:
+        raise AssertionError(f"serve fleet: fleet-degraded-pulls {before} then {after}; /fleet/metrics {status3}")
+    out["fleet"] = {"pulls": first, "planted": planted, "slo_before": before, "slo_after": after,
+                    "fleet_metrics_bytes": len(body3), "fleet_metrics_type": ctype3}
+    _log(f"  snapshot + sidecar: {len(snaps)} snapshots over {loop_updates} updates, updates between ≤ {max(between)},"
+         f" 0 readbacks; {len(scrapes)} scrapes, client ms {out['scrape_client_ms']}, server µs {out['scrape_server_us']};"
+         f" fleet slo {before['breaching']} -> {after['breaching']}")
+    return out
+
+
+def _fed_members(device=None) -> tuple:
+    """One pod's metrics: config #2's collection and the three sketches."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.serve import CardinalitySketch, HeavyHitters, KLLSketch
+
+    mc = MetricCollection(_collection_members(device=device, validate_args=False))
+    sketches = {"hll": CardinalitySketch(p=HLL_P, device=device), "hh": HeavyHitters(k=HH_K, depth=HH_DEPTH, width=HH_WIDTH, device=device),
+                "kll": KLLSketch(k=KLL_K, device=device)}
+    return mc, sketches
+
+
+def _fed_pod(seed: int) -> tuple:
+    """One pod on the card over its own seeded batches: ``(collection, sketches)``."""
+    import numpy as np
+
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    mc, sketches = _fed_members()
+    for _ in range(FED_UPDATES):
+        scores = torch.randn(CIFAR_BATCH, CIFAR_CLASSES, generator=gen).softmax(dim=1).cuda()
+        target = torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda()
+        mc.update(scores, target)
+        sketches["hll"].update(torch.as_tensor(rng.integers(0, 1 << 40, FED_STREAM), device="cuda"))
+        sketches["hh"].update(torch.as_tensor(rng.zipf(HH_ZIPF, FED_STREAM), device="cuda"))
+        sketches["kll"].update(torch.as_tensor(rng.lognormal(3.0, 1.0, FED_KLL).astype(np.float32), device="cuda"))
+    return mc, sketches
+
+
+def _fed_targets(mc, sketches) -> dict:
+    return {**dict(mc.items(keep_base=True, copy_state=False)), **sketches}
+
+
+def run_serve_federation() -> dict:
+    """Four pods on the card, each config #2's collection and the three sketches: their
+    envelopes ingested in a shuffled order and folded, the fold equal to the pods'
+    ``merge_state`` fold (the heavy-hitter pair to its joint fold over the merged grid)
+    and byte-stable across two arrival orders; one pod made stale, the next fold over
+    three pods, stamped degraded."""
+    import random
+
+    from torchmetrics_tpu_torch.serve import FederationAggregator, pack_envelope
+    from torchmetrics_tpu_torch.serve.sketch import merge_topk
+
+    _zero_launches()
+    pods = {f"pod{i}": _fed_pod(300 + i) for i in range(FED_PODS)}
+    torch.cuda.synchronize()
+    launches = _launches()
+    if min(launches.values()) < FED_PODS * FED_UPDATES:
+        raise AssertionError(f"serve federation: pod launches {launches}")
+    envelopes = {pid: pack_envelope(_fed_targets(*pod)) for pid, pod in pods.items()}
+    env_bytes = {pid: len(e[0]) for pid, e in envelopes.items()}
+
+    def template():
+        return _fed_targets(*_fed_members())  # a definition only: the aggregator never reads its state
+
+    order = list(pods)
+    random.Random(28).shuffle(order)
+    folds = []
+    for arrival in (order, list(reversed(order))):
+        agg = FederationAggregator(template())
+        for pid in arrival:
+            agg.ingest(pid, *envelopes[pid])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folded = agg.fold()
+        torch.cuda.synchronize()
+        folds.append((agg, folded, (time.perf_counter() - t0) * 1e3))
+    (agg, folded, fold_ms), (_, folded2, fold2_ms) = folds
+    for owner, states in folded.items():
+        for attr, v in states.items():
+            w = folded2[owner][attr]
+            if v.dtype != w.dtype or v.cpu().numpy().tobytes() != w.cpu().numpy().tobytes():
+                raise AssertionError(f"serve federation: {owner}.{attr} differs between two arrival orders")
+
+    def merged(members: list) -> dict:
+        out = {}
+        for owner in folded:
+            m = _fed_targets(*pods[members[0]])[owner].clone()
+            for pid in members[1:]:
+                m.merge_state(_fed_targets(*pods[pid])[owner])
+            out[owner] = m
+        return out
+
+    def hold(fold: dict, members: list, name: str) -> dict:
+        ref = merged(members)
+        for owner, states in fold.items():
+            for attr, v in states.items():
+                if owner == "hh" and attr in ("hh_ids", "hh_counts"):
+                    continue
+                if not torch.equal(v, getattr(ref[owner], attr)):
+                    raise AssertionError(f"{name}: {owner}.{attr} differs from the merge_state fold")
+        ids, counts = merge_topk(fold["hh"]["cms"], torch.cat([_fed_targets(*pods[p])["hh"].hh_ids for p in members]), HH_K, HH_DEPTH, HH_WIDTH)
+        if not (torch.equal(ids, fold["hh"]["hh_ids"]) and torch.equal(counts, fold["hh"]["hh_counts"])):
+            raise AssertionError(f"{name}: the top-k pair differs from the joint fold over the merged grid")
+        return ref
+
+    ref = hold(folded, sorted(pods), "serve federation")
+    values = agg.compute_global()
+    for owner in ("acc", "acc_w", "auroc", "hll"):
+        _assert_close(f"serve federation {owner}", values[owner], ref[owner].compute(), AUROC_ATOL)
+    # a stale pod: the next fold covers the other three, stamped degraded
+    stale = FederationAggregator(template(), staleness_s=3600.0)
+    for pid in order:
+        stale.ingest(pid, *envelopes[pid])
+    stale._slots["pod2"].ts -= 7200.0
+    degraded = stale.fold()
+    coverage = stale.last_coverage
+    hold(degraded, ["pod0", "pod1", "pod3"], "serve federation degraded")
+    if stale.stats.federation_degraded_folds != 1 or [e["id"] for e in coverage["excluded"]] != ["pod2"] or coverage["complete"]:
+        raise AssertionError(f"serve federation: degraded fold coverage {coverage}")
+    out = {"pods": FED_PODS, "launches": launches, "envelope_bytes": env_bytes, "fold_ms": [fold_ms, fold2_ms],
+           "owners": sorted(folded), "degraded_coverage": coverage, "ingests": agg.stats.federation_ingests}
+    _log(f"  federation: {FED_PODS} pods, envelopes {env_bytes} B, fold {fold_ms:.1f} / {fold2_ms:.1f} ms,"
+         f" byte-stable; degraded fold excludes {coverage['excluded']}")
+    return out
+
+
+def _serve_rank_streams(rank: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(400 + rank)
+    return {
+        "hll": rng.integers(0, 1 << 40, (SERVE_2RANK_UPDATES, HLL_BATCH)),
+        "hh": (rng.zipf(1.3 + 0.2 * rank, (SERVE_2RANK_UPDATES, HLL_BATCH)) + 5 * rank) % SERVE_2RANK_IDS,
+        "kll": rng.lognormal(3.0, 1.0, (SERVE_2RANK_UPDATES, SERVE_2RANK_KLL)).astype(np.float32),
+    }
+
+
+def _serve_rank_sketches() -> dict:
+    """The three sketches, eager (the packed sync is what the ranks hold)."""
+    from torchmetrics_tpu_torch.serve import CardinalitySketch, HeavyHitters, KLLSketch
+
+    kw = {"compiled_update": False}
+    return {"hll": CardinalitySketch(p=HLL_P, **kw), "hh": HeavyHitters(k=HH_K, depth=HH_DEPTH, width=HH_WIDTH, **kw),
+            "kll": KLLSketch(k=KLL_K, **kw)}
+
+
+def _serve_rank_body(rank: int, out_dir: str) -> dict:
+    """One rank: its sketches over its own stream, synced through the packed plan, held
+    against the single-rank union of both streams (the compactors against
+    ``kll_merge`` of the two)."""
+    from torchmetrics_tpu_torch.serve.quantile import kll_merge
+
+    streams = [_serve_rank_streams(r) for r in range(2)]
+    local, union = _serve_rank_sketches(), _serve_rank_sketches()
+    per_rank = [_serve_rank_sketches()["kll"] for _ in range(2)]
+    for name in local:
+        for u in range(SERVE_2RANK_UPDATES):
+            local[name].update(torch.as_tensor(streams[rank][name][u], device="cuda"))
+        for r in range(2):
+            for u in range(SERVE_2RANK_UPDATES):
+                batch = torch.as_tensor(streams[r][name][u], device="cuda")
+                if name == "kll":
+                    per_rank[r].update(batch)
+                else:
+                    union[name].update(batch)
+    collectives = {}
+    for name, m in local.items():
+        with m.sync_context():
+            synced = {k: getattr(m, k).clone() for k in m._defaults}
+        collectives[name] = m._epoch.stats.sync_collectives if m._epoch is not None else None
+        if name == "kll":
+            want = {"compactors": kll_merge(torch.stack([per_rank[0].compactors, per_rank[1].compactors])),
+                    "geo_counts": per_rank[0].geo_counts + per_rank[1].geo_counts}
+        else:
+            want = {k: getattr(union[name], k) for k in m._defaults}
+        for k, v in want.items():
+            if not torch.equal(synced[k], v):
+                raise AssertionError(f"rank {rank}: the synced {name}.{k} differs from the single-rank union")
+    return {"collectives": collectives, "top": local["hh"].hh_ids[:4].tolist()}
+
+
+def run_serve_2rank() -> dict:
+    """Two gloo ranks on the one card, each with its own sketch streams, synced through
+    the packed plan: registers, grid and joint top-k equal to the single-rank union,
+    compactors to ``kll_merge`` of the two."""
+    with _two_ranks(_serve_rank_body, SERVE_JOIN_TIMEOUT_S, "serve sketch 2-rank") as (results, _):
+        out = {"ranks": results}
+    _log(f"  sketch_2rank: collectives per sync {results[0]['collectives']}, equal to the union on both ranks")
+    return out
+
+
+def run_serve(acc_batches: list, cifar_batches: list, gen: torch.Generator, smi: str) -> dict:
+    """Phase 25: K1 and K2 against their plain versions, then the serving plane on the
+    card with the engine on."""
+    t_phase = time.perf_counter()
+    errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
+    out = {"card": smi, "kernel_errors": errors}
+    out["subphase_s"] = {}
+    for name, run in (
+        ("windowed", lambda: run_serve_windowed(acc_batches)),
+        ("windowed_auroc", lambda: run_serve_windowed_auroc(cifar_batches)),
+        ("tenants", lambda: run_serve_tenants(gen)),
+        ("sketches", run_serve_sketches),
+        ("snapshot", lambda: run_serve_snapshot_sidecar(acc_batches)),
+        ("federation", run_serve_federation),
+        ("sketch_2rank", run_serve_2rank),
+    ):
+        t0 = time.perf_counter()
+        out[name] = run()
+        out["subphase_s"][name] = time.perf_counter() - t0
+        gc.collect()
+    out["launches"] = {
+        "windowed_engine": out["windowed"]["launches"],
+        "windowed_auroc": out["windowed_auroc"]["launches"],
+        "tenants_engine": out["tenants"]["launches"],
+        "federation": out["federation"]["launches"],
+    }
+    needed = {"windowed_engine": ("stat_counts",), "windowed_auroc": ("multi_threshold",),
+              "tenants_engine": ("stat_counts",), "federation": ("stat_counts", "multi_threshold")}
+    for side, counts in out["launches"].items():
+        if not all(counts[k] for k in needed[side]):
+            raise AssertionError(f"phase 25 {side}: a kernel of the path was not launched: {counts}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"  phase 25: {out['phase_s']:.1f} s on {smi}; launches {out['launches']}")
+    print(json.dumps({"serve_summary": {
+        "card": smi,
+        "windowed": {k: out["windowed"][k] for k in ("engine", "readbacks", "launches")},
+        "windowed_update_us": out["windowed"]["times"]["update_us"],
+        "windowed_auroc": {k: out["windowed_auroc"][k] for k in ("readbacks", "launches", "fallback_reasons")},
+        "tenants": {k: out["tenants"][k] for k in ("engine", "launches", "state_bytes", "tenant_count", "spilled_count",
+                                                   "update_us", "sweep")},
+        "sketches": {k: {kk: v for kk, v in row.items() if kk.endswith(("_us", "_ops")) or kk in ("rel_err", "rank_error_bound")}
+                     for k, row in out["sketches"].items()},
+        "snapshot": {k: out["snapshot"][k] for k in ("snapshots", "snapshot_retries", "updates_between_max", "scrape_client_ms",
+                                                     "scrape_server_us")},
+        "fleet": {k: out["snapshot"]["fleet"][k] for k in ("pulls", "planted")},
+        "federation": {k: out["federation"][k] for k in ("envelope_bytes", "fold_ms")},
+        "sketch_2rank_collectives": out["sketch_2rank"]["ranks"][0]["collectives"],
+        "subphase_s": out["subphase_s"], "phase_s": out["phase_s"],
+    }}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -8445,7 +9242,7 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/24] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/25] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     from torchmetrics_tpu_torch.native import rle_mask
 
@@ -8455,7 +9252,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rle_mask.library()
     native_build_s = time.perf_counter() - t0
-    _log(f"[2/24] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
+    _log(f"[2/25] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
          f" -> {rle_mask.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
@@ -8472,55 +9269,55 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/24] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/25] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/24] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/25] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/24] regression's moments and cat states, retrieval")
+        _log("[16/25] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/24] nominal association and pairwise distances")
+        _log("[17/25] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/24] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/25] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--text-only"]:
-        _log("[20/24] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        _log("[20/25] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
         text = run_text(gen, hbm_rate, smi)
         print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--audio-only"]:
-        _log("[22/24] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+        _log("[22/25] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
         audio = run_audio(smi, hbm_rate)
         print(json.dumps({"audio": audio, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--detection-only"]:
-        _log("[21/24] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+        _log("[21/25] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
         detection = run_detection(smi, native_build_s)
         print(json.dumps({"detection": detection, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/24] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/25] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -8534,7 +9331,7 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[23/24] fault-tolerant sync and elastic snapshots")
+        _log("[23/25] fault-tolerant sync and elastic snapshots")
         resilience = run_resilience(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"resilience": resilience}), flush=True)
         print(smi, flush=True)
@@ -8548,9 +9345,23 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[24/24] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+        _log("[24/25] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
         diag = run_diag(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"diag": diag, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--serve-only"]:
+        acc_batches = [
+            (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        cifar_batches = [
+            (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+            for _ in range(N_BATCHES)
+        ]
+        _log("[25/25] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
+        serve = run_serve(acc_batches, cifar_batches, gen, smi)
+        print(json.dumps({"serve": serve, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -8558,7 +9369,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/24] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/25] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -8566,30 +9377,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/24] kernels against their plain versions")
+        _log("[3/25] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/24] main path")
+        _log("[4/25] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/24] collection path")
+        _log("[5/25] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/24] binary path")
+        _log("[6/25] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/24] multilabel path")
+        _log("[7/25] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/24] task routers")
+        _log("[8/25] task routers")
         run_routers(gen)
 
-        _log("[9/24] sync, two ranks on one card")
+        _log("[9/25] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/24] times")
+        _log("[10/25] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -8602,7 +9413,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/24] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/25] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -8624,7 +9435,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/24] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/25] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -8633,44 +9444,47 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/24] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/25] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/24] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/25] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/24] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/25] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/24] regression's moments and cat states, retrieval")
+    _log("[16/25] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/24] nominal association and pairwise distances")
+    _log("[17/25] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/24] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/25] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/24] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/25] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
 
-    _log("[20/24] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    _log("[20/25] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
     text = run_text(gen, hbm_rate, smi)
 
-    _log("[21/24] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+    _log("[21/25] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
     detection = run_detection(smi, native_build_s)
 
-    _log("[22/24] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+    _log("[22/25] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
     audio = run_audio(smi, hbm_rate)
 
-    _log("[23/24] fault-tolerant sync and elastic snapshots")
+    _log("[23/25] fault-tolerant sync and elastic snapshots")
     resilience = run_resilience(acc_batches, collection_batches, gen, smi)
 
-    _log("[24/24] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+    _log("[24/25] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
     diag = run_diag(acc_batches, collection_batches, gen, smi)
+
+    _log("[25/25] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
+    serve = run_serve(acc_batches, collection_batches, gen, smi)
 
     for entry in kernels:
         k = entry["name"]
@@ -8717,6 +9531,7 @@ def main() -> int:
             "resilience_elastic_engine": resilience["launches"]["engine"][k],
             "resilience_preempt_engine": resilience["launches"]["preempt_engine"][k],
             **{f"diag_{path}": diag["launches"][path][k] for path in diag["launches"]},
+            **{f"serve_{path}": serve["launches"][path][k] for path in serve["launches"]},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -8728,7 +9543,8 @@ def main() -> int:
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
-        "text": text, "detection": detection, "audio": audio, "resilience": resilience, "diag": diag, "sync_2rank": sync,
+        "text": text, "detection": detection, "audio": audio, "resilience": resilience, "diag": diag, "serve": serve,
+        "sync_2rank": sync,
         "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }
     print(json.dumps(results), flush=True)

@@ -33,7 +33,9 @@ for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.
              "functional.audio.stoi", "multimodal.clip_score", "functional.multimodal.clip_score",
              "diag.trace", "parallel.faults", "parallel.resilience", "parallel.elastic",
              "diag.hist", "diag.profile", "diag.transfer_guard", "diag.sentinel", "diag.timeline",
-             "diag.lineage", "diag.report"):
+             "diag.lineage", "diag.report", "diag.slo", "diag.telemetry", "serve.stats", "serve.snapshot",
+             "serve.window", "serve.sketch", "serve.quantile", "serve.tenancy", "serve.sidecar", "serve.federation",
+             "serve.fleet"):
     assert "torchmetrics_tpu_torch." + name in sys.modules, name
 print("isolated")
 """
@@ -127,6 +129,12 @@ for make in (
     *(lambda n=n: getattr(tm, n)() for n in AGGREGATORS),
     lambda: tm.CompositionalMetric(torch.add, 1.0, 2.0),
     *WRAPPERS,
+    lambda: tm.CardinalitySketch(),
+    lambda: tm.HeavyHitters(),
+    lambda: tm.serve.KLLSketch(),
+    lambda: tm.WindowedMetric(tm.SumMetric()),
+    lambda: tm.DecayedMetric(tm.SumMetric(), decay=0.5),
+    lambda: tm.TenantSlices(tm.SumMetric(), capacity=8),
 ):
     try:
         make()
@@ -139,6 +147,8 @@ assert MulticlassAccuracy(num_classes=5, device="cpu").device.type == "cpu"
 cpu_metrics = [getattr(tm, n)(device="cpu") for n in AGGREGATORS]
 cpu_metrics += [w(device="cpu") for w in WRAPPERS]
 cpu_metrics += [tm.SumMetric(device="cpu") + 1, 1 - tm.MaxMetric(device="cpu")]
+# the serving wrappers live where their base metric does
+cpu_metrics += [tm.WindowedMetric(tm.SumMetric(device="cpu")), tm.DecayedMetric(tm.SumMetric(device="cpu"), decay=0.5)]
 for n in AUDIO:
     assert getattr(tm.audio, n)(**AUDIO[n], device="cpu").device.type == "cpu", n
 clip = tm.multimodal.CLIPScore(**CLIP, device="cpu")

@@ -177,16 +177,16 @@ def test_import_flags_and_version():
     assert ttm.functional is tF
 
 
-# what the port still lacks: serve's names
-ROOT_MISSING = {"CardinalitySketch", "DecayedMetric", "HeavyHitters", "MetricsSidecar", "TenantSlices", "WindowedMetric"}
+# what the port still lacks: nothing, since the serving layer's six root names came in
+ROOT_MISSING: set = set()
 FUNCTIONAL_MISSING: set = set()
 
 
 def test_names_still_missing():
-    """The port's root lacks only the 6 names of the JAX root's serving layer, and its
-    functional package has every JAX functional name; every name the port exports
+    """The port's root has every name of the JAX root (the serving layer's six last),
+    and its functional package every JAX functional name; every name the port exports
     resolves."""
-    assert set(jtm.__all__) - set(ttm.__all__) == ROOT_MISSING and len(ROOT_MISSING) == 6
+    assert set(jtm.__all__) - set(ttm.__all__) == ROOT_MISSING and len(ROOT_MISSING) == 0
     assert set(jF.__all__) - set(tF.__all__) == FUNCTIONAL_MISSING and len(FUNCTIONAL_MISSING) == 0
     for pkg in (ttm, tF):
         for name in pkg.__all__:

@@ -45,7 +45,9 @@ With a recorder or a profile observing, a settled ``update`` records a
 inside ``transfer_allowed("group-discovery")``. The members' sentinels, quarantine
 counters and compensation residuals ride the fused step and the packed sync.
 
-Left out against the JAX package: ``persist`` and ``snapshot_compute`` (``serve/``).
+``snapshot_compute`` is each member's ``Metric.snapshot_compute`` (``serve/snapshot.py``).
+
+Left out against the JAX package: ``persist``.
 """
 
 from __future__ import annotations
@@ -67,8 +69,9 @@ from torchmetrics_tpu_torch.engine.config import engine_enabled
 from torchmetrics_tpu_torch.engine.fusion import FusedUpdate
 from torchmetrics_tpu_torch.engine.scan import coerce_k, discard_metrics, flush_metrics, scan_k
 from torchmetrics_tpu_torch.engine.statespec import cse_enabled, reduction_signature
-from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.metric import Metric, begin_mutation, end_mutation, quiesced
 from torchmetrics_tpu_torch.utilities.data import allclose
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utilities.prints import rank_zero_warn
 
 
@@ -182,6 +185,7 @@ class MetricCollection:
     # owners' counts outside their update wrappers): parallel/elastic.py's signal-time
     # snapshot stands on the last flush then
     _mutation_depth = 0
+    _gate = None  # the hand-off with snapshots, while one is asked for (metric.quiesced)
 
     def __init__(
         self,
@@ -229,11 +233,20 @@ class MetricCollection:
         Members already merged by signature do not run: the owner's state replaces
         theirs once discovery ends.
         """
-        self._mutation_depth += 1
+        begin_mutation(self)
         try:
             self._update(args, kwargs)
         finally:
-            self._mutation_depth -= 1
+            if self._mutation_depth == 1:
+                # the fused step writes member states outside their update wrappers:
+                # each member's snapshot copy is enqueued on this step's stream
+                streams: Dict[torch.device, Any] = {}
+                for m in self._modules.values():
+                    if m.device.type == "cuda":
+                        if m.device not in streams:
+                            streams[m.device] = torch.cuda.current_stream(m.device)
+                        m._write_stream = streams[m.device]
+            end_mutation(self)
 
     def _update(self, args: tuple, kwargs: dict) -> None:
         if self._groups_checked:
@@ -338,13 +351,13 @@ class MetricCollection:
     def _drain_scan(self, reason: str) -> int:
         """Drain the fused queue and every member's own queue before member states are
         read, then re-anchor the views."""
-        self._mutation_depth += 1
+        begin_mutation(self)
         try:
             drained = flush_metrics(list(self._modules.values()), reason)
             if drained:
                 self._anchor_views_after_scan()
         finally:
-            self._mutation_depth -= 1
+            end_mutation(self)
         return drained
 
     # ------------------------------------------------------------------ group discovery
@@ -529,6 +542,28 @@ class MetricCollection:
         for name, metric in self.items(keep_base=True, copy_state=False):
             metric.state_dict(destination, prefix=f"{name}.")
         return destination
+
+    def snapshot_compute(self) -> Dict[str, Any]:
+        """Scrape-anytime ``compute`` of every member on copies of its state, while the
+        loop keeps updating (``serve/snapshot.py``): the views are materialized first,
+        and no member syncs or caches. Rank-local. The members are copied while no
+        collection step is in flight: a fused step writes them outside their own
+        update wrappers."""
+        self._drain_scan("observation:snapshot")
+        from torchmetrics_tpu_torch.serve import stats as serve_stats
+        from torchmetrics_tpu_torch.serve.snapshot import _QUIET_WAIT_S, snapshot_compute, take_snapshot
+
+        for _attempt in range(serve_stats.snapshot_retries()):
+            with quiesced(self, _QUIET_WAIT_S) as quiet:
+                if not quiet:
+                    continue
+                self._materialize_group_views()
+                snaps = {name: (metric, take_snapshot(metric)) for name, metric in self.items(copy_state=False)}
+            return {name: snapshot_compute(metric, snap) for name, (metric, snap) in snaps.items()}
+        raise TorchMetricsUserError(
+            "Could not take a consistent snapshot of the collection within its attempts"
+            " (TORCHMETRICS_TPU_SERVE_SNAPSHOT_RETRIES); a step stayed in flight."
+        )
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         """Restore from ``state_dict`` (or from ``interop.collection_state_from_jax``)."""

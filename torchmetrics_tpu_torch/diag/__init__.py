@@ -22,7 +22,10 @@ names), near-zero cost when off:
 - ``lineage``: per-owner watermarks, staleness, exclusions, spans and coverage stamps
   (``ValueProvenance``).
 
-``slo`` and ``telemetry`` have no counterpart yet: they wait for the serving layer.
+- ``slo``: the declarative SLO registry and its fast/slow burn-rate evaluator
+  (``SLOEngine``, ``evaluate_slos``, ``blocking_breaches``; ``TORCHMETRICS_TPU_SLO``).
+- ``telemetry``: ``telemetry_snapshot``, ``export_prometheus`` (text format 0.0.4) and
+  ``export_jsonl``.
 """
 
 from torchmetrics_tpu_torch.diag.costs import ledger_snapshot, reset_ledger, state_footprint
@@ -54,6 +57,17 @@ from torchmetrics_tpu_torch.diag.sentinel import (
     sentinel_context,
     sentinel_report,
 )
+from torchmetrics_tpu_torch.diag.slo import (
+    SLO_REGISTRY,
+    SLOEngine,
+    SLOSpec,
+    blocking_breaches,
+    evaluate_slos,
+    reset_slo,
+    slo_context,
+    slo_state,
+)
+from torchmetrics_tpu_torch.diag.telemetry import export_jsonl, export_prometheus, telemetry_snapshot
 from torchmetrics_tpu_torch.diag.timeline import merge_timelines
 from torchmetrics_tpu_torch.diag.trace import (
     FlightRecorder,
@@ -67,20 +81,27 @@ from torchmetrics_tpu_torch.diag.trace import (
 from torchmetrics_tpu_torch.diag.transfer_guard import TransferGuardError, transfer_allowed, transfer_guard
 
 __all__ = [
+    "FlightRecorder",
     "LINEAGE_HEADER",
     "SENTINEL_BITS",
-    "FlightRecorder",
+    "SLOEngine",
+    "SLOSpec",
+    "SLO_REGISTRY",
     "TraceEvent",
     "TransferGuardError",
     "ValueProvenance",
     "active_recorder",
     "attribute_retrace",
     "audit_context",
+    "blocking_breaches",
     "clear_recorder",
     "diag_context",
     "diag_report",
+    "evaluate_slos",
     "export_chrome_trace",
     "export_json",
+    "export_jsonl",
+    "export_prometheus",
     "histograms_snapshot",
     "ledger_snapshot",
     "lineage_context",
@@ -97,13 +118,17 @@ __all__ = [
     "reset_ledger",
     "reset_lineage",
     "reset_sentinels",
+    "reset_slo",
     "sentinel_context",
     "sentinel_report",
     "set_profile_every_n",
     "set_straggler_threshold_us",
+    "slo_context",
+    "slo_state",
     "stalest_owner",
     "state_footprint",
     "straggler_threshold_us",
+    "telemetry_snapshot",
     "transfer_allowed",
     "transfer_guard",
 ]

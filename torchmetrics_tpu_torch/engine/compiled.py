@@ -140,6 +140,13 @@ class _Ineligible(Exception):
     """Raised while building a signature to demote it to eager, with a recorded reason."""
 
 
+class _Refused(_Ineligible):
+    """``_Guard``'s refusal of an operation a captured graph cannot hold: a wrapper that
+    runs an inner update as a pure body (``serve/window.extract_contribution``) lets it
+    through to the engine, which demotes the step, where it turns its own
+    ``_Ineligible`` (a side effect) into an error."""
+
+
 # ------------------------------------------------------------------ diagnostics
 
 
@@ -256,7 +263,7 @@ class _Guard(TorchDispatchMode):
         kwargs = kwargs or {}
         reason = _refusal(func, args, kwargs)
         if reason is not None:
-            raise _Ineligible(reason)
+            raise _Refused(reason)
         return func(*args, **kwargs)
 
 
@@ -274,8 +281,20 @@ def holds_nested_metrics(metric: Any) -> bool:
     identity). Wrappers therefore always run eagerly; their inner metrics' own engines
     still build the actual work. ``torch.nn.Module`` keeps submodules in ``_modules``,
     a dict, which the scan covers.
+
+    A wrapper that runs its inner metric only as a pure body, through
+    ``traced_update``'s snapshot/restore hygiene (the ``serve/`` streaming wrappers),
+    names that attribute in ``_engine_traced_bodies`` and stays eligible. The exemption
+    is per attribute: the named metric is skipped (as an attribute, and as the key
+    ``torch.nn.Module`` files it under in ``_modules``); any other nested metric still
+    disqualifies the wrapper.
     """
-    for v in metric.__dict__.values():
+    exempt = getattr(metric, "_engine_traced_bodies", ())
+    for k, v in metric.__dict__.items():
+        if k in exempt:
+            continue
+        if k == "_modules" and isinstance(v, dict):
+            v = {name: m for name, m in v.items() if name not in exempt}
         if _is_metric_like(v):
             return True
         if isinstance(v, (list, tuple)) and any(_is_metric_like(x) for x in v):

@@ -25,15 +25,20 @@ Two things the collection and the packed sync read:
   update body returns the registered states alone, and the riders fold after it
   (``engine/compiled.py``'s ``write_step``).
 
-The JAX package's ``StateSpec`` registry, its roles and its shard rules have no
-counterpart yet.
+- **serving roles**: ``add_state(spec=...)`` takes the roles ``serve/`` declares
+  (``validate_role_spec``): ``hh-grid`` (a count-min grid), ``hh-ids`` with its
+  ``hh = (grid attr, k, depth, width)`` and ``hh-counts`` (the top-k pair the packed
+  plan folds jointly against the merged grid), ``ring-clock``, and
+  ``dtype_policy="count"``. ``state_role`` reads a registered state's role.
+
+The JAX package's ``StateSpec`` registry and its shard rules have no counterpart yet.
 """
 
 from __future__ import annotations
 
 import os
 from contextlib import contextmanager
-from typing import Any, Callable, Generator, Optional, Tuple
+from typing import Any, Callable, Dict, Generator, Optional, Tuple
 
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
@@ -160,3 +165,35 @@ def reduction_signature(metric: Any) -> Optional[Tuple]:
     # the registered state layout (names in order) joins the key, so a subclass that
     # adds a state can never collide with its parent's signature
     return (*sig, tuple(getattr(metric, "_reductions", {})))
+
+
+#: the packed-sync roles a ``spec`` may declare (``serve/``'s states)
+ROLES = frozenset({"hh-grid", "hh-ids", "hh-counts", "ring-clock"})
+_SPEC_KEYS = frozenset({"role", "hh", "dtype_policy"})
+
+
+def validate_role_spec(name: str, spec: Any) -> Dict[str, Any]:
+    """The checked copy of an ``add_state(spec=...)`` dict: a ``role`` in ``ROLES``, an
+    ``hh = (grid attr, k, depth, width)`` for ``hh-ids`` (and only there), and
+    ``dtype_policy`` ``"count"``. Anything else raises: an unknown role would silently
+    fold as a plain state."""
+    if not isinstance(spec, dict) or not set(spec) <= _SPEC_KEYS:
+        raise ValueError(f"state {name!r}: `spec` must be a dict with keys among {sorted(_SPEC_KEYS)}, got {spec!r}")
+    role = spec.get("role")
+    if role is not None and role not in ROLES:
+        raise ValueError(f"state {name!r}: unknown role {role!r}; expected one of {sorted(ROLES)}")
+    hh = spec.get("hh")
+    if (role == "hh-ids") != (hh is not None):
+        raise ValueError(f"state {name!r}: `hh` = (grid, k, depth, width) goes with role 'hh-ids' and only there")
+    if hh is not None:
+        if not (isinstance(hh, tuple) and len(hh) == 4 and isinstance(hh[0], str) and all(isinstance(v, int) for v in hh[1:])):
+            raise ValueError(f"state {name!r}: `hh` must be (grid attr, k, depth, width), got {hh!r}")
+    policy = spec.get("dtype_policy")
+    if policy is not None and policy != "count":
+        raise ValueError(f"state {name!r}: `dtype_policy` must be 'count', got {policy!r}")
+    return dict(spec)
+
+
+def state_role(metric: Any, name: str) -> Optional[str]:
+    """The packed-sync role state ``name`` was registered with, or None."""
+    return (getattr(metric, "_state_roles", None) or {}).get(name, {}).get("role")

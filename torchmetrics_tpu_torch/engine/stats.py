@@ -76,6 +76,19 @@ _COUNTER_FIELDS = (
     "lineage_records",  # ValueProvenance records built at observation sites
     "lineage_spans",  # causal spans opened at enqueue (one per drain generation)
     "lineage_coverage_folds",  # coverage attestations stamped at fold sites
+    # --- federated aggregation plane (serve/federation.py): cross-pod folds ---
+    "federation_ingests",  # pod snapshots accepted (version+CRC verified, watermark advanced)
+    "federation_folds",  # global folds executed over the verified pod membership
+    "federation_degraded_folds",  # global folds over a degraded (pod-excluding) membership
+    "federation_stale_skips",  # snapshots rejected by the watermark/staleness dedupe
+    # --- fleet observability plane (serve/fleet.py): cross-pod telemetry federation ---
+    "fleet_pulls",  # pod telemetry envelopes accepted (version+CRC verified, watermark advanced)
+    "fleet_merges",  # fleet-wide telemetry merges over the fresh pod membership
+    "fleet_degraded_pulls",  # pods excluded from a pull/merge round (fault, stale, never pulled)
+    # --- declarative SLO engine (diag/slo.py): rolling-window objective evaluation ---
+    "slo_evaluations",  # SLO evaluation passes (every spec, fast+slow burn windows)
+    "slo_breaches",  # SLO compliance transitions into breach (slo.breach events)
+    "slo_recoveries",  # SLO compliance transitions back to healthy (slo.recover events)
 )
 
 
@@ -165,14 +178,15 @@ def reset_engine_counters() -> None:
 def reset_engine_stats() -> None:
     """Zero every live engine's counters, the fault-tolerance counters
     (``parallel/resilience.py``), the active flight recorder, the cost ledger, the
-    sentinels, the quarantine counters, the histograms, the probe accounting and the
-    lineage watermarks, in lockstep: a surface reset alone would attribute the previous
+    sentinels, the quarantine counters, the histograms, the probe accounting, the
+    lineage watermarks and the SLO windows, in lockstep: a surface reset alone would attribute the previous
     run's events, costs, flags or tails to the next."""
     from torchmetrics_tpu_torch.diag.costs import reset_ledger
     from torchmetrics_tpu_torch.diag.hist import reset_histograms
     from torchmetrics_tpu_torch.diag.lineage import reset_lineage
     from torchmetrics_tpu_torch.diag.profile import reset_profile
     from torchmetrics_tpu_torch.diag.sentinel import reset_sentinels
+    from torchmetrics_tpu_torch.diag.slo import reset_slo
     from torchmetrics_tpu_torch.engine.txn import reset_quarantine
     from torchmetrics_tpu_torch.parallel.resilience import reset_resilience
 
@@ -185,3 +199,4 @@ def reset_engine_stats() -> None:
     reset_profile()
     reset_resilience()
     reset_lineage()
+    reset_slo()

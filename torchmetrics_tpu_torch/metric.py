@@ -49,14 +49,19 @@ place (``diag/sentinel.py``; a replay may hold it as a static buffer), and a
 ``_provenance`` (``diag/lineage.py``). ``_rank_invariant_states`` names the states the
 divergence audit expects equal on every rank.
 
-Left out against the JAX package: ``persist``, ``state_specs`` (the ``StateSpec``
-registry) and ``snapshot_compute`` (``serve/``).
+``snapshot_compute`` computes on a copy of the state taken while updates go on
+(``serve/snapshot.py``). ``add_state(spec=...)`` takes the packed-sync roles the serving
+states declare (``engine/statespec.validate_role_spec``).
+
+Left out against the JAX package: ``persist`` and ``state_specs`` (the ``StateSpec``
+registry with its shard rules).
 """
 
 from __future__ import annotations
 
 import functools
 import inspect
+import threading
 from contextlib import contextmanager
 from copy import deepcopy
 from time import perf_counter
@@ -75,7 +80,7 @@ from torchmetrics_tpu_torch.engine.async_dispatch import coerce_inflight, resolv
 from torchmetrics_tpu_torch.engine.compiled import CompiledUpdate, detach_from_static, is_static
 from torchmetrics_tpu_torch.engine.config import engine_enabled
 from torchmetrics_tpu_torch.engine.scan import coerce_k, discard_metric, flush_metric, scan_k
-from torchmetrics_tpu_torch.engine.statespec import stamp_row_additive
+from torchmetrics_tpu_torch.engine.statespec import stamp_row_additive, validate_role_spec
 from torchmetrics_tpu_torch.parallel.packing import shape_fingerprint
 from torchmetrics_tpu_torch.parallel.sync import distributed_available, gather_all_tensors
 from torchmetrics_tpu_torch.utilities.data import (
@@ -98,6 +103,84 @@ _REDUCTIONS = {
     "min": dim_zero_min,
     "cat": dim_zero_cat,
 }
+
+
+#: hands a snapshot a moment with no mutation in flight (``serve/snapshot.py``), and
+#: the next mutation its turn after it. Polling the depth alone starves the snapshot
+#: against a back-to-back loop: its torch calls release the interpreter lock
+#: mid-update, so a poller almost always finds an update in flight. Every change of
+#: a ``_Gate`` happens under this condition.
+_QUIESCE = threading.Condition()
+#: the longest a mutation waits for snapshots; past it the mutation goes on and the
+#: snapshot's watermark check retries
+_YIELD_TIMEOUT_S = 10.0
+#: ``ids``: the owners this thread holds off; its own mutations of them do not wait
+_HOLDING = threading.local()
+
+
+class _Gate:
+    """One owner's hand-off between its mutations and its snapshots: ``waiters``
+    snapshots asked, ``holders`` of them copy now, ``updaters`` mutations wait, and
+    ``turn`` gives a waiting mutation the next go once a snapshot has copied."""
+
+    def __init__(self) -> None:
+        self.waiters = self.holders = self.updaters = 0
+        self.turn = False
+
+
+def begin_mutation(owner: Any) -> None:
+    """Enter a state mutation of ``owner`` (a metric or a collection)."""
+    owner._mutation_depth += 1
+    # the depth is raised before the gate is read, and a snapshot raises the waiters
+    # before it reads the depth: one of the two always sees the other
+    gate = owner._gate
+    if gate is not None and gate.waiters and owner._mutation_depth == 1 and id(owner) not in getattr(_HOLDING, "ids", ()):
+        with _QUIESCE:
+            owner._mutation_depth = 0
+            gate.updaters += 1
+            _QUIESCE.notify_all()
+            _QUIESCE.wait_for(lambda: not gate.holders and (not gate.waiters or gate.turn), _YIELD_TIMEOUT_S)
+            gate.updaters -= 1
+            gate.turn = False
+            owner._mutation_depth = 1
+
+
+def end_mutation(owner: Any) -> None:
+    """Leave a state mutation of ``owner``; wake a snapshot that waits for it."""
+    owner._mutation_depth -= 1
+    gate = owner._gate
+    if not owner._mutation_depth and gate is not None and gate.waiters:
+        with _QUIESCE:
+            _QUIESCE.notify_all()
+
+
+@contextmanager
+def quiesced(owner: Any, timeout: float) -> Generator:
+    """Hold off ``owner``'s mutations for the body; yields whether no mutation was in
+    flight within ``timeout`` seconds (one in flight on this very thread never ends).
+    A mutation that waited meanwhile goes before the next snapshot."""
+    with _QUIESCE:
+        if owner._gate is None:
+            owner._gate = _Gate()
+        gate = owner._gate
+        gate.waiters += 1
+        quiet = _QUIESCE.wait_for(lambda: not owner._mutation_depth and not gate.turn, timeout)
+        if quiet:
+            gate.holders += 1
+    held = _HOLDING.__dict__.setdefault("ids", set())
+    held.add(id(owner))
+    try:
+        yield quiet
+    finally:
+        held.discard(id(owner))
+        with _QUIESCE:
+            gate.waiters -= 1
+            if quiet:
+                gate.holders -= 1
+                gate.turn = gate.updaters > 0
+            if not (gate.waiters or gate.holders or gate.updaters or gate.turn):
+                owner._gate = None
+            _QUIESCE.notify_all()
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -153,6 +236,9 @@ class Metric(torch.nn.Module):
     #: (``diag.audit_context`` / ``TORCHMETRICS_TPU_AUDIT=1``) fingerprints them in the
     #: packed sync's metadata exchange and flags cross-rank divergence
     _rank_invariant_states: frozenset = frozenset()
+    _gate: Optional[_Gate] = None  # the hand-off with snapshots, while one is asked for (quiesced)
+    # the CUDA stream of the last update or forward: a snapshot's copy is enqueued there
+    _write_stream: Optional[torch.cuda.Stream] = None
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
         super().__init__()
@@ -202,6 +288,7 @@ class Metric(torch.nn.Module):
         self._dtype = torch.float32  # of Python float defaults; set_dtype changes it
         self._defaults: Dict[str, Union[List, torch.Tensor]] = {}
         self._row_additive: Dict[str, bool] = {}  # engine/statespec.py, stamped by add_state
+        self._state_roles: Dict[str, Dict[str, Any]] = {}  # add_state(spec=...): packed-sync roles
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
 
@@ -256,11 +343,15 @@ class Metric(torch.nn.Module):
         default: Union[list, torch.Tensor, float, int],
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
+        spec: Optional[Dict[str, Any]] = None,
     ) -> None:
         """Register a state: a tensor (any shape) or an empty list for "cat" states.
 
         ``dist_reduce_fx`` in {"sum", "mean", "cat", "max", "min", None, callable}
         selects how the state folds across processes and across ``forward`` steps.
+        ``spec`` declares a packed-sync role the reduction alone cannot say, as the
+        serving states do (``engine/statespec.validate_role_spec``): the heavy-hitter
+        grid and its jointly folded ``(ids, counts)`` pair, the ring clock.
         """
         if isinstance(default, (int, float)):
             default = torch.tensor(default, dtype=self._dtype if isinstance(default, float) else torch.int32)
@@ -284,6 +375,8 @@ class Metric(torch.nn.Module):
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
         stamp_row_additive(self, name)
+        if spec is not None:
+            self._state_roles[name] = validate_role_spec(name, spec)
 
     # ------------------------------------------------------------------ forward
 
@@ -299,7 +392,7 @@ class Metric(torch.nn.Module):
         self._forward_depth += 1
         # forward folds its batch state outside the update wrapper: the whole call
         # is one mutation
-        self._mutation_depth += 1
+        begin_mutation(self)
         try:
             # quarantine takes the full-state path: its global update gets the
             # device select, where the reduce path's count-weighted mean fold would
@@ -309,7 +402,7 @@ class Metric(torch.nn.Module):
             else:
                 self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
         finally:
-            self._mutation_depth -= 1
+            self._end_write()
             self._forward_depth -= 1
         return self._forward_cache
 
@@ -736,7 +829,7 @@ class Metric(torch.nn.Module):
                 txn.admission_check_or_raise(self, args, kwargs)
             # the count bump, the step (a graph replay or the eager body) and the
             # list moves are one mutation for a signal-time snapshot
-            self._mutation_depth += 1
+            begin_mutation(self)
             try:
                 self._computed = None
                 self._update_count += 1
@@ -755,9 +848,16 @@ class Metric(torch.nn.Module):
                 if self.compute_on_cpu:
                     self._move_list_states_to_cpu()
             finally:
-                self._mutation_depth -= 1
+                self._end_write()
 
         return wrapped_func
+
+    def _end_write(self) -> None:
+        """Leave an update's or forward's mutation. The outermost records the stream
+        that wrote: the engine replays, and an eager body runs, on the caller's stream."""
+        if self._mutation_depth == 1 and self._device.type == "cuda":
+            self._write_stream = torch.cuda.current_stream(self._device)
+        end_mutation(self)
 
     def _run_eager_update(self, args: tuple, kwargs: Dict[str, Any]) -> None:
         """One eager update with the riders of the compiled step (the compensated
@@ -809,7 +909,7 @@ class Metric(torch.nn.Module):
         """Drain any scan queue holding this metric's pending steps. Every state
         observation comes here first; a compute-group view also drains its owner's
         queue (``_scan_peer``, stamped when the views are materialized)."""
-        self._mutation_depth += 1  # a drain binds and replays the queued steps' states
+        begin_mutation(self)  # a drain binds and replays the queued steps' states
         try:
             drained = flush_metric(self, reason)
             peer_ref = self.__dict__.get("_scan_peer")
@@ -817,7 +917,7 @@ class Metric(torch.nn.Module):
             if peer is not None:
                 drained += flush_metric(peer, reason)
         finally:
-            self._mutation_depth -= 1
+            end_mutation(self)
         return drained
 
     def _epoch_enabled(self) -> bool:
@@ -987,6 +1087,17 @@ class Metric(torch.nn.Module):
 
         return state_footprint(self)
 
+    def snapshot_compute(self) -> Any:
+        """Scrape-anytime ``compute`` on a copy of the state (``serve/snapshot.py``).
+
+        The live metric keeps updating while the value computes on a copy taken at a
+        consistent watermark; its caches, sync status and counters are untouched.
+        Rank-local: cross-rank totals belong to the epoch sync.
+        """
+        from torchmetrics_tpu_torch.serve.snapshot import snapshot_compute
+
+        return snapshot_compute(self)
+
     def clone(self) -> "Metric":
         """Deep copy of the metric."""
         return deepcopy(self)
@@ -996,7 +1107,8 @@ class Metric(torch.nn.Module):
         the instance) for pickling, ``clone`` and ``deepcopy``; ``__setstate__`` re-wraps.
         Queued steps fold in first: the copy must not lag the stream."""
         self._drain_scan("observation:clone")
-        drop = ("update", "compute", "_raw_update", "_raw_compute", "_scan_peer", "_txn_stats")
+        drop = ("update", "compute", "_raw_update", "_raw_compute", "_scan_peer", "_txn_stats", "_gate",
+                "_write_stream")
         state = {k: v for k, v in self.__dict__.items() if k not in drop}
         state["_epoch"] = None
         state["_engine"] = None
@@ -1011,6 +1123,7 @@ class Metric(torch.nn.Module):
         state.setdefault("_in_batch_value", False)
         state.setdefault("_engine", None)
         state.setdefault("_row_additive", {})
+        state.setdefault("_state_roles", {})
         super().__setstate__(state)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]

@@ -72,7 +72,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from torchmetrics_tpu_torch.engine.statespec import state_fold
+from torchmetrics_tpu_torch.engine.statespec import state_fold, state_role
 from torchmetrics_tpu_torch.utilities.data import (
     dim_zero_cat,
     dim_zero_max,
@@ -152,13 +152,54 @@ class PackingError(Exception):
     """This state layout cannot ride the packed plan: fall back to the eager sync."""
 
 
+def _check_hh_layout(metric: Any) -> None:
+    """A heavy-hitter pair (``serve/sketch.py``) folds jointly against the merged
+    count-min grid: the grid must be registered before the pair, and the counts right
+    after the ids. Membership is a function of the metric's definition, so every rank
+    lays out the same plan."""
+    names = list(metric._reductions)
+    ids_attr = next((n for n in names if state_role(metric, n) == "hh-ids"), None)
+    counts_attr = next((n for n in names if state_role(metric, n) == "hh-counts"), None)
+    if ids_attr is None:
+        if counts_attr is not None:
+            raise PackingError(
+                f"state {counts_attr!r} declares role 'hh-counts' with no paired 'hh-ids' state — the"
+                " heavy-hitter pair folds jointly"
+            )
+        return
+    grid_attr = metric._state_roles[ids_attr]["hh"][0]
+    if (
+        grid_attr not in names
+        or counts_attr is None
+        or names.index(grid_attr) > names.index(ids_attr)
+        or names.index(counts_attr) != names.index(ids_attr) + 1
+    ):
+        raise PackingError(
+            "heavy-hitter fold requires the count-min grid registered before the adjacent (ids, counts) top-k pair"
+        )
+
+
+def _snapshot_cat_array(value: Any) -> Optional[np.ndarray]:
+    """A snapshot's cat state as one host array (a list concatenated), or None when
+    empty."""
+    if isinstance(value, (list, tuple)):
+        if not value:
+            return None
+        arr = np.concatenate([np.atleast_1d(np.asarray(e.cpu() if isinstance(e, torch.Tensor) else e)) for e in value])
+    else:
+        if value is None:
+            return None
+        arr = np.asarray(value.cpu() if isinstance(value, torch.Tensor) else value)
+    return arr.reshape(1) if arr.ndim == 0 else arr
+
+
 class _Spec:
     """One state's slot in the packed buffers."""
 
     __slots__ = (
         "owner", "attr", "kind", "fold_fn", "dtype", "shape", "elem_shapes",
         "group", "offset", "size", "world_dim0", "pad_to", "needs_meta", "was_list", "packed_value",
-        "rank_invariant",
+        "rank_invariant", "hh_meta",
     )
 
     def __init__(self, owner: str, attr: str, kind: str, dtype: str, fold_fn: Optional[Callable] = None):
@@ -178,6 +219,7 @@ class _Spec:
         self.was_list = False
         self.packed_value: Optional[torch.Tensor] = None  # cat lists: concatenated once at build
         self.rank_invariant = False  # audit: the values must match on every rank
+        self.hh_meta: Optional[Tuple[str, int, int, int]] = None  # hh-ids: (grid attr, k, depth, width)
 
 
 class PackedSyncPlan:
@@ -238,9 +280,24 @@ class PackedSyncPlan:
             comp_names = numerics.comp_state_names(metric) if numerics.compensated_enabled() else ()
             if comp_names:
                 numerics.ensure_residuals(metric)
+            _check_hh_layout(metric)
             for attr in metric._reductions:
                 val = getattr(metric, attr)
                 default = metric._defaults[attr]
+                role = state_role(metric, attr)
+                if role in ("hh-ids", "hh-counts"):
+                    # the heavy-hitter pair folds jointly against the merged grid
+                    if not isinstance(val, torch.Tensor):
+                        raise PackingError(f"heavy-hitter state {attr!r} is not a tensor")
+                    spec = _Spec(owner, attr, role, _dtype_name(val.dtype))
+                    spec.shape = tuple(int(d) for d in val.shape)
+                    spec.size = int(np.prod(spec.shape, dtype=np.int64)) if spec.shape else 1
+                    spec.needs_meta = tuple(default.shape) != spec.shape
+                    spec.group = "gather:" + spec.dtype
+                    if role == "hh-ids":
+                        spec.hh_meta = tuple(metric._state_roles[attr]["hh"])
+                    self.specs.append(spec)
+                    continue
                 fold, fold_fn = state_fold(metric, attr)
                 if isinstance(default, list):
                     if fold not in ("cat", "none"):
@@ -525,6 +582,76 @@ class PackedSyncPlan:
             segments[s.group].append(flat)
         return {k: torch.cat(v) for k, v in segments.items() if v}
 
+    def metadata_from_state(self, states: Dict[str, Dict[str, Any]]) -> Optional[np.ndarray]:
+        """``metadata_local`` computed from a snapshot ``{owner: {attr: value}}``
+        instead of the live metrics: the federation aggregator (``serve/federation.py``)
+        folds pod snapshots. The entry layout is ``metadata_local``'s with the audit
+        and timeline riders off (the aggregation tier turns both off on its plan)."""
+        entries: List[int] = []
+        for s in self.specs:
+            if not s.needs_meta:
+                continue
+            value = states.get(s.owner, {}).get(s.attr)
+            if s.kind == "cat":
+                arr = _snapshot_cat_array(value)
+                if arr is None or arr.size == 0:
+                    entries += [0, 0]
+                else:
+                    entries += [int(arr.shape[0]), shape_fingerprint(arr.shape[1:])]
+            elif s.kind == "none-list":
+                elems = value if isinstance(value, (list, tuple)) else []
+                dims: List[int] = []
+                for e in elems:
+                    es = tuple(np.shape(e))
+                    dims.append(len(es))
+                    dims.extend(es)
+                entries += [len(elems), shape_fingerprint(dims)]
+            else:  # static-shape verification entry
+                shape = tuple(np.shape(value))
+                size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+                entries += [size, shape_fingerprint(shape)]
+        if not entries:
+            return None
+        return np.asarray(entries, dtype=np.int32)
+
+    def pack_from(
+        self, states: Dict[str, Dict[str, Any]], residuals: Optional[Dict[str, Dict[str, Any]]] = None
+    ) -> Dict[str, torch.Tensor]:
+        """``pack`` over a snapshot ``{owner: {attr: value}}`` (host arrays or tensors)
+        instead of the live metrics, onto the plan's device: each pod's verified
+        snapshot packs into the buffers ``make_fold`` takes. ``residuals`` gives the
+        compensated residuals per ``{owner: {attr: residual}}``; an absent one packs
+        as zeros (the pod's value folds as a clean anchor)."""
+        if not self._finalized:
+            raise RuntimeError("finalize() must run before pack_from()")
+        residuals = residuals or {}
+        segments: Dict[str, List[torch.Tensor]] = {k: [] for k in self._group_sizes}
+
+        def flat(value: Any, dtype: str) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor) else value).to(
+                device=self.device, dtype=getattr(torch, dtype)
+            ).reshape(-1)
+
+        for s in self.specs:
+            if not s.group or s.size == 0:
+                continue
+            if s.kind == "comp-res":
+                val = residuals.get(s.owner, {}).get(s.attr)
+                seg = torch.zeros(s.size, dtype=getattr(torch, s.dtype), device=self.device) if val is None else flat(val, s.dtype)
+            else:
+                val = states.get(s.owner, {}).get(s.attr)
+                if s.kind == "none-list":
+                    seg = torch.cat([flat(e, s.dtype) for e in val])
+                elif s.kind == "cat":
+                    arr = _snapshot_cat_array(val)
+                    seg = torch.zeros(0, dtype=getattr(torch, s.dtype), device=self.device) if arr is None else flat(arr, s.dtype)
+                    if seg.numel() < s.size:  # ragged: pad to the world's largest
+                        seg = torch.nn.functional.pad(seg, (0, s.size - seg.numel()))
+                else:
+                    seg = flat(val, s.dtype)
+            segments[s.group].append(seg)
+        return {k: torch.cat(v) for k, v in segments.items() if v}
+
     # ------------------------------------------------------------------ fold
 
     def signature(self) -> Tuple:
@@ -536,7 +663,7 @@ class PackedSyncPlan:
             tuple(
                 (
                     s.owner, s.attr, s.kind, s.dtype, s.shape, s.elem_shapes,
-                    s.group, s.offset, s.size, s.world_dim0, s.was_list, s.fold_fn,
+                    s.group, s.offset, s.size, s.world_dim0, s.was_list, s.fold_fn, s.hh_meta,
                 )
                 for s in self.specs
             ),
@@ -558,6 +685,8 @@ class PackedSyncPlan:
         members = list(self.members)
         world = len(members)
         residual_of = {(s.owner, s.attr): s for s in specs if s.kind == "comp-res"}
+        # the hh-counts spec registered right after its hh-ids (checked at build)
+        counts_of = {i: specs[i + 1] for i, s in enumerate(specs) if s.kind == "hh-ids"}
 
         def rows(buf: torch.Tensor, s: _Spec) -> torch.Tensor:
             """The member rows of ``s``'s segment: a degraded plan slices the
@@ -569,10 +698,21 @@ class PackedSyncPlan:
 
         def fold(gathered: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
             out: Dict[str, Dict[str, Any]] = {}
-            for s in specs:
+            for i, s in enumerate(specs):
                 dest = out.setdefault(s.owner, {})
-                if s.kind == "comp-res":
-                    continue  # folded with its value
+                if s.kind in ("comp-res", "hh-counts"):
+                    continue  # folded with its value / its hh-ids spec
+                if s.kind == "hh-ids":
+                    # the union of every member's candidates, estimated against the
+                    # merged grid this fold already summed (the grid's spec comes first)
+                    from torchmetrics_tpu_torch.serve.sketch import merge_topk
+
+                    grid_attr, k, depth, width = s.hh_meta
+                    ids, counts = merge_topk(dest[grid_attr], rows(gathered[s.group], s).reshape(-1), k, depth, width)
+                    dest[s.attr] = ids.to(getattr(torch, s.dtype))
+                    cs = counts_of[i]
+                    dest[cs.attr] = counts.to(getattr(torch, cs.dtype))
+                    continue
                 if s.kind in ("comp-sum", "comp-mean"):
                     # each rank's residual feeds back into its increment, the exact fold
                     # error carries forward, and the pair is re-anchored
