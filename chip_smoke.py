@@ -308,7 +308,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    operations, idle share, the largest device items and host syncs per update
    (``AUDIO_SYNCS``: 0, and 1 on ``pit4``, the Hungarian read; SDR's printed). ``clip``,
    ``CLIPScore`` on a seeded checkpoint at openai/clip-vit-large-patch14's widths written
-   with ``save_pretrained``: 8 updates of 64 (3 x 480 x 640 uint8 image, 8-16 word
+   with ``save_pretrained``: 4 updates of 64 (3 x 480 x 640 uint8 image, 8-16 word
    caption) pairs, eagerly and with the engine; the processor's host ms and the towers'
    device ms per update beside their float32 bound; the towers asserted on the card; the
    first 4 pairs within 1e-3 of the CPU. No K1 / K2 launch.
@@ -375,7 +375,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    envelopes folded (against ``merge_state``, byte-stable, one pod stale: degraded); two
    sidecars' telemetry merged by ``FleetTelemetry`` with a planted degraded pull; two
    gloo ranks syncing the sketches. It prints a ``serve_summary`` line with the card's
-   ``nvidia-smi`` name and power limit.
+   ``nvidia-smi`` name and power limit;
+26. sharded state (``parallel/sharding.py``) on 4 gloo ranks sharing the card, one spawn.
+   shard_vocab: a 1-D state mesh of 4 at Llama 3's vocabulary (128,256 classes, 32,064 per
+   rank): macro accuracy, precision, recall and F1 in one compute group over 16 updates of
+   2048 x 128,256 float32 logits (two seeded batches, cycled; every rank draws the same),
+   eagerly and with the engine; each rank's ``(32064,)`` shards, its state bytes 1/4 of
+   the whole, 0 collectives and 0 host reads in the update loop, K1 launched, the
+   assembled states and ``compute`` exactly equal to a replicated run on the same rank;
+   update µs against the replicated run's, ``compute`` ms with its collectives.
+   shard_confmat: ``MulticlassConfusionMatrix(32768)`` on the same mesh, 16 updates of
+   2^20 label pairs: (8192, 32768) int32 shards, the peak memory of 3 eager updates and of
+   every engine update after the build (warm-up, static buffers and graph pool: reported
+   apart) below one (C, C) matrix, 0 collectives and host reads, each rank's shard exactly
+   equal to its rows of a replicated run (eager) made one rank at a time. shard_2x2: config #2's collection on a (data 2, state 2)
+   mesh, 8 updates per data row of that row's own 8192 x 10 batches; the synced
+   ``compute`` equal to a replicated run over both rows' batches, its collectives counted,
+   K1 and K2 held against their plain versions. The degrade: ``MulticlassAccuracy(50257)``
+   (GPT-2's vocabulary) replicated with 4 ``shard.fallback`` events. Then, in the parent, K1
+   at 2048 x 128,256 against its plain version and its row of the kernels line. It prints a
+   ``shard_summary`` line with the card's ``nvidia-smi`` name and power limit.
 
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
@@ -397,7 +416,7 @@ alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone; ``--audio-o
 runs phases 1-2 and then phase 22 alone; ``--resilience-only`` runs phases 1-2 and then
 phase 23 alone, on batches made for it; ``--diag-only`` runs phases 1-2 and then phase 24
 alone, on batches made for it; ``--serve-only`` runs phases 1-2 and then phase 25 alone,
-on batches made for it.
+on batches made for it; ``--shard-only`` runs phases 1-2 and then phase 26 alone.
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -453,8 +472,12 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return port_sigmoid(x)
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, stamped with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def _hbm_rate(name: str) -> float:
@@ -1374,26 +1397,35 @@ def _sync_rank_body(rank: int, out_dir: str) -> dict:
     return result
 
 
-def _gloo_rank(rank: int, port: int, out_dir: str, body, timeout_s: float, abandon: bool = False) -> None:
-    """One of two gloo ranks on the one card: runs ``body(rank, out_dir)``, reports to
-    ``out_dir/rank<r>.json``, then waits for the other rank before leaving the group.
+def _gloo_rank(rank: int, port: int, out_dir: str, body, timeout_s: float, abandon: bool = False, world: int = 2) -> None:
+    """One of ``world`` gloo ranks on the one card: runs ``body(rank, out_dir)``, reports to
+    ``out_dir/rank<r>.json``, then waits for the other ranks before leaving the group.
     With ``abandon`` the rank exits without tearing the group down: a collective that a
     deadline escaped may still be pending in it, and the exit closes its sockets."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
     dist.init_process_group(
-        "gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank,
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
     try:
         result = {"ok": True, **body(rank, out_dir)}
     except Exception as err:  # reported to the parent, which fails the phase
-        result = {"ok": False, "error": f"{type(err).__name__}: {err}"}
+        import traceback
+
+        result = {"ok": False, "error": f"{type(err).__name__}: {err}\n{traceback.format_exc()[-3000:]}"}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
+    if not result["ok"]:
+        # leave at once: the group's sockets close, so a peer waiting in a collective
+        # fails now instead of at its timeout
+        _log(f"  rank {rank} failed: {result['error']}")
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
     deadline = time.monotonic() + timeout_s
-    while time.monotonic() < deadline and not all(os.path.exists(os.path.join(out_dir, f"rank{r}.json")) for r in range(2)):
+    while time.monotonic() < deadline and not all(os.path.exists(os.path.join(out_dir, f"rank{r}.json")) for r in range(world)):
         time.sleep(0.05)
     if abandon:
         sys.stdout.flush()
@@ -1402,15 +1434,16 @@ def _gloo_rank(rank: int, port: int, out_dir: str, body, timeout_s: float, aband
 
 
 @contextlib.contextmanager
-def _two_ranks(body, timeout_s: float, name: str, abandon: bool = False):
-    """Spawn two ranks running ``body`` and yield ``(results, out_dir)``; fails on a hang
-    (join timeout), a rank that exits without a result, or an error on either rank."""
+def _two_ranks(body, timeout_s: float, name: str, abandon: bool = False, world: int = 2):
+    """Spawn ``world`` ranks (two by default) running ``body`` and yield ``(results,
+    out_dir)``; fails on a hang (join timeout), a rank that exits without a result, or an
+    error on any rank."""
     with tempfile.TemporaryDirectory() as out_dir:
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_gloo_rank, args=(r, port, out_dir, body, timeout_s, abandon)) for r in range(2)]
+        procs = [ctx.Process(target=_gloo_rank, args=(r, port, out_dir, body, timeout_s, abandon, world)) for r in range(world)]
         for proc in procs:
             proc.start()
         deadline = time.monotonic() + timeout_s
@@ -1426,12 +1459,14 @@ def _two_ranks(body, timeout_s: float, name: str, abandon: bool = False):
         results = []
         for rank, proc in enumerate(procs):
             path = os.path.join(out_dir, f"rank{rank}.json")
-            if proc.exitcode != 0 or not os.path.exists(path):
+            if not os.path.exists(path):
                 raise AssertionError(f"{name}: rank {rank} exited with {proc.exitcode} and no result")
             with open(path) as f:
                 results.append(json.load(f))
             if not results[-1]["ok"]:
                 raise AssertionError(f"{name}: rank {rank}: {results[-1]['error']}")
+            if proc.exitcode != 0:
+                raise AssertionError(f"{name}: rank {rank} exited with {proc.exitcode}")
         yield results, out_dir
 
 
@@ -7120,7 +7155,7 @@ PIT_BATCH, PIT_SDR_BATCH = 8, 4
 PIT_SPEAKERS = {"pit2": 2, "pit3": 3, "pit4": 4, "pit_sdr": 2}
 CSISNR_SHAPE = (16, 257, 251)  # the STFT of 4 s at 16 kHz, n_fft 512, hop 256
 AUDIO_RTOL = 1e-5  # the card against the CPU: float32 sums in another order; SDR in float64
-CLIP_UPDATES, CLIP_BATCH, CLIP_IMAGE = 8, 64, (3, 480, 640)  # COCO val2017's common image size
+CLIP_UPDATES, CLIP_BATCH, CLIP_IMAGE = 4, 64, (3, 480, 640)  # COCO val2017's common image size
 CLIP_WORDS = (8, 16)  # words per caption
 CLIP_CPU_PAIRS = 4
 CLIP_ATOL = 1e-3  # on the 0-100 scale
@@ -7380,7 +7415,7 @@ def _clip_captions(gen: torch.Generator) -> list:
 
 def run_clip() -> dict:
     """``CLIPScore(model_name_or_path=<dir>)`` on a seeded ViT-L/14 checkpoint the script
-    writes: 8 updates of 64 (3 x 480 x 640 uint8 image, 8-16 word caption) pairs, eagerly
+    writes: 4 updates of 64 (3 x 480 x 640 uint8 image, 8-16 word caption) pairs, eagerly
     and with the engine (which falls back: captions are strings); the processor's host
     ms and the towers' device ms per update beside the towers' float32 bound; the card's
     scores on the first 4 pairs against the CPU's."""
@@ -7508,7 +7543,7 @@ def run_audio(smi: str, hbm_rate: float) -> dict:
 
 RES_UPDATES = N_BATCHES  # per rank: config #2's 16 updates of 8192 x 10 scores
 RES_POLICY = {"deadline_ms": 2000.0, "retries": 2, "backoff_ms": 1.0, "verify_payload": True}
-RES_TIMED = 5  # compute timings per arm, in turns
+RES_TIMED = 3  # compute timings per arm, in turns
 RES_DEADLINE_MS = 500.0  # the genuine deadline: rank 1 sleeps three times it
 RES_DEADLINE_SLACK_MS = 500.0
 RES_JOIN_TIMEOUT_S = 300
@@ -9229,6 +9264,411 @@ def run_serve(acc_batches: list, cifar_batches: list, gen: torch.Generator, smi:
     return out
 
 
+# ---------------------------------------------------------------- phase 26: sharded state
+
+SHARD_RANKS = 4
+VOCAB = 128256  # Llama 3's vocab_size (its public config.json)
+VOCAB_TOKENS, VOCAB_UPDATES = 2048, 16
+SHARD_CM_CLASSES, SHARD_CM_PAIRS, SHARD_CM_UPDATES = 32768, 1 << 20, 16
+SHARD_2X2_UPDATES = 8  # per data row
+GPT2_VOCAB = 50257  # 4 does not divide it: the rule degrades to replication
+SHARD_JOIN_TIMEOUT_S = 360
+
+
+@contextlib.contextmanager
+def _counting_collectives():
+    """Count every ``torch.distributed`` collective issued in the block (a list the
+    block's caller reads): the update loop must issue none."""
+    import torch.distributed as dist
+
+    names = ("all_gather", "all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all")
+    calls: list = []
+    saved = {n: getattr(dist, n) for n in names if hasattr(dist, n)}
+
+    def counting(real, n):
+        def call(*a, **k):
+            calls.append(n)
+            return real(*a, **k)
+        return call
+
+    for n, real in saved.items():
+        setattr(dist, n, counting(real, n))
+    try:
+        yield calls
+    finally:
+        for n, real in saved.items():
+            setattr(dist, n, real)
+
+
+def _vocab_collection(**kwargs):
+    """Macro accuracy, precision, recall and F1 at Llama 3's vocabulary: one compute
+    group, so one K1 per update."""
+    from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassF1Score, MulticlassPrecision, MulticlassRecall
+
+    common = dict(average="macro", validate_args=False, device="cuda", **kwargs)
+    return MetricCollection({
+        "acc": MulticlassAccuracy(VOCAB, **common), "prec": MulticlassPrecision(VOCAB, **common),
+        "rec": MulticlassRecall(VOCAB, **common), "f1": MulticlassF1Score(VOCAB, **common),
+    })
+
+
+def _vocab_batches() -> list:
+    """Two seeded batches of 2048 tokens x 128,256 float32 logits (1.05 GB each), drawn
+    on the card; every rank draws the same ones (inputs are replicated over ``state``)."""
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    return [
+        (torch.randn(VOCAB_TOKENS, VOCAB, generator=gen, device="cuda"),
+         torch.randint(0, VOCAB, (VOCAB_TOKENS,), generator=gen, device="cuda"))
+        for _ in range(2)
+    ]
+
+
+def _owner_states(mc) -> dict:
+    """The compute-group owner's states (assembled when sharded)."""
+    from torchmetrics_tpu_torch.parallel import sharding
+
+    owner = next(iter(mc.values(copy_state=False)))
+    return {k: sharding.assemble(getattr(owner, k)) for k in owner._defaults}
+
+
+def _timed_updates(mc, batches: list, n: int) -> float:
+    """Median µs per update over ``n`` updates, CUDA events around each."""
+    times = []
+    for i in range(n):
+        p, t = batches[i % len(batches)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        mc.update(p, t)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(times)
+
+
+def _shard_vocab(rank: int) -> dict:
+    """The 1-D mesh of 4 ranks at Llama 3's vocabulary: eager and with the engine."""
+    from torchmetrics_tpu_torch.diag import diag_context, transfer_guard
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.parallel import sharding
+
+    batches = _vocab_batches()
+    out: dict = {}
+    with engine_context(True):  # the one-process replicated run, on this rank
+        ref = _vocab_collection(sync_on_compute=False)
+        out["replicated_per_device_bytes"] = next(iter(ref.values(copy_state=False))).state_footprint()["per_device_bytes"]
+        _zero_launches()
+        ref_us = _timed_updates(ref, batches, VOCAB_UPDATES)
+        ref_states, ref_values = _owner_states(ref), {k: v.clone() for k, v in ref.compute().items()}
+    out["replicated_update_us_engine"] = ref_us
+    with engine_context(False):
+        eager_ref = _vocab_collection(sync_on_compute=False)
+        out["replicated_update_us_eager"] = _timed_updates(eager_ref, batches, VOCAB_UPDATES)
+        del eager_ref
+    for mode, enabled in (("eager", False), ("engine", True)):
+        with engine_context(enabled), sharding.mesh_context(SHARD_RANKS):
+            mc = _vocab_collection()
+            owner = next(iter(mc.values(copy_state=False)))
+            shapes = {k: list(sharding.local(getattr(owner, k)).shape) for k in owner._defaults}
+            if shapes != {k: [VOCAB // SHARD_RANKS] for k in ("tp", "fp", "tn", "fn")}:
+                raise AssertionError(f"shard_vocab rank {rank}: shards {shapes}")
+            foot = owner.state_footprint()
+            _zero_launches()
+            with _counting_collectives() as calls, diag_context() as rec, transfer_guard("log"):
+                update_us = _timed_updates(mc, batches, VOCAB_UPDATES)
+            launches = _launches()
+            reads = _serve_reads(rec)
+            if calls or reads:
+                raise AssertionError(f"shard_vocab {mode} rank {rank}: the update loop issued {calls} / read {reads}")
+            if launches["stat_counts"] < 1:
+                raise AssertionError(f"shard_vocab {mode} rank {rank}: K1 was not launched: {launches}")
+            states = _owner_states(mc)
+            for k, want in ref_states.items():
+                _equal(f"shard_vocab {mode} rank {rank} {k}", states[k], want)
+            with _counting_collectives() as calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                values = mc.compute()
+                torch.cuda.synchronize()
+                compute_ms = (time.perf_counter() - t0) * 1e3
+            for k, want in ref_values.items():
+                _equal(f"shard_vocab {mode} rank {rank} compute {k}", values[k], want)
+            out[mode] = {
+                "update_us": update_us, "launches": launches, "compute_ms": compute_ms,
+                "compute_collectives": len(calls),
+                "per_device_bytes": foot["per_device_bytes"], "total_bytes": foot["total_bytes"],
+                "update_collectives": 0, "update_host_reads": 0,
+            }
+            if foot["per_device_bytes"] * SHARD_RANKS != foot["total_bytes"]:
+                raise AssertionError(f"shard_vocab rank {rank}: footprint {foot}")
+            del mc, owner
+    return out
+
+
+def _confmat_pairs() -> list:
+    gen = torch.Generator(device="cuda").manual_seed(2032)
+    return [
+        (torch.randint(0, SHARD_CM_CLASSES, (SHARD_CM_PAIRS,), generator=gen, device="cuda"),
+         torch.randint(0, SHARD_CM_CLASSES, (SHARD_CM_PAIRS,), generator=gen, device="cuda"))
+        for _ in range(SHARD_CM_UPDATES)
+    ]
+
+
+def _peak_update(m, p, t) -> tuple:
+    """``(µs, peak bytes above the live allocation)`` of one update."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    m.update(p, t)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3, torch.cuda.max_memory_allocated() - base
+
+
+def _shard_confmat(rank: int) -> dict:
+    """``MulticlassConfusionMatrix(32768)`` on the 1-D mesh: each rank counts its 8192
+    rows; the peak memory of every eager update and of every engine update after the
+    build (warm-up, static buffers, graph pool: reported apart) stays below one (C, C)
+    matrix; the compute is held against a replicated run made rank by rank."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch import MulticlassConfusionMatrix
+    from torchmetrics_tpu_torch.diag import diag_context, transfer_guard
+    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.parallel import sharding
+
+    pairs = _confmat_pairs()
+    full_bytes = SHARD_CM_CLASSES * SHARD_CM_CLASSES * 4
+    out: dict = {}
+    with sharding.mesh_context(SHARD_RANKS), engine_context(False):
+        eager = MulticlassConfusionMatrix(SHARD_CM_CLASSES, validate_args=False, device="cuda")
+        eager_runs = [_peak_update(eager, p, t) for p, t in pairs[:3]]
+        out["eager_update_us"] = statistics.median(us for us, _ in eager_runs)
+        out["eager_peak_bytes"] = max(b for _, b in eager_runs)
+        del eager
+        torch.cuda.empty_cache()
+    with engine_context(True), sharding.mesh_context(SHARD_RANKS):
+        m = MulticlassConfusionMatrix(SHARD_CM_CLASSES, validate_args=False, device="cuda")
+        shape = list(sharding.local(m.confmat).shape)
+        if shape != [SHARD_CM_CLASSES // SHARD_RANKS, SHARD_CM_CLASSES]:
+            raise AssertionError(f"shard_confmat rank {rank}: shard {shape}")
+        with _counting_collectives() as calls, diag_context() as rec, transfer_guard("log"):
+            runs = [_peak_update(m, p, t) for p, t in pairs]
+        times, peaks = [us for us, _ in runs], [b for _, b in runs]
+        reads = _serve_reads(rec)
+        if calls or reads:
+            raise AssertionError(f"shard_confmat rank {rank}: the update loop issued {calls} / read {reads}")
+        if max(peaks[1:] + [out["eager_peak_bytes"]]) >= full_bytes:
+            raise AssertionError(f"shard_confmat rank {rank}: an update allocated {peaks} / {out['eager_peak_bytes']} B"
+                                 " >= a (C, C) matrix")
+        out["shard_bytes"] = sharding.local(m.confmat).nbytes
+        lo, hi = sharding.local_rows(m, "confmat")
+        shard = sharding.local(m.confmat).clone()
+        m._engine = None  # its graph pool and static buffers go before the replicated run
+        del m, rec, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["update_us_sharded"] = statistics.median(times[1:])
+    out["build_peak_bytes"] = peaks[0]
+    out["peak_update_bytes"] = max(peaks[1:])
+    for r in range(SHARD_RANKS):  # the replicated run (eager), one rank at a time: 4.29 GB of state
+        dist.barrier()
+        if r != rank:
+            continue
+        with engine_context(False):
+            ref = MulticlassConfusionMatrix(SHARD_CM_CLASSES, validate_args=False, device="cuda", sync_on_compute=False)
+            rtimes = [_peak_update(ref, p, t)[0] for p, t in pairs]
+            _equal(f"shard_confmat rank {rank} rows {lo}:{hi}", shard, ref.confmat[lo:hi])
+            out["eager_update_us_replicated"] = statistics.median(rtimes[1:])
+            del ref
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _shard_2x2_batches(row: int) -> list:
+    gen = torch.Generator().manual_seed(2600 + row)
+    return [
+        (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
+        for _ in range(SHARD_2X2_UPDATES)
+    ]
+
+
+def _shard_2x2(rank: int) -> dict:
+    """Config #2's collection on a (data 2, state 2) mesh: each data row its own batches;
+    the synced compute is held against a replicated run over both rows' batches."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import engine_context, engine_report, reset_engine_stats
+    from torchmetrics_tpu_torch.ops import multi_threshold as mt
+    from torchmetrics_tpu_torch.ops import stat_counts as sc
+    from torchmetrics_tpu_torch.parallel import sharding
+
+    out: dict = {}
+    with engine_context(True), sharding.mesh_context(data=2, state=2) as mesh:
+        row = mesh.coordinate()["data"]
+        batches = _shard_2x2_batches(row)
+        mc = MetricCollection(_collection_members(device="cuda", validate_args=False))
+        sharded = sorted(f"{n}.{k}" for n, m in mc.items(keep_base=True, copy_state=False) for k in m._defaults
+                         if sharding.is_sharded(getattr(m, k)))
+        _zero_launches()
+        with _counting_collectives() as calls:
+            for p, t in batches:
+                mc.update(p, t)
+        out["launches"] = _launches()
+        if calls:
+            raise AssertionError(f"shard_2x2 rank {rank}: the update loop issued {calls}")
+        if not (out["launches"]["stat_counts"] and out["launches"]["multi_threshold"]):
+            raise AssertionError(f"shard_2x2 rank {rank}: a kernel of the path was not launched: {out['launches']}")
+        reset_engine_stats()
+        with _counting_collectives() as calls:
+            values = {k: v.clone() for k, v in mc.compute().items()}
+        rep = engine_report()
+        out["sync"] = {
+            "collectives": len(calls), "sync_collectives": rep["sync_collectives"], "gather_skipped": rep["gather_skipped"],
+            "psum_syncs": rep["psum_syncs"], "ingraph_syncs": rep["ingraph_syncs"], "packed_syncs": rep["packed_syncs"],
+        }
+        out["sharded_states"] = sharded
+        preds, target = batches[0]
+        _equal(f"shard_2x2 rank {rank} K1", sc.stat_counts(preds, target, CIFAR_CLASSES), sc._stat_counts_plain(preds, target, CIFAR_CLASSES))
+        gen = torch.Generator().manual_seed(2602)
+        inp = _curve_inputs(CIFAR_BATCH, CIFAR_CLASSES, N_THRESH, gen, "random")
+        _equal(f"shard_2x2 rank {rank} K2", mt.multi_threshold_confmat(*inp[:3], *inp[3]),
+               mt._multi_threshold_confmat_plain(*inp[:3], *inp[3]))
+        del mc
+    with engine_context(True):
+        ref = MetricCollection(_collection_members(device="cuda", validate_args=False, sync_on_compute=False))
+        for p, t in _shard_2x2_batches(0) + _shard_2x2_batches(1):
+            ref.update(p, t)
+        want = ref.compute()
+    for k, w in want.items():
+        if w.dtype.is_floating_point:
+            _assert_close(f"shard_2x2 rank {rank} {k}", values[k], w, AUROC_ATOL if "auroc" in k else ACC_ATOL)
+        else:
+            _equal(f"shard_2x2 rank {rank} {k}", values[k], w)
+    return out
+
+
+def _shard_degrade(rank: int) -> dict:
+    """GPT-2's vocabulary on the 4-rank mesh: replicated, one ``shard.fallback`` per state."""
+    from torchmetrics_tpu_torch import MulticlassAccuracy
+    from torchmetrics_tpu_torch.diag import diag_context
+    from torchmetrics_tpu_torch.engine import engine_report, reset_engine_stats
+    from torchmetrics_tpu_torch.parallel import sharding
+
+    reset_engine_stats()
+    with sharding.mesh_context(SHARD_RANKS), diag_context() as rec:
+        m = MulticlassAccuracy(GPT2_VOCAB, validate_args=False, device="cuda")
+    out = {"sharded": sharding.is_sharded(m.tp), "shard_degrades": engine_report()["shard_degrades"],
+           "fallback_events": rec.count("shard.fallback")}
+    if out != {"sharded": False, "shard_degrades": 4, "fallback_events": 4}:
+        raise AssertionError(f"shard degrade rank {rank}: {out}")
+    return out
+
+
+def _shard_rank_body(rank: int, out_dir: str) -> dict:
+    out: dict = {}
+    for name, run in (("shard_vocab", _shard_vocab), ("shard_confmat", _shard_confmat),
+                      ("shard_2x2", _shard_2x2), ("degrade", _shard_degrade)):
+        t0 = time.perf_counter()
+        out[name] = run(rank)
+        out[name]["s"] = time.perf_counter() - t0
+        if rank == 0:
+            _log(f"  rank 0: {name} done in {out[name]['s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_vocab_kernel(hbm_rate: float, launches: int, launches_by_rank: dict) -> dict:
+    """K1 at 2048 x 128,256 float32 (the global-histogram variant): equal to its plain
+    version, then its row of the kernels line."""
+    from torchmetrics_tpu_torch.ops import stat_counts as sc
+
+    batches = _vocab_batches()
+    err = 0.0
+    for ignore in (None, IGNORE):
+        preds, target = batches[0]
+        err = max(err, _equal(f"stat_counts {VOCAB_TOKENS}x{VOCAB} ignore={ignore}",
+                              sc.stat_counts(preds, target, VOCAB, ignore), sc._stat_counts_plain(preds, target, VOCAB, ignore)))
+    call = lambda i: sc.stat_counts(*batches[i % 2], VOCAB)  # noqa: E731
+    k_ms = _median_ms(call, iters=20)
+    k_prof = _device_profile(call, iters=10)
+    p_ms = _median_ms(lambda i: sc._stat_counts_plain(*batches[i % 2], VOCAB), iters=5)
+    preds, target = batches[0]
+    k1_bytes = preds.nbytes + target.nbytes + 3 * VOCAB * 4
+    bytes_ms, ops_ms = k1_bytes / hbm_rate * 1e3, preds.numel() / _F32_RATE * 1e3
+    return {
+        "name": "stat_counts",
+        "route": "cuda",
+        "source": "torchmetrics_tpu_torch/csrc/stat_counts.cu",
+        "replaces": "torchmetrics_tpu/ops/stat_counts.py:130",
+        "shape": f"{VOCAB_TOKENS}x{VOCAB} float32 (global histogram)",
+        "launches": launches,
+        "launches_by_path": launches_by_rank,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "kernel_device_ms": _kernel_ms(k_prof, "stat_counts_kernel"),
+        "device_ms": None if k_prof["device_busy_us"] is None else k_prof["device_busy_us"] / 1e3,
+        "device_ops_per_call": k_prof["device_ops"],
+        "plain_ms": p_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "note": _NOTE,
+    }
+
+
+def run_shard(hbm_rate: float, smi: str) -> dict:
+    """Phase 26: sharded state on a mesh of 4 gloo ranks sharing the card, then K1 at
+    Llama 3's vocabulary against its plain version."""
+    t_phase = time.perf_counter()
+    # the four ranks share the card with this process: hand back its cached blocks first
+    reserved = torch.cuda.memory_reserved()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"  this process: {reserved} B reserved before the phase, {torch.cuda.memory_reserved()} B after emptying its cache")
+    with _two_ranks(_shard_rank_body, SHARD_JOIN_TIMEOUT_S, "shard phase", world=SHARD_RANKS) as (results, _):
+        ranks = results
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {
+        "shard_vocab_eager": [r["shard_vocab"]["eager"]["launches"]["stat_counts"] for r in ranks],
+        "shard_vocab_engine": [r["shard_vocab"]["engine"]["launches"]["stat_counts"] for r in ranks],
+        "shard_2x2_engine": [r["shard_2x2"]["launches"]["stat_counts"] for r in ranks],
+        "shard_2x2_k2": [r["shard_2x2"]["launches"]["multi_threshold"] for r in ranks],
+    }
+    kernel = time_vocab_kernel(hbm_rate, launches["shard_vocab_engine"][0], launches)
+    out = {"card": smi, "ranks": ranks, "launches": launches, "vocab_kernel": kernel}
+    out["phase_s"] = time.perf_counter() - t_phase
+    r0 = ranks[0]
+    _log(
+        f"  shard_vocab: update {r0['shard_vocab']['engine']['update_us']:.1f} us sharded vs"
+        f" {r0['shard_vocab']['replicated_update_us_engine']:.1f} us replicated (engine);"
+        f" compute {r0['shard_vocab']['engine']['compute_ms']:.2f} ms; state bytes per rank"
+        f" {[r['shard_vocab']['engine']['per_device_bytes'] for r in ranks]}"
+    )
+    _log(
+        f"  shard_confmat: update {r0['shard_confmat']['update_us_sharded']:.1f} us sharded (engine),"
+        f" eager {r0['shard_confmat']['eager_update_us']:.1f} us sharded vs"
+        f" {r0['shard_confmat']['eager_update_us_replicated']:.1f} us replicated; peak per update"
+        f" {[r['shard_confmat']['peak_update_bytes'] for r in ranks]} B (eager {r0['shard_confmat']['eager_peak_bytes']},"
+        f" the build {r0['shard_confmat']['build_peak_bytes']})"
+    )
+    _log(f"  shard_2x2: sync {r0['shard_2x2']['sync']}; launches {launches}")
+    _log(f"  K1 {kernel['shape']}: {kernel['ms']:.4f} ms (device {kernel['kernel_device_ms']}) against a"
+         f" {kernel['bound_ms']:.4f} ms bound; plain {kernel['plain_ms']:.3f} ms")
+    _log(f"  phase 26: {out['phase_s']:.1f} s on {smi}")
+    print(json.dumps({"shard_summary": {
+        "card": smi, "launches": launches, "phase_s": out["phase_s"],
+        "vocab": {k: r0["shard_vocab"][k] for k in r0["shard_vocab"]},
+        "confmat": [r["shard_confmat"] for r in ranks],
+        "twobytwo": r0["shard_2x2"], "degrade": r0["degrade"], "vocab_kernel": kernel,
+    }}), flush=True)
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU", file=sys.stderr)
@@ -9242,7 +9682,7 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/25] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/26] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     from torchmetrics_tpu_torch.native import rle_mask
 
@@ -9252,7 +9692,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rle_mask.library()
     native_build_s = time.perf_counter() - t0
-    _log(f"[2/25] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
+    _log(f"[2/26] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
          f" -> {rle_mask.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
@@ -9269,55 +9709,55 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/25] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/26] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/25] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/26] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/25] regression's moments and cat states, retrieval")
+        _log("[16/26] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/25] nominal association and pairwise distances")
+        _log("[17/26] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/25] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/26] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--text-only"]:
-        _log("[20/25] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        _log("[20/26] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
         text = run_text(gen, hbm_rate, smi)
         print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--audio-only"]:
-        _log("[22/25] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+        _log("[22/26] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
         audio = run_audio(smi, hbm_rate)
         print(json.dumps({"audio": audio, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--detection-only"]:
-        _log("[21/25] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+        _log("[21/26] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
         detection = run_detection(smi, native_build_s)
         print(json.dumps({"detection": detection, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/25] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/26] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -9331,7 +9771,7 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[23/25] fault-tolerant sync and elastic snapshots")
+        _log("[23/26] fault-tolerant sync and elastic snapshots")
         resilience = run_resilience(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"resilience": resilience}), flush=True)
         print(smi, flush=True)
@@ -9345,7 +9785,7 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[24/25] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+        _log("[24/26] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
         diag = run_diag(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"diag": diag, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -9359,9 +9799,15 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[25/25] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
+        _log("[25/26] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
         serve = run_serve(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"serve": serve, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--shard-only"]:
+        _log("[26/26] sharded state: Llama 3's vocabulary, a 32768-class matrix and config #2 on 4 gloo ranks")
+        shard = run_shard(hbm_rate, smi)
+        print(json.dumps({"shard": shard, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -9369,7 +9815,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/25] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/26] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -9377,30 +9823,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/25] kernels against their plain versions")
+        _log("[3/26] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/25] main path")
+        _log("[4/26] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/25] collection path")
+        _log("[5/26] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/25] binary path")
+        _log("[6/26] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/25] multilabel path")
+        _log("[7/26] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/25] task routers")
+        _log("[8/26] task routers")
         run_routers(gen)
 
-        _log("[9/25] sync, two ranks on one card")
+        _log("[9/26] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/25] times")
+        _log("[10/26] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -9413,7 +9859,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/25] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/26] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -9435,7 +9881,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/25] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/26] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -9444,47 +9890,50 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/25] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/26] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/25] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/26] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/25] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/26] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/25] regression's moments and cat states, retrieval")
+    _log("[16/26] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/25] nominal association and pairwise distances")
+    _log("[17/26] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/25] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/26] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/25] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/26] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
 
-    _log("[20/25] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    _log("[20/26] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
     text = run_text(gen, hbm_rate, smi)
 
-    _log("[21/25] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+    _log("[21/26] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
     detection = run_detection(smi, native_build_s)
 
-    _log("[22/25] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+    _log("[22/26] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
     audio = run_audio(smi, hbm_rate)
 
-    _log("[23/25] fault-tolerant sync and elastic snapshots")
+    _log("[23/26] fault-tolerant sync and elastic snapshots")
     resilience = run_resilience(acc_batches, collection_batches, gen, smi)
 
-    _log("[24/25] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+    _log("[24/26] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
     diag = run_diag(acc_batches, collection_batches, gen, smi)
 
-    _log("[25/25] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
+    _log("[25/26] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
     serve = run_serve(acc_batches, collection_batches, gen, smi)
+
+    _log("[26/26] sharded state: Llama 3's vocabulary, a 32768-class matrix and config #2 on 4 gloo ranks")
+    shard = run_shard(hbm_rate, smi)
 
     for entry in kernels:
         k = entry["name"]
@@ -9532,6 +9981,10 @@ def main() -> int:
             "resilience_preempt_engine": resilience["launches"]["preempt_engine"][k],
             **{f"diag_{path}": diag["launches"][path][k] for path in diag["launches"]},
             **{f"serve_{path}": serve["launches"][path][k] for path in serve["launches"]},
+            **(
+                {path: shard["launches"][path] for path in ("shard_vocab_eager", "shard_vocab_engine", "shard_2x2_engine")}
+                if k == "stat_counts" else {"shard_2x2": shard["launches"]["shard_2x2_k2"]}
+            ),
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -9540,10 +9993,13 @@ def main() -> int:
             else "K2 runs eagerly: the binned curves fall back (their [0, 1] range check reads the host)"
         )
 
+    # K1 at Llama 3's vocabulary (phase 26): its own row, launches from the sharded path
+    kernels.append(shard["vocab_kernel"])
     results = {
         "updates": updates, "engine": engine, "family": family, "eval_loop": eval_loop, "engine_tier": engine_tier,
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
         "text": text, "detection": detection, "audio": audio, "resilience": resilience, "diag": diag, "serve": serve,
+        "shard": {k: v for k, v in shard.items() if k != "vocab_kernel"},
         "sync_2rank": sync,
         "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }

@@ -31,7 +31,7 @@ for name in ("ops.multi_threshold", "engine.compiled", "engine.fusion", "engine.
              "native.rle_mask", "detection.mean_ap", "detection.ingraph", "functional.detection._panoptic_common",
              "audio.pit", "audio.pesq", "audio.stoi", "functional.audio.sdr", "functional.audio.pesq",
              "functional.audio.stoi", "multimodal.clip_score", "functional.multimodal.clip_score",
-             "diag.trace", "parallel.faults", "parallel.resilience", "parallel.elastic",
+             "diag.trace", "parallel.faults", "parallel.resilience", "parallel.elastic", "parallel.sharding",
              "diag.hist", "diag.profile", "diag.transfer_guard", "diag.sentinel", "diag.timeline",
              "diag.lineage", "diag.report", "diag.slo", "diag.telemetry", "serve.stats", "serve.snapshot",
              "serve.window", "serve.sketch", "serve.quantile", "serve.tenancy", "serve.sidecar", "serve.federation",

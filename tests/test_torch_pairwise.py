@@ -191,3 +191,21 @@ def test_names_still_missing():
     for pkg in (ttm, tF):
         for name in pkg.__all__:
             assert getattr(pkg, name) is not None, name
+
+
+
+def test_parallel_exports_every_jax_name():
+    """The port's ``parallel`` exports every name of the JAX ``parallel.__all__``, its
+    sharding names lazily as the JAX package does (``_SHARDING_EXPORTS``), and each
+    resolves; the one name beyond them is the port's ``distributed_available``."""
+    import torchmetrics_tpu.parallel as jpar
+    import torchmetrics_tpu_torch.parallel as tpar
+    from torchmetrics_tpu.parallel import sharding as jsharding
+    from torchmetrics_tpu_torch.parallel import sharding as tsharding
+
+    assert set(tpar.__all__) - set(jpar.__all__) == {"distributed_available"}
+    assert set(jpar.__all__) <= set(tpar.__all__)
+    assert set(tpar._SHARDING_EXPORTS) == set(jpar._SHARDING_EXPORTS)
+    for name in tpar.__all__:
+        assert getattr(tpar, name) is not None, name
+    assert set(tsharding.__all__) == set(jsharding.__all__)

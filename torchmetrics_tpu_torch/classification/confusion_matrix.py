@@ -29,6 +29,7 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
 )
 from torchmetrics_tpu_torch.functional.classification.stat_scores import _zero_rows_neutral
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.parallel.sharding import local_block, local_rows
 from torchmetrics_tpu_torch.utilities.enums import _route_task
 
 
@@ -112,6 +113,8 @@ class MulticlassConfusionMatrix(_ConfusionMatrix):
 
     # engine shape-bucketing opt-in (engine/bucketing.py): a sum of per-row counts
     _engine_row_additive = True
+    # placement (parallel/sharding.py): the rows (true classes) split over the state mesh
+    _engine_shard_rules = {"confmat": "class_axis"}
 
     def __init__(
         self,
@@ -132,7 +135,10 @@ class MulticlassConfusionMatrix(_ConfusionMatrix):
         if self.validate_args:
             _multiclass_confusion_matrix_tensor_validation(preds, target, self.num_classes, self.ignore_index)
         preds, target = _multiclass_confusion_matrix_format(preds, target, self.ignore_index)
-        self.confmat = self.confmat + _multiclass_confusion_matrix_update(preds, target, self.num_classes)
+        # a sharded matrix counts only the rows it owns: the contribution is its shard's
+        # size, never (C, C), and is added out of place
+        rows = local_rows(self, "confmat")
+        self.confmat = self.confmat + _multiclass_confusion_matrix_update(preds, target, self.num_classes, rows)
 
     def _cse_signature(self) -> tuple:
         """Reduction signature (``engine/statespec.py``): matrices with matching
@@ -145,6 +151,8 @@ class MultilabelConfusionMatrix(_ConfusionMatrix):
 
     # engine shape-bucketing opt-in (engine/bucketing.py): a sum of per-row counts
     _engine_row_additive = True
+    # placement (parallel/sharding.py): the (L, 2, 2) stack splits its label axis
+    _engine_shard_rules = {"confmat": "class_axis"}
 
     def __init__(
         self,
@@ -169,7 +177,9 @@ class MultilabelConfusionMatrix(_ConfusionMatrix):
         preds, target = _multilabel_confusion_matrix_format(
             preds, target, self.num_labels, self.threshold, self.ignore_index
         )
-        self.confmat = self.confmat + _multilabel_confusion_matrix_update(preds, target, self.num_labels)
+        self.confmat = self.confmat + local_block(
+            self, "confmat", _multilabel_confusion_matrix_update(preds, target, self.num_labels)
+        )
 
     def _cse_signature(self) -> tuple:
         """Reduction signature (``engine/statespec.py``): matrices with matching

@@ -2,7 +2,10 @@
 (counterpart of ``torchmetrics_tpu/classification/stat_scores.py``).
 
 Four sum-reduced int32 states for ``multidim_average="global"``, four cat lists for
-``"samplewise"``.
+``"samplewise"``. Under a state mesh the per-class counters are born sharded over the
+class axis (``_engine_shard_rules``, ``parallel/sharding.py``): every rank computes the
+batch's whole ``(C,)`` counts on its replicated batch (K1 unchanged) and adds the
+block its shard owns.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _zero_rows_neutral,
 )
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.parallel.sharding import local_block
 from torchmetrics_tpu_torch.utilities.data import dim_zero_cat
 from torchmetrics_tpu_torch.utilities.enums import _check_task_size, _route_task
 
@@ -46,6 +50,9 @@ class _AbstractStatScores(Metric):
     # additive over batch rows onto sum-reduced states, so pad rows subtract cleanly;
     # the samplewise cat lists are not sum-reduced, which the engine checks per state
     _engine_row_additive = True
+    # placement (parallel/sharding.py): per-class counters split their class axis over
+    # the state mesh; scalar micro counters and samplewise lists degrade to replication
+    _engine_shard_rules = {"tp": "class_axis", "fp": "class_axis", "tn": "class_axis", "fn": "class_axis"}
 
     def _engine_pad_rows_neutral(self, inputs) -> bool:
         """Whether bucketing's zero pad rows count as they would alone (``engine/bucketing.py``)."""
@@ -67,10 +74,11 @@ class _AbstractStatScores(Metric):
             self.tn.append(tn)
             self.fn.append(fn)
         else:
-            self.tp = self.tp + tp
-            self.fp = self.fp + fp
-            self.tn = self.tn + tn
-            self.fn = self.fn + fn
+            # a sharded counter adds the block of the batch's counts its rows own
+            self.tp = self.tp + local_block(self, "tp", tp)
+            self.fp = self.fp + local_block(self, "fp", fp)
+            self.tn = self.tn + local_block(self, "tn", tn)
+            self.fn = self.fn + local_block(self, "fn", fn)
 
     def _final_state(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Concatenate list states."""

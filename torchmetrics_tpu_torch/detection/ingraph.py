@@ -38,6 +38,7 @@ import torch
 from torchmetrics_tpu_torch.engine import bucketing
 from torchmetrics_tpu_torch.functional.detection.helpers import _box_convert, _box_iou
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.parallel.sharding import local_block
 
 #: the host evaluator's epsilon in the precision denominator
 _PR_EPS = float(np.finfo(np.float64).eps)
@@ -270,8 +271,8 @@ class PackedMeanAveragePrecision(Metric):
     accumulation into fixed-shape histogram states with no host read (one CUDA graph
     replay per update under the engine); ``compute`` rebuilds the COCO headline numbers
     from the histograms. Needs ``num_classes`` up front (fixed state shapes) and scores
-    in ``[0, 1]``. The JAX package's ``class_axis`` sharding of the states is not
-    ported: the port has no state mesh yet.
+    in ``[0, 1]``. Under a state mesh the three states split their class axis
+    (``class_axis``, ``parallel/sharding.py``).
 
     Args:
         num_classes: class-id range ``[0, num_classes)``; labels outside it count as padding.
@@ -307,6 +308,13 @@ class PackedMeanAveragePrecision(Metric):
     # additive over batch images with sum states: bucketing, scan and async compose
     # like any counter metric (a count-0 pad image contributes zero)
     _engine_row_additive: bool = True
+    # placement (parallel/sharding.py): the class dim leads every state, so a
+    # large-vocabulary detector's histograms split over the state mesh like any counter
+    _engine_shard_rules = {
+        "map_tp_hist": "class_axis",
+        "map_fp_hist": "class_axis",
+        "map_n_pos": "class_axis",
+    }
 
     def __init__(
         self,
@@ -379,9 +387,9 @@ class PackedMeanAveragePrecision(Metric):
         tp, fp, n_pos = packed_contributions(
             pp, pred_counts.to(torch.int32), tt, target_counts.to(torch.int32), self._params
         )
-        self.map_tp_hist = self.map_tp_hist + tp
-        self.map_fp_hist = self.map_fp_hist + fp
-        self.map_n_pos = self.map_n_pos + n_pos
+        self.map_tp_hist = self.map_tp_hist + local_block(self, "map_tp_hist", tp)
+        self.map_fp_hist = self.map_fp_hist + local_block(self, "map_fp_hist", fp)
+        self.map_n_pos = self.map_n_pos + local_block(self, "map_n_pos", n_pos)
 
     def update_batch(self, preds: Dict[str, Any], target: Dict[str, Any]) -> None:
         """Dict-schema convenience: pack, widen the slot dimensions, then ``update``.

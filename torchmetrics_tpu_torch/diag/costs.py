@@ -199,16 +199,27 @@ def reset_ledger() -> None:
     _LEDGER.clear()
 
 
-def _leaf_bytes(value: Any) -> Tuple[int, List[Tuple[int, int]]]:
-    """(total bytes, [(storage address, bytes)]) over a tensor or a list state."""
+def _leaf_bytes(value: Any) -> Tuple[int, List[Tuple[int, int, int]]]:
+    """(total bytes, [(storage address, bytes, bytes on this rank)]) over a tensor or a
+    list state. A sharded state (``parallel/sharding.py``) counts its whole value in
+    bytes and its local block on this rank."""
+    from torchmetrics_tpu_torch.parallel.sharding import local
+
     total = 0
     buffers = []
     for leaf in value if isinstance(value, list) else [value]:
         n = leaf.nbytes if isinstance(leaf, torch.Tensor) else 0
         if n:
             total += n
-            buffers.append((leaf.untyped_storage().data_ptr(), n))
+            block = local(leaf)
+            buffers.append((block.untyped_storage().data_ptr(), n, block.nbytes))
     return total, buffers
+
+
+def _leaf_device_bytes(value: Any) -> int:
+    """Bytes this rank's device holds for a state: a sharded state's block (about
+    ``nbytes / S``), a replicated one's whole value."""
+    return sum(b[2] for b in _leaf_bytes(value)[1])
 
 
 def _rider_values(metric: Any) -> list:
@@ -256,9 +267,13 @@ def state_footprint(obj: Any) -> Dict[str, Any]:
         riders = sum(_leaf_bytes(v)[0] for v in _rider_values(obj))
         if riders:
             per_state["_riders"] = riders
+        # per_device_bytes == total_bytes for a replicated metric; a sharded state
+        # costs its block (about 1/S of its bytes) on this rank's device
+        values = [getattr(obj, attr) for attr in obj._defaults] + _rider_values(obj)
         return {
             "owner": type(obj).__name__,
             "total_bytes": sum(per_state.values()),
+            "per_device_bytes": sum(_leaf_device_bytes(v) for v in values),
             "per_state": per_state,
             "engine": _engine_note([obj.__dict__.get("_engine")]),
         }
@@ -272,7 +287,7 @@ def state_footprint(obj: Any) -> Dict[str, Any]:
         per_metric: Dict[str, int] = {}
         member_unique: Dict[str, int] = {}
         seen: set = set()
-        unique = 0
+        unique = device_unique = 0
         for name in obj._modules:
             source = obj._modules[owner_of.get(name, name)]
             m_total = m_unique = 0
@@ -280,10 +295,11 @@ def state_footprint(obj: Any) -> Dict[str, Any]:
             for value in values:
                 total, buffers = _leaf_bytes(value)
                 m_total += total
-                for address, nbytes in buffers:
+                for address, nbytes, local_bytes in buffers:
                     if address not in seen:
                         seen.add(address)
                         m_unique += nbytes
+                        device_unique += local_bytes
             per_metric[name] = m_total
             member_unique[name] = m_unique
             unique += m_unique
@@ -293,6 +309,7 @@ def state_footprint(obj: Any) -> Dict[str, Any]:
             "total_bytes": nominal,
             "unique_bytes": unique,
             "shared_bytes": nominal - unique,
+            "per_device_bytes": device_unique,
             "per_metric": per_metric,
             "engine": _engine_note(
                 [obj.__dict__.get("_fused_engine")] + [m.__dict__.get("_engine") for m in obj._modules.values()]

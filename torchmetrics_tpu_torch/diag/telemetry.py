@@ -17,7 +17,8 @@ byte-identical.
 Kept divergences: the port has no persistent executable cache, so the snapshot's
 ``persist`` is ``None`` and the ``tm_tpu_persist_*`` families are absent; the
 ``tm_tpu_build_info`` labels name ``torch``, ``cuda`` and the card's name where the
-JAX package names ``jax`` and ``jaxlib``, and ``mesh`` is empty (no state mesh).
+JAX package names ``jax`` and ``jaxlib``; ``mesh`` names the active state mesh's axes
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -267,13 +268,16 @@ def telemetry_snapshot(recorder: Optional[FlightRecorder] = None) -> Dict[str, A
 def _build_info_labels() -> Dict[str, str]:
     """Label set for the ``tm_tpu_build_info`` gauge (value is always 1): the package
     version, torch and its CUDA version, the backend, the card's name and count, and
-    an empty ``mesh`` (the port has no state mesh). Label values are escaped by
+    the active state mesh's shape (``parallel/sharding.py``; empty with none). Label
+    values are escaped by
     :func:`_sample`; a function of its own so tests can monkeypatch hostile values."""
     import torch
 
     from torchmetrics_tpu_torch.__about__ import __version__
+    from torchmetrics_tpu_torch.parallel.sharding import metric_mesh
 
     cuda = torch.cuda.is_available()
+    mesh = metric_mesh()
     return {
         "version": __version__,
         "torch": torch.__version__,
@@ -281,7 +285,7 @@ def _build_info_labels() -> Dict[str, str]:
         "backend": "cuda" if cuda else "cpu",
         "device_kind": torch.cuda.get_device_name(0) if cuda else "",
         "device_count": str(torch.cuda.device_count() if cuda else 0),
-        "mesh": "",
+        "mesh": "" if mesh is None else ",".join(f"{axis}={size}" for axis, size in mesh.shape.items()),
     }
 
 

@@ -7,8 +7,11 @@ engines record ``update.*`` (trace / retrace / dispatch / probe / eager / quaran
 ladder), ``fused.*``, ``update.scan*`` and ``scan.flush``, ``async.*``,
 ``collection.step``, ``compute.*``, ``sync.exchange`` / ``eager`` / ``noop`` /
 ``audit`` / ``straggler``, ``numerics.*``, ``lineage.*``, ``fallback``,
-``transfer.host`` / ``transfer.blocked`` and ``heavy.fallback``. The fault-tolerance
-layer records:
+``transfer.host`` / ``transfer.blocked`` and ``heavy.fallback``. The sharding layer
+(``parallel/sharding.py``) records ``shard.place`` / ``shard.fallback`` /
+``shard.reshard`` / ``multihost.init``, the packed sync ``sync.shard_skip`` /
+``sync.ingraph``, and the spec registry ``spec.fallback``. The fault-tolerance layer
+records:
 
 =====================  ========================================================
 ``sync.retry``         a bounded collective retried after a retryable fault

@@ -75,6 +75,12 @@ is the one-metric case, ``engine/fusion.py``'s ``FusedUpdate`` a collection's ow
   half-bucket chunks, then eagerly, for this step only (``CompiledUpdate._ladder_step``);
   an unclassified capture error still raises.
 
+- **Sharded state** (``parallel/sharding.py``): a step reads a placed state's local block
+  (``step_state``) and writes the buffer back wrapped as the metric's ``DTensor``
+  (``bind_buffers``), so a graph captures and replays over local blocks alone, and the
+  placement joins the cache key (``sharding.metric_placement_token``; "" until a state is
+  placed).
+
 Anything that cannot run as a fixed graph (list states, non-tensor inputs, a wrapper
 holding inner metrics, a side effect on a non-state attribute, a host read) falls back
 to the eager path and is counted in ``EngineStats``.
@@ -104,6 +110,7 @@ from torchmetrics_tpu_torch.diag import sentinel as _sentinel
 from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import bucketing, config
 from torchmetrics_tpu_torch.engine.stats import EngineStats
+from torchmetrics_tpu_torch.parallel import sharding as _sharding
 from torchmetrics_tpu_torch.utilities.data import apply_to_collection
 
 _FALLBACK = object()  # cache sentinel: this signature is known to be ineligible
@@ -159,7 +166,7 @@ def annotation_scope(owner: str, kind: str, key: Any) -> str:
 def signature_fingerprint(key: Tuple) -> Dict[str, Any]:
     """The aspects of a step signature a rebuild can be blamed on (argument layout and
     state names, dtypes, shapes, bucket, device), for ``diag.trace.attribute_retrace``."""
-    bucket, n_args, kw_names, state_sig, in_sig = key
+    bucket, n_args, kw_names, state_sig, in_sig = key[:5]
     names, dtypes, shapes, devices = [], [], [], set()
     for member, sig in state_sig:
         for k, shape, dtype, device in sig:
@@ -400,12 +407,13 @@ def traced_update(
 
 
 def is_static(x: Any) -> bool:
-    """Whether ``x`` is an engine's static state buffer (written in place by replays)."""
-    return isinstance(x, torch.Tensor) and getattr(x, STATIC_MARK, False)
+    """Whether ``x`` is (or a placed state wraps) an engine's static state buffer,
+    written in place by replays."""
+    return isinstance(x, torch.Tensor) and getattr(_sharding.local(x), STATIC_MARK, False)
 
 
 def _storage(x: torch.Tensor) -> int:
-    return x.untyped_storage().data_ptr()
+    return _sharding.local(x).untyped_storage().data_ptr()
 
 
 def detach_from_static(value: Any, states: Sequence[Any]) -> Any:
@@ -651,8 +659,9 @@ def gather_riders(metric: Any) -> Dict[str, torch.Tensor]:
 
 
 def step_state(metric: Any) -> Dict[str, torch.Tensor]:
-    """The registered states and the active riders: what one step reads and writes."""
-    state = {k: getattr(metric, k) for k in metric._defaults}
+    """The registered states and the active riders: what one step reads and writes. A
+    sharded state is its local block (``parallel/sharding.py``): the step runs on it."""
+    state = {k: _sharding.local(getattr(metric, k)) for k in metric._defaults}
     state.update(gather_riders(metric))
     return state
 
@@ -675,7 +684,7 @@ def bind_buffers(metric: Any, state: Dict[str, Any], buffers: Dict[str, torch.Te
                 residuals = dict(metric.__dict__.get(numerics.ATTR) or {})
             residuals[k[len(numerics.STATE_KEY) :]] = buf
         else:
-            setattr(metric, k, buf)
+            setattr(metric, k, _sharding.wrap_like(metric, k, buf))
     if residuals is not None:
         metric.__dict__[numerics.ATTR] = residuals
 
@@ -850,6 +859,8 @@ class GraphEngine:
     min_members = 1
     #: the event and histogram kind of a step (``update.*``; ``fused.*`` for a collection)
     kind = "update"
+    #: the placement part of a cache key (``parallel/sharding.placement_token``)
+    _device_token = staticmethod(_sharding.placement_token)
 
     def __init__(self, owner: str) -> None:
         self._cache: Dict[Tuple, Any] = {}
@@ -881,7 +892,9 @@ class GraphEngine:
         if bucket is not None:
             in_sig = tuple((bucketing.bucketed_shape(a, bucket), a.dtype, a.device) for a in inputs)
         state_sig = tuple((name, state_signature(states[name])) for name, _ in members)
-        key = (bucket, len(args), kw_names, state_sig, in_sig)
+        # the placement joins the key: a re-placed state builds a fresh graph
+        placement = tuple(_sharding.metric_placement_token(m) for _, m in members)
+        key = (bucket, len(args), kw_names, state_sig, in_sig, placement)
         entry = self._cache.get(key)
         if entry is _FALLBACK:
             st.fallback("uncompilable-signature")

@@ -22,6 +22,32 @@ from typing import Generator, Optional
 
 ENGINE_ENV_VAR = "TORCHMETRICS_TPU_ENGINE"
 
+#: every environment knob of the engine, sync and diagnostics layers, mapped to the
+#: ``module:function`` that parses it (an invalid value raises there), as the JAX
+#: package's registry maps its own
+KNOB_REGISTRY = {
+    "TORCHMETRICS_TPU_ENGINE": "torchmetrics_tpu_torch.engine.config:engine_enabled",
+    "TORCHMETRICS_TPU_CSE": "torchmetrics_tpu_torch.engine.statespec:cse_enabled",
+    "TORCHMETRICS_TPU_SCAN": "torchmetrics_tpu_torch.engine.scan:scan_k",
+    "TORCHMETRICS_TPU_ASYNC": "torchmetrics_tpu_torch.engine.async_dispatch:async_inflight",
+    "TORCHMETRICS_TPU_QUARANTINE": "torchmetrics_tpu_torch.engine.txn:quarantine_mode",
+    "TORCHMETRICS_TPU_COMPENSATED": "torchmetrics_tpu_torch.engine.numerics:compensated_enabled",
+    "TORCHMETRICS_TPU_DRIFT_RTOL": "torchmetrics_tpu_torch.engine.numerics:drift_rtol",
+    "TORCHMETRICS_TPU_SHARD": "torchmetrics_tpu_torch.parallel.sharding:_env_mesh",
+    "TORCHMETRICS_TPU_MULTIHOST": "torchmetrics_tpu_torch.parallel.sharding:multihost_spec",
+    "TORCHMETRICS_TPU_SYNC_DEADLINE_MS": "torchmetrics_tpu_torch.parallel.resilience:_env_float",
+    "TORCHMETRICS_TPU_SYNC_RETRIES": "torchmetrics_tpu_torch.parallel.resilience:_env_float",
+    "TORCHMETRICS_TPU_SYNC_BACKOFF_MS": "torchmetrics_tpu_torch.parallel.resilience:_env_float",
+    "TORCHMETRICS_TPU_DEGRADED": "torchmetrics_tpu_torch.parallel.resilience:current_policy",
+    "TORCHMETRICS_TPU_SNAPSHOT_EVERY": "torchmetrics_tpu_torch.parallel.elastic:SnapshotPolicy.from_env",
+    "TORCHMETRICS_TPU_COSTS": "torchmetrics_tpu_torch.diag.costs:costs_enabled",
+    "TORCHMETRICS_TPU_TRACE": "torchmetrics_tpu_torch.diag.trace:_env_recorder",
+    "TORCHMETRICS_TPU_SENTINEL": "torchmetrics_tpu_torch.diag.sentinel:sentinel_enabled",
+    "TORCHMETRICS_TPU_AUDIT": "torchmetrics_tpu_torch.diag.sentinel:audit_enabled",
+    "TORCHMETRICS_TPU_PROFILE": "torchmetrics_tpu_torch.diag.profile:active_profile",
+    "TORCHMETRICS_TPU_STRAGGLER_US": "torchmetrics_tpu_torch.diag.profile:straggler_threshold_us",
+}
+
 # module-level override: None = defer to the environment variable / auto
 _enabled_override: Optional[bool] = None
 

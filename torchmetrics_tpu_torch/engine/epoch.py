@@ -56,8 +56,18 @@ Counters: ``compute_traces``, ``compute_dispatches``, ``compute_cache_hits``,
 ride the packed plan (``parallel/packing.py``): a compensated state's residual folds by
 two-sum, the quarantine counter sums, the sentinel ORs.
 
-Left out against the JAX engine: the in-graph mesh exchange, ``persist`` and the async
-epoch-sync overlap notes.
+- **Sharded state** (``parallel/sharding.py``): the plan leaves live-sharded states
+  out (``skipped_sharded``; counted in ``gather_skipped``, additive ones in
+  ``psum_syncs``, a ``sync.shard_skip`` event). Under a state mesh the exchange runs
+  over the rank's ``data`` sub-group (``sharding.sync_scope``; ``ingraph_syncs``, a
+  ``sync.ingraph`` event), and on a ``(data, state)`` mesh each sharded state is then
+  folded over that sub-group, one all-reduce each: the fold the JAX update executable
+  makes in-graph at every step, deferred to the sync. A plan with nothing to pack
+  issues no collective (``sync_noop_plans``). A metric holding a sharded state takes
+  the packed sync and computes on the assembled states (``Metric.compute``), never the
+  fused route.
+
+Left out against the JAX engine: ``persist`` and the async epoch-sync overlap notes.
 """
 
 from __future__ import annotations
@@ -90,8 +100,8 @@ from torchmetrics_tpu_torch.diag import sentinel as _sentinel
 from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine.stats import EngineStats
 from torchmetrics_tpu_torch.utilities.data import apply_to_collection
+from torchmetrics_tpu_torch.parallel import packing as _packing
 from torchmetrics_tpu_torch.parallel import resilience as _resilience
-from torchmetrics_tpu_torch.parallel import sync as _sync
 from torchmetrics_tpu_torch.parallel.packing import PackedSyncPlan, PackingError, all_gather_backbone
 
 
@@ -119,7 +129,7 @@ def _degraded_replan(
         rank=int(culprit), error=type(exc).__name__, label=exc.label,
         survivors=survivors, attempts=exc.attempts,
     )
-    replanned = PackedSyncPlan(plan._metrics, plan.world_size, survivors)
+    replanned = PackedSyncPlan(plan._metrics, plan.world_size, survivors, group=plan.group)
     replanned.degraded = True
     replanned.excluded_ranks = plan.excluded_ranks + (int(culprit),)
     if in_flight:
@@ -152,6 +162,14 @@ def _exchange(plan: PackedSyncPlan, stats: EngineStats) -> Tuple[Dict[str, torch
                 gathered = _exchange_once(plan, stats)
                 if plan.degraded:
                     stats.sync_degraded_folds += 1
+                if plan.skipped_sharded:
+                    # their sync is global by construction, or one all-reduce over data
+                    stats.gather_skipped += len(plan.skipped_sharded)
+                    stats.psum_syncs += sum(1 for _, _, fold, _ in plan.skipped_sharded if fold in ("sum", "mean"))
+                    _diag.record(
+                        "sync.shard_skip", stats.owner, states=len(plan.skipped_sharded),
+                        attrs=tuple(f"{o}:{a}" if o else a for o, a, _, _ in plan.skipped_sharded),
+                    )
                 return gathered, plan
             except _resilience.SyncFaultError as exc:
                 plan = _degraded_replan(plan, stats, exc)
@@ -175,9 +193,16 @@ def _exchange_once(plan: PackedSyncPlan, stats: EngineStats) -> Dict[str, torch.
     measuring = rec is not None or profiling
     t0 = perf_counter() if measuring else 0.0
     if not plan.specs and not plan.timeline:
+        # every state is live-sharded (or the plan is empty): no buffer, no metadata
         plan.finalize(None)
-        _diag.record("sync.noop", stats.owner, world=plan.world_size)
+        stats.sync_noop_plans += 1
+        _diag.record("sync.noop", stats.owner, world=plan.world_size, sharded=len(plan.skipped_sharded))
         return {}
+    from torchmetrics_tpu_torch.parallel import sharding as _sharding
+
+    mode = "local" if plan.world_size == 1 or plan.local_only else (
+        _packing.ingraph_sync_mode(plan, _sharding.metric_state_mesh(plan._metrics[0][1]), plan.world_size) or "host"
+    )
     meta = plan.metadata_local()
     had_meta = False
     if meta is None:
@@ -189,7 +214,9 @@ def _exchange_once(plan: PackedSyncPlan, stats: EngineStats) -> Dict[str, torch.
         with transfer_allowed("sync-metadata"):
             local = torch.as_tensor(meta, device=plan.device)
             stamp = stamp_arrival_into if plan.timeline else None
-            world_meta = all_gather_backbone(local, label="meta", members=plan.members, on_enter=stamp).cpu().numpy()
+            world_meta = all_gather_backbone(
+                local, label="meta", members=plan.members, on_enter=stamp, group=plan.group
+            ).cpu().numpy()
         plan.finalize(world_meta)
         stats.sync_collectives += 1
         stats.sync_metadata_gathers += 1
@@ -200,10 +227,17 @@ def _exchange_once(plan: PackedSyncPlan, stats: EngineStats) -> Dict[str, torch.
             # a local-only re-plan reads its own row alone: every row is this rank's
             gathered[key] = buf[None].expand((plan.world_size,) + tuple(buf.shape))
             continue
-        gathered[key] = all_gather_backbone(buf, label=key, members=plan.members)
+        if mode == "mesh":
+            gathered[key] = _packing.mesh_world_view(buf, plan, label=key)
+            stats.psum_syncs += key.startswith("reduce:")
+        else:
+            gathered[key] = all_gather_backbone(buf, label=key, members=plan.members, group=plan.group)
         stats.sync_collectives += 1
         bytes_moved += int(buf.nbytes) * plan.world_size
     stats.sync_bytes_moved += bytes_moved
+    if mode == "mesh":
+        stats.ingraph_syncs += 1
+        _diag.record("sync.ingraph", stats.owner, world=plan.world_size, buffers=len(gathered), mode=mode)
     for finding in plan.audit_results:
         if finding["flag"]:
             if finding["flag"] == "rank-invariant-divergence":
@@ -232,7 +266,7 @@ def _exchange_once(plan: PackedSyncPlan, stats: EngineStats) -> Dict[str, torch.
         if rec is not None:
             rec.record(
                 "sync.exchange", stats.owner, dispatch_us=sync_us, world=plan.world_size,
-                buffers=len(gathered), metadata=had_meta, bytes=bytes_moved, mode="local" if plan.local_only else "host",
+                buffers=len(gathered), metadata=had_meta, bytes=bytes_moved, mode=mode,
             )
     return gathered
 
@@ -258,6 +292,21 @@ def _write_synced(metric: Any, states: Dict[str, Any], plan: PackedSyncPlan, own
         metric._none_folded.add(attr)
 
 
+def _fold_sharded(plan: PackedSyncPlan, stats: EngineStats) -> None:
+    """Fold each skipped sharded state over the data sub-group (a ``(data, state)``
+    mesh): one all-reduce per state, written onto its metric. On a 1-D mesh (world 1)
+    a sharded state is global already."""
+    if not plan.skipped_sharded or plan.world_size < 2 or plan.group is None:
+        return
+    from torchmetrics_tpu_torch.parallel import sharding as _sharding
+
+    for _, attr, fold, metric in plan.skipped_sharded:
+        if fold not in ("sum", "mean", "max", "min"):
+            raise PackingError(f"sharded state {attr!r} with fold {fold!r} cannot fold over the data axis")
+        setattr(metric, attr, _sharding.fold_over_data(getattr(metric, attr), fold, plan.group, plan.world_size))
+        stats.sync_collectives += 1
+
+
 def _run_fold(
     plan: PackedSyncPlan, gathered: Dict[str, torch.Tensor], cache: Dict[Tuple, Callable]
 ) -> Dict[str, Dict[str, Any]]:
@@ -269,13 +318,22 @@ def _run_fold(
     return fold(gathered)
 
 
+def _sync_scope(owners: Sequence[Tuple[str, Any]]) -> Tuple[int, None, Any]:
+    """``(world size, members, group)`` of an exchange over ``owners``: the default
+    group, or the data sub-group of a state mesh (``sharding.sync_scope``)."""
+    from torchmetrics_tpu_torch.parallel import sharding as _sharding
+
+    world, group = _sharding.sync_scope([m for _, m in owners])
+    return world, None, group
+
+
 def _packed_sync(
     owners: Sequence[Tuple[str, Any]], stats: EngineStats, cache: Dict[Tuple, Callable]
 ) -> bool:
     """Sync every owner's states in one exchange; False (counted) when the layout
     cannot be packed and the caller must sync eagerly."""
     try:
-        plan = PackedSyncPlan(list(owners), _sync.world_size())
+        plan = PackedSyncPlan(list(owners), *_sync_scope(owners))
     except PackingError as exc:
         stats.fallback(f"sync:{exc}")
         return False
@@ -283,6 +341,7 @@ def _packed_sync(
     folded = _run_fold(plan, gathered, cache)
     for name, metric in owners:
         _write_synced(metric, folded.get(name, {}), plan, name)
+    _fold_sharded(plan, stats)
     stats.packed_syncs += 1
     _note_plan_coverage(stats, plan)
     return True
@@ -559,7 +618,7 @@ class EpochEngine:
         m = self._metric
         st = self.stats
         try:
-            plan = PackedSyncPlan([("", m)], _sync.world_size())
+            plan = PackedSyncPlan([("", m)], *_sync_scope([("", m)]))
         except PackingError as exc:
             st.fallback(f"sync:{exc}")
             return None

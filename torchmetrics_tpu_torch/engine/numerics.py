@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Generator, Optional, Sequence, Tuple
 import torch
 
 from torchmetrics_tpu_torch.engine.statespec import COMPENSATION_KEY, state_additive, row_additive, state_fold
+from torchmetrics_tpu_torch.parallel import sharding as _sharding
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 __all__ = [
@@ -219,7 +220,8 @@ def ensure_residuals(metric: Any) -> Dict[str, torch.Tensor]:
     """The metric's residual dict, created (zeros) on first use."""
     res = metric.__dict__.get(ATTR)
     if res is None:
-        res = {k: torch.zeros_like(getattr(metric, k)) for k in comp_state_names(metric)}
+        # a sharded state's residual is the local block of its value (parallel/sharding.py)
+        res = {k: torch.zeros_like(_sharding.local(getattr(metric, k))) for k in comp_state_names(metric)}
         metric.__dict__[ATTR] = res
     return res
 
@@ -357,7 +359,7 @@ def maybe_drift_probe(metric: Any, stats: Any, owner: Optional[str] = None) -> O
     worst = 0.0
     with transfer_allowed("drift-probe"):
         for k, r in res.items():
-            value = getattr(metric, k).detach().to("cpu", torch.float64).numpy()
+            value = _sharding.local(getattr(metric, k)).detach().to("cpu", torch.float64).numpy()
             reference = value + r.detach().to("cpu", torch.float64).numpy()
             denom = np.maximum(np.abs(reference), np.finfo(np.float64).tiny)
             rel = float(np.max(np.abs(reference - value) / denom)) if value.size else 0.0

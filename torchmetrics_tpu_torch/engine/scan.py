@@ -51,6 +51,9 @@ is consulted only where the engine is on.
   folded, replayed and discarded steps, and a swap's causal span rides its drain's
   events. Each ``kb`` graph lands in the cost ledger (kind ``scan``).
 
+A sharded state's carry is its local block (``step_state``), and the placement joins the
+queue's key, as in ``engine/compiled.py``.
+
 Left out against the JAX module: the ``persist`` manifest.
 """
 
@@ -91,6 +94,7 @@ from torchmetrics_tpu_torch.engine.compiled import (
     step_state,
     timed_replay,
 )
+from torchmetrics_tpu_torch.parallel import sharding as _sharding
 from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 __all__ = [
@@ -525,7 +529,9 @@ class _ScanQueue:
                 in_sig = tuple((bucketing.bucketed_shape(a, bucket), a.dtype, a.device) for a in inputs)
             states = {name: step_state(m) for name, m in members}
             state_sig = tuple((name, state_signature(states[name])) for name, _ in members)
-            qkey = (len(args), kw_names, in_sig, bucket, names, k, state_sig)
+            # the placement joins the key (parallel/sharding.py): the carry is the local blocks
+            placement = tuple(_sharding.metric_placement_token(m) for _, m in members)
+            qkey = (len(args), kw_names, in_sig, bucket, names, k, placement, state_sig)
             plan = self._plans.get(qkey)
             if plan is None:
                 if self._pending:

@@ -70,6 +70,15 @@ _COUNTER_FIELDS = (
     "compute_cache_hits",  # compute dispatches served without a new build
     # --- profiling layer (diag/profile.py): sampled completion probes ---
     "profile_probes",  # warm dispatches followed by a sanctioned wait on their end event
+    # --- state-spec registry (engine/statespec.py) ---
+    "spec_fallbacks",  # specs derived for states registered without add_state
+    # --- sharded state (parallel/sharding.py) ---
+    "shard_states",  # states placed distributed by a resolved shard rule (born or re-placed)
+    "psum_syncs",  # additive sharded states whose sync needs no gather (1-D) or one all-reduce over data (2-D)
+    "gather_skipped",  # sharded states the packed gather skipped
+    "shard_degrades",  # shard-rule resolutions degraded to replication (scalar, no state axis, indivisible)
+    "ingraph_syncs",  # packed exchanges that rode the mesh's data sub-group
+    "sync_noop_plans",  # packed syncs skipped wholesale: nothing to pack (every state sharded)
     # --- heavy-workload host paths (detection/mean_ap.py) ---
     "map_host_evals",  # mAP computes evaluated by the host matcher (list, RLE and packed-dict routes)
     # --- value provenance & freshness plane (diag/lineage.py) ---

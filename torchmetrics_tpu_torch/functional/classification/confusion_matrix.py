@@ -182,15 +182,21 @@ def _multiclass_confusion_matrix_format(
     return preds, target
 
 
-def _multiclass_confusion_matrix_update(preds: torch.Tensor, target: torch.Tensor, num_classes: int) -> torch.Tensor:
+def _multiclass_confusion_matrix_update(
+    preds: torch.Tensor, target: torch.Tensor, num_classes: int, rows: Optional[Tuple[int, int]] = None
+) -> torch.Tensor:
     """``confmat[i, j] = #{n : target[n] == i, preds[n] == j}``, int32 ``(C, C)``.
 
     Out-of-range predictions and targets are dropped: without the bound on ``preds``
-    an invalid code would alias into a wrong cell of the flattened count.
+    an invalid code would alias into a wrong cell of the flattened count. ``rows =
+    (lo, hi)`` counts only the target rows of a shard (``parallel/sharding.py``): a
+    target outside them goes to the drop bin, the index is rebased to ``(target - lo)
+    * C + pred`` and the result is ``(hi - lo, C)``.
     """
-    invalid = (target < 0) | (target >= num_classes) | (preds < 0) | (preds >= num_classes)
-    unique_mapping = torch.where(invalid, -1, target.long() * num_classes + preds.long())
-    return _bincount(unique_mapping, minlength=num_classes * num_classes).reshape(num_classes, num_classes)
+    lo, hi = (0, num_classes) if rows is None else rows
+    invalid = (target < lo) | (target >= hi) | (preds < 0) | (preds >= num_classes)
+    unique_mapping = torch.where(invalid, -1, (target.long() - lo) * num_classes + preds.long())
+    return _bincount(unique_mapping, minlength=(hi - lo) * num_classes).reshape(hi - lo, num_classes)
 
 
 def _multiclass_confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = None) -> torch.Tensor:

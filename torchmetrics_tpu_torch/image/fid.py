@@ -29,6 +29,7 @@ import torch
 
 from torchmetrics_tpu_torch.image._extractor import ExtractorFollowsDevice, resolve_feature_extractor
 from torchmetrics_tpu_torch.metric import Metric
+from torchmetrics_tpu_torch.parallel.sharding import local_rows
 
 
 def _compute_fid(mu1, sigma1, mu2, sigma2) -> torch.Tensor:
@@ -87,6 +88,12 @@ class FrechetInceptionDistance(ExtractorFollowsDevice, Metric):
     # every state sums over the batch's rows: the pad-subtract identity holds, provided
     # the extractor maps each image independently
     _engine_row_additive: bool = True
+    # placement (parallel/sharding.py): the (d, d) covariance sums split their rows over
+    # the state mesh; each rank forms only its rows of the batch's product
+    _engine_shard_rules = {
+        "real_features_cov_sum": "row_sharded",
+        "fake_features_cov_sum": "row_sharded",
+    }
 
     def __init__(
         self,
@@ -133,7 +140,8 @@ class FrechetInceptionDistance(ExtractorFollowsDevice, Metric):
             features = features[None, :]
         n = features.shape[0]
         fsum = features.sum(dim=0)
-        fcov = features.T @ features
+        rows = local_rows(self, "real_features_cov_sum")
+        fcov = (features.T if rows is None else features[:, rows[0] : rows[1]].T) @ features
         r = torch.as_tensor(real, device=features.device)
         cnt = self.real_features_num_samples.dtype
         self.real_features_sum = torch.where(r, self.real_features_sum + fsum, self.real_features_sum)

@@ -50,11 +50,19 @@ place (``diag/sentinel.py``; a replay may hold it as a static buffer), and a
 divergence audit expects equal on every rank.
 
 ``snapshot_compute`` computes on a copy of the state taken while updates go on
-(``serve/snapshot.py``). ``add_state(spec=...)`` takes the packed-sync roles the serving
-states declare (``engine/statespec.validate_role_spec``).
+(``serve/snapshot.py``). ``add_state`` registers each state's ``StateSpec``
+(``engine/statespec.py``; ``state_specs`` lists them), with the packed-sync roles the
+serving states declare in ``spec=`` (``engine/statespec.validate_role_spec``).
 
-Left out against the JAX package: ``persist`` and ``state_specs`` (the ``StateSpec``
-registry with its shard rules).
+Sharded state (``parallel/sharding.py``): under an active state mesh a state whose rule
+resolves to a partition is born a ``DTensor`` holding this rank's block. The update body
+and the engines run on the local blocks; ``sync`` skips such a state on a 1-D mesh and
+folds it over the ``data`` sub-group on a 2-D one (the replicated states then sync over
+that sub-group too); ``compute`` runs on the assembled whole states; ``state_dict``
+writes them whole, and ``load_state_dict`` and unpickling re-place them
+(``_apply_shard_rules``).
+
+Left out against the JAX package: ``persist``.
 """
 
 from __future__ import annotations
@@ -80,7 +88,8 @@ from torchmetrics_tpu_torch.engine.async_dispatch import coerce_inflight, resolv
 from torchmetrics_tpu_torch.engine.compiled import CompiledUpdate, detach_from_static, is_static
 from torchmetrics_tpu_torch.engine.config import engine_enabled
 from torchmetrics_tpu_torch.engine.scan import coerce_k, discard_metric, flush_metric, scan_k
-from torchmetrics_tpu_torch.engine.statespec import stamp_row_additive, validate_role_spec
+from torchmetrics_tpu_torch.engine.statespec import build_spec, register_state_spec, specs_of, state_fold, validate_role_spec
+from torchmetrics_tpu_torch.parallel import sharding as _sharding
 from torchmetrics_tpu_torch.parallel.packing import shape_fingerprint
 from torchmetrics_tpu_torch.parallel.sync import distributed_available, gather_all_tensors
 from torchmetrics_tpu_torch.utilities.data import (
@@ -287,8 +296,7 @@ class Metric(torch.nn.Module):
 
         self._dtype = torch.float32  # of Python float defaults; set_dtype changes it
         self._defaults: Dict[str, Union[List, torch.Tensor]] = {}
-        self._row_additive: Dict[str, bool] = {}  # engine/statespec.py, stamped by add_state
-        self._state_roles: Dict[str, Dict[str, Any]] = {}  # add_state(spec=...): packed-sync roles
+        self._state_specs: Dict[str, Any] = {}  # engine/statespec.py: one StateSpec per state
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
 
@@ -343,7 +351,7 @@ class Metric(torch.nn.Module):
         default: Union[list, torch.Tensor, float, int],
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
-        spec: Optional[Dict[str, Any]] = None,
+        spec: Optional[Any] = None,
     ) -> None:
         """Register a state: a tensor (any shape) or an empty list for "cat" states.
 
@@ -351,7 +359,10 @@ class Metric(torch.nn.Module):
         selects how the state folds across processes and across ``forward`` steps.
         ``spec`` declares a packed-sync role the reduction alone cannot say, as the
         serving states do (``engine/statespec.validate_role_spec``): the heavy-hitter
-        grid and its jointly folded ``(ids, counts)`` pair, the ring clock.
+        grid and its jointly folded ``(ids, counts)`` pair, the ring clock; or it is a
+        ready ``StateSpec``. Under an active state mesh a tensor state whose shard rule
+        resolves to a partition is born distributed (``parallel/sharding.place_state``):
+        only this rank's block is copied to the device.
         """
         if isinstance(default, (int, float)):
             default = torch.tensor(default, dtype=self._dtype if isinstance(default, float) else torch.int32)
@@ -366,17 +377,34 @@ class Metric(torch.nn.Module):
         elif dist_reduce_fx is not None and not callable(dist_reduce_fx):
             raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
 
+        overrides = validate_role_spec(name, spec) if isinstance(spec, dict) else spec
+        spec_obj = register_state_spec(self, build_spec(self, name, dist_reduce_fx, overrides))
         if isinstance(default, torch.Tensor):
-            default = default.to(self._device)
+            placed = default
+            if spec_obj.shard_rule != "replicate" or (
+                _sharding.partition_rules_active() and _sharding.match_partition_rule(name, type(self).__name__)
+            ):
+                # born distributed: the default itself is placed, so reset keeps it
+                placed = _sharding.place_state(self, name, default, spec_obj)
+            default = default.to(self._device) if placed is default else placed
             setattr(self, name, default.clone())
         else:
             setattr(self, name, [])
         self._defaults[name] = default
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
-        stamp_row_additive(self, name)
-        if spec is not None:
-            self._state_roles[name] = validate_role_spec(name, spec)
+
+    def _apply_shard_rules(self) -> None:
+        """Re-place rule-carrying states after a host round-trip (``load_state_dict``,
+        unpickling, ``restore_resharded``); a no-op without such a rule or a mesh."""
+        specs = self.__dict__.get("_state_specs") or {}
+        if any(sp.shard_rule != "replicate" for sp in specs.values()) or _sharding.partition_rules_active():
+            _sharding.reshard_states(self)
+
+    def state_specs(self) -> Dict[str, Any]:
+        """Every registered state's ``StateSpec`` (``engine/statespec.py``), in
+        registration order."""
+        return specs_of(self, consumer="state_specs")
 
     # ------------------------------------------------------------------ forward
 
@@ -602,6 +630,15 @@ class Metric(torch.nn.Module):
 
     def _reduce_states(self, incoming_state: Dict[str, Any]) -> None:
         """Fold the snapshotted global state (``incoming_state``) with the batch state."""
+        if self.__dict__.get(_sharding.LAYOUT_ATTR):
+            # a sharded metric folds its local blocks (forward's snapshot holds DTensors)
+            incoming_state = {k: _sharding.local(v) for k, v in incoming_state.items()}
+            with _sharding.local_states(self):
+                self._reduce_local_states(incoming_state)
+            return
+        self._reduce_local_states(incoming_state)
+
+    def _reduce_local_states(self, incoming_state: Dict[str, Any]) -> None:
         global_folded = incoming_state.get("__none_folded__")
         global_res = incoming_state.get(numerics.ATTR) or {}
         local_res = self.__dict__.get(numerics.ATTR) or {}
@@ -647,8 +684,22 @@ class Metric(torch.nn.Module):
     # ------------------------------------------------------------------ sync
 
     def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
-        """Gather every state from all processes and apply its reduction."""
-        input_dict = {attr: getattr(self, attr) for attr in self._reductions}
+        """Gather every state from all processes and apply its reduction.
+
+        A live-sharded state is skipped (global by construction on a 1-D mesh); on a
+        ``(data, state)`` mesh it is folded over this rank's ``data`` sub-group, which
+        the replicated states then gather over (``parallel/sharding.sync_scope``).
+        """
+        sharded = [a for a in self._reductions if _sharding.is_sharded(self.__dict__.get(a))]
+        group = process_group or self.process_group
+        if group is None and _sharding.metric_state_mesh(self) is not None:
+            data_size, group = _sharding.sync_scope([self])
+            if data_size == 1:
+                return  # one data row: the replicated states are whole, the sharded global
+            for attr in sharded:
+                fold = state_fold(self, attr)[0]
+                setattr(self, attr, _sharding.fold_over_data(getattr(self, attr), fold, group, data_size))
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions if attr not in sharded}
         for attr, reduction_fn in self._reductions.items():
             # pre-concatenate list states to one collective each
             if reduction_fn is dim_zero_cat and isinstance(input_dict[attr], list) and len(input_dict[attr]) > 1:
@@ -661,6 +712,8 @@ class Metric(torch.nn.Module):
         output_dict = apply_to_collection(input_dict, torch.Tensor, dist_sync_fn, group=group)
 
         for attr, reduction_fn in self._reductions.items():
+            if attr not in output_dict:
+                continue
             if isinstance(output_dict[attr], list) and len(output_dict[attr]) == 0:
                 setattr(self, attr, [])
                 continue
@@ -863,6 +916,13 @@ class Metric(torch.nn.Module):
         """One eager update with the riders of the compiled step (the compensated
         two-sum, the quarantine transaction): the update wrapper's fallback and the scan
         queue's one-step replay. The bookkeeping (``_update_count``) is the caller's."""
+        if self.__dict__.get(_sharding.LAYOUT_ATTR):
+            with _sharding.local_states(self):
+                self._run_local_update(args, kwargs)
+            return
+        self._run_local_update(args, kwargs)
+
+    def _run_local_update(self, args: tuple, kwargs: Dict[str, Any]) -> None:
         update = self._raw_update
         if numerics.compensation_active(self):
 
@@ -959,7 +1019,8 @@ class Metric(torch.nn.Module):
                 return self._computed
             if self.__dict__.get(numerics.ATTR):
                 # the epoch-boundary fold of each compensated (value, residual) pair
-                numerics.reanchor(self)
+                with _sharding.local_states(self):
+                    numerics.reanchor(self)
             fused = self._epoch_sync_for_compute() if not args and not kwargs else None
             if fused is not None:
                 from torchmetrics_tpu_torch.engine.epoch import NO_VALUE
@@ -978,7 +1039,8 @@ class Metric(torch.nn.Module):
                     should_sync=self._to_sync,
                     should_unsync=self._should_unsync,
                 ):
-                    value = _squeeze_if_scalar(self._engine_compute(compute, args, kwargs))
+                    with _sharding.full_view(self):
+                        value = _squeeze_if_scalar(self._engine_compute(compute, args, kwargs))
                     # a value handed out never shares storage with a buffer the next
                     # engine replay writes in place
                     value = detach_from_static(value, [getattr(self, a) for a in self._defaults])
@@ -1004,6 +1066,8 @@ class Metric(torch.nn.Module):
         1-tuple of the value, ``engine.epoch.NO_VALUE`` when only the sync was fused."""
         if self._is_synced or not self._to_sync or self.dist_sync_fn is not None or self.compute_on_cpu:
             return None
+        if _sharding.holds_sharded(self):
+            return None  # the compute runs on the assembled states (full_view)
         if self.process_group is not None or not self._epoch_enabled():
             return None
         available = self.distributed_available_fn
@@ -1122,11 +1186,12 @@ class Metric(torch.nn.Module):
         state.setdefault("_mutation_depth", 0)
         state.setdefault("_in_batch_value", False)
         state.setdefault("_engine", None)
-        state.setdefault("_row_additive", {})
-        state.setdefault("_state_roles", {})
+        state.setdefault("_state_specs", {})
         super().__setstate__(state)
         self.update = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+        # a pickle made without a mesh re-places onto the active one (no-op otherwise)
+        self._apply_shard_rules()
 
     def __setattr__(self, name: str, value: Any) -> None:
         """Write-protect class-constant metadata; a write to a registered state clears
@@ -1229,9 +1294,11 @@ class Metric(torch.nn.Module):
                 continue
             current_val = getattr(self, key)
             if isinstance(current_val, torch.Tensor):
-                if key in residuals and residuals[key].shape == current_val.shape:
-                    current_val = numerics.anchored_value(current_val, residuals[key])
-                destination[prefix + key] = current_val.detach().clone()
+                block = _sharding.local(current_val)
+                if key in residuals and residuals[key].shape == block.shape:
+                    current_val = _sharding.wrap_like(self, key, numerics.anchored_value(block, residuals[key]))
+                # a sharded state is written whole (one gather over its state group)
+                destination[prefix + key] = _sharding.assemble(current_val).detach().clone()
             else:
                 destination[prefix + key] = [v.detach().clone() if isinstance(v, torch.Tensor) else v for v in current_val]
             wrote_any = True
@@ -1275,6 +1342,8 @@ class Metric(torch.nn.Module):
             self._computed = None
             if self.__dict__.get(numerics.ATTR):
                 self.__dict__[numerics.ATTR] = {k: torch.zeros_like(v) for k, v in self.__dict__[numerics.ATTR].items()}
+            # a checkpoint holds whole states: rule-carrying ones re-place onto the mesh
+            self._apply_shard_rules()
 
     def __hash__(self) -> int:
         """Hash of the class and the identities of the metric and its states."""

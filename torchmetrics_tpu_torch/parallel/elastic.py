@@ -357,6 +357,8 @@ def _reshard_metric(
         setattr(metric, attr, value)
     metric._update_count = _split_count(sum(counts), rank, world_size)
     metric._computed = None
+    # the fold ran on whole states: rule-carrying ones re-place onto the state mesh
+    metric._apply_shard_rules()
     if metric.__dict__.get(numerics.ATTR):
         # shards persist anchored totals: the restored world compensates from zero
         metric.__dict__[numerics.ATTR] = {k: torch.zeros_like(v) for k, v in metric.__dict__[numerics.ATTR].items()}

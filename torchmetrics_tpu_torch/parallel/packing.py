@@ -59,8 +59,16 @@ that would cost a collective and a barrier of its own), and the fold reads the m
 rows alone. ``members`` is part of ``signature()``, so a degraded fold is never served
 from the full world's cache entry.
 
-Left out against the JAX plan: sharded-state skips, the in-graph mesh exchange and
-sub-world process groups (those take the eager path).
+Sharded states (``parallel/sharding.py``): a live-sharded state never enters the
+buffers. On a 1-D mesh it is global by construction; the plan lists it in
+``skipped_sharded`` and the epoch engine counts it (``gather_skipped``, ``psum_syncs``)
+and, on a ``(data, state)`` mesh, folds it over the data sub-group. The plan's
+``group`` is the process group its collectives run over: the default group, or the
+mesh's data sub-group (``sharding.sync_scope``), where the fold then reads one row per
+data row (``ingraph_sync_mode`` / ``mesh_world_view``, the counterparts of the JAX
+in-graph exchange over the ``data`` axis).
+
+Left out against the JAX plan: sub-world ``process_group``s (those take the eager path).
 """
 
 from __future__ import annotations
@@ -72,7 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from torchmetrics_tpu_torch.engine.statespec import state_fold, state_role
+from torchmetrics_tpu_torch.engine.statespec import spec_of, state_fold, state_role
 from torchmetrics_tpu_torch.utilities.data import (
     dim_zero_cat,
     dim_zero_max,
@@ -121,9 +129,10 @@ def all_gather_backbone(
     label: str = "",
     members: Optional[Sequence[int]] = None,
     on_enter: Optional[Callable[[torch.Tensor], None]] = None,
+    group: Optional[Any] = None,
 ) -> torch.Tensor:
-    """One ``torch.distributed.all_gather`` of ``x`` over the default group, on ``x``'s
-    own device: ``(world, *x.shape)``. Every rank passes a tensor of the same shape and
+    """One ``torch.distributed.all_gather`` of ``x`` over ``group`` (the default group
+    when None), on ``x``'s own device: ``(world, *x.shape)``. Every rank passes a tensor of the same shape and
     dtype (the plan guarantees it).
 
     The collective rides ``parallel/resilience.bounded_collective`` under ``label``
@@ -142,10 +151,29 @@ def all_gather_backbone(
     _diag.record("collective", "", label=label, bytes=int(x.nbytes))
     with transfer_allowed("collective:" + label):
         rows = bounded_collective(
-            lambda t: _sync.raw_all_gather(t), label=label, payload=x, members=members,
+            lambda t: _sync.raw_all_gather(t, group), label=label, payload=x, members=members,
             on_enter=None if on_enter is None else (lambda: on_enter(x)),
         )
     return rows if isinstance(rows, torch.Tensor) else torch.stack(rows)
+
+
+def ingraph_sync_mode(plan: "PackedSyncPlan", mesh: Any, data_size: int) -> Optional[str]:
+    """``"mesh"`` when the plan's exchange rides the mesh's data sub-group (a live data
+    axis of the plan's world size, full membership), else None (the default group).
+    The JAX modes ``emulated`` / ``spmd`` name one controller's two ways to build the
+    data-axis view; here each rank is its own process, so there is one."""
+    if mesh is None or plan.world_size < 2 or data_size != plan.world_size:
+        return None
+    if plan.degraded or plan.members != tuple(range(plan.world_size)) or plan.group is None:
+        return None
+    return "mesh"
+
+
+def mesh_world_view(buf: torch.Tensor, plan: "PackedSyncPlan", label: str = "") -> torch.Tensor:
+    """The ``(data, n)`` view of a packed buffer over the plan's data sub-group: one
+    bounded ``all_gather`` there, whose rows the fold reduces (the JAX view is a
+    data-sharded array whose reduction lowers to an in-graph ``psum``)."""
+    return all_gather_backbone(buf, label=label, members=plan.members, group=plan.group)
 
 
 class PackingError(Exception):
@@ -167,7 +195,7 @@ def _check_hh_layout(metric: Any) -> None:
                 " heavy-hitter pair folds jointly"
             )
         return
-    grid_attr = metric._state_roles[ids_attr]["hh"][0]
+    grid_attr = spec_of(metric, ids_attr).hh[0]
     if (
         grid_attr not in names
         or counts_attr is None
@@ -236,11 +264,19 @@ class PackedSyncPlan:
     """
 
     def __init__(
-        self, metrics: Sequence[Tuple[str, Any]], world_size: int, members: Optional[Sequence[int]] = None
+        self,
+        metrics: Sequence[Tuple[str, Any]],
+        world_size: int,
+        members: Optional[Sequence[int]] = None,
+        group: Optional[Any] = None,
     ) -> None:
         if world_size < 1:
             raise PackingError("world size < 1")
         self.world_size = int(world_size)
+        # the process group the collectives run over (None: the default group)
+        self.group = group
+        # live-sharded states the buffers leave out: (owner, attr, fold, metric)
+        self.skipped_sharded: List[Tuple[str, str, str, Any]] = []
         self.members: Tuple[int, ...] = (
             tuple(range(self.world_size)) if members is None else tuple(int(i) for i in members)
         )
@@ -274,6 +310,7 @@ class PackedSyncPlan:
     def _build(self) -> None:
         from torchmetrics_tpu_torch.diag import sentinel
         from torchmetrics_tpu_torch.engine import numerics, txn
+        from torchmetrics_tpu_torch.parallel.sharding import is_sharded
 
         for owner, metric in self._metrics:
             rank_invariant = getattr(metric, "_rank_invariant_states", ()) or ()
@@ -284,6 +321,12 @@ class PackedSyncPlan:
             for attr in metric._reductions:
                 val = getattr(metric, attr)
                 default = metric._defaults[attr]
+                if is_sharded(val):
+                    # global by construction (1-D) or folded over data by the caller
+                    # (2-D); placement is a function of the definition and the mesh,
+                    # the same on every rank, so the layouts stay symmetric
+                    self.skipped_sharded.append((owner, attr, state_fold(metric, attr)[0], metric))
+                    continue
                 role = state_role(metric, attr)
                 if role in ("hh-ids", "hh-counts"):
                     # the heavy-hitter pair folds jointly against the merged grid
@@ -295,7 +338,7 @@ class PackedSyncPlan:
                     spec.needs_meta = tuple(default.shape) != spec.shape
                     spec.group = "gather:" + spec.dtype
                     if role == "hh-ids":
-                        spec.hh_meta = tuple(metric._state_roles[attr]["hh"])
+                        spec.hh_meta = tuple(spec_of(metric, attr).hh)
                     self.specs.append(spec)
                     continue
                 fold, fold_fn = state_fold(metric, attr)
@@ -430,11 +473,12 @@ class PackedSyncPlan:
     def _audit_specs(self) -> List[_Spec]:
         return [s for s in self.specs if s.kind in self._AUDITABLE]
 
-    @staticmethod
-    def _local_rank() -> int:
+    def _local_rank(self) -> int:
         import torch.distributed as dist
 
-        return int(dist.get_rank()) if dist.is_available() and dist.is_initialized() else 0
+        if not (dist.is_available() and dist.is_initialized()):
+            return 0
+        return int(dist.get_rank(self.group)) if self.group is not None else int(dist.get_rank())
 
     def finalize(self, world_meta: Optional[np.ndarray]) -> None:
         """Validate the exchanged metadata and freeze buffer offsets.
@@ -668,6 +712,7 @@ class PackedSyncPlan:
                 for s in self.specs
             ),
             tuple(self.empty_lists),
+            tuple((owner, attr) for owner, attr, _, _ in self.skipped_sharded),
         )
 
     def make_fold(self) -> Callable[[Dict[str, torch.Tensor]], Dict[str, Dict[str, Any]]]:

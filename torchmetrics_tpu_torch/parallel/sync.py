@@ -7,8 +7,13 @@ own shape. Both collectives ride ``parallel/resilience.bounded_collective`` unde
 JAX labels ``eager:shape`` and ``eager:state``, so the eager path (every sync the packed
 route cannot take) has the same deadline, retries, typed errors and fault hooks as the
 packed backbone. With no policy and no planted fault the wrapper is a direct call.
-``raw_all_gather`` is the one place either path enters ``torch.distributed``. The JAX
-package's in-graph mesh-axis collectives have no counterpart here.
+``raw_all_gather`` is the one place either path enters ``torch.distributed``.
+
+The JAX package's mesh-axis collectives (``axis_gather`` / ``axis_sum`` / ``axis_mean``
+/ ``axis_max`` / ``axis_min``) run here over the process group of one named axis of a
+rank mesh: an ``EvalMesh`` or the active state mesh (``parallel/sharding.py``), the
+default group when neither names the axis. ``EvalMesh`` is a 1-D data-parallel mesh
+over the ranks.
 """
 
 from __future__ import annotations
@@ -20,9 +25,26 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 
+__all__ = [
+    "jit_distributed_available",
+    "gather_all_tensors",
+    "axis_gather",
+    "axis_sum",
+    "axis_mean",
+    "axis_max",
+    "axis_min",
+    "EvalMesh",
+]
+
+
 def distributed_available() -> bool:
     """Whether a ``torch.distributed`` process group is up."""
     return dist.is_available() and dist.is_initialized()
+
+
+def jit_distributed_available() -> bool:
+    """Whether there is more than one process."""
+    return world_size() > 1
 
 
 def world_size(group: Optional[Any] = None) -> int:
@@ -76,3 +98,83 @@ def gather_all_tensors(result: torch.Tensor, group: Optional[Any] = None) -> Lis
         pad.extend([0, m - s])
     gathered = _bounded_allgather(F.pad(result, pad), "eager:state", group)
     return [g[tuple(slice(0, d) for d in s)] for g, s in zip(gathered, sizes)]
+
+
+# ------------------------------------------------------------------ mesh-axis collectives
+
+
+def _axis_group(axis_name: str, mesh: Optional[Any], device_type: str) -> Optional[Any]:
+    """The process group along ``axis_name`` of ``mesh``, else of the active state mesh,
+    else None (the default group)."""
+    if mesh is None:
+        from torchmetrics_tpu_torch.parallel.sharding import metric_mesh
+
+        mesh = metric_mesh()
+    mesh = getattr(mesh, "mesh", mesh)
+    if mesh is not None and axis_name in getattr(mesh, "shape", {}):
+        return mesh.group(axis_name, device_type)
+    return None
+
+
+def _axis_reduce(x: torch.Tensor, axis_name: str, op: Any, mesh: Optional[Any]) -> torch.Tensor:
+    if not distributed_available():
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=op, group=_axis_group(axis_name, mesh, x.device.type))
+    return out
+
+
+def axis_gather(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis_name``, stacked on a new leading dim."""
+    if not distributed_available():
+        return x[None]
+    return torch.stack(raw_all_gather(x.contiguous(), _axis_group(axis_name, mesh, x.device.type)))
+
+
+def axis_sum(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:
+    """One all-reduce sum along ``axis_name``."""
+    return _axis_reduce(x, axis_name, dist.ReduceOp.SUM, mesh)
+
+
+def axis_mean(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:
+    """The mean along ``axis_name`` (an all-reduce sum over the axis size)."""
+    group = _axis_group(axis_name, mesh, x.device.type) if distributed_available() else None
+    return axis_sum(x, axis_name, mesh) / world_size(group)
+
+
+def axis_max(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:
+    """One all-reduce max along ``axis_name``."""
+    return _axis_reduce(x, axis_name, dist.ReduceOp.MAX, mesh)
+
+
+def axis_min(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:
+    """One all-reduce min along ``axis_name``."""
+    return _axis_reduce(x, axis_name, dist.ReduceOp.MIN, mesh)
+
+
+class EvalMesh:
+    """A 1-D data-parallel mesh over the first ``n_devices`` ranks (all by default),
+    its axis named ``axis``: the mesh the axis collectives take."""
+
+    def __init__(self, n_devices: Optional[int] = None, axis: str = "data") -> None:
+        import numpy as np
+
+        from torchmetrics_tpu_torch.parallel.sharding import StateMesh
+
+        n = world_size() if n_devices is None else int(n_devices)
+        self.axis = axis
+        self.mesh = StateMesh((axis,), np.arange(n))
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size
+
+    def shard_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of dim 0 of a global batch."""
+        rank = dist.get_rank() if distributed_available() else 0
+        rows = x.shape[0] // self.size
+        return x[rank * rows : (rank + 1) * rows]
+
+    def replicate(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself: every rank holds the whole value."""
+        return x
