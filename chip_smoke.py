@@ -235,7 +235,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    turns, FID ``compute`` ms and its ``eigh`` / ``eigvalsh`` ms, host reads per
    ``compute``, KID ``compute`` ms and its peak memory, IS ``compute`` ms. ``lpips``
    (super-resolution and image-translation evaluation), for each of ``alex``, ``vgg`` and
-   ``squeeze`` (bundled heads, seeded backbones): 16 updates of 32 pairs of 3 x 256 x 256
+   ``squeeze`` (bundled heads, seeded backbones): 8 updates of 32 pairs of 3 x 256 x 256
    float32 in [-1, 1], eagerly and with the engine (every update falls back: the range
    check reads the host, as in the JAX engine), then ``compute``; the first batch's first
    4 pairs and a gradient through ``img1`` (at full float32; relative L2, beside the CPU's
@@ -244,9 +244,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    beside the card's ``nvidia-smi`` name and power limit (the result's ``card``).
 
 20. the text domain (``BASELINE.json`` config #4, BERTScore / ROUGE on WMT16 en-de pairs),
-   on 512 seeded pairs shaped like newstest2016 en-de (5-80 words, mean ~22, from a seeded
+   on 256 seeded pairs shaped like newstest2016 en-de (5-80 words, mean ~22, from a seeded
    4000-word vocabulary; each reference an edit of its prediction; a third of the pairs
-   with two or three sentences) in 8 updates of 64, and 512 seeded SQuAD answers: ``mt``,
+   with two or three sentences) in 8 updates of 32, and 256 seeded SQuAD answers: ``mt``,
    a collection of BLEU, SacreBLEU (``13a``), chrF, TER, EED and ROUGE (four keys) with
    one-element reference lists; ``asr``, a collection of WER, CER, MER, WIL and WIP on flat
    strings; ``squad``. Each eagerly and with the engine (every update falls back:
@@ -256,7 +256,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    syncs per update, host reads per member ``compute``, device operations and idle share,
    and the collection's fallback cost by part. BERTScore at roberta-large's width (24 x 1024, 16 heads, FFN 4096,
    vocabulary 50265, 514 positions; a seeded encoder and a word tokenizer written here,
-   injected, every row at ``max_length=512``) over the 512 pairs, ``compute`` with
+   injected, every row at ``max_length=512``) over the 256 pairs, ``compute`` with
    ``idf`` off and on (ms, the encoder's share, peak memory over what was live, host
    reads), the greedy-cosine ``bmm`` against its float32 bound, the padding's share; each
    ``compute`` at 8 pairs (one in each update) against a CPU ``BERTScore`` that took the
@@ -264,11 +264,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    updates of (8, 1024, 50257) logits with ~5 % ``ignore_index``, float32 then bfloat16,
    eagerly and with the engine (which replays, with 0 host syncs), device ms per update
    against the bytes bound, two rows against the CPU (relative 1e-5). InfoLM's nine
-   measures over injected (512, 50265) distributions, eagerly and with the engine (each
+   measures over injected (256, 50265) distributions, eagerly and with the engine (each
    ``compute`` against a CPU ``InfoLM`` that took the same updates, and the functional's
    first 16 pairs, relative 1e-5). The HF route: ``BERTScore`` and ``InfoLM`` with ``model_name_or_path``
    on a seeded ``BertForMaskedLM`` at bert-base width (12 x 768, vocabulary 30522) and a
-   ``BertTokenizer`` the script saves with ``save_pretrained`` (BERTScore on the 512 pairs,
+   ``BertTokenizer`` the script saves with ``save_pretrained`` (BERTScore on the 256 pairs,
    InfoLM on 16), BERTScore's ``compute`` at the same 8 pairs and the functionals' first 2
    pairs against the CPU; the model the loader caches stays on the CPU and the card runs
    a copy. No K1 / K2 launch.
@@ -282,7 +282,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    same run on the CPU; the C++ evaluator against the numpy route on the first 500
    images to 1e-12); ``coco_packed``, ``PackedMeanAveragePrecision(80)`` over the same
    images as widened (16, 128, 6) / (16, 64, 5) batches, eagerly and with the engine
-   (histograms equal both ways and to a CPU run over the first 1024 images; ``map``
+   (histograms equal both ways and to a CPU run over the first 512 images; ``map``
    within 1e-3 of ``coco_list``'s; µs per update, device busy and idle, device
    operations, replays and captures, 0 host syncs per update); ``segm``, dense 480 x 640
    masks (64 images, 20 detections each) and RLE dicts of the same masks, equal to each
@@ -394,7 +394,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    K1 and K2 held against their plain versions. The degrade: ``MulticlassAccuracy(50257)``
    (GPT-2's vocabulary) replicated with 4 ``shard.fallback`` events. Then, in the parent, K1
    at 2048 x 128,256 against its plain version and its row of the kernels line. It prints a
-   ``shard_summary`` line with the card's ``nvidia-smi`` name and power limit.
+   ``shard_summary`` line with the card's ``nvidia-smi`` name and power limit. shard_vocab's
+   engine run writes the signature manifest (``engine/persist.py``) into a directory the
+   ranks share; after a barrier each rank prewarms a second engine instance from it
+   (update rows, then compute rows in owner order), runs the same 16 updates, and its
+   first ``compute`` must build no graph and equal the replicated values (phase 27);
+27. the signature manifest (``engine/persist.py``), cold against prewarmed: three fresh
+   processes one after another, each on the same seeded batches drawn on the card. A
+   writer runs config #1 (``MulticlassAccuracy(1000)``, 16 updates of 8192 x 1000) and
+   config #2's engine members as one collection plus its binned AUROC alone (16 updates
+   of 8192 x 10), engine on and persistence on, each with a ``compute``: its builds
+   write one manifest per configuration. A cold replica runs the same with no manifest;
+   a prewarmed replica first ``prewarm``s fresh instances from the manifests (config #1
+   and the collection under ``transfer_guard("strict")``, which must see 0 readbacks;
+   the AUROC, whose range check reads the host, under the log guard), with the replays'
+   K1 / K2 launches counted. Each arm times its first update and first ``compute`` (host
+   clock to a device sync) and counts their builds, captures and replays; the prewarmed
+   first update must be a replay with 0 captures, ``prewarm`` must report 0 failures,
+   and every state and value after the 16 updates must equal the cold arm's exactly.
+   Then KLL (k=256, 2^16 latencies per update) in this process: a cold instance (its
+   builds write the manifest) against a second one prewarmed from it, two updates each,
+   held the same way. It prints a ``persist_summary`` line with phase 26's shard_vocab
+   arm, the card's name and power limit and the phase's own duration.
 
 Phases 3-10 run under ``engine_context(False)``: the eager path the earlier slices
 measured, so their numbers stay comparable.
@@ -416,7 +437,9 @@ alone; ``--detection-only`` runs phases 1-2 and then phase 21 alone; ``--audio-o
 runs phases 1-2 and then phase 22 alone; ``--resilience-only`` runs phases 1-2 and then
 phase 23 alone, on batches made for it; ``--diag-only`` runs phases 1-2 and then phase 24
 alone, on batches made for it; ``--serve-only`` runs phases 1-2 and then phase 25 alone,
-on batches made for it; ``--shard-only`` runs phases 1-2 and then phase 26 alone.
+on batches made for it; ``--shard-only`` runs phases 1-2 and then phase 26 alone;
+``--persist-only`` runs phases 1-2 and then phase 27 alone (without phase 26's shard_vocab
+arm).
 
 ``python3 chip_smoke.py --binned-update-only`` runs phases 1-2 and then only times
 ``_binned_multi_threshold_confmat`` (K2's step in the curve update) for the package
@@ -5101,7 +5124,7 @@ FIDM_CHECK_UPDATES = 2  # per side, held against the CPU run
 FIDM_RAGGED = 20  # one ragged update: bucket 32, 12 zero pad images
 KID_CHECK_SUBSETS, KID_CHECK_SIZE = 10, 50  # the CPU comparison's KID (64 samples per side)
 LPIPS_NETS = ("alex", "vgg", "squeeze")
-LPIPS_UPDATES, LPIPS_BATCH = 16, 32  # super-resolution / translation eval: 512 pairs of 256 x 256
+LPIPS_UPDATES, LPIPS_BATCH = 8, 32  # super-resolution / translation eval: 256 pairs of 256 x 256 (512 before the 1200 s cut)
 # float32 features of the card (cuDNN, no TF32) against the CPU's (oneDNN): other
 # summation orders through ~94 convolutions. Measured at ~1e-6 of a tap's scale; TF32
 # would give ~1e-3. Taps, feature states and the float64 sums of them: |card - cpu| <=
@@ -5647,11 +5670,11 @@ def run_image_models(gen: torch.Generator, smi: str) -> dict:
 
 # ---------------------------------------------------------------- phase 20: the text domain
 
-TEXT_PAIRS, TEXT_UPDATES = 512, 8  # BASELINE #4: newstest2016 en-de sized pairs, 8 updates of 64
+TEXT_PAIRS, TEXT_UPDATES = 256, 8  # BASELINE #4: newstest2016 en-de sized pairs, 8 updates of 32 (64 before the 1200 s cut)
 TEXT_BATCH = TEXT_PAIRS // TEXT_UPDATES
 TEXT_VOCAB = 4000  # the seeded word list (Zipf frequencies)
 TEXT_CPU_UPDATES = 2  # the host metrics' prefix held against the CPU
-TEXT_TIMED = 4  # timed updates per member and per collection
+TEXT_TIMED = 2  # timed updates per member and per collection
 # roberta-large, the reference BERTScore's default backbone
 ROBERTA = {"layers": 24, "hidden": 1024, "heads": 16, "ffn": 4096, "vocab": 50265, "positions": 514}
 BERT_MAX_LENGTH = 512  # BERTScore's default max_length: every row runs at width 512
@@ -6126,8 +6149,8 @@ def _word_tokenizer(vocab_size: int, max_length: int):
 
 
 def run_bert_score(preds: list, targets: list, hbm_rate: float) -> dict:
-    """BERTScore over the 512 pairs at roberta-large's width through an injected encoder
-    and tokenizer: 8 updates of 64 pairs, then ``compute`` with ``idf=False`` and with
+    """BERTScore over the 256 pairs at roberta-large's width through an injected encoder
+    and tokenizer: 8 updates of 32 pairs, then ``compute`` with ``idf=False`` and with
     ``idf=True``; the greedy-cosine product against its bound; both computes at
     ``BERT_CPU_ROWS`` against CPU metrics that took the same updates, and the functional's
     first pairs against the CPU."""
@@ -6458,7 +6481,7 @@ def _hf_checkpoint(vocab_words: list, directory: str) -> str:
 
 
 def run_hf_route(preds: list, targets: list, vocab: list) -> dict:
-    """``BERTScore(model_name_or_path=dir)`` over the 512 pairs and ``InfoLM(model_name_or_path=dir)``
+    """``BERTScore(model_name_or_path=dir)`` over the 256 pairs and ``InfoLM(model_name_or_path=dir)``
     over 16 (one forward per position), on a checkpoint the script writes; the compute at
     ``BERT_CPU_ROWS`` against a CPU metric that took the same updates, and the
     functionals' first pairs against the CPU. The model the loader caches stays on the
@@ -6563,7 +6586,7 @@ COCO_GT_MEAN, COCO_GT_CAP = 7.3, 63  # ground truths per image: COCO val's mean,
 COCO_AREA_SHARES = (0.41, 0.34, 0.25)  # small / medium / large ground truths, as in COCO val
 COCO_UPDATE = 16  # images per update
 COCO_NUMPY_IMAGES = 500  # the C++ evaluator against the numpy matcher route
-COCO_PACKED_CPU_IMAGES = 1024  # the packed route's CPU run: its first 64 updates
+COCO_PACKED_CPU_IMAGES = 512  # the packed route's CPU run: its first 32 updates (64 before the 1200 s cut)
 MAP_ROUTE_TOL = 1e-12  # the C++ evaluator and the numpy route add the same float64 terms
 MAP_BINS_TOL = 1e-3  # the packed route's 1024 score bins against the host route
 SEGM_IMAGES, SEGM_DETS = 64, 20  # dense 480 x 640 masks at 100 per image over 5000 images would need ~150 GB
@@ -6808,7 +6831,7 @@ def _hist_states(m) -> tuple:
 def run_coco_packed(data: dict, list_values: dict) -> tuple:
     """``PackedMeanAveragePrecision(80)`` over the same images in widened ``(16, 128, 6)``
     / ``(16, 64, 5)`` batches, eagerly and with the engine: histograms equal both ways and
-    to the CPU run over the first 1024 images, ``map`` against ``coco_list``'s."""
+    to the CPU run over the first 512 images, ``map`` against ``coco_list``'s."""
     from torchmetrics_tpu_torch.detection import PackedMeanAveragePrecision
     from torchmetrics_tpu_torch.detection.ingraph import pack_detections
 
@@ -9345,10 +9368,12 @@ def _timed_updates(mc, batches: list, n: int) -> float:
     return statistics.median(times)
 
 
-def _shard_vocab(rank: int) -> dict:
-    """The 1-D mesh of 4 ranks at Llama 3's vocabulary: eager and with the engine."""
+def _shard_vocab(rank: int, persist_dir: str) -> dict:
+    """The 1-D mesh of 4 ranks at Llama 3's vocabulary: eager and with the engine (which
+    writes the signature manifest into ``persist_dir``, shared by the ranks), then a second
+    engine instance prewarmed from that manifest (phase 27's shard_vocab arm)."""
     from torchmetrics_tpu_torch.diag import diag_context, transfer_guard
-    from torchmetrics_tpu_torch.engine import engine_context
+    from torchmetrics_tpu_torch.engine import engine_context, persist_context
     from torchmetrics_tpu_torch.parallel import sharding
 
     batches = _vocab_batches()
@@ -9365,7 +9390,7 @@ def _shard_vocab(rank: int) -> dict:
         out["replicated_update_us_eager"] = _timed_updates(eager_ref, batches, VOCAB_UPDATES)
         del eager_ref
     for mode, enabled in (("eager", False), ("engine", True)):
-        with engine_context(enabled), sharding.mesh_context(SHARD_RANKS):
+        with engine_context(enabled), sharding.mesh_context(SHARD_RANKS), persist_context(persist_dir if enabled else None):
             mc = _vocab_collection()
             owner = next(iter(mc.values(copy_state=False)))
             shapes = {k: list(sharding.local(getattr(owner, k)).shape) for k in owner._defaults}
@@ -9401,7 +9426,56 @@ def _shard_vocab(rank: int) -> dict:
             if foot["per_device_bytes"] * SHARD_RANKS != foot["total_bytes"]:
                 raise AssertionError(f"shard_vocab rank {rank}: footprint {foot}")
             del mc, owner
+    out["prewarmed"] = _shard_vocab_prewarmed(rank, persist_dir, batches, ref_values)
     return out
+
+
+def _compute_builds(mc) -> dict:
+    """The compute graphs a collection's members built and replayed (``engine/epoch.py``)."""
+    stats = [m._epoch.stats for m in mc.values(copy_state=False) if m._epoch is not None]
+    return {k: sum(getattr(st, k) for st in stats) for k in ("compute_traces", "compute_cache_hits")}
+
+
+def _shard_vocab_prewarmed(rank: int, persist_dir: str, batches: list, ref_values: dict) -> dict:
+    """Phase 27's shard_vocab arm: a second engine instance on the same mesh, prewarmed
+    from the manifest every rank wrote (each rank replays the update rows, then the
+    compute rows in owner order, so their collectives line up), then the same 16 updates;
+    its first ``compute`` must build nothing and equal the replicated values exactly."""
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch.engine import engine_context, prewarm
+    from torchmetrics_tpu_torch.parallel import sharding
+
+    dist.barrier()  # every rank's rows are on disk before any rank reads them
+    with engine_context(True), sharding.mesh_context(SHARD_RANKS):
+        warm = _vocab_collection()
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = prewarm(warm, directory=persist_dir)
+        torch.cuda.synchronize()
+        prewarm_s = time.perf_counter() - t0
+        prewarm_launches = _launches()
+        if report["failed"] or not report["replayed"]:
+            raise AssertionError(f"shard_vocab prewarm rank {rank}: {report}")
+        for i in range(VOCAB_UPDATES):
+            warm.update(*batches[i % len(batches)])
+        before = _compute_builds(warm)
+        with _counting_collectives() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            values = warm.compute()
+            torch.cuda.synchronize()
+            compute_ms = (time.perf_counter() - t0) * 1e3
+        after = _compute_builds(warm)
+        first = {k: after[k] - before[k] for k in after}
+        for k, want in ref_values.items():
+            _equal(f"shard_vocab prewarmed rank {rank} compute {k}", values[k], want)
+        if first["compute_traces"] or not first["compute_cache_hits"]:
+            raise AssertionError(f"shard_vocab prewarmed rank {rank}: the first compute built graphs: {first}")
+        del warm
+    return {"prewarm": report, "prewarm_s": prewarm_s, "prewarm_launches": prewarm_launches, "compute_ms": compute_ms,
+            "compute_collectives": len(calls), "first_compute": first}
 
 
 def _confmat_pairs() -> list:
@@ -9568,7 +9642,8 @@ def _shard_degrade(rank: int) -> dict:
 
 def _shard_rank_body(rank: int, out_dir: str) -> dict:
     out: dict = {}
-    for name, run in (("shard_vocab", _shard_vocab), ("shard_confmat", _shard_confmat),
+    vocab = lambda r: _shard_vocab(r, os.path.join(out_dir, "persist"))  # noqa: E731 -- one manifest for the ranks
+    for name, run in (("shard_vocab", vocab), ("shard_confmat", _shard_confmat),
                       ("shard_2x2", _shard_2x2), ("degrade", _shard_degrade)):
         t0 = time.perf_counter()
         out[name] = run(rank)
@@ -9637,6 +9712,7 @@ def run_shard(hbm_rate: float, smi: str) -> dict:
         "shard_vocab_engine": [r["shard_vocab"]["engine"]["launches"]["stat_counts"] for r in ranks],
         "shard_2x2_engine": [r["shard_2x2"]["launches"]["stat_counts"] for r in ranks],
         "shard_2x2_k2": [r["shard_2x2"]["launches"]["multi_threshold"] for r in ranks],
+        "shard_vocab_prewarm": [r["shard_vocab"]["prewarmed"]["prewarm_launches"]["stat_counts"] for r in ranks],
     }
     kernel = time_vocab_kernel(hbm_rate, launches["shard_vocab_engine"][0], launches)
     out = {"card": smi, "ranks": ranks, "launches": launches, "vocab_kernel": kernel}
@@ -9655,6 +9731,10 @@ def run_shard(hbm_rate: float, smi: str) -> dict:
         f" {[r['shard_confmat']['peak_update_bytes'] for r in ranks]} B (eager {r0['shard_confmat']['eager_peak_bytes']},"
         f" the build {r0['shard_confmat']['build_peak_bytes']})"
     )
+    pw = [r["shard_vocab"]["prewarmed"] for r in ranks]
+    _log(f"  shard_vocab prewarmed: prewarm {[round(x['prewarm_s'], 3) for x in pw]} s ({pw[0]['prewarm']}); first compute"
+         f" {[round(x['compute_ms'], 1) for x in pw]} ms against {[round(r['shard_vocab']['engine']['compute_ms'], 1) for r in ranks]}"
+         f" cold; builds at the first compute {[x['first_compute'] for x in pw]}")
     _log(f"  shard_2x2: sync {r0['shard_2x2']['sync']}; launches {launches}")
     _log(f"  K1 {kernel['shape']}: {kernel['ms']:.4f} ms (device {kernel['kernel_device_ms']}) against a"
          f" {kernel['bound_ms']:.4f} ms bound; plain {kernel['plain_ms']:.3f} ms")
@@ -9665,6 +9745,291 @@ def run_shard(hbm_rate: float, smi: str) -> dict:
         "confmat": [r["shard_confmat"] for r in ranks],
         "twobytwo": r0["shard_2x2"], "degrade": r0["degrade"], "vocab_kernel": kernel,
     }}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 27: the signature manifest
+
+PERSIST_OBJECTS = ("config1", "config2", "auroc")
+PERSIST_DIRS = {"config1": "config1", "config2": "config2", "auroc": "config2"}  # one manifest per configuration
+PERSIST_GUARDS = {"config1": "strict", "config2": "strict", "auroc": "log"}  # the binned AUROC's range check reads the host
+PERSIST_ROLES = ("writer", "cold", "prewarmed")
+PERSIST_KLL_UPDATES = 2  # per KLL instance: the first update, then one replay
+PERSIST_JOIN_TIMEOUT_S = 300
+
+
+def _persist_batches() -> dict:
+    """Config #1's 16 batches of 8192 x 1000 logits and config #2's 16 of 8192 x 10 softmax
+    scores, drawn on the card from one seed: every process of the phase draws the same."""
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    acc = [
+        (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen, device="cuda"),
+         torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen, device="cuda"))
+        for _ in range(N_BATCHES)
+    ]
+    cifar = [
+        (torch.randn(CIFAR_BATCH, CIFAR_CLASSES, generator=gen, device="cuda").softmax(dim=1),
+         torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen, device="cuda"))
+        for _ in range(N_BATCHES)
+    ]
+    return {"config1": acc, "config2": cifar, "auroc": cifar}
+
+
+def _persist_object(name: str):
+    """Config #1; config #2's engine members as one collection (phase 24's); config #2's
+    binned AUROC alone."""
+    from torchmetrics_tpu_torch import MetricCollection, MulticlassAccuracy, MulticlassAUROC
+
+    if name == "config1":
+        return MulticlassAccuracy(ACC_CLASSES, validate_args=False)
+    if name == "config2":
+        return MetricCollection(_diag_engine_members())
+    return MulticlassAUROC(CIFAR_CLASSES, thresholds=N_THRESH, validate_args=False)
+
+
+def _persist_counts(obj) -> dict:
+    """Builds, captures and replays summed over every engine of ``obj``: the update
+    engines (a collection's fused one included) and the compute engines."""
+    metrics = [obj] if hasattr(obj, "_defaults") else list(obj.values(copy_state=False))
+    engines = [getattr(obj, "_fused_engine", None)] + [getattr(m, a) for m in metrics for a in ("_engine", "_epoch")]
+    stats = [e.stats for e in engines if e is not None]
+    keys = ("traces", "captures", "cache_hits", "replays", "donation_copies", "eager_fallbacks", "compute_traces", "compute_cache_hits")
+    return {k: sum(getattr(st, k) for st in stats) for k in keys}
+
+
+def _persist_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _persist_host(value):
+    """States or a value on the host, for the parent's comparison."""
+    if isinstance(value, dict):
+        return {k: _persist_host(v) for k, v in value.items()}
+    return value.detach().cpu()
+
+
+def _persist_states(obj) -> dict:
+    metrics = {"": obj} if hasattr(obj, "_defaults") else dict(obj.items(keep_base=True, copy_state=False))
+    return {name: {k: getattr(m, k).detach().cpu() for k in m._defaults} for name, m in metrics.items()}
+
+
+def _persist_arm(role: str, root: str) -> dict:
+    """One fresh process's run of configs #1-#2, engine on: ``writer`` with persistence on
+    (its builds write the manifests), ``cold`` with none, ``prewarmed`` after ``prewarm``
+    of fresh instances from the writer's manifests, under the strict guard (the log
+    guard for the binned AUROC). Each object takes 16 updates and a ``compute``; the
+    first update and the first ``compute`` are timed, host clock to a device sync, once
+    the kernels' library is loaded and the batches are drawn."""
+    from torchmetrics_tpu_torch.diag import diag_context, ledger_snapshot, transfer_guard
+    from torchmetrics_tpu_torch.engine import engine_context, persist_context, prewarm
+    from torchmetrics_tpu_torch.ops import _build
+
+    t_proc = time.perf_counter()
+    _build.library()  # built by the parent: loaded here, outside the timed updates
+    batches = _persist_batches()
+    torch.cuda.synchronize()
+    out: dict = {"ready_s": time.perf_counter() - t_proc}
+    states: dict = {}
+    for name in PERSIST_OBJECTS:
+        directory = os.path.join(root, PERSIST_DIRS[name])
+        row: dict = {}
+        with engine_context(True), persist_context(directory if role == "writer" else None):
+            obj = _persist_object(name)
+            if role == "prewarmed":
+                _zero_launches()
+                torch.cuda.synchronize()
+                with diag_context(capacity=1 << 14) as rec:
+                    t0 = time.perf_counter()
+                    with transfer_guard(PERSIST_GUARDS[name]):
+                        report = prewarm(obj, directory=directory)
+                    torch.cuda.synchronize()
+                    row["prewarm_s"] = time.perf_counter() - t0
+                row.update(prewarm=report, prewarm_reads=_serve_reads(rec), prewarm_launches=_launches())
+                row["after_prewarm"] = _persist_counts(obj)
+            _zero_launches()
+            p, t = batches[name][0]
+            before = _persist_counts(obj)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obj.update(p, t)
+            torch.cuda.synchronize()
+            row["first_update_ms"] = (time.perf_counter() - t0) * 1e3
+            row["first_update"] = _persist_delta(before, _persist_counts(obj))
+            for p, t in batches[name][1:]:
+                obj.update(p, t)
+            row["launches"] = _launches()
+            before = _persist_counts(obj)
+            t0 = time.perf_counter()
+            value = obj.compute()
+            torch.cuda.synchronize()
+            row["first_compute_ms"] = (time.perf_counter() - t0) * 1e3
+            row["first_compute"] = _persist_delta(before, _persist_counts(obj))
+            states[name] = {"states": _persist_states(obj), "value": _persist_host(value)}
+        out[name] = row
+        del obj
+    torch.save(states, os.path.join(root, f"{role}.pt"))
+    # each build's wall ms (the guarded warm-up and the capture) and the capture's own: the
+    # rest of a cold first update is the process's first use of what the step touches
+    out["ledger"] = [{k: r[k] for k in ("owner", "kind", "compile_ms", "capture_ms")} for r in ledger_snapshot()["executables"]]
+    out["process_s"] = time.perf_counter() - t_proc
+    return out
+
+
+def _persist_child(role: str, root: str) -> None:
+    """A spawned process of phase 27: its report to ``<root>/<role>.json``."""
+    torch.cuda.set_device(0)
+    try:
+        result = {"ok": True, **_persist_arm(role, root)}
+    except Exception as err:  # reported to the parent, which fails the phase
+        import traceback
+
+        result = {"ok": False, "error": f"{type(err).__name__}: {err}\n{traceback.format_exc()[-3000:]}"}
+    with open(os.path.join(root, f"{role}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _persist_spawn(role: str, root: str) -> dict:
+    """Run one fresh process of phase 27 and return its report (start to exit in ``wall_s``)."""
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    proc = ctx.Process(target=_persist_child, args=(role, root))
+    proc.start()
+    proc.join(PERSIST_JOIN_TIMEOUT_S)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        raise AssertionError(f"persist {role}: still running after {PERSIST_JOIN_TIMEOUT_S} s")
+    path = os.path.join(root, f"{role}.json")
+    if not os.path.exists(path):
+        raise AssertionError(f"persist {role}: exited with {proc.exitcode} and no result")
+    with open(path) as f:
+        result = json.load(f)
+    if not result["ok"]:
+        raise AssertionError(f"persist {role}: {result['error']}")
+    result["wall_s"] = time.perf_counter() - t0
+    return result
+
+
+def _persist_same(name: str, got, want) -> None:
+    """Exact equality of two host trees of tensors (dtypes included)."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{name}: keys {sorted(got)} against {sorted(want)}")
+        for k in want:
+            _persist_same(f"{name} {k}", got[k], want[k])
+        return
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{name}: the prewarmed arm differs from the cold arm")
+
+
+def _persist_kll(root: str) -> dict:
+    """KLL (k=256) at phase 25's sketch size, in this process: one fresh instance cold (its
+    builds write the manifest), then a second one prewarmed from it; two updates of 2^16
+    log-normal latencies each and a ``compute``, compactors and quantiles exactly equal."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch.engine import engine_context, persist_context, prewarm
+    from torchmetrics_tpu_torch.serve import KLLSketch
+
+    host = np.random.default_rng(2027).lognormal(mean=3.0, sigma=1.0, size=(PERSIST_KLL_UPDATES, KLL_BATCH)).astype(np.float32)
+    batches = [torch.as_tensor(h, device="cuda") for h in host]
+    directory = os.path.join(root, "kll")
+    out: dict = {}
+    kept: dict = {}
+    for arm in ("cold", "prewarmed"):
+        row: dict = {}
+        with engine_context(True), persist_context(directory if arm == "cold" else None):
+            m = KLLSketch(k=KLL_K)
+            if arm == "prewarmed":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                row["prewarm"] = prewarm(m, directory=directory)
+                torch.cuda.synchronize()
+                row["prewarm_s"] = time.perf_counter() - t0
+            before = _persist_counts(m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.update(batches[0])
+            torch.cuda.synchronize()
+            row["first_update_ms"] = (time.perf_counter() - t0) * 1e3
+            row["first_update"] = _persist_delta(before, _persist_counts(m))
+            for b in batches[1:]:
+                m.update(b)
+            before = _persist_counts(m)
+            t0 = time.perf_counter()
+            value = m.compute()
+            torch.cuda.synchronize()
+            row["first_compute_ms"] = (time.perf_counter() - t0) * 1e3
+            row["first_compute"] = _persist_delta(before, _persist_counts(m))
+            kept[arm] = {"states": _persist_states(m), "value": _persist_host(value)}
+        out[arm] = row
+        del m
+    _persist_same("persist kll", kept["prewarmed"], kept["cold"])
+    pw = out["prewarmed"]
+    first = pw["first_update"]
+    if pw["prewarm"]["failed"] or not pw["prewarm"]["replayed"] or first["traces"] or first["captures"] or not first["cache_hits"]:
+        raise AssertionError(f"persist kll: prewarm {pw['prewarm']}, first update {pw['first_update']}")
+    return out
+
+
+def run_persist(smi: str, shard: "dict | None") -> dict:
+    """Phase 27: cold against prewarmed first updates and computes for configs #1-#2 in
+    fresh processes (a writer, then a cold and a prewarmed replica), KLL in this process,
+    and shard_vocab's from phase 26's ranks (``shard``; None when phase 26 did not run)."""
+    from torchmetrics_tpu_torch.engine.persist import load_manifest
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {"card": smi}
+    with tempfile.TemporaryDirectory() as root:
+        arms = {role: _persist_spawn(role, root) for role in PERSIST_ROLES}
+        rows = {d: load_manifest(os.path.join(root, d)) for d in sorted(set(PERSIST_DIRS.values()))}
+        kept = {role: torch.load(os.path.join(root, f"{role}.pt")) for role in ("cold", "prewarmed")}
+        for name in PERSIST_OBJECTS:
+            _persist_same(f"persist {name}", kept["prewarmed"][name], kept["cold"][name])
+        t_kll = time.perf_counter()
+        out["kll"] = _persist_kll(root)
+        out["kll"]["s"] = time.perf_counter() - t_kll
+    out["manifest"] = {d: [f"{r['owner']}:{r['kind']}" for r in rs] for d, rs in rows.items()}
+    for name in PERSIST_OBJECTS:
+        pw = arms["prewarmed"][name]
+        report = pw["prewarm"]
+        if report["failed"] or (name != "auroc" and not report["replayed"]):
+            raise AssertionError(f"persist {name}: prewarm {report}")
+        if PERSIST_GUARDS[name] == "strict" and pw["prewarm_reads"]:
+            raise AssertionError(f"persist {name}: readbacks under the strict guard during prewarm {pw['prewarm_reads']}")
+        if pw["first_update"]["captures"] or pw["first_update"]["traces"]:
+            raise AssertionError(f"persist {name}: the prewarmed first update built {pw['first_update']}")
+        if name != "auroc" and not pw["first_update"]["cache_hits"]:
+            raise AssertionError(f"persist {name}: the prewarmed first update is no replay {pw['first_update']}")
+        out[name] = {role: arms[role][name] for role in PERSIST_ROLES}
+    out["processes"] = {role: {k: arms[role][k] for k in ("ready_s", "process_s", "wall_s", "ledger")} for role in PERSIST_ROLES}
+    out["launches"] = {
+        f"{role}_{k}": sum(arms[role][name]["launches"][k] for name in PERSIST_OBJECTS)
+        for role in PERSIST_ROLES for k in ("stat_counts", "multi_threshold")
+    }
+    for k in ("stat_counts", "multi_threshold"):
+        out["launches"][f"prewarm_{k}"] = sum(arms["prewarmed"][name]["prewarm_launches"][k] for name in PERSIST_OBJECTS)
+    if shard is not None:
+        out["shard_vocab"] = [
+            {"cold_compute_ms": r["shard_vocab"]["engine"]["compute_ms"], **r["shard_vocab"]["prewarmed"]} for r in shard["ranks"]
+        ]
+    out["phase_s"] = time.perf_counter() - t_phase
+    for name in PERSIST_OBJECTS:
+        c, w = out[name]["cold"], out[name]["prewarmed"]
+        _log(f"  {name}: first update {c['first_update_ms']:.1f} ms cold ({c['first_update']['captures']} captures) against"
+             f" {w['first_update_ms']:.2f} ms prewarmed ({w['first_update']['replays']} replays, 0 captures); first compute"
+             f" {c['first_compute_ms']:.2f} / {w['first_compute_ms']:.2f} ms (builds {c['first_compute']['compute_traces']} /"
+             f" {w['first_compute']['compute_traces']}); prewarm {w['prewarm_s'] * 1e3:.1f} ms, {w['prewarm']},"
+             f" readbacks {w['prewarm_reads']}, launches {w['prewarm_launches']}")
+    for arm in ("cold", "prewarmed"):
+        k = out["kll"][arm]
+        _log(f"  kll {arm}: first update {k['first_update_ms']:.1f} ms {k['first_update']}; first compute"
+             f" {k['first_compute_ms']:.1f} ms" + (f"; prewarm {k['prewarm_s']:.1f} s {k['prewarm']}" if arm == "prewarmed" else ""))
+    _log(f"  processes {out['processes']}; launches {out['launches']}; manifests {out['manifest']}")
+    _log(f"  phase 27: {out['phase_s']:.1f} s on {smi}")
+    print(json.dumps({"persist_summary": out}), flush=True)
     return out
 
 
@@ -9682,7 +10047,7 @@ def main() -> int:
     ).stdout.strip()
     name = torch.cuda.get_device_name(0)
     hbm_rate = _hbm_rate(name)
-    _log(f"[1/26] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
+    _log(f"[1/27] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; HBM {hbm_rate / 1e12} TB/s")
 
     from torchmetrics_tpu_torch.native import rle_mask
 
@@ -9692,7 +10057,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rle_mask.library()
     native_build_s = time.perf_counter() - t0
-    _log(f"[2/26] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
+    _log(f"[2/27] build: {nvcc_s:.1f} s -> {_build.library_path().name}; g++ {native_build_s:.1f} s"
          f" -> {rle_mask.library_path().name}")
 
     gen = torch.Generator().manual_seed(0)
@@ -9709,55 +10074,55 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[14/26] the engine tier: scan queue, async drains, riders, cached compute")
+        _log("[14/27] the engine tier: scan queue, async drains, riders, cached compute")
         tier = run_engine_tier(acc_batches, cifar_batches, gen)
         print(json.dumps({"engine_tier": tier, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tensor-metrics-only"]:
-        _log("[15/26] calibration, hinge, ranking, fairness, Dice and regression's sums")
+        _log("[15/27] calibration, hinge, ranking, fairness, Dice and regression's sums")
         tensor = run_tensor_metrics(_tm_imagenet_batches(gen), _multilabel_batches(gen), _binary_batches(gen), gen)
         print(json.dumps({"tensor_metrics": tensor, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--moments-retrieval-only"]:
-        _log("[16/26] regression's moments and cat states, retrieval")
+        _log("[16/27] regression's moments and cat states, retrieval")
         tensor2 = run_tensor2(gen, hbm_rate)
         print(json.dumps({"tensor2": tensor2, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--nominal-pairwise-only"]:
-        _log("[17/26] nominal association and pairwise distances")
+        _log("[17/27] nominal association and pairwise distances")
         nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
         print(json.dumps({"nominal": nominal, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-models-only"]:
-        _log("[19/26] the model half of the image domain: FID, KID, IS and LPIPS")
+        _log("[19/27] the model half of the image domain: FID, KID, IS and LPIPS")
         image_models = run_image_models(gen, smi)
         print(json.dumps({"image_models": image_models, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--text-only"]:
-        _log("[20/26] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+        _log("[20/27] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
         text = run_text(gen, hbm_rate, smi)
         print(json.dumps({"text": text, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--audio-only"]:
-        _log("[22/26] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+        _log("[22/27] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
         audio = run_audio(smi, hbm_rate)
         print(json.dumps({"audio": audio, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--detection-only"]:
-        _log("[21/26] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+        _log("[21/27] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
         detection = run_detection(smi, native_build_s)
         print(json.dumps({"detection": detection, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--image-only"]:
-        _log("[18/26] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+        _log("[18/27] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
         images = run_images(gen, hbm_rate)
         print(json.dumps({"image": images, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -9771,7 +10136,7 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[23/26] fault-tolerant sync and elastic snapshots")
+        _log("[23/27] fault-tolerant sync and elastic snapshots")
         resilience = run_resilience(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"resilience": resilience}), flush=True)
         print(smi, flush=True)
@@ -9785,7 +10150,7 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[24/26] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+        _log("[24/27] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
         diag = run_diag(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"diag": diag, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
@@ -9799,15 +10164,21 @@ def main() -> int:
             (_scores_with_edge_rows(CIFAR_BATCH, CIFAR_CLASSES, gen), torch.randint(0, CIFAR_CLASSES, (CIFAR_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[25/26] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
+        _log("[25/27] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
         serve = run_serve(acc_batches, cifar_batches, gen, smi)
         print(json.dumps({"serve": serve, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--shard-only"]:
-        _log("[26/26] sharded state: Llama 3's vocabulary, a 32768-class matrix and config #2 on 4 gloo ranks")
+        _log("[26/27] sharded state: Llama 3's vocabulary, a 32768-class matrix and config #2 on 4 gloo ranks")
         shard = run_shard(hbm_rate, smi)
         print(json.dumps({"shard": shard, "profiler_windows": PROFILE_WINDOWS}), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--persist-only"]:
+        _log("[27/27] the signature manifest: cold against prewarmed first updates and computes")
+        persist = run_persist(smi, None)
+        print(json.dumps({"persist": persist, "profiler_windows": PROFILE_WINDOWS}), flush=True)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--eval-loop-only"]:
@@ -9815,7 +10186,7 @@ def main() -> int:
             (torch.randn(ACC_BATCH, ACC_CLASSES, generator=gen).cuda(), torch.randint(0, ACC_CLASSES, (ACC_BATCH,), generator=gen).cuda())
             for _ in range(N_BATCHES)
         ]
-        _log("[13/26] the eval loop: aggregators, wrappers and checkpoints")
+        _log("[13/27] the eval loop: aggregators, wrappers and checkpoints")
         inp = _EvalInputs(acc_batches, _multilabel_batches(gen), gen)
         print(json.dumps({"eval_loop": run_eval_loop(inp), "eval_loop_times": time_eval_loop(inp)}), flush=True)
         print(smi, flush=True)
@@ -9823,30 +10194,30 @@ def main() -> int:
     # phases 3-10 drive the eager path, as the earlier slices did, so their numbers stay
     # comparable; phase 11 drives the same paths with the engine on (the default)
     with engine_context(False):
-        _log("[3/26] kernels against their plain versions")
+        _log("[3/27] kernels against their plain versions")
         errors = {"stat_counts": check_stat_counts(gen), "multi_threshold": check_multi_threshold(gen)}
         errors.update(check_multi_threshold_new_shapes(gen))
 
-        _log("[4/26] main path")
+        _log("[4/27] main path")
         acc_launches, acc_batches = run_accuracy_path(gen)
         auroc_launches, auroc_batches = run_auroc_path(gen)
 
-        _log("[5/26] collection path")
+        _log("[5/27] collection path")
         collection_launches, collection_batches = run_collection_path(gen)
 
-        _log("[6/26] binary path")
+        _log("[6/27] binary path")
         binary_launches, binary_batches, binary_summary = run_binary_path(gen)
 
-        _log("[7/26] multilabel path")
+        _log("[7/27] multilabel path")
         multilabel_launches, multilabel_batches, multilabel_summary = run_multilabel_path(gen)
 
-        _log("[8/26] task routers")
+        _log("[8/27] task routers")
         run_routers(gen)
 
-        _log("[9/26] sync, two ranks on one card")
+        _log("[9/27] sync, two ranks on one card")
         sync = run_sync_phase()
 
-        _log("[10/26] times")
+        _log("[10/27] times")
         launches = {
             "stat_counts": acc_launches,
             "multi_threshold": auroc_launches,
@@ -9859,7 +10230,7 @@ def main() -> int:
         updates["binary"] = {**time_task_path(_binary_members, binary_batches), "path": binary_summary}
         updates["multilabel"] = {**time_task_path(_multilabel_members, multilabel_batches), "path": multilabel_summary}
 
-    _log("[11/26] engine paths: the compiled update engine on CUDA graphs")
+    _log("[11/27] engine paths: the compiled update engine on CUDA graphs")
     to_cpu = lambda p, t: (p.cpu(), t.cpu())  # noqa: E731
     sigmoid_to_cpu = lambda p, t: (_sigmoid(p).cpu(), t.cpu())  # noqa: E731
     # validate_args=False: a validating update reads the host (torch.unique) and falls back
@@ -9881,7 +10252,7 @@ def main() -> int:
     run_engine_scenarios(acc_batches, collection_batches, binary_batches)
     engine["times"] = time_engine(acc_batches, collection_batches, binary_batches, multilabel_batches)
 
-    _log("[12/26] the rest of the stat-scores family, eagerly and with the engine")
+    _log("[12/27] the rest of the stat-scores family, eagerly and with the engine")
     family_batches = {
         "imagenet": acc_batches, "cifar": collection_batches, "binary": binary_batches, "multilabel": multilabel_batches,
     }
@@ -9890,50 +10261,53 @@ def main() -> int:
     family["sigmoid"] = check_sigmoid(binary_batches, multilabel_batches)
     family["times"] = time_family(family_batches)
 
-    _log("[13/26] the eval loop: aggregators, wrappers and checkpoints")
+    _log("[13/27] the eval loop: aggregators, wrappers and checkpoints")
     inp = _EvalInputs(acc_batches, multilabel_batches, gen)
     eval_loop = run_eval_loop(inp)
     eval_loop["times"] = time_eval_loop(inp)
     del inp
 
-    _log("[14/26] the engine tier: scan queue, async drains, riders, cached compute")
+    _log("[14/27] the engine tier: scan queue, async drains, riders, cached compute")
     engine_tier = run_engine_tier(acc_batches, collection_batches, gen)
 
-    _log("[15/26] calibration, hinge, ranking, fairness, Dice and regression's sums")
+    _log("[15/27] calibration, hinge, ranking, fairness, Dice and regression's sums")
     tensor = run_tensor_metrics(_tm_imagenet_batches(gen), multilabel_batches, binary_batches, gen)
 
-    _log("[16/26] regression's moments and cat states, retrieval")
+    _log("[16/27] regression's moments and cat states, retrieval")
     tensor2 = run_tensor2(gen, hbm_rate)
 
-    _log("[17/26] nominal association and pairwise distances")
+    _log("[17/27] nominal association and pairwise distances")
     nominal = run_nominal_pairwise(_tm_imagenet_batches(gen), gen, hbm_rate)
 
-    _log("[18/26] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
+    _log("[18/27] the tensor half of the image domain: SSIM, PSNR, pansharpening, volumes")
     images = run_images(gen, hbm_rate)
 
-    _log("[19/26] the model half of the image domain: FID, KID, IS and LPIPS")
+    _log("[19/27] the model half of the image domain: FID, KID, IS and LPIPS")
     image_models = run_image_models(gen, smi)
 
-    _log("[20/26] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
+    _log("[20/27] the text domain: host metrics, BERTScore, perplexity, InfoLM, the HF route")
     text = run_text(gen, hbm_rate, smi)
 
-    _log("[21/26] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
+    _log("[21/27] the detection domain: mAP's three routes, the C++ evaluator, the IoU family, panoptic quality")
     detection = run_detection(smi, native_build_s)
 
-    _log("[22/26] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
+    _log("[22/27] the audio and multimodal domains: SNR, SDR, PIT, C-SI-SNR, CLIPScore")
     audio = run_audio(smi, hbm_rate)
 
-    _log("[23/26] fault-tolerant sync and elastic snapshots")
+    _log("[23/27] fault-tolerant sync and elastic snapshots")
     resilience = run_resilience(acc_batches, collection_batches, gen, smi)
 
-    _log("[24/26] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
+    _log("[24/27] the diagnostics plane: the strict guard, probes, sentinels, the two-rank timeline")
     diag = run_diag(acc_batches, collection_batches, gen, smi)
 
-    _log("[25/26] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
+    _log("[25/27] the serving plane: windows, tenants, sketches, snapshots, the sidecar, federation, the fleet")
     serve = run_serve(acc_batches, collection_batches, gen, smi)
 
-    _log("[26/26] sharded state: Llama 3's vocabulary, a 32768-class matrix and config #2 on 4 gloo ranks")
+    _log("[26/27] sharded state: Llama 3's vocabulary, a 32768-class matrix and config #2 on 4 gloo ranks")
     shard = run_shard(hbm_rate, smi)
+
+    _log("[27/27] the signature manifest: cold against prewarmed first updates and computes")
+    persist = run_persist(smi, shard)
 
     for entry in kernels:
         k = entry["name"]
@@ -9985,6 +10359,8 @@ def main() -> int:
                 {path: shard["launches"][path] for path in ("shard_vocab_eager", "shard_vocab_engine", "shard_2x2_engine")}
                 if k == "stat_counts" else {"shard_2x2": shard["launches"]["shard_2x2_k2"]}
             ),
+            **({"shard_vocab_prewarm": shard["launches"]["shard_vocab_prewarm"]} if k == "stat_counts" else {}),
+            **{f"persist_{arm}": persist["launches"][f"{arm}_{k}"] for arm in (*PERSIST_ROLES, "prewarm")},
         }
         entry["engine"] = (
             "K1 runs inside the captured graphs (kb times per K-step scan replay); the pad-row unit is computed"
@@ -10000,6 +10376,7 @@ def main() -> int:
         "tensor_metrics": tensor, "tensor2": tensor2, "nominal": nominal, "image": images, "image_models": image_models,
         "text": text, "detection": detection, "audio": audio, "resilience": resilience, "diag": diag, "serve": serve,
         "shard": {k: v for k, v in shard.items() if k != "vocab_kernel"},
+        "persist": persist,
         "sync_2rank": sync,
         "profiler_windows": PROFILE_WINDOWS, "card": smi,
     }

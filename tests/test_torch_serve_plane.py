@@ -158,7 +158,10 @@ def test_exposition_families_match():
         base = family.removesuffix("_total")
         assert base.endswith(ttel.UNIT_SUFFIXES) or base in ttel.UNITLESS_COUNT_FAMILIES, family
     snap_t, snap_j = ttel.telemetry_snapshot(), jtel.telemetry_snapshot()
-    assert set(snap_t) == set(snap_j) and snap_t["persist"] is None
+    assert set(snap_t) == set(snap_j) and set(snap_t["persist"]) == set(snap_j["persist"])
+    persist = ("tm_tpu_persist", "tm_tpu_prewarm")
+    assert _families(ttel.export_prometheus(), persist) == _families(jtel.export_prometheus(), persist)
+    assert len(_families(ttel.export_prometheus(), ("tm_tpu_persist_",))) == 9  # seven of the store and two of the lookups
     assert set(ttel._build_info_labels()) == {"version", "torch", "cuda", "backend", "device_kind", "device_count", "mesh"}
 
 

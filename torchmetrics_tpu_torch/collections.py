@@ -46,8 +46,9 @@ inside ``transfer_allowed("group-discovery")``. The members' sentinels, quaranti
 counters and compensation residuals ride the fused step and the packed sync.
 
 ``snapshot_compute`` is each member's ``Metric.snapshot_compute`` (``serve/snapshot.py``).
-
-Left out against the JAX package: ``persist``.
+``engine/persist.prewarm`` replays a manifest's rows against a collection: fused rows
+through ``update`` (the discovery step first, when the groups are not settled yet), the
+other rows against the members of the row's type.
 """
 
 from __future__ import annotations

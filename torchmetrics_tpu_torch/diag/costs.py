@@ -23,8 +23,14 @@ scan queue's input slots above all (``engine/scan.py``: ``k_bucket(K)`` slots of
 input per ring, so accuracy at 8192 x 1000 float32 logits and K=8 holds
 8 x 8192 x 1000 x 4 bytes of logits per ring).
 
-Left out against the JAX module: ``aot_compile`` and the ``persist`` cache (the
-port captures graphs and persists none), and the sentinel bitmask in the footprint.
+``cache_hits`` and ``deserialize_ms`` stay 0: a captured CUDA graph holds one process's
+device addresses and is never loaded from a persisted artifact. With persistence on
+(``engine/persist.py``) each build is a counted lookup miss on its engine's
+``persist_misses`` and writes a manifest row, which ``prewarm`` replays in a fresh
+process to build the graph before traffic.
+
+Left out against the JAX module: ``aot_compile`` (the engines build and capture
+themselves) and the sentinel bitmask in the footprint.
 """
 
 from __future__ import annotations
@@ -95,7 +101,7 @@ class ExecutableCost:
         self.donation_savings_bytes = 0  # a graph writes its state buffers in place: nothing donated
         self.compile_ms = 0.0  # build wall ms summed over builds (warm-up, plus capture on the card)
         self.compiles = 0
-        self.cache_hits = 0  # the port loads no persisted graph
+        self.cache_hits = 0  # always 0: a CUDA graph is never loaded from a persisted artifact
         self.deserialize_ms = 0.0
         self.time_to_first_dispatch_ms: Optional[float] = None
         self.analyses_ok = False

@@ -14,11 +14,12 @@ the serving plane) as:
 Output is deterministically ordered, so two exports of the same state are
 byte-identical.
 
-Kept divergences: the port has no persistent executable cache, so the snapshot's
-``persist`` is ``None`` and the ``tm_tpu_persist_*`` families are absent; the
-``tm_tpu_build_info`` labels name ``torch``, ``cuda`` and the card's name where the
-JAX package names ``jax`` and ``jaxlib``; ``mesh`` names the active state mesh's axes
-(``parallel/sharding.py``).
+The snapshot's ``persist`` is ``engine/persist.persist_state()``, and the
+``tm_tpu_persist_*`` families export its counters under the JAX names (a graph is never
+stored or loaded, so stores, stored bytes and deserialize seconds stay 0). Kept
+divergences: the ``tm_tpu_build_info`` labels name ``torch``, ``cuda`` and the card's
+name where the JAX package names ``jax`` and ``jaxlib``; ``mesh`` names the active state
+mesh's axes (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -242,6 +243,7 @@ def telemetry_snapshot(recorder: Optional[FlightRecorder] = None) -> Dict[str, A
     from torchmetrics_tpu_torch.diag.profile import profile_snapshot
     from torchmetrics_tpu_torch.diag.sentinel import sentinel_report
     from torchmetrics_tpu_torch.diag.slo import slo_state
+    from torchmetrics_tpu_torch.engine.persist import persist_state
     from torchmetrics_tpu_torch.engine.stats import engine_report
     from torchmetrics_tpu_torch.parallel.resilience import resilience_snapshot
 
@@ -259,7 +261,7 @@ def telemetry_snapshot(recorder: Optional[FlightRecorder] = None) -> Dict[str, A
         "profile": profile_snapshot(),
         "resilience": resilience_snapshot(),
         "serve": serve_state(),
-        "persist": None,  # no persistent executable cache in the port
+        "persist": persist_state(),
         "slo": slo_state(),
         "provenance": lineage_snapshot(),
     }
@@ -440,6 +442,33 @@ def export_prometheus(path: Optional[str] = None, snapshot: Optional[Dict[str, A
         "1 when the SLO is in breach (blocking SLOs gate /healthz readiness)",
         [({"slo": row["id"]}, 1 if row["breaching"] else 0) for row in snap.get("slo", [])],
     )
+
+    # the signature manifest and its lookups (engine/persist.py): store / reject /
+    # fallback counters and the deserialize wall-time, the JAX families (a graph is never
+    # stored or loaded: those stay 0). Hit / miss / replay counts ride the EngineStats
+    # export above (persist_hits / persist_misses / prewarm_replays).
+    persist = snap.get("persist") or {}
+    emit(f"{_PREFIX}_persist_stores_total", "counter",
+         "executables serialized into the persistent cache",
+         [({}, persist.get("stores", 0))])
+    emit(f"{_PREFIX}_persist_stored_bytes_total", "counter",
+         "serialized artifact bytes written to the persistent cache",
+         [({}, persist.get("stored_bytes", 0))])
+    emit(f"{_PREFIX}_persist_deserialize_seconds_total", "counter",
+         "wall-time spent deserializing persisted executables",
+         [({}, persist.get("deserialize_ms", 0.0) / 1e3)])
+    emit(f"{_PREFIX}_persist_envelope_rejects_total", "counter",
+         "persisted artifacts rejected for a compatibility-envelope mismatch",
+         [({}, persist.get("envelope_rejects", 0))])
+    emit(f"{_PREFIX}_persist_corrupt_skips_total", "counter",
+         "corrupt persisted artifacts/manifest lines skipped loud",
+         [({}, persist.get("corrupt_skips", 0))])
+    emit(f"{_PREFIX}_persist_fallbacks_total", "counter",
+         "persist-tier degradations (native-cache fallback, failed replays)",
+         [({}, persist.get("fallbacks", 0))])
+    emit(f"{_PREFIX}_persist_manifest_entries", "gauge",
+         "prewarm-manifest rows recorded this process",
+         [({}, persist.get("manifest_entries", 0))])
 
     # latency/size distributions as PROPER histogram exposition: cumulative
     # `_bucket` samples with `le` labels (non-empty buckets + the mandatory

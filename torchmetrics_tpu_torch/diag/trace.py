@@ -29,6 +29,12 @@ records:
 ``snapshot.restore_latest``  the sequence ``restore_latest`` restored
 =====================  ========================================================
 
+The signature manifest (``engine/persist.py``) records ``persist.manifest`` (a row
+appended), ``persist.prewarm`` (one report per ``prewarm``) and ``persist.fallback`` (a
+rejected artifact, a corrupt manifest line, a failed replay); ``persist.save`` and
+``persist.load`` are the JAX kinds of a stored and a loaded executable, which a CUDA
+graph never is.
+
 Enablement (first hit wins): an active ``diag_context`` scope, else the
 ``TORCHMETRICS_TPU_TRACE`` environment variable (``"1"`` enables a process-global
 recorder of the default capacity, an integer > 1 sets the capacity, ``"0"`` or unset

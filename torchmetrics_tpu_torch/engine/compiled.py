@@ -59,6 +59,11 @@ is the one-metric case, ``engine/fusion.py``'s ``FusedUpdate`` a collection's ow
   pad-subtract) and get static buffers like the states, written in place by a replay. A
   step with riders computes each candidate in full before it writes a buffer, so the
   transaction selects against the intact pre-step values.
+- **The signature manifest** (``engine/persist.py``). With persistence on, a build first
+  asks for a persisted graph (a counted miss: a graph does not load), and a build that
+  succeeds appends its row: kind ``update`` or ``fused``, the caller's inputs (not the
+  bucket-padded static buffers) and the bucket. The CPU, which captures nothing, records
+  too. ``prewarm`` replays the rows on zero inputs.
 - **Diagnostics.** With a flight recorder or a profile active (``diag/``), a step
   records ``<kind>.trace`` / ``<kind>.retrace`` (the cause attributed by
   ``attribute_retrace`` over ``signature_fingerprint`` and counted in
@@ -86,7 +91,7 @@ holding inner metrics, a side effect on a non-state attribute, a host read) fall
 to the eager path and is counted in ``EngineStats``.
 
 Left out against the JAX engine: the donation switch (a graph always writes its
-buffers in place) and ``persist`` (the executable cache and its prewarm manifest).
+buffers in place).
 ``state_invalidated`` has no counterpart: no step consumes a buffer here, and a first
 step writes no state until the guard has passed.
 """
@@ -109,6 +114,7 @@ from torchmetrics_tpu_torch.diag import profile as _profile
 from torchmetrics_tpu_torch.diag import sentinel as _sentinel
 from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import bucketing, config
+from torchmetrics_tpu_torch.engine import persist as _persist
 from torchmetrics_tpu_torch.engine.stats import EngineStats
 from torchmetrics_tpu_torch.parallel import sharding as _sharding
 from torchmetrics_tpu_torch.utilities.data import apply_to_collection
@@ -1108,6 +1114,8 @@ class GraphEngine:
 
         st = self.stats
         bucket, n_args, kw_names = key[:3]
+        device = members[0][1].device
+        _persist.lookup_executable(st, st.owner, self.kind, _costs.key_digest(key), device)
         t_build = perf_counter()
         try:
             static = StaticInputs(inputs, bucket)
@@ -1130,7 +1138,6 @@ class GraphEngine:
                     buf.copy_(results[plan.name][k])
         entry = _Entry(static, plans, n_args, kw_names)
         entry.scope = annotation_scope(st.owner, self.kind, key)
-        device = members[0][1].device
         capture_ms = pool_bytes = None
         if device.type == "cuda":
             if self._pool is None:
@@ -1150,6 +1157,10 @@ class GraphEngine:
             st.owner, self.kind, _costs.key_digest(key), (perf_counter() - t_build) * 1e3,
             inputs=static.buffers, states=[b for plan in plans for b in plan.buffers.values()],
             capture_ms=capture_ms, pool_bytes=pool_bytes,
+        )
+        # the caller's inputs: a zero replay of their shapes lands in this bucket again
+        _persist.record_compile(
+            st.owner, self.kind, args=inputs[:n_args], kw=dict(zip(kw_names, inputs[n_args:])), bucket=bucket
         )
         self._cache[key] = entry
         return entry

@@ -34,6 +34,7 @@ KNOB_REGISTRY = {
     "TORCHMETRICS_TPU_COMPENSATED": "torchmetrics_tpu_torch.engine.numerics:compensated_enabled",
     "TORCHMETRICS_TPU_DRIFT_RTOL": "torchmetrics_tpu_torch.engine.numerics:drift_rtol",
     "TORCHMETRICS_TPU_SHARD": "torchmetrics_tpu_torch.parallel.sharding:_env_mesh",
+    "TORCHMETRICS_TPU_PERSIST": "torchmetrics_tpu_torch.engine.persist:persist_dir",
     "TORCHMETRICS_TPU_MULTIHOST": "torchmetrics_tpu_torch.parallel.sharding:multihost_spec",
     "TORCHMETRICS_TPU_SYNC_DEADLINE_MS": "torchmetrics_tpu_torch.parallel.resilience:_env_float",
     "TORCHMETRICS_TPU_SYNC_RETRIES": "torchmetrics_tpu_torch.parallel.resilience:_env_float",

@@ -67,7 +67,12 @@ two-sum, the quarantine counter sums, the sentinel ORs.
   the packed sync and computes on the assembled states (``Metric.compute``), never the
   fused route.
 
-Left out against the JAX engine: ``persist`` and the async epoch-sync overlap notes.
+- **The signature manifest** (``engine/persist.py``): with persistence on, each compute
+  build is a counted lookup miss, and one that succeeds appends a ``compute`` or
+  ``sync-compute`` row with no specs: ``prewarm`` replays it as one ``compute()`` per
+  owner.
+
+Left out against the JAX engine: the async epoch-sync overlap notes.
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ from torchmetrics_tpu_torch.diag import lineage as _lineage
 from torchmetrics_tpu_torch.diag import profile as _profile
 from torchmetrics_tpu_torch.diag import sentinel as _sentinel
 from torchmetrics_tpu_torch.diag import trace as _diag
+from torchmetrics_tpu_torch.engine import persist as _persist
 from torchmetrics_tpu_torch.engine.stats import EngineStats
 from torchmetrics_tpu_torch.utilities.data import apply_to_collection
 from torchmetrics_tpu_torch.parallel import packing as _packing
@@ -412,9 +418,10 @@ class _GraphCall:
         self.launches: Dict[str, int] = {}
         self.scope = ""
 
-    def build(self, pool: Any, device: torch.device, owner: str, kind: str, key: Tuple) -> Any:
+    def build(self, pool: Any, device: torch.device, owner: str, kind: str, key: Tuple, stats: EngineStats) -> Any:
         """The guarded first call (its result is this call's result), then the capture
-        on a CUDA device; the build lands in the cost ledger."""
+        on a CUDA device; the build lands in the cost ledger and the manifest."""
+        _persist.lookup_executable(stats, owner, kind, _costs.key_digest(key), device)
         t_build = perf_counter()
         self.scope = annotation_scope(owner, kind, key)
         with torch.no_grad(), _Guard():
@@ -430,6 +437,7 @@ class _GraphCall:
             owner, kind, _costs.key_digest(key), (perf_counter() - t_build) * 1e3,
             inputs=self.inputs.values(), capture_ms=capture_ms, pool_bytes=pool_bytes,
         )
+        _persist.record_compile(owner, kind)
         return result
 
     def call(self, values: Dict[str, torch.Tensor], events: Optional[Tuple[Any, Any]] = None) -> Any:
@@ -539,7 +547,7 @@ class EpochEngine:
         from torchmetrics_tpu_torch.engine import txn
 
         try:
-            result = call.build(self._graph_pool(device), device, self.stats.owner, kind, key)
+            result = call.build(self._graph_pool(device), device, self.stats.owner, kind, key, self.stats)
         except Exception as exc:  # noqa: BLE001 -- an ineligible compute runs eagerly
             if call.graph is None:
                 self._pool = None  # a failed capture may leave its pool recording

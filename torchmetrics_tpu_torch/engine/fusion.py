@@ -17,9 +17,9 @@ quarantine transaction and the compensated two-sum, the JAX ``build_fused_riders
 inside the one graph. A step records the ``fused.*`` events and histograms
 (``GraphEngine.kind``), and a guard refusal a ``fused.exclude`` event.
 ``scan_step`` queues the step on the engine's ``FusedScan`` (``engine/scan.py``); a
-drain calls ``on_scan_drain`` (the collection re-anchors its views).
-
-Left out against the JAX engine: ``persist``.
+drain calls ``on_scan_drain`` (the collection re-anchors its views). A build appends a
+``fused`` row to the signature manifest (``engine/persist.py``), owned by
+``fused:<the owners' type names>``.
 """
 
 from __future__ import annotations

@@ -54,7 +54,8 @@ is consulted only where the engine is on.
 A sharded state's carry is its local block (``step_state``), and the placement joins the
 queue's key, as in ``engine/compiled.py``.
 
-Left out against the JAX module: the ``persist`` manifest.
+With persistence on (``engine/persist.py``) each new ``kb`` graph is a counted lookup
+miss, and its build appends a ``scan`` row: the per-step specs of its slots and ``k``.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ from torchmetrics_tpu_torch.diag import lineage as _lineage
 from torchmetrics_tpu_torch.diag import profile as _profile
 from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import bucketing
+from torchmetrics_tpu_torch.engine import persist as _persist
 from torchmetrics_tpu_torch.engine.compiled import (
     _FALLBACK,
     _BuildFailed,
@@ -250,6 +252,12 @@ def discard_metrics(metrics: Sequence[Any], reason: str) -> int:
 
 
 # ------------------------------------------------------------------ slots and plans
+
+
+def _record_scan(owner: str, ring: Any, kb: int) -> None:
+    """The manifest row of a new ``kb`` graph: one step's input specs (a slot of each
+    input ring, the bucket's rows) and ``k``, as the JAX scan records them."""
+    _persist.record_compile(owner, "scan", args=[b[0] for b in ring.inputs], k=kb)
 
 
 class _Ring:
@@ -751,6 +759,7 @@ class _ScanQueue:
                 if first:
                     if eng._pool is None:
                         eng._pool = torch.cuda.graph_pool_handle()
+                    _persist.lookup_executable(st, st.owner, "scan", _costs.key_digest(gkey), work.device)
                     t_build = perf_counter()
                     try:
                         entry, capture_ms, pool_bytes = measured_capture(lambda: plan.body(ring, kb), eng._pool, work.device)
@@ -763,6 +772,7 @@ class _ScanQueue:
                         inputs=ring.inputs, states=[b for p in plan.plans for b in p.buffers.values()],
                         capture_ms=capture_ms, pool_bytes=pool_bytes,
                     )
+                    _record_scan(st.owner, ring, kb)
                 else:
                     probing = profiling and _profile.probe_due(st.owner, "scan")
                     events = probe_events(work.device) if probing else None
@@ -785,6 +795,8 @@ class _ScanQueue:
             else:
                 first = kb not in ring.built
                 probing = profiling and not first and _profile.probe_due(st.owner, "scan")
+                if first:
+                    _persist.lookup_executable(st, st.owner, "scan", _costs.key_digest(gkey), work.device)
                 t_build = perf_counter()
                 if on_worker:
                     with self._lock:  # the eager body swaps the metrics' states
@@ -798,6 +810,7 @@ class _ScanQueue:
                         st.owner, "scan", _costs.key_digest(gkey), (perf_counter() - t_build) * 1e3,
                         inputs=ring.inputs, states=[b for p in plan.plans for b in p.buffers.values()],
                     )
+                    _record_scan(st.owner, ring, kb)
         except Exception as exc:  # noqa: BLE001 -- the steps are intact in their slots: replay them
             from torchmetrics_tpu_torch.engine import txn
 

@@ -79,6 +79,10 @@ _COUNTER_FIELDS = (
     "shard_degrades",  # shard-rule resolutions degraded to replication (scalar, no state axis, indivisible)
     "ingraph_syncs",  # packed exchanges that rode the mesh's data sub-group
     "sync_noop_plans",  # packed syncs skipped wholesale: nothing to pack (every state sharded)
+    # --- the signature manifest (engine/persist.py): zero-cold-start serving ---
+    "persist_hits",  # builds served by a persisted graph (0: a CUDA graph does not load)
+    "persist_misses",  # builds that looked for a persisted graph with persistence on (every one)
+    "prewarm_replays",  # manifest rows replayed by prewarm() before traffic landed
     # --- heavy-workload host paths (detection/mean_ap.py) ---
     "map_host_evals",  # mAP computes evaluated by the host matcher (list, RLE and packed-dict routes)
     # --- value provenance & freshness plane (diag/lineage.py) ---
@@ -188,14 +192,16 @@ def reset_engine_stats() -> None:
     """Zero every live engine's counters, the fault-tolerance counters
     (``parallel/resilience.py``), the active flight recorder, the cost ledger, the
     sentinels, the quarantine counters, the histograms, the probe accounting, the
-    lineage watermarks and the SLO windows, in lockstep: a surface reset alone would attribute the previous
-    run's events, costs, flags or tails to the next."""
+    lineage watermarks, the SLO windows and the persistence counters (``engine/persist.py``),
+    in lockstep: a surface reset alone would attribute the previous run's events, costs,
+    flags or tails to the next."""
     from torchmetrics_tpu_torch.diag.costs import reset_ledger
     from torchmetrics_tpu_torch.diag.hist import reset_histograms
     from torchmetrics_tpu_torch.diag.lineage import reset_lineage
     from torchmetrics_tpu_torch.diag.profile import reset_profile
     from torchmetrics_tpu_torch.diag.sentinel import reset_sentinels
     from torchmetrics_tpu_torch.diag.slo import reset_slo
+    from torchmetrics_tpu_torch.engine.persist import reset_persist_stats
     from torchmetrics_tpu_torch.engine.txn import reset_quarantine
     from torchmetrics_tpu_torch.parallel.resilience import reset_resilience
 
@@ -209,3 +215,4 @@ def reset_engine_stats() -> None:
     reset_resilience()
     reset_lineage()
     reset_slo()
+    reset_persist_stats()

@@ -62,7 +62,9 @@ that sub-group too); ``compute`` runs on the assembled whole states; ``state_dic
 writes them whole, and ``load_state_dict`` and unpickling re-place them
 (``_apply_shard_rules``).
 
-Left out against the JAX package: ``persist``.
+``engine/persist.prewarm`` builds a fresh metric's graphs from a signature manifest before
+its first update, on zero inputs, and puts every state back into the buffers the graphs
+hold; ``warm_start`` then restores the newest snapshot (``parallel/elastic.py``).
 """
 
 from __future__ import annotations

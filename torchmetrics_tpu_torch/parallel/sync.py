@@ -11,8 +11,10 @@ packed backbone. With no policy and no planted fault the wrapper is a direct cal
 
 The JAX package's mesh-axis collectives (``axis_gather`` / ``axis_sum`` / ``axis_mean``
 / ``axis_max`` / ``axis_min``) run here over the process group of one named axis of a
-rank mesh: an ``EvalMesh`` or the active state mesh (``parallel/sharding.py``), the
-default group when neither names the axis. ``EvalMesh`` is a 1-D data-parallel mesh
+rank mesh: an ``EvalMesh`` or the active state mesh (``parallel/sharding.py``). With no
+mesh given and none active they run over the default group, the whole world. A name
+that is not an axis of the mesh raises ``TorchMetricsUserError``, as the JAX
+collectives raise on an unbound axis name. ``EvalMesh`` is a 1-D data-parallel mesh
 over the ranks.
 """
 
@@ -24,6 +26,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from torchmetrics_tpu_torch.utilities.exceptions import TorchMetricsUserError
 
 __all__ = [
     "jit_distributed_available",
@@ -103,21 +106,33 @@ def gather_all_tensors(result: torch.Tensor, group: Optional[Any] = None) -> Lis
 # ------------------------------------------------------------------ mesh-axis collectives
 
 
-def _axis_group(axis_name: str, mesh: Optional[Any], device_type: str) -> Optional[Any]:
-    """The process group along ``axis_name`` of ``mesh``, else of the active state mesh,
-    else None (the default group)."""
+def _axis_mesh(axis_name: str, mesh: Optional[Any]) -> Optional[Any]:
+    """The mesh whose ``axis_name`` a collective runs along: ``mesh``, else the active
+    state mesh, else None (no mesh: the default group). Raises when the mesh has no
+    such axis."""
     if mesh is None:
         from torchmetrics_tpu_torch.parallel.sharding import metric_mesh
 
         mesh = metric_mesh()
     mesh = getattr(mesh, "mesh", mesh)
-    if mesh is not None and axis_name in getattr(mesh, "shape", {}):
-        return mesh.group(axis_name, device_type)
-    return None
+    if mesh is None:
+        return None
+    axes = tuple(getattr(mesh, "shape", {}))
+    if axis_name not in axes:
+        raise TorchMetricsUserError(f"unknown mesh axis {axis_name!r}: the mesh's axes are {axes}")
+    return mesh
+
+
+def _axis_group(axis_name: str, mesh: Optional[Any], device_type: str) -> Optional[Any]:
+    """The process group along ``axis_name`` of the resolved mesh (``_axis_mesh``), or
+    None (the default group) when there is no mesh."""
+    resolved = _axis_mesh(axis_name, mesh)
+    return None if resolved is None else resolved.group(axis_name, device_type)
 
 
 def _axis_reduce(x: torch.Tensor, axis_name: str, op: Any, mesh: Optional[Any]) -> torch.Tensor:
     if not distributed_available():
+        _axis_mesh(axis_name, mesh)
         return x
     out = x.clone()
     dist.all_reduce(out, op=op, group=_axis_group(axis_name, mesh, x.device.type))
@@ -127,6 +142,7 @@ def _axis_reduce(x: torch.Tensor, axis_name: str, op: Any, mesh: Optional[Any]) 
 def axis_gather(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:
     """Every rank's ``x`` along ``axis_name``, stacked on a new leading dim."""
     if not distributed_available():
+        _axis_mesh(axis_name, mesh)
         return x[None]
     return torch.stack(raw_all_gather(x.contiguous(), _axis_group(axis_name, mesh, x.device.type)))
 
@@ -138,8 +154,9 @@ def axis_sum(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> tor
 
 def axis_mean(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:
     """The mean along ``axis_name`` (an all-reduce sum over the axis size)."""
+    total = axis_sum(x, axis_name, mesh)
     group = _axis_group(axis_name, mesh, x.device.type) if distributed_available() else None
-    return axis_sum(x, axis_name, mesh) / world_size(group)
+    return total / world_size(group)
 
 
 def axis_max(x: torch.Tensor, axis_name: str, mesh: Optional[Any] = None) -> torch.Tensor:

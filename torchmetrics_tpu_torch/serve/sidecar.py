@@ -7,9 +7,10 @@ only) and answers:
 - ``GET /metrics``: ``export_prometheus()``, ``Content-Type: text/plain;
   version=0.0.4``;
 - ``GET /telemetry``: one ``telemetry_snapshot()`` as a JSON line;
-- ``GET /healthz``: readiness: ``200 ok`` unless a *blocking* SLO
-  (``diag/slo.py``) is in breach, else ``503`` with a JSON body naming the SLO (and,
-  for ``value-freshness``, the stalest owner);
+- ``GET /healthz``: readiness: ``200 ok`` when the warm-start handoff (if any)
+  replayed every row and no *blocking* SLO (``diag/slo.py``) is in breach, else ``503``
+  with a JSON body naming the reason (``warm-start-failed``, or ``slo-breach`` with the
+  SLO and, for ``value-freshness``, the stalest owner);
 - ``GET /slo``: one SLO evaluation pass, the per-spec rows;
 - ``GET /state``: the versioned federation envelope of the ``state_target``
   metrics (``serve/federation.py``), built on the pause-free
@@ -23,9 +24,8 @@ Every scrape is timed into the ``serve_scrape_latency_seconds`` histogram family
 (``diag/hist.py``) and the ``tm_tpu_serve_scrapes_total`` counters. Handlers run on
 server threads, so the update loop never waits on a scraper.
 
-Left out against the JAX package: the warm-replica handoff (``warm_target``,
-``persist_dir``, ``snapshot_dir``), which replays the persistent executable cache of
-``engine/persist.py``, not yet ported.
+The warm-replica handoff: ``MetricsSidecar(warm_target=...)`` runs
+``engine/persist.warm_start`` in :meth:`MetricsSidecar.start`, before the socket binds.
 """
 
 from __future__ import annotations
@@ -147,9 +147,19 @@ class _ScrapeHandler(BaseHTTPRequestHandler):
         return 200, headers, body, "application/octet-stream"
 
     def _healthz_response(self) -> tuple:
-        """Readiness over the blocking SLOs: ``503`` with a JSON body naming the breach
-        (``slo-breach`` and the breaching ids), so an orchestrator drains traffic for
-        the right reason. Liveness is the socket answering at all."""
+        """Readiness over the warm handoff and the blocking SLOs: ``503`` with a JSON
+        body naming the cause (``warm-start-failed``: the pod is up but cold; or
+        ``slo-breach`` and the breaching ids), so an orchestrator drains traffic for the
+        right reason. Liveness is the socket answering at all."""
+        warm = getattr(self.server, "tm_warm_report", None)
+        if warm and int(warm.get("failed", 0)) > 0:
+            body = json.dumps({
+                "status": "unready",
+                "reason": "warm-start-failed",
+                "failed": int(warm.get("failed", 0)),
+                "replayed": int(warm.get("replayed", 0)),
+            }, sort_keys=True) + "\n"
+            return 503, body.encode(), "application/json"
         from torchmetrics_tpu_torch.diag.slo import blocking_breaches, evaluate_slos, slo_enabled
 
         if slo_enabled():
@@ -206,12 +216,22 @@ class MetricsSidecar:
 
     ``port`` defaults to ``TORCHMETRICS_TPU_SERVE_PORT`` (0: the OS picks; read back
     from :attr:`port` after :meth:`start`).
+
+    Warm-replica handoff: a ``warm_target`` (a Metric or MetricCollection) runs
+    ``engine/persist.warm_start`` in :meth:`start`, before the endpoint answers its
+    first scrape: the manifest in ``persist_dir`` (else ``TORCHMETRICS_TPU_PERSIST``)
+    replays every recorded signature, and a ``snapshot_dir`` restores the newest elastic
+    snapshot, so a replacement pod serves restored states on built graphs. The report
+    lands on :attr:`warm_report`; a replay that failed makes ``/healthz`` answer 503.
     """
 
     def __init__(
         self,
         port: Optional[int] = None,
         host: str = "127.0.0.1",
+        warm_target: Any = None,
+        persist_dir: Optional[str] = None,
+        snapshot_dir: Optional[str] = None,
         state_target: Any = None,
         fleet_target: Any = None,
     ) -> None:
@@ -220,8 +240,12 @@ class MetricsSidecar:
         self.port: Optional[int] = None
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._warm_target = warm_target
+        self._persist_dir = persist_dir
+        self._snapshot_dir = snapshot_dir
         self._state_target = state_target
         self._fleet_target = fleet_target
+        self.warm_report: Optional[dict] = None
 
     @property
     def url(self) -> str:
@@ -232,12 +256,20 @@ class MetricsSidecar:
     def start(self) -> "MetricsSidecar":
         if self._server is not None:
             raise RuntimeError("sidecar already started")
+        if self._warm_target is not None:
+            # the handoff before the socket binds: the first scrape already sees
+            # restored states and built graphs
+            from torchmetrics_tpu_torch.engine.persist import warm_start
+
+            self.warm_report = warm_start(self._warm_target, directory=self._persist_dir, snapshot_dir=self._snapshot_dir)
         server = ThreadingHTTPServer((self.host, self._requested_port), _ScrapeHandler)
         server.daemon_threads = True
-        # the /state and /fleet/* handlers read these off the server object (handler
-        # instances are per request; the server is the shared context)
+        # the /state, /healthz and /fleet/* handlers read these off the server object
+        # (handler instances are per request; the server is the shared context): a
+        # failed warm handoff flips readiness
         server.tm_state_target = self._state_target
         server.tm_fleet_target = self._fleet_target
+        server.tm_warm_report = self.warm_report
         self._server = server
         self.port = server.server_address[1]
         self._thread = threading.Thread(target=server.serve_forever, name="tm-torch-sidecar", daemon=True)
