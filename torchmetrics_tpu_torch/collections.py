@@ -39,10 +39,13 @@ form a compute group:
 ``fused_dispatch=False`` turns the fused step and the packed compute sync off, as the
 engine being off does in the JAX package.
 
-With a recorder or a profile observing, a settled ``update`` records a
-``collection.step`` event (``dispatch_us``, ``owners``, ``fused``) and feeds the
-``collection`` ``dispatch_us`` histogram; the one-time group discovery reads the states
-inside ``transfer_allowed("group-discovery")``. The members' sentinels, quarantine
+``update``, ``forward``, ``compute`` and ``reset`` are the ``api.*`` spans of
+``diag/trace.py`` (the step's ``collection.fused`` and ``collection.views``, the
+compute's ``epoch.drain`` and ``epoch.sync`` inside them). With a recorder or a profile
+observing, a settled ``update`` records a ``collection.step`` event (``dispatch_us``: the
+``api.update`` span's duration, ``owners``, ``fused``) and feeds the ``collection``
+``dispatch_us`` histogram; the one-time group discovery reads the states inside
+``transfer_allowed("group-discovery")``. The members' sentinels, quarantine
 counters and compensation residuals ride the fused step and the packed sync.
 
 ``snapshot_compute`` is each member's ``Metric.snapshot_compute`` (``serve/snapshot.py``).
@@ -56,13 +59,10 @@ from __future__ import annotations
 import weakref
 from collections import OrderedDict
 from copy import deepcopy
-from time import perf_counter
 from typing import Any, Callable, Dict, Hashable, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from torchmetrics_tpu_torch.diag import hist as _hist
-from torchmetrics_tpu_torch.diag import profile as _profile
 from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import txn
 from torchmetrics_tpu_torch.engine.async_dispatch import coerce_inflight, resolve_async
@@ -223,8 +223,9 @@ class MetricCollection:
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Every member's own ``forward`` (batch values); kwargs filtered per signature."""
-        self._drain_scan("observation:forward")
-        return self._compute_and_reduce("forward", *args, **kwargs)
+        with _diag.call("api.forward", type(self).__name__):
+            self._drain_scan("observation:forward")
+            return self._compute_and_reduce("forward", *args, **kwargs)
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """One collection step: each group owner accumulates the batch once.
@@ -234,26 +235,28 @@ class MetricCollection:
         Members already merged by signature do not run: the owner's state replaces
         theirs once discovery ends.
         """
-        begin_mutation(self)
-        try:
-            self._update(args, kwargs)
-        finally:
-            if self._mutation_depth == 1:
-                # the fused step writes member states outside their update wrappers:
-                # each member's snapshot copy is enqueued on this step's stream
-                streams: Dict[torch.device, Any] = {}
-                for m in self._modules.values():
-                    if m.device.type == "cuda":
-                        if m.device not in streams:
-                            streams[m.device] = torch.cuda.current_stream(m.device)
-                        m._write_stream = streams[m.device]
-            end_mutation(self)
+        owner = type(self).__name__
+        with _diag.call("api.update", owner) as sp:
+            begin_mutation(self)
+            try:
+                step = self._update(args, kwargs)
+            finally:
+                if self._mutation_depth == 1:
+                    # the fused step writes member states outside their update wrappers:
+                    # each member's snapshot copy is enqueued on this step's stream
+                    streams: Dict[torch.device, Any] = {}
+                    for m in self._modules.values():
+                        if m.device.type == "cuda":
+                            if m.device not in streams:
+                                streams[m.device] = torch.cuda.current_stream(m.device)
+                            m._write_stream = streams[m.device]
+                end_mutation(self)
+        if step is not None:
+            _diag.observe_dispatch(sp, owner, "collection", "collection.step", owners=step[0], fused=step[1])
 
-    def _update(self, args: tuple, kwargs: dict) -> None:
+    def _update(self, args: tuple, kwargs: dict) -> Optional[Tuple[int, int]]:
+        """One step; settled, ``(owners, owners fused)``, else None (the discovery step)."""
         if self._groups_checked:
-            rec = _diag.active_recorder()
-            measuring = rec is not None or _profile.active_profile() is not None
-            t_step = perf_counter() if measuring else 0.0
             owners = [(group.owner, self._modules[group.owner]) for group in self._groups.values()]
             prechecked = txn.quarantine_error()
             if prechecked:
@@ -262,7 +265,8 @@ class MetricCollection:
                 placed = tuple(owners[0][1]._place(a) for a in args) if owners else args
                 for _, owner in owners:
                     txn.admission_check_or_raise(owner, placed, owner._filter_kwargs(**kwargs))
-            handled, scan_active = self._fused_step(owners, args, kwargs)
+            with _diag.span("collection.fused", type(self).__name__):
+                handled, scan_active = self._fused_step(owners, args, kwargs)
             for name, owner in owners:
                 if name not in handled:
                     if prechecked:
@@ -273,24 +277,20 @@ class MetricCollection:
                         # an owner queueing on its own engine re-anchors the views
                         # when its queue drains, wherever the drain fires
                         sq.on_drain = self._anchor_views_after_scan
-            if measuring:
-                step_us = round((perf_counter() - t_step) * 1e6, 3)
-                _hist.observe(type(self).__name__, "collection", "dispatch_us", step_us)
-                if rec is not None:
-                    rec.record("collection.step", type(self).__name__, dispatch_us=step_us, owners=len(owners), fused=len(handled))
-            if scan_active:
-                # a queued step changes no buffer binding: each drain re-anchors
-                if self._state_is_copy:
+            with _diag.span("collection.views", type(self).__name__):
+                if scan_active:
+                    # a queued step changes no buffer binding: each drain re-anchors
+                    if self._state_is_copy:
+                        self._materialize_group_views()
+                elif handled or any(owner._engine is not None for _, owner in owners):
+                    # re-anchor the views NOW on the owners' static buffers: a member
+                    # handle retained from an earlier accessor keeps reading live state
+                    self._state_is_copy = False
                     self._materialize_group_views()
-            elif handled or any(owner._engine is not None for _, owner in owners):
-                # re-anchor the views NOW on the owners' static buffers: a member
-                # handle retained from an earlier accessor keeps reading live state
-                self._state_is_copy = False
-                self._materialize_group_views()
-            elif self._state_is_copy:
-                # the views hold copies of the old state; the next accessor re-anchors
-                self._materialize_group_views()
-            return
+                elif self._state_is_copy:
+                    # the views hold copies of the old state; the next accessor re-anchors
+                    self._materialize_group_views()
+            return len(owners), len(handled)
         if self._enable_compute_groups:
             members = [self._modules[group.owner] for group in self._groups.values()]
         else:
@@ -310,6 +310,7 @@ class MetricCollection:
             self._discover_groups()
             self._materialize_group_views()
             self._groups_checked = True
+        return None
 
     def _fused_step(self, owners: List[Tuple[str, Metric]], args: tuple, kwargs: dict) -> Tuple[set, bool]:
         """Try the one-graph fused step over the group owners, queued when a scan depth
@@ -411,12 +412,16 @@ class MetricCollection:
         the whole collection); then each member computes on the synced states and the
         owners unsync.
         """
-        self._drain_scan("observation:compute")
-        restore = self._packed_epoch_sync()
-        try:
-            return self._compute_and_reduce("compute")
-        finally:
-            restore()
+        owner = type(self).__name__
+        with _diag.call("api.compute", owner):
+            with _diag.span("epoch.drain", owner):
+                self._drain_scan("observation:compute")
+            with _diag.span("epoch.sync", owner):
+                restore = self._packed_epoch_sync()
+            try:
+                return self._compute_and_reduce("compute")
+            finally:
+                restore()
 
     def _packed_epoch_sync(self) -> Callable[[], None]:
         """Pack-sync the group owners ahead of the member compute pass.
@@ -507,11 +512,12 @@ class MetricCollection:
     def reset(self) -> None:
         """Reset every metric; group views re-anchor to the (reset) owners. The fused
         queue's steps are discarded with the states they would have moved."""
-        discard_metrics(list(self._modules.values()), "reset")
-        for metric in self.values(copy_state=False):
-            metric.reset()
-        if self._enable_compute_groups and self._groups_checked:
-            self._materialize_group_views()
+        with _diag.call("api.reset", type(self).__name__):
+            discard_metrics(list(self._modules.values()), "reset")
+            for metric in self.values(copy_state=False):
+                metric.reset()
+            if self._enable_compute_groups and self._groups_checked:
+                self._materialize_group_views()
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         """Deep copy, optionally re-prefixed."""

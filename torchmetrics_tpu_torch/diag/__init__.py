@@ -4,7 +4,9 @@ names), near-zero cost when off:
 - ``trace``: the flight recorder (``FlightRecorder``, ``record``, ``diag_context``,
   ``attribute_retrace``; ``TORCHMETRICS_TPU_TRACE``). The engines record their
   dispatches, builds and rebuilds with an attributed cause, fallbacks, syncs and
-  collectives (the kinds of the JAX ``EVENT_KINDS``).
+  collectives (the kinds of the JAX ``EVENT_KINDS``); beside the events, a span at each
+  layer boundary of a call (``rec.spans``; under the torch profiler alone,
+  ``trace.process_recorder()``).
 - ``transfer_guard``: ``transfer_guard("strict" | "log")`` proves the hot loop reads
   nothing back to the host, on two layers: ``torch.cuda.set_sync_debug_mode`` on the
   card, Python wrappers of the tensor-to-host entry points everywhere;

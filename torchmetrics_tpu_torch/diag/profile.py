@@ -24,8 +24,9 @@ three ways without breaking the strict transfer guard on unsampled steps:
 Enablement (first hit wins): an active :func:`profile_context` scope, a
 :func:`set_profile_every_n` override, then ``TORCHMETRICS_TPU_PROFILE`` (``"1"``
 samples every ``DEFAULT_EVERY_N`` warm dispatches, an integer > 1 sets ``every_n``,
-``"0"``/unset disables). Profiling extends the packed-sync metadata layout: enable it on
-every rank or none (the layout version stamped into the gather fails loud on mismatch).
+``"0"``/unset disables), read once per outermost call (``diag/trace.call``). Profiling
+extends the packed-sync metadata layout: enable it on every rank or none (the layout
+version stamped into the gather fails loud on mismatch).
 
 The straggler threshold (``sync.straggler`` events and
 ``EngineStats.sync_straggler_flags`` when a rank's corrected barrier arrival trails the
@@ -40,6 +41,8 @@ from contextlib import contextmanager, nullcontext
 from contextvars import ContextVar
 from time import perf_counter
 from typing import Any, Dict, Generator, Optional, Tuple
+
+from torchmetrics_tpu_torch.diag import trace as _trace
 
 __all__ = [
     "DEFAULT_EVERY_N",
@@ -105,18 +108,24 @@ def _parse_env(raw: str) -> Optional[int]:
     return n if n > 1 else DEFAULT_EVERY_N
 
 
-def active_profile() -> Optional[int]:
-    """The active sampling rate (``every_n``), or None when profiling is off."""
-    scoped = _PROFILE_VAR.get()
-    if scoped is not None:
-        return scoped
-    if _every_n_override is not None:
-        return _every_n_override
+def _env_profile() -> Optional[int]:
     global _env_state
     raw = os.environ.get(PROFILE_ENV_VAR, "").strip()
     if raw != _env_state[0]:
         _env_state = (raw, _parse_env(raw))
     return _env_state[1]
+
+
+def active_profile() -> Optional[int]:
+    """The active sampling rate (``every_n``), or None when profiling is off. Under a
+    call (``diag/trace.call``) the environment variable is the one read when the call
+    began."""
+    scoped = _PROFILE_VAR.get()
+    if scoped is not None:
+        return scoped
+    if _every_n_override is not None:
+        return _every_n_override
+    return _trace.env_profile()
 
 
 def set_profile_every_n(every_n: Optional[int]) -> None:

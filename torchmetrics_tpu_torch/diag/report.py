@@ -17,7 +17,9 @@ Three consumers, one data path:
   marker. Durations are HOST-side spans (async launch + Python bookkeeping);
   device kernel time belongs to sampled ``device_us`` probes and to
   ``torch.profiler`` traces, where the engines' ``tm:<owner>:<kind>:<signature>``
-  scopes (``diag/profile.dispatch_scope``) sit alongside.
+  scopes (``diag/profile.dispatch_scope``) sit alongside. The recorder's spans
+  (``diag/trace.py``) follow as complete slices with their real start and end, on a
+  second process (pid 1, "torchmetrics_tpu spans"), one track per owner.
   Multi-rank streams merge into one trace via
   :func:`torchmetrics_tpu_torch.diag.timeline.merge_timelines`.
 """
@@ -194,8 +196,14 @@ def export_chrome_trace(path: str, recorder: Optional[FlightRecorder] = None) ->
     (``collective:reduce:int32``, ``collective:meta``, …) with their byte
     counts in ``args``, so sync cost sits visually next to compute cost
     instead of vanishing into the anonymous process track.
+
+    The recorder's spans become complete ("X") slices from their ``t0`` to their
+    ``t1``, on the same clock as the events, in a second process (pid 1), one track
+    per owner; ``args`` carry ``id``, ``parent``, ``root`` and the span's attributes,
+    and a child lies inside its parent's interval.
     """
-    events = _events_of(recorder)
+    rec = recorder if recorder is not None else active_recorder()
+    events = rec.snapshot() if rec is not None else []
     tids: Dict[str, int] = {}
     trace_events: List[Dict[str, Any]] = [
         {"ph": "M", "pid": 0, "name": "process_name", "args": {"name": "torchmetrics_tpu"}}
@@ -224,6 +232,21 @@ def export_chrome_trace(path: str, recorder: Optional[FlightRecorder] = None) ->
         trace_events.append(
             {"ph": "M", "pid": 0, "tid": tid, "name": "thread_name", "args": {"name": owner}}
         )
+    spans = list(rec.spans) if rec is not None else []
+    if spans:
+        trace_events.append({"ph": "M", "pid": 1, "name": "process_name", "args": {"name": "torchmetrics_tpu spans"}})
+        span_tids: Dict[str, int] = {}
+        base_us = rec.t0 * 1e6
+        for sp in sorted(spans, key=lambda x: (x.t0, -x.t1)):
+            tid = span_tids.setdefault(sp.owner or "<process>", len(span_tids) + 1)
+            args = {"id": sp.id, "parent": sp.parent, "root": sp.root}
+            args.update({k: (v if isinstance(v, (int, float, bool, str)) else str(v)) for k, v in (sp.attrs or {}).items()})
+            trace_events.append({
+                "name": sp.name, "ph": "X", "pid": 1, "tid": tid, "ts": round(sp.t0 / 1e3 - base_us, 3),
+                "dur": round((sp.t1 - sp.t0) / 1e3, 3), "args": args,
+            })
+        for owner, tid in span_tids.items():
+            trace_events.append({"ph": "M", "pid": 1, "tid": tid, "name": "thread_name", "args": {"name": owner}})
     with open(path, "w") as fh:
         json.dump({"traceEvents": trace_events, "displayTimeUnit": "ms"}, fh)
     return len(events)

@@ -64,11 +64,14 @@ is the one-metric case, ``engine/fusion.py``'s ``FusedUpdate`` a collection's ow
   succeeds appends its row: kind ``update`` or ``fused``, the caller's inputs (not the
   bucket-padded static buffers) and the bucket. The CPU, which captures nothing, records
   too. ``prewarm`` replays the rows on zero inputs.
-- **Diagnostics.** With a flight recorder or a profile active (``diag/``), a step
-  records ``<kind>.trace`` / ``<kind>.retrace`` (the cause attributed by
-  ``attribute_retrace`` over ``signature_fingerprint`` and counted in
-  ``retrace_causes``) and ``<kind>.dispatch`` (``kind`` is ``update`` or ``fused``),
-  and feeds the ``dispatch_us`` histogram. Every replay runs in the
+- **Diagnostics.** A step is the spans ``engine.key``, then ``engine.build`` or
+  ``engine.stage`` and ``engine.replay``, then ``engine.bind`` (``diag/trace.py``).
+  With a flight recorder or a profile active (``diag/``), a step records
+  ``<kind>.trace`` / ``<kind>.retrace`` (the cause attributed by ``attribute_retrace``
+  over ``signature_fingerprint`` and counted in ``retrace_causes``) and
+  ``<kind>.dispatch`` (``kind`` is ``update`` or ``fused``; ``dispatch_us`` from the
+  build's or the replay's start to the bind's end), and feeds the ``dispatch_us``
+  histogram. Every replay runs in the
   ``tm:<owner>:<kind>:<signature>`` scope (``diag/profile.dispatch_scope``). Under a
   profile every Nth warm step is a completion probe (``completion_probe``: CUDA events
   around the replay, a sanctioned wait; ``<kind>.probe``, ``device_us``,
@@ -888,93 +891,97 @@ class GraphEngine:
         classified, or a built one fails to run.
         """
         st = self.stats
-        kw_names = tuple(sorted(kwargs))
-        inputs = [*args, *(kwargs[k] for k in kw_names)]
-        in_sig = self._eligible_inputs(members, inputs)
+        owner = st.owner
+        with _diag.span("engine.key", owner):
+            kw_names = tuple(sorted(kwargs))
+            inputs = [*args, *(kwargs[k] for k in kw_names)]
+            in_sig = self._eligible_inputs(members, inputs)
+            if in_sig is not None:
+                states = {name: step_state(m) for name, m in members}
+                bucket = self._bucket(members, inputs)
+                if bucket is not None:
+                    in_sig = tuple((bucketing.bucketed_shape(a, bucket), a.dtype, a.device) for a in inputs)
+                state_sig = tuple((name, state_signature(states[name])) for name, _ in members)
+                # the placement joins the key: a re-placed state builds a fresh graph
+                placement = tuple(_sharding.metric_placement_token(m) for _, m in members)
+                key = (bucket, len(args), kw_names, state_sig, in_sig, placement)
+                entry = self._cache.get(key)
         if in_sig is None:
             return None
-        states = {name: step_state(m) for name, m in members}
-        bucket = self._bucket(members, inputs)
-        if bucket is not None:
-            in_sig = tuple((bucketing.bucketed_shape(a, bucket), a.dtype, a.device) for a in inputs)
-        state_sig = tuple((name, state_signature(states[name])) for name, _ in members)
-        # the placement joins the key: a re-placed state builds a fresh graph
-        placement = tuple(_sharding.metric_placement_token(m) for _, m in members)
-        key = (bucket, len(args), kw_names, state_sig, in_sig, placement)
-        entry = self._cache.get(key)
         if entry is _FALLBACK:
             st.fallback("uncompilable-signature")
             return None
         first = entry is None
-        rec = _diag.active_recorder()
         profiling = _profile.active_profile() is not None
-        measuring = rec is not None or profiling
-        t_dispatch = perf_counter() if measuring else 0.0
         device_us = event_us = None
         if first:
-            try:
-                entry = self._build(key, members, states, inputs)
-            except _BuildFailed as failed:
-                from torchmetrics_tpu_torch.engine import txn
+            with _diag.span("engine.build", owner) as work:
+                try:
+                    entry = self._build(key, members, states, inputs)
+                except _BuildFailed as failed:
+                    from torchmetrics_tpu_torch.engine import txn
 
-                applied = isinstance(failed.exc, _Applied)
-                exc = failed.exc.exc if applied else failed.exc
-                classified = txn.classify_and_demote(self._cache, _FALLBACK, self._transient_fails, key, exc)
-                if applied:
-                    # the warm-up wrote this step; only the graph is missing (retried
-                    # at the signature's next step, within the budget)
-                    st.fallback_reasons[f"capture-{classified}"] += 1
-                    st.dispatches += 1
-                    st.metrics_updated += len(members)
-                    return members
-                return self._on_build_failure(members, args, kwargs, bucket, classified)
+                    applied = isinstance(failed.exc, _Applied)
+                    exc = failed.exc.exc if applied else failed.exc
+                    classified = txn.classify_and_demote(self._cache, _FALLBACK, self._transient_fails, key, exc)
+                    if applied:
+                        # the warm-up wrote this step; only the graph is missing (retried
+                        # at the signature's next step, within the budget)
+                        st.fallback_reasons[f"capture-{classified}"] += 1
+                        st.dispatches += 1
+                        st.metrics_updated += len(members)
+                        return members
+                    return self._on_build_failure(members, args, kwargs, bucket, classified)
             if entry is None:
                 return None
         else:
-            for plan in entry.plans:
-                shield_state(plan.metric, plan.buffers, st)
-                copy_into_buffers(states[plan.name], plan.buffers, st)
-            entry.inputs.fill(inputs, st)
+            with _diag.span("engine.stage", owner):
+                for plan in entry.plans:
+                    shield_state(plan.metric, plan.buffers, st)
+                    copy_into_buffers(states[plan.name], plan.buffers, st)
+                entry.inputs.fill(inputs, st)
             device = members[0][1].device
             probing = profiling and _profile.probe_due(st.owner, self.kind)
             events = probe_events(device) if probing else None
-            if measuring:
-                t_dispatch = perf_counter()
-            with timed_replay(entry.scope, device, events):
-                if entry.graph is not None:
-                    entry.graph.replay()
-                    ops.add_launches(entry.launches)
-                    st.replays += 1
-                elif device.type == "cuda":
-                    raise RuntimeError("a CUDA engine step has no captured graph")
-                else:
-                    entry.run()
+            with _diag.span("engine.replay", owner) as work:
+                if work is not None:
+                    work.attrs = {"scope": entry.scope}
+                with timed_replay(entry.scope, device, events):
+                    if entry.graph is not None:
+                        entry.graph.replay()
+                        ops.add_launches(entry.launches)
+                        st.replays += 1
+                    elif device.type == "cuda":
+                        raise RuntimeError("a CUDA engine step has no captured graph")
+                    else:
+                        entry.run()
             if probing:
+                t_dispatch = work.t0 * 1e-9 if work is not None else perf_counter()
                 device_us, event_us = completion_probe(st.owner, self.kind, st, t_dispatch, events)
         st.traces += first
         st.cache_hits += not first
         st.dispatches += 1
         st.metrics_updated += len(entry.plans)
-        for plan in entry.plans:
-            bind_buffers(plan.metric, states[plan.name], plan.buffers)
-        self._count_riders(entry.plans, 1)
+        with _diag.span("engine.bind", owner) as bind:
+            for plan in entry.plans:
+                bind_buffers(plan.metric, states[plan.name], plan.buffers)
+            self._count_riders(entry.plans, 1)
         if first:
             note_build(
                 st, self.kind, self._fingerprints, key, signature_fingerprint(key),
                 bucket=bucket, members=len(entry.plans),
             )
-        if measuring:
-            dispatch_us = round((perf_counter() - t_dispatch) * 1e6, 3)
-            _hist.observe(st.owner, self.kind, "dispatch_us", dispatch_us)
-            if rec is not None:
-                rec.record(
-                    f"{self.kind}.dispatch", st.owner, dispatch_us=dispatch_us, bucketed=bucket is not None,
-                    pad_rows=entry.inputs.bucket - entry.inputs.rows if bucket is not None else 0,
-                    bytes=entry.step_bytes, members=len(entry.plans), cached=not first,
-                )
-                if device_us is not None:
-                    probe = {"device_event_us": event_us} if event_us is not None else {}
-                    rec.record(f"{self.kind}.probe", st.owner, dispatch_us=dispatch_us, device_us=device_us, **probe)
+        if work is not None:
+            # the build or the replay, through the binding of its states
+            dispatch_us = _diag.observe_dispatch(
+                work, st.owner, self.kind, f"{self.kind}.dispatch", end=bind, bucketed=bucket is not None,
+                pad_rows=entry.inputs.bucket - entry.inputs.rows if bucket is not None else 0,
+                bytes=entry.step_bytes, members=len(entry.plans), cached=not first,
+            )
+            rec = _diag.active_recorder()
+            if rec is not None and dispatch_us is not None and device_us is not None:
+                probe = {"device_event_us": event_us} if event_us is not None else {}
+                rec.record(f"{self.kind}.probe", st.owner, dispatch_us=dispatch_us, device_us=device_us, **probe)
         if profiling and not first:
             from torchmetrics_tpu_torch.engine import numerics
 

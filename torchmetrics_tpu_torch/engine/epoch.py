@@ -72,6 +72,10 @@ two-sum, the quarantine counter sums, the sentinel ORs.
   ``sync-compute`` row with no specs: ``prewarm`` replays it as one ``compute()`` per
   owner.
 
+- **Spans** (``diag/trace.py``): a metric's packed sync and the exchange of the fused
+  route are ``epoch.sync``, the fused fold-and-compute an ``epoch.compute`` (``graph``),
+  a compute build ``engine.build``.
+
 Left out against the JAX engine: the async epoch-sync overlap notes.
 """
 
@@ -534,7 +538,8 @@ class EpochEngine:
 
     def packed_sync(self) -> bool:
         """Write the synced states onto the metric; False requests the eager path."""
-        return _packed_sync([("", self._metric)], self.stats, self._fold_cache)
+        with _diag.span("epoch.sync", type(self._metric).__name__):
+            return _packed_sync([("", self._metric)], self.stats, self._fold_cache)
 
     def _graph_pool(self, device: torch.device) -> Any:
         if device.type == "cuda" and self._pool is None:
@@ -547,7 +552,8 @@ class EpochEngine:
         from torchmetrics_tpu_torch.engine import txn
 
         try:
-            result = call.build(self._graph_pool(device), device, self.stats.owner, kind, key, self.stats)
+            with _diag.span("engine.build", self.stats.owner):
+                result = call.build(self._graph_pool(device), device, self.stats.owner, kind, key, self.stats)
         except Exception as exc:  # noqa: BLE001 -- an ineligible compute runs eagerly
             if call.graph is None:
                 self._pool = None  # a failed capture may leave its pool recording
@@ -630,11 +636,23 @@ class EpochEngine:
         except PackingError as exc:
             st.fallback(f"sync:{exc}")
             return None
-        gathered, plan = _exchange(plan, st)
+        owner = type(m).__name__
+        with _diag.span("epoch.sync", owner):
+            gathered, plan = _exchange(plan, st)
         key = ("fused", plan.signature())
         call = self._fused_cache.get(key)
         if call is _FALLBACK or not self._compute_ok:
             return self._fold_then_no_value(plan, gathered)
+        with _diag.span("epoch.compute", owner) as sp:
+            out = self._fused_compute(plan, gathered, key, call)
+            if sp is not None:
+                sp.attrs = {"graph": out[0] is not NO_VALUE}
+            return out
+
+    def _fused_compute(self, plan: PackedSyncPlan, gathered: Dict[str, torch.Tensor], key: Tuple, call: Any) -> tuple:
+        """The fold and the compute as one graph (built at the signature's first call)."""
+        m = self._metric
+        st = self.stats
         first = call is None
         timer = _ComputeTimer(st, first, m.device)
         if first:

@@ -109,13 +109,15 @@ class EngineStats:
     """Mutable counter block for one engine instance (see ``_COUNTER_FIELDS``)."""
 
     __slots__ = (
-        "owner", "fallback_reasons", "scan_flush_reasons", "retrace_causes", "bucket_sizes", "__weakref__",
+        "owner", "fallback_reasons", "last_fallback", "scan_flush_reasons", "retrace_causes", "bucket_sizes",
+        "__weakref__",
         *_COUNTER_FIELDS,
     )
 
     def __init__(self, owner: str = "") -> None:
         self.owner = owner
         self.fallback_reasons: Counter = Counter()
+        self.last_fallback = ""  # the reason of the newest fallback (an ``eager.update`` span's)
         self.scan_flush_reasons: Counter = Counter()
         self.retrace_causes: Counter = Counter()  # attributed causes of builds past a signature's first
         self.bucket_sizes: set = set()
@@ -127,6 +129,7 @@ class EngineStats:
         """Count one step or sync that took the eager path, by reason."""
         self.eager_fallbacks += 1
         self.fallback_reasons[reason] += 1
+        self.last_fallback = reason
         _diag.record("fallback", self.owner, reason=reason)
 
     def reset(self) -> None:

@@ -41,8 +41,11 @@ counter and re-anchors the compensated sums. With the engine on, ``compute`` run
 cached graph per state signature (``engine/epoch.py``), and across processes as the
 packed exchange plus one graph for the fold and the compute.
 
-The diagnostics (``diag/``) ride along: an eager update records ``update.eager`` (and
-feeds the ``eager`` ``dispatch_us`` histogram) while a recorder or a profile observes,
+The diagnostics (``diag/``) ride along: ``update``, ``forward`` and ``compute`` called
+on their own are ``api.*`` spans (``diag/trace.py``), an eager update an
+``eager.update`` span and a compute an ``epoch.compute`` one; an eager update records
+``update.eager`` (its span's duration; it feeds the ``eager`` ``dispatch_us``
+histogram) while a recorder or a profile observes,
 an eager per-tensor sync records ``sync.eager``, ``reset`` zeroes the health sentinel in
 place (``diag/sentinel.py``; a replay may hold it as a static buffer), and a
 ``compute`` through the epoch engine attaches its ``ValueProvenance`` as
@@ -74,15 +77,12 @@ import inspect
 import threading
 from contextlib import contextmanager
 from copy import deepcopy
-from time import perf_counter
 from typing import Any, Callable, Dict, Generator, List, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from torchmetrics_tpu_torch.diag import hist as _hist
-from torchmetrics_tpu_torch.diag import profile as _profile
 from torchmetrics_tpu_torch.diag import sentinel as _sentinel
 from torchmetrics_tpu_torch.diag import trace as _diag
 from torchmetrics_tpu_torch.engine import numerics, txn
@@ -412,6 +412,10 @@ class Metric(torch.nn.Module):
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate the batch into the global state AND return the batch value."""
+        with _diag.call("api.forward", type(self).__name__, child=False):
+            return self._forward(args, kwargs)
+
+    def _forward(self, args: tuple, kwargs: Dict[str, Any]) -> Any:
         if self._is_synced:
             raise TorchMetricsUserError(
                 "The Metric shouldn't be synced when performing ``forward``. HINT: Did you forget to call ``unsync``?"
@@ -876,34 +880,32 @@ class Metric(torch.nn.Module):
 
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
-            args = tuple(self._place(a) for a in args)
-            kwargs = {k: self._place(v) for k, v in kwargs.items()}
-            if txn.quarantine_mode() == txn.MODE_ERROR and not self.__dict__.pop("_admission_prechecked", False):
-                # raises before any mutation (unless the collection step admitted
-                # this very batch already: one host read per step, not two)
-                txn.admission_check_or_raise(self, args, kwargs)
-            # the count bump, the step (a graph replay or the eager body) and the
-            # list moves are one mutation for a signal-time snapshot
-            begin_mutation(self)
-            try:
-                self._computed = None
-                self._update_count += 1
-                if not self._engine_step(args, kwargs):
-                    rec = _diag.active_recorder()
-                    if rec is None and _profile.active_profile() is None:
-                        self._run_eager_update(args, kwargs)
-                    else:
+            with _diag.call("api.update", type(self).__name__, child=False):
+                args = tuple(self._place(a) for a in args)
+                kwargs = {k: self._place(v) for k, v in kwargs.items()}
+                if txn.quarantine_mode() == txn.MODE_ERROR and not self.__dict__.pop("_admission_prechecked", False):
+                    # raises before any mutation (unless the collection step admitted
+                    # this very batch already: one host read per step, not two)
+                    txn.admission_check_or_raise(self, args, kwargs)
+                # the count bump, the step (a graph replay or the eager body) and the
+                # list moves are one mutation for a signal-time snapshot
+                begin_mutation(self)
+                try:
+                    self._computed = None
+                    self._update_count += 1
+                    if not self._engine_step(args, kwargs):
+                        owner = type(self).__name__
+                        with _diag.span("eager.update", owner) as sp:
+                            if sp is not None:
+                                eng = self._engine
+                                sp.attrs = {"reason": eng.stats.last_fallback if eng is not None else "engine-off"}
+                            self._run_eager_update(args, kwargs)
                         # eager steps sit in the same timeline and histograms as replays
-                        t0 = perf_counter()
-                        self._run_eager_update(args, kwargs)
-                        dispatch_us = round((perf_counter() - t0) * 1e6, 3)
-                        _hist.observe(type(self).__name__, "eager", "dispatch_us", dispatch_us)
-                        if rec is not None:
-                            rec.record("update.eager", type(self).__name__, dispatch_us=dispatch_us)
-                if self.compute_on_cpu:
-                    self._move_list_states_to_cpu()
-            finally:
-                self._end_write()
+                        _diag.observe_dispatch(sp, owner, "eager", "update.eager")
+                    if self.compute_on_cpu:
+                        self._move_list_states_to_cpu()
+                finally:
+                    self._end_write()
 
         return wrapped_func
 
@@ -999,67 +1001,72 @@ class Metric(torch.nn.Module):
 
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
-            # compute observes the states: queued steps fold in first
-            self._drain_scan("observation:compute")
-            if self._update_count == 0:
-                rank_zero_warn(
-                    f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update``"
-                    " method which may lead to errors, as metric states have not yet been updated.",
-                    UserWarning,
-                )
-            elif not self._in_batch_value and txn.quarantine_enabled() and self.__dict__.get(txn.ATTR) is not None:
-                # compute is the epoch boundary where the counter is read; a state
-                # that every batch was quarantined from is its default
-                if txn.read_quarantine(self)["count"] >= self._update_count:
+            with _diag.call("api.compute", type(self).__name__, child=False):
+                # compute observes the states: queued steps fold in first
+                self._drain_scan("observation:compute")
+                if self._update_count == 0:
                     rank_zero_warn(
-                        f"Every batch seen by metric {self.__class__.__name__} failed quarantine"
-                        " admission — ``compute`` is folding default (empty) state. Inspect"
-                        " the input pipeline or run with TORCHMETRICS_TPU_QUARANTINE=error.",
+                        f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update``"
+                        " method which may lead to errors, as metric states have not yet been updated.",
                         UserWarning,
                     )
-            if self._computed is not None:
-                return self._computed
-            if self.__dict__.get(numerics.ATTR):
-                # the epoch-boundary fold of each compensated (value, residual) pair
-                with _sharding.local_states(self):
-                    numerics.reanchor(self)
-            fused = self._epoch_sync_for_compute() if not args and not kwargs else None
-            if fused is not None:
-                from torchmetrics_tpu_torch.engine.epoch import NO_VALUE
+                elif not self._in_batch_value and txn.quarantine_enabled() and self.__dict__.get(txn.ATTR) is not None:
+                    # compute is the epoch boundary where the counter is read; a state
+                    # that every batch was quarantined from is its default
+                    if txn.read_quarantine(self)["count"] >= self._update_count:
+                        rank_zero_warn(
+                            f"Every batch seen by metric {self.__class__.__name__} failed quarantine"
+                            " admission — ``compute`` is folding default (empty) state. Inspect"
+                            " the input pipeline or run with TORCHMETRICS_TPU_QUARANTINE=error.",
+                            UserWarning,
+                        )
+                if self._computed is not None:
+                    return self._computed
+                if self.__dict__.get(numerics.ATTR):
+                    # the epoch-boundary fold of each compensated (value, residual) pair
+                    with _sharding.local_states(self):
+                        numerics.reanchor(self)
+                fused = self._epoch_sync_for_compute() if not args and not kwargs else None
+                if fused is not None:
+                    from torchmetrics_tpu_torch.engine.epoch import NO_VALUE
 
-                try:
-                    value = fused[0]
-                    if value is NO_VALUE:  # the sync was packed; compute runs on the synced states
-                        value = self._engine_compute(compute, args, kwargs)
-                    value = detach_from_static(_squeeze_if_scalar(value), [getattr(self, a) for a in self._defaults])
-                finally:
-                    if self._is_synced and self._should_unsync:
-                        self.unsync()
-            else:
-                with self.sync_context(
-                    dist_sync_fn=self.dist_sync_fn,
-                    should_sync=self._to_sync,
-                    should_unsync=self._should_unsync,
-                ):
-                    with _sharding.full_view(self):
-                        value = _squeeze_if_scalar(self._engine_compute(compute, args, kwargs))
-                    # a value handed out never shares storage with a buffer the next
-                    # engine replay writes in place
-                    value = detach_from_static(value, [getattr(self, a) for a in self._defaults])
-            if self.compute_with_cache:
-                self._computed = value
-            return value
+                    try:
+                        value = fused[0]
+                        if value is NO_VALUE:  # the sync was packed; compute runs on the synced states
+                            value = self._engine_compute(compute, args, kwargs)
+                        value = detach_from_static(_squeeze_if_scalar(value), [getattr(self, a) for a in self._defaults])
+                    finally:
+                        if self._is_synced and self._should_unsync:
+                            self.unsync()
+                else:
+                    with self.sync_context(
+                        dist_sync_fn=self.dist_sync_fn,
+                        should_sync=self._to_sync,
+                        should_unsync=self._should_unsync,
+                    ):
+                        with _sharding.full_view(self):
+                            value = _squeeze_if_scalar(self._engine_compute(compute, args, kwargs))
+                        # a value handed out never shares storage with a buffer the next
+                        # engine replay writes in place
+                        value = detach_from_static(value, [getattr(self, a) for a in self._defaults])
+                if self.compute_with_cache:
+                    self._computed = value
+                return value
 
         return wrapped_func
 
     def _engine_compute(self, compute: Callable, args: tuple, kwargs: Dict[str, Any]) -> Any:
         """``compute`` through its cached graph when the engine is on and it is eligible
         (``engine/epoch.py``), else the body itself."""
-        if not args and not kwargs and self._epoch_enabled():
-            handled, value = self._epoch_engine().cached_compute()
-            if handled:
-                return value
-        return compute(*args, **kwargs)
+        with _diag.span("epoch.compute", type(self).__name__) as sp:
+            graph = False
+            if not args and not kwargs and self._epoch_enabled():
+                graph, value = self._epoch_engine().cached_compute()
+            if not graph:
+                value = compute(*args, **kwargs)
+            if sp is not None:
+                sp.attrs = {"graph": graph}
+            return value
 
     def _epoch_sync_for_compute(self) -> Optional[tuple]:
         """The fused route of a ``compute`` across processes: the packed exchange, then
